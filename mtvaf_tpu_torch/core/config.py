@@ -1,9 +1,9 @@
-"""Configuration for the port's CRF serving path.
+"""Configuration for the port's CRF serving and training paths.
 
-The fields of ``mtvaf_tpu.core.config.Config`` that the CRF serving path
-reads, with the same names, defaults and derived properties.  A training run's
-``run_config.json`` holds every field of the full config; :meth:`Config.from_dict`
-keeps the ones listed here.
+The fields of ``mtvaf_tpu.core.config.Config`` that the CRF serving path and
+the CRF train step read, with the same names, defaults, checks and derived
+properties.  A training run's ``run_config.json`` holds every field of the
+full config; :meth:`Config.from_dict` keeps the ones listed here.
 """
 
 from __future__ import annotations
@@ -34,6 +34,9 @@ RESNET_STAGE_CHANNELS = {
 class Config:
     dataset_name: str = "twitter15"
     bert_name: str = "bert-base-uncased"
+    train_batch_size: int = 32
+    lr: float = 5e-5
+    warmup_ratio: float = 0.01
 
     # visual prefix
     prefix_len: int = 4
@@ -44,12 +47,16 @@ class Config:
     use_34: bool = False
     use_18: bool = False
     resnet_root: Optional[str] = None
-    vao: bool = False
+    vao: bool = False            # ANP KL supervision of the prefix
+    noauxloss: bool = False      # drop the 3 aux-crop ANP losses
     num_anp_classes: int = 2089
+    alpha: float = 0.25          # weight of the ANP loss
 
     # probe (its head is trained only; serving never reads it)
     use_probe: bool = False
+    beta: float = 0.5            # CombineLoss factor
     probe_rank: int = 384
+    probe_layer: int = 7         # hidden layer the probe reads (0 = embeddings)
 
     # sequence / decoding
     use_align: bool = False
@@ -59,6 +66,17 @@ class Config:
     bf16: bool = True
     crf_decode_impl: str = "scan"
 
+    # optimisation
+    gradient_accumulation_steps: int = 1
+    optimizer_mu_bf16: bool = True   # AdamW first moment stored in bf16
+    params_bf16: bool = False        # bf16 live params + fp32 master (not
+                                     # ported: build_optimizer raises)
+    groups_mode: str = "all"         # 'reference' leaves the projectors and
+                                     # ANP heads out of the optimizer
+    log_grad_norm: bool = False
+    remat: bool = False              # per-layer checkpointing (not ported)
+    deterministic: bool = False      # no train-time dropout
+
     def __post_init__(self):
         if self.crf_decode_impl not in ("scan", "parallel"):
             raise ValueError(
@@ -66,6 +84,16 @@ class Config:
                 f"{self.crf_decode_impl!r}")
         if self.dataset_name not in SPAN_DATASETS + CRF_DATASETS:
             raise ValueError(f"unknown dataset_name: {self.dataset_name!r}")
+        if self.gradient_accumulation_steps < 1:
+            raise ValueError("gradient_accumulation_steps must be >= 1")
+        if self.train_batch_size % self.gradient_accumulation_steps != 0:
+            raise ValueError(
+                "train_batch_size must be divisible by "
+                "gradient_accumulation_steps (micro-batching)")
+        if self.groups_mode not in ("all", "reference"):
+            raise ValueError(
+                f"groups_mode must be 'all' or 'reference', got "
+                f"{self.groups_mode!r}")
         if self.use_prefix:
             if self.prefix_len != 4:
                 raise ValueError("use_prefix requires prefix_len == 4 (one "
@@ -78,7 +106,7 @@ class Config:
     @classmethod
     def from_dict(cls, d: dict) -> "Config":
         """Build from a full config dict (``run_config.json``), dropping the
-        fields the serving path does not read."""
+        fields the port does not read."""
         names = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in names})
 

@@ -190,7 +190,7 @@ class CrfPredictor(_PredictorBase):
             return crf_model_forward(
                 self.params, self.cfg, self.bert_cfg, batch,
                 visual_guides=self._guides(images, aux_images),
-                dtype=self.dtype)
+                dtype=self.dtype, with_loss=False, with_decode=True)
 
     def _to_results(self, sentences: Sequence[str], label_ids, input_mask,
                     tags_np) -> List[List[Tuple[str, str]]]:

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface (no PyTorch headers, so a build takes
-seconds).  Libraries go to ``build/torch_kernels/`` at the repository root,
-named by a hash of their source so an edited kernel rebuilds.  Nothing here
+seconds); the ``csrc/*.cuh`` headers are shared between them.  Libraries go
+to ``build/torch_kernels/`` at the repository root, named by a hash of their
+source and the headers, so an edited kernel rebuilds.  Nothing here
 runs at import: the CPU tests import every module of the package.
 """
 
@@ -38,8 +39,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -1,4 +1,5 @@
-"""BERT / RoBERTa encoder with visual prefix-KV support (inference).
+"""BERT / RoBERTa encoder with visual prefix-KV support, for serving and
+training.
 
 Keeps the JAX package's semantics (``mtvaf_tpu/nn/bert.py``): position ids
 never shift by the prefix, the per-layer prefix K/V is prepended to the keys
@@ -6,6 +7,13 @@ and values along T, layers are post-LN, and Q/K/V come from one fused
 (h, 3h) projection split in q, k, v order.  Layer parameters stay stacked
 along a leading L axis and the encoder is a Python loop over them.  The
 attention core of every layer is :func:`..kernels.prefix_attention.prefix_attention`.
+
+Training: a host ``torch.Generator`` turns dropout on (embeddings,
+attention probabilities inside the kernel, attention output, MLP output),
+split per layer as the JAX package splits its key; the pad rows of the
+embedding tables get no gradient.  The kernel's backward recomputes the
+attention probabilities, so there is nothing for ``selective_remat`` to do;
+per-layer checkpointing (``remat``) is not ported and raises.
 """
 
 from __future__ import annotations
@@ -15,7 +23,8 @@ from dataclasses import dataclass
 import torch
 
 from ..kernels.prefix_attention import prefix_attention
-from .layers import dense, gelu, layer_norm, mask_to_bias
+from ..core.rng import split
+from .layers import dense, dropout, gelu, layer_norm, mask_to_bias
 
 
 @dataclass(frozen=True)
@@ -33,8 +42,8 @@ class BertConfig:
     initializer_range: float = 0.02
     is_roberta: bool = False
     pad_token_id: int = 0
-    remat: bool = False              # training options, kept so a run's
-    selective_remat: bool = True     # bert_config loads; serving ignores them
+    remat: bool = False              # per-layer checkpointing: not ported
+    selective_remat: bool = True     # nothing to do: the kernel recomputes
 
     @property
     def head_dim(self) -> int:
@@ -77,9 +86,12 @@ def _merge_heads(x):
     return x.transpose(1, 2).reshape(b, s, nh * dh)
 
 
-def bert_layer(lp, hidden, bias, cfg: BertConfig, prefix_kv=None):
+def bert_layer(lp, hidden, bias, cfg: BertConfig, prefix_kv=None,
+               generator=None):
     """One post-LN transformer layer.  ``prefix_kv``: optional
-    (2, B, H, P, Dh) (key, value) prepended to this layer's keys/values."""
+    (2, B, H, P, Dh) (key, value) prepended to this layer's keys/values;
+    ``generator`` turns dropout on."""
+    rngs = [None] * 3 if generator is None else split(generator, 3)
     qkv = dense(lp["attn"]["qkv"], hidden)
     q, k, v = qkv.split(cfg.hidden_size, dim=-1)
     q = _split_heads(q, cfg.num_attention_heads).contiguous()
@@ -88,17 +100,23 @@ def bert_layer(lp, hidden, bias, cfg: BertConfig, prefix_kv=None):
     if prefix_kv is not None:
         k = torch.cat([prefix_kv[0].to(k.dtype), k], dim=2)
         v = torch.cat([prefix_kv[1].to(v.dtype), v], dim=2)
-    ctx, _ = prefix_attention(q, k.contiguous(), v.contiguous(), bias)
+    ctx, _ = prefix_attention(q, k.contiguous(), v.contiguous(), bias,
+                              dropout_rate=cfg.attention_probs_dropout_prob,
+                              rng=rngs[0])
     attn_out = dense(lp["attn"]["out"], _merge_heads(ctx))
+    attn_out = dropout(attn_out, cfg.hidden_dropout_prob, rngs[1])
     hidden = layer_norm(lp["attn"]["ln"], hidden + attn_out,
                         eps=cfg.layer_norm_eps)
     mlp = dense(lp["mlp"]["out"], gelu(dense(lp["mlp"]["in"], hidden)))
+    mlp = dropout(mlp, cfg.hidden_dropout_prob, rngs[2])
     return layer_norm(lp["mlp"]["ln"], hidden + mlp, eps=cfg.layer_norm_eps)
 
 
 def bert_embeddings(params, cfg: BertConfig, input_ids, token_type_ids=None,
-                    dtype=torch.float32):
-    """Embedding sum + LN.  Position ids never account for the prefix."""
+                    dtype=torch.float32, generator=None):
+    """Embedding sum + LN + dropout.  Position ids never account for the
+    prefix.  Pad positions pass no gradient to the word table (nor to the
+    RoBERTa position table), as torch's ``padding_idx`` rows."""
     emb = params["embeddings"]
     b, s = input_ids.shape
     if cfg.is_roberta:
@@ -107,10 +125,15 @@ def bert_embeddings(params, cfg: BertConfig, input_ids, token_type_ids=None,
         position_ids = torch.arange(s, device=input_ids.device).expand(b, s)
     if token_type_ids is None:
         token_type_ids = torch.zeros_like(input_ids)
-    x = (emb["word"][input_ids].to(dtype)
-         + emb["position"][position_ids].to(dtype)
-         + emb["token_type"][token_type_ids].to(dtype))
-    return layer_norm(emb["ln"], x, eps=cfg.layer_norm_eps)
+    pad = (input_ids == cfg.pad_token_id)[..., None]
+    word = emb["word"][input_ids].to(dtype)
+    word = torch.where(pad, word.detach(), word)
+    pos = emb["position"][position_ids].to(dtype)
+    if cfg.is_roberta:
+        pos = torch.where(pad, pos.detach(), pos)
+    x = word + pos + emb["token_type"][token_type_ids].to(dtype)
+    x = layer_norm(emb["ln"], x, eps=cfg.layer_norm_eps)
+    return dropout(x, cfg.hidden_dropout_prob, generator)
 
 
 def cast_layers(layers, dtype):
@@ -134,32 +157,54 @@ def _layer(layers, i):
 
 
 def bert_encoder(params, cfg: BertConfig, embedding_output, attention_mask,
-                 prefix_kvs=None):
+                 prefix_kvs=None, generator=None, capture_layer=None):
     """The encoder stack.
 
     attention_mask: (B, P+S) when prefix_kvs is given, else (B, S).
     prefix_kvs: optional (L, 2, B, H, P, Dh).
-    Returns the last hidden state (B, S, hidden).
+    capture_layer: optionally the index k of one hidden state to return as
+    well (0 = the embeddings, k >= 1 = the output of layer k), for the
+    probe.
+    Returns (last hidden state (B, S, hidden), captured state or None).
     """
+    if cfg.remat:
+        raise NotImplementedError(
+            "BertConfig.remat (per-layer checkpointing) is not ported: the "
+            "replay would have to redraw every dropout mask exactly")
     bias = mask_to_bias(attention_mask)
     # Weights already in the activation dtype (a predictor casts them once)
     # make this cast a no-op.
     layers = cast_layers(params["layers"], embedding_output.dtype)
+    layer_rngs = [None] * cfg.num_hidden_layers if generator is None \
+        else split(generator, cfg.num_hidden_layers)
     hidden = embedding_output
+    captured = None
+    if capture_layer is not None:      # zeros past the last layer, as in JAX
+        captured = embedding_output if capture_layer == 0 \
+            else torch.zeros_like(embedding_output)
     for i in range(cfg.num_hidden_layers):
         hidden = bert_layer(_layer(layers, i), hidden, bias, cfg,
                             prefix_kv=None if prefix_kvs is None
-                            else prefix_kvs[i])
-    return hidden
+                            else prefix_kvs[i], generator=layer_rngs[i])
+        if capture_layer == i + 1:
+            captured = hidden
+    return hidden, captured
 
 
 def bert_model(params, cfg: BertConfig, input_ids, attention_mask=None,
-               token_type_ids=None, prefix_kvs=None, dtype=torch.float32):
-    """Embeddings → encoder; returns the last hidden state.
+               token_type_ids=None, prefix_kvs=None, dtype=torch.float32,
+               generator=None, capture_layer=None):
+    """Embeddings → encoder; returns (last hidden state, the hidden state
+    of ``capture_layer`` or None).
 
     ``attention_mask`` is the prompt mask: (B, P+S) with a prefix attached,
-    (B, S) otherwise."""
+    (B, S) otherwise.  ``generator`` turns dropout on; it is split between
+    the embeddings and the encoder as the JAX package splits its key."""
     if attention_mask is None:
         attention_mask = torch.ones_like(input_ids)
-    x = bert_embeddings(params, cfg, input_ids, token_type_ids, dtype=dtype)
-    return bert_encoder(params, cfg, x, attention_mask, prefix_kvs=prefix_kvs)
+    emb_rng, enc_rng = (None, None) if generator is None \
+        else split(generator, 2)
+    x = bert_embeddings(params, cfg, input_ids, token_type_ids, dtype=dtype,
+                        generator=emb_rng)
+    return bert_encoder(params, cfg, x, attention_mask, prefix_kvs=prefix_kvs,
+                        generator=enc_rng, capture_layer=capture_layer)

@@ -1,16 +1,95 @@
-"""Linear-chain CRF: Viterbi decoding (serving half).
+"""Linear-chain CRF: log-likelihood and Viterbi decoding.
 
-Counterpart of ``crf_decode`` in ``mtvaf_tpu/nn/crf.py``, with its
-semantics: parameters ``start``/``end`` (N,) and ``transitions`` (N, N);
-argmax takes the first index on ties; a masked step carries its score and
-an identity backpointer, so positions past a sequence's length repeat its
-last tag; ``lengths`` is the mask sum.  The loss and the parallel decode
-come with the training slice.
+Counterpart of ``mtvaf_tpu/nn/crf.py`` (the ``torchcrf.CRF`` semantics):
+parameters ``start``/``end`` (N,) and ``transitions`` (N, N); the mask's
+first step must be on and padding sits at the tail.  log Z is the forward
+algorithm as the JAX package evaluates it, a log-semiring product of the
+step matrices reduced as a binary tree, where a masked step is the
+semiring identity (0 on the diagonal, NEG_INF = -1e30 off it: finite, so
+no NaN reaches the gradient).  Decoding: argmax takes the first index on
+ties; a masked step carries its score and an identity backpointer, so
+positions past a sequence's length repeat its last tag; ``lengths`` is the
+mask sum.  The parallel decode (``crf_decode_impl="parallel"``) is not
+ported.
 """
 
 from __future__ import annotations
 
 import torch
+
+NEG_INF = -1e30
+
+
+def crf_sequence_score(params, emissions, tags, mask):
+    """Unnormalised score of the tag paths (B,) of (B, S, N) emissions."""
+    emissions = emissions.float()
+    maskf = mask.float()
+    emit = emissions.gather(2, tags[..., None])[..., 0]
+    emit_score = (emit * maskf).sum(dim=1)
+    trans = params["transitions"][tags[:, :-1], tags[:, 1:]]   # (B, S-1)
+    trans_score = (trans * maskf[:, 1:]).sum(dim=1)
+    lengths = mask.long().sum(dim=1)
+    last_tags = tags.gather(1, (lengths - 1)[:, None])[:, 0]
+    return (params["start"][tags[:, 0]] + emit_score + trans_score
+            + params["end"][last_tags])
+
+
+def _step_matrices(params, emissions, maskf):
+    """M_i[prev, next] = trans[prev, next] + e_i[next] on real steps, the
+    semiring identity on masked ones: (B, S, N) → (B, S-1, N, N)."""
+    n = emissions.shape[-1]
+    mats = params["transitions"][None, None] + emissions[:, 1:, None, :]
+    eye = torch.eye(n, dtype=torch.bool, device=emissions.device)
+    ident = torch.full((n, n), NEG_INF, device=emissions.device) \
+        .masked_fill(eye, 0.0)
+    return torch.where(maskf[:, 1:, None, None] > 0, mats, ident)
+
+
+def _tree_reduce(mats):
+    """Ordered log-semiring product of (B, T, N, N) matrices, as a binary
+    tree (odd levels carry their last matrix through)."""
+    while mats.shape[1] > 1:
+        t = mats.shape[1]
+        even, odd = mats[:, 0:t - (t % 2):2], mats[:, 1::2]
+        reduced = torch.logsumexp(even[..., :, :, None]
+                                  + odd[..., None, :, :], dim=-2)
+        if t % 2:
+            reduced = torch.cat([reduced, mats[:, -1:]], dim=1)
+        mats = reduced
+    return mats[:, 0]
+
+
+def crf_log_normalizer(params, emissions, mask):
+    """log Z (B,) of (B, S, N) emissions under a (B, S) mask."""
+    emissions = emissions.float()
+    alpha0 = params["start"][None, :] + emissions[:, 0]          # (B, N)
+    if emissions.shape[1] == 1:
+        return torch.logsumexp(alpha0 + params["end"][None, :], dim=1)
+    final = _tree_reduce(_step_matrices(params, emissions, mask.float()))
+    alpha = torch.logsumexp(alpha0[:, :, None] + final, dim=1)
+    return torch.logsumexp(alpha + params["end"][None, :], dim=1)
+
+
+def crf_log_likelihood(params, emissions, tags, mask,
+                       reduction: str = "mean"):
+    """Log-likelihood with the ``torchcrf`` reductions: none, sum, mean or
+    token_mean."""
+    llh = crf_sequence_score(params, emissions, tags, mask) \
+        - crf_log_normalizer(params, emissions, mask)
+    if reduction == "none":
+        return llh
+    if reduction == "sum":
+        return llh.sum()
+    if reduction == "mean":
+        return llh.mean()
+    if reduction == "token_mean":
+        return llh.sum() / mask.float().sum().clamp(min=1.0)
+    raise ValueError(f"unknown reduction {reduction!r}")
+
+
+def crf_loss(params, emissions, tags, mask):
+    """Training loss: minus the batch-mean log-likelihood."""
+    return -crf_log_likelihood(params, emissions, tags, mask, "mean")
 
 
 def crf_decode(params, emissions, mask):

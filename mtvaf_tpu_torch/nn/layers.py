@@ -2,12 +2,18 @@
 
 Dense kernels keep the JAX package's ``(in, out)`` layout, so converted
 parameters need no transpose.
+
+Randomness comes from host ``torch.Generator`` s (``core.rng``).  Draws
+for CUDA tensors come from a device generator seeded by a host draw, so no
+draw waits for the device.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..core.rng import draw_seed
 
 
 def dense(params, x):
@@ -21,6 +27,19 @@ def layer_norm(params, x, *, eps: float = 1e-12):
     y = F.layer_norm(x.float(), (x.shape[-1],), params["scale"].float(),
                      params["bias"].float(), eps)
     return y.to(x.dtype)
+
+
+def dropout(x, rate: float, generator):
+    """Inverted dropout: keep with probability 1 - rate, scaled by
+    1/(1 - rate); the identity when the generator is None or the rate 0."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    if generator.device != x.device:
+        generator = torch.Generator(device=x.device).manual_seed(
+            draw_seed(generator))
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    return torch.where(u < keep, x / keep, 0.0)
 
 
 def gelu(x):

@@ -1,9 +1,9 @@
-"""The CRF tagging model (TVNetSAModel2), serving forward.
+"""The CRF tagging model (TVNetSAModel2): training and serving forward.
 
 Counterpart of the pipeline-B half of ``mtvaf_tpu/nn/models.py``: visual
 guides from the frozen ResNet → per-layer prefix K/V → BERT encoder with the
-prefix prepended to keys and values → ``fc`` emissions → Viterbi.  The loss
-terms (CRF likelihood, probe, ANP KL) come with the training slice.
+prefix prepended to keys and values → ``fc`` emissions → the CRF loss
+(with the probe loss and the ANP KL loss of the prefix) and/or Viterbi.
 
 ``init_crf_model_params`` and ``init_resnet_params`` draw random weights
 from a numpy seed in the JAX package's parameter layout (nested dicts of
@@ -21,9 +21,11 @@ import torch
 
 from ..data.images import IMAGENET_MEAN, IMAGENET_STD
 from .bert import BertConfig, bert_model
-from .crf import crf_decode
-from .layers import dense
-from .prefix import build_prefix_kvs
+from .crf import crf_decode, crf_loss
+from ..core.rng import split
+from .layers import dense, dropout
+from .prefix import anp_kl_loss, build_prefix_kvs
+from .probe import combine_loss, probe_loss
 from .resnet import BLOCK_COUNTS, BOTTLENECK, resnet_stage_guides
 
 
@@ -58,16 +60,15 @@ def compute_visual_guides(resnet_params, images, aux_imgs, *, depth: int):
 
 def visual_prompt(prefix_params, main_guides, aux_guides,
                   bert_cfg: BertConfig):
-    """Guides → per-layer prefix K/V (L, 2, B, H, P, Dh), with the prefix
-    params cast to the guides' dtype (a no-op when the caller pre-cast
-    them)."""
+    """Guides → (per-layer prefix K/V (L, 2, B, H, P, Dh), encoded main
+    guides, encoded aux guides or None), with the prefix params cast to the
+    guides' dtype (a no-op when the caller pre-cast them)."""
     dtype = main_guides.dtype
     prefix_params = {k: {n: t.to(dtype) for n, t in v.items()}
                      for k, v in prefix_params.items()}
-    kvs, _ = build_prefix_kvs(prefix_params, main_guides, aux_guides,
-                              num_heads=bert_cfg.num_attention_heads,
-                              head_dim=bert_cfg.head_dim)
-    return kvs
+    return build_prefix_kvs(prefix_params, main_guides, aux_guides,
+                            num_heads=bert_cfg.num_attention_heads,
+                            head_dim=bert_cfg.head_dim)
 
 
 def prompt_attention_mask(input_mask, prefix_len: int):
@@ -81,25 +82,61 @@ def prompt_attention_mask(input_mask, prefix_len: int):
 
 
 def crf_model_forward(params, cfg, bert_cfg: BertConfig, batch: Dict,
-                      visual_guides: Optional[Tuple] = None,
-                      dtype=torch.float32) -> Dict:
-    """Decode forward: batch keys input_ids, input_mask, segment_ids.
+                      visual_guides: Optional[Tuple] = None, generator=None,
+                      dtype=torch.float32, with_loss: bool = True,
+                      with_decode: bool = False) -> Dict:
+    """TVNetSAModel2 forward.  batch keys: input_ids, input_mask,
+    segment_ids, and for the loss label_ids and imagelabel.
 
-    Returns emissions (B, S, N) fp32, pred_tags (B, S) and lengths (B,)."""
-    prefix_kvs = None
+    ``generator`` (a host ``torch.Generator``) turns dropout on; it is split
+    three ways (encoder, last hidden state, ANP loss) as the JAX package
+    splits its key.  Returns emissions (B, S, N) fp32; with the loss also
+    loss, img_tag_loss (already times alpha) and, with the probe,
+    probe_loss; with the decode pred_tags (B, S) and lengths (B,)."""
+    rngs = [None] * 3 if generator is None else split(generator, 3)
+    prefix_kvs, img_tag_loss = None, 0.0
     if cfg.use_prefix and visual_guides is not None:
         main_g, aux_g = visual_guides
-        prefix_kvs = visual_prompt(
+        prefix_kvs, enc_main, enc_aux = visual_prompt(
             params["prefix"], main_g.to(dtype),
             None if aux_g is None else aux_g.to(dtype), bert_cfg)
+        if cfg.vao and with_loss:
+            main_loss, aux_losses = anp_kl_loss(
+                params["prefix"], enc_main, enc_aux, batch["imagelabel"],
+                generator=rngs[2])
+            # noauxloss drops the aux terms
+            img_tag_loss = main_loss if cfg.noauxloss \
+                else main_loss + sum(aux_losses)
     mask = batch["input_mask"] if prefix_kvs is None else \
         prompt_attention_mask(batch["input_mask"], prefix_kvs.shape[-2])
-    seq = bert_model(params["bert"], bert_cfg, batch["input_ids"], mask,
-                     token_type_ids=batch["segment_ids"],
-                     prefix_kvs=prefix_kvs, dtype=dtype)
+    seq, captured = bert_model(
+        params["bert"], bert_cfg, batch["input_ids"], mask,
+        token_type_ids=batch["segment_ids"], prefix_kvs=prefix_kvs,
+        dtype=dtype, generator=rngs[0],
+        capture_layer=cfg.probe_layer if cfg.use_probe and with_loss
+        else None)
+    seq = dropout(seq, 0.1, rngs[1])
     emissions = dense(params["fc"], seq).float()
-    tags, lengths = crf_decode(params["crf"], emissions, batch["input_mask"])
-    return {"emissions": emissions, "pred_tags": tags, "lengths": lengths}
+
+    result = {"emissions": emissions}
+    if with_loss:
+        loss = crf_loss(params["crf"], emissions, batch["label_ids"],
+                        batch["input_mask"])
+        if cfg.use_probe:
+            p_loss = probe_loss(params["probe"], captured)
+            result["probe_loss"] = p_loss
+            loss = combine_loss(loss, p_loss, cfg.beta, 30)
+        result["img_tag_loss"] = cfg.alpha * img_tag_loss
+        result["loss"] = loss + cfg.alpha * img_tag_loss
+    if with_decode:
+        if cfg.crf_decode_impl != "scan":
+            raise NotImplementedError(
+                "crf_decode_impl='parallel' is not ported")
+        tags, lengths = crf_decode(params["crf"], emissions,
+                                   batch["input_mask"])
+        result["pred_tags"] = tags
+        result["lengths"] = lengths
+    return result
 
 
 # ---------------------------------------------------------------------------

@@ -54,13 +54,31 @@ def test_hidden_states_match_jax(is_roberta, with_prefix):
             token_type_ids=jnp.asarray(seg, jnp.int32),
             prefix_kvs=None if prefix is None else jnp.asarray(prefix)
         )["last_hidden_state"]
-    got = bert_model(params, cfg, torch.from_numpy(ids),
+    got, captured = bert_model(params, cfg, torch.from_numpy(ids),
                      torch.from_numpy(mask),
                      token_type_ids=torch.from_numpy(seg),
                      prefix_kvs=None if prefix is None
                      else torch.from_numpy(prefix))
-    assert got.shape == want.shape
+    assert got.shape == want.shape and captured is None
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+@pytest.mark.parametrize("capture_layer", [0, 2, 7])
+def test_captured_layer_matches_jax(capture_layer):
+    """The probe's hidden state: 0 = embeddings, k = layer k's output, and
+    zeros past the last layer (as the JAX package's scan carry)."""
+    jcfg, cfg = JaxBertConfig.tiny(), BertConfig.tiny()
+    jparams = init_bert_params(jax.random.PRNGKey(4), jcfg)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams))
+    ids, mask, seg = _inputs(cfg, seed=1)
+    with jax.default_matmul_precision("highest"):
+        want = jax.jit(lambda p: jax_bert_model(
+            p, jcfg, jnp.asarray(ids, jnp.int32), jnp.asarray(mask, jnp.int32),
+            capture_layer=capture_layer)["captured_hidden"])(jparams)
+    _, got = bert_model(params, cfg, torch.from_numpy(ids),
+                        torch.from_numpy(mask), capture_layer=capture_layer)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    assert (got.abs().max() == 0) == (capture_layer > cfg.num_hidden_layers)
 
 
 def test_layer_norm_and_mask_bias():

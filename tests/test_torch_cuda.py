@@ -9,7 +9,9 @@ import pytest
 import torch
 
 from mtvaf_tpu_torch.kernels.prefix_attention import (
-    prefix_attention, prefix_attention_reference)
+    keep_factors, keep_mask_cuda, keep_mask_reference, prefix_attention,
+    prefix_attention_bwd_cuda, prefix_attention_bwd_reference,
+    prefix_attention_cuda, prefix_attention_reference)
 
 
 @pytest.fixture
@@ -71,3 +73,85 @@ def test_prefix_attention_rejects_what_the_kernel_does_not_take(cuda):
     q = torch.randn(1, 2, 8, 64, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
         prefix_attention(q, q, q, bias)
+
+
+SEED = 0x0123456789ABCDEF
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 3, 13, 17), (32, 12, 128, 144)])
+def test_keep_mask_entry_is_bit_identical_to_plain_philox(cuda, shape):
+    before = keep_mask_cuda.launches.value
+    got = keep_mask_cuda(SEED, 0.1, shape, cuda)
+    torch.cuda.synchronize()
+    assert keep_mask_cuda.launches.value == before + 1
+    assert torch.equal(got, keep_mask_reference(SEED, 0.1, shape, cuda))
+
+
+# (B, H, S, T, dtype, atol): dq, dk, dv against the plain backward in the
+# same dtype.  Both sum in fp32; in bf16 they differ by one output rounding
+# (H100 reading: 0.0039 at these shapes), in fp32 by summation order
+# (reading: 3.3e-6).
+BWD_CASES = [
+    (2, 3, 13, 17, torch.float32, 1e-5),
+    (32, 12, 128, 144, torch.float32, 1e-5),
+    (32, 12, 128, 144, torch.bfloat16, 8e-3),
+    (2, 12, 512, 528, torch.bfloat16, 8e-3),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,S,T,dtype,atol", BWD_CASES)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("bias_rows", ["one", "per_row"])
+def test_prefix_attention_backward_kernel_matches_plain(cuda, B, H, S, T,
+                                                        dtype, atol, rate,
+                                                        bias_rows):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (torch.randn(B, H, n, 64, device=cuda, generator=g).to(dtype)
+               for n in (S, T, T))
+    do = torch.randn(B, H, S, 64, device=cuda, generator=g).to(dtype)
+    mask = torch.ones(B, 1 if bias_rows == "one" else S, T, device=cuda)
+    mask[-1, :, -7:] = 0.0
+    mask[0, -1, :3] = 0.0
+    bias = ((1.0 - mask) * -10000.0)[:, None]
+    keep = keep_factors(SEED, rate, (B, H, S, T), cuda) if rate else None
+    o, lse = prefix_attention_cuda(q, k, v, bias, seed=SEED, rate=rate)
+    ro, _ = prefix_attention_reference(q.float(), k.float(), v.float(), bias,
+                                       keep)
+    torch.testing.assert_close(o.float(), ro, atol=1e-2 if dtype ==
+                               torch.bfloat16 else 1e-5, rtol=0)
+    before = prefix_attention_bwd_cuda.launches.value
+    grads = prefix_attention_bwd_cuda(q, k, v, bias, o, lse, do, seed=SEED,
+                                      rate=rate)
+    torch.cuda.synchronize()
+    assert prefix_attention_bwd_cuda.launches.value == before + 1
+    plain = prefix_attention_bwd_reference(q, k, v, bias, o, lse, do, keep)
+    for name, got, want in zip("qkv", grads, plain):
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=0, msg=f"d{name}")
+
+
+@pytest.mark.cuda
+def test_autograd_runs_both_kernels_and_regenerates_the_mask(cuda):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (torch.randn(2, 12, n, 64, device=cuda, generator=g)
+               .requires_grad_() for n in (32, 48, 48))
+    bias = torch.zeros(2, 1, 1, 48, device=cuda)
+    fwd0 = prefix_attention.launches.value
+    bwd0 = prefix_attention_bwd_cuda.launches.value
+    o, _ = prefix_attention(q, k, v, bias, dropout_rate=0.1,
+                            rng=torch.Generator().manual_seed(3))
+    o.square().sum().backward()
+    torch.cuda.synchronize()
+    assert prefix_attention.launches.value == fwd0 + 1
+    assert prefix_attention_bwd_cuda.launches.value == bwd0 + 1
+    cq, ck, cv = (x.detach().cpu().requires_grad_() for x in (q, k, v))
+    co, _ = prefix_attention(cq, ck, cv, bias.cpu(), dropout_rate=0.1,
+                             rng=torch.Generator().manual_seed(3))
+    co.square().sum().backward()
+    torch.testing.assert_close(o.detach().cpu(), co.detach(), atol=1e-5,
+                               rtol=0)
+    for a, b in ((q, cq), (k, ck), (v, cv)):
+        torch.testing.assert_close(a.grad.cpu(), b.grad, atol=1e-4, rtol=0)
