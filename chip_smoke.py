@@ -6,18 +6,22 @@
 Phases, each of which fails the run by raising:
 
 1. build every CUDA kernel of the port from ``mtvaf_tpu_torch/csrc`` (one
-   nvcc per source, all started together);
+   nvcc per source, all started together), print each instance's ptxas
+   registers, static shared memory and spills, and fail on a spill;
 2. hold the prefix-attention forward kernel (K1) against its plain PyTorch
    version on the card, at the shapes the serving path gives it, and time
    kernel, plain version and the one-call PyTorch yardstick (SDPA) beside
-   the kernel's bound;
+   the kernel's bound (each row names its dtype's design: bf16 on wgmma
+   fed by TMA, fp32 on the CUDA cores; its share of the bound; its time
+   over SDPA's);
 3. at the train shape: the dropout-mask entry point's masks bit-identical
    to the plain Philox masks, the kept fraction within 1% of 1 - rate, and
    K1 with dropout against the plain forward given the same masks;
 4. hold the backward kernel (K2) against the plain backward in the same
    dtype and against fp32 autograd of the plain forward, at the train shape
-   (bf16 and fp32) and at S=512 (bf16), with dropout off and on; time K2,
-   the plain backward and SDPA's backward beside K2's bound;
+   (bf16 and fp32) and at S=512 (bf16), with dropout off and on; time K2
+   (and each of its two passes), the plain backward and SDPA's backward
+   beside K2's bound;
 5. check the whole decode forward on the card against the same forward on
    the CPU (fp32, TF32 off) at the flagship widths, on a small batch;
 6. check one fp32 train step's loss and every gradient leaf on the card
@@ -36,6 +40,11 @@ Phases, each of which fails the run by raising:
    the mask entry (the kernels draw their masks themselves); print
    step time, examples/s, MFU and the forward / backward / optimizer split
    of one step.
+
+Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times: the
+kernels' summed durations under ``torch.profiler``.  ``event_ms`` is the
+kernel's time between events over back-to-back calls, which the host's
+launch time sets where that is longer.
 
 Prints the card's name and power limit, then one JSON line with the
 kernels' numbers, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -96,8 +105,42 @@ def log(*a):
     print(*a, flush=True)
 
 
+def device_profile(fn, iters=20, warmup=3):
+    """Device time of one ``fn()`` by kernel: each kernel's summed durations
+    under ``torch.profiler`` over ``iters`` calls, per call, in ms.  Unlike
+    :func:`cuda_ms` it leaves out the host's time between launches, which
+    sets the pace of a call that runs for a few microseconds on the card."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            m = re.search(r"(\w+_kernel)\b", e.key)
+            name = m.group(1) if m else e.key[:60]
+            by_kernel[name] = (by_kernel.get(name, 0.0)
+                               + e.self_device_time_total / iters / 1e3)
+    if not by_kernel:
+        raise AssertionError("the profiler recorded no device time")
+    return by_kernel
+
+
+def device_ms(fn, iters=20, warmup=3):
+    """Device time of one ``fn()`` in ms: :func:`device_profile` summed."""
+    return sum(device_profile(fn, iters, warmup).values())
+
+
 def cuda_ms(fn, iters=50, warmup=5):
-    """Mean device time of ``fn()`` over ``iters`` back-to-back calls."""
+    """Mean time of ``fn()`` over ``iters`` back-to-back calls, between two
+    events: device time, or the host's launch time where that is longer."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -126,6 +169,18 @@ def k1_bound(b, h, s, t, d, dtype):
     op_ms = flops / PEAK_FLOPS[dtype] * 1e3
     return (max(mem_ms, op_ms), "bytes" if mem_ms >= op_ms else "operations",
             nbytes, flops)
+
+
+# Each dtype's design in the kernels: bf16 on the tensor cores (wgmma fed by
+# TMA), fp32 on the CUDA cores (wgmma has no fp32 operand).
+DESIGN = {torch.bfloat16: "wgmma+TMA", torch.float32: "cuda-cores"}
+
+
+def shares(dtype, ms, bound_ms, lib_ms):
+    """The design, the share of the bound the kernel reaches, and its time
+    over the library call's, for a timing row."""
+    return {"design": DESIGN[dtype], "bound_share": bound_ms / ms,
+            "ms_over_library": ms / lib_ms}
 
 
 def attention_inputs(g, b, h, s, t, d, dtype):
@@ -168,9 +223,11 @@ def check_prefix_attention():
               and err_fp32 <= K1_ATOL_VS_FP32[dtype]
               and err_lse_fp32 <= K1_ATOL_VS_FP32[dtype])
         mask_q = bias.to(dtype)
-        ms = cuda_ms(lambda: prefix_attention_cuda(q, k, v, bias))
-        plain_ms = cuda_ms(lambda: prefix_attention_reference(q, k, v, bias))
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        ms = device_ms(lambda: prefix_attention_cuda(q, k, v, bias))
+        event_ms = cuda_ms(lambda: prefix_attention_cuda(q, k, v, bias))
+        plain_ms = device_ms(lambda: prefix_attention_reference(q, k, v,
+                                                                bias))
+        lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask_q))
         bound_ms, bound_by, nbytes, flops = k1_bound(b, h, s, t, d, dtype)
         row = {"shape": name, "B": b, "H": h, "S": s, "T": t, "D": d,
@@ -178,9 +235,10 @@ def check_prefix_attention():
                "max_abs_err_lse": err_lse, "max_abs_err_o_vs_fp32": err_fp32,
                "max_abs_err_lse_vs_fp32": err_lse_fp32,
                "atol": K1_ATOL[dtype], "atol_vs_fp32": K1_ATOL_VS_FP32[dtype],
-               "ms": ms, "plain_ms": plain_ms,
+               "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
                "library_ms": lib_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "bytes": nbytes, "flops": flops}
+               "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+               **shares(dtype, ms, bound_ms, lib_ms)}
         log("k1", json.dumps(row))
         rows.append(row)
         if not ok:
@@ -209,8 +267,9 @@ def check_dropout(rate=0.1):
     want = keep_mask_reference(DROPOUT_SEED, rate, shape, dev)
     kept = got.float().mean().item()
     mismatches = int((got != want).sum().item())
-    mask_ms = cuda_ms(lambda: keep_mask_cuda(DROPOUT_SEED, rate, shape, dev))
-    mask_plain_ms = cuda_ms(lambda: keep_mask_reference(DROPOUT_SEED, rate,
+    mask_ms = device_ms(lambda: keep_mask_cuda(DROPOUT_SEED, rate, shape,
+                                               dev))
+    mask_plain_ms = device_ms(lambda: keep_mask_reference(DROPOUT_SEED, rate,
                                                         shape, dev))
     # the entry point writes (B, H, S, T) fp32: its bound is that write
     mask_bytes = b * h * s * t * 4
@@ -236,20 +295,22 @@ def check_dropout(rate=0.1):
     err_o = (o.float() - ro.float()).abs().max().item()
     err_fp32 = (o.float() - fo).abs().max().item()
     err_lse = (lse - nlse).abs().max().item()      # lse stays dropout-free
-    ms = cuda_ms(lambda: prefix_attention_cuda(q, k, v, bias,
-                                               seed=DROPOUT_SEED, rate=rate))
-    plain_ms = cuda_ms(lambda: prefix_attention_reference(q, k, v, bias,
-                                                          keep))
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+    ms = device_ms(lambda: prefix_attention_cuda(q, k, v, bias,
+                                                 seed=DROPOUT_SEED, rate=rate))
+    event_ms = cuda_ms(lambda: prefix_attention_cuda(
+        q, k, v, bias, seed=DROPOUT_SEED, rate=rate))
+    plain_ms = device_ms(lambda: prefix_attention_reference(q, k, v, bias,
+                                                            keep))
+    lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=bias.to(dtype), dropout_p=rate))
     bound_ms, bound_by, nbytes, flops = k1_bound(b, h, s, t, d, dtype)
     row = {"shape": "train_bf16_dropout", "B": b, "H": h, "S": s, "T": t,
            "D": d, "rate": rate, "max_abs_err_o": err_o,
            "max_abs_err_o_vs_fp32": err_fp32, "max_abs_err_lse": err_lse,
            "atol": K1_ATOL[dtype], "atol_vs_fp32": K1_ATOL_VS_FP32[dtype],
-           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-           "flops": flops}
+           "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "bytes": nbytes, "flops": flops, **shares(dtype, ms, bound_ms, lib_ms)}
     log("k1", json.dumps(row))
     if not (math.isfinite(err_o) and err_o <= K1_ATOL[dtype]
             and err_fp32 <= K1_ATOL_VS_FP32[dtype]
@@ -313,11 +374,14 @@ def check_backward():
             err32 = max((a.float() - p).abs().max().item()
                         for a, p in zip(grads, auto))
             del leaves, fo, auto
-            ms = cuda_ms(lambda: prefix_attention_bwd_cuda(
+            passes = device_profile(lambda: prefix_attention_bwd_cuda(
+                q, k, v, bias, o, lse, do, seed=DROPOUT_SEED, rate=rate))
+            ms = sum(passes.values())
+            event_ms = cuda_ms(lambda: prefix_attention_bwd_cuda(
                 q, k, v, bias, o, lse, do, seed=DROPOUT_SEED, rate=rate),
                 iters=20)
-            plain_ms = cuda_ms(lambda: prefix_attention_bwd_reference(
-                q, k, v, bias, o, lse, do, keep), iters=20)
+            plain_ms = device_ms(lambda: prefix_attention_bwd_reference(
+                q, k, v, bias, o, lse, do, keep))
             lib_ms = sdpa_backward_ms(q, k, v, bias, do, rate)
             bound_ms, bound_by, nbytes, flops = k2_bound(b, h, s, t, d, dtype)
             row = {"shape": name, "B": b, "H": h, "S": s, "T": t, "D": d,
@@ -325,9 +389,12 @@ def check_backward():
                    "max_abs_err": err, "max_abs_err_vs_fp32": err32,
                    "atol": K2_ATOL[dtype],
                    "atol_vs_fp32": K2_ATOL_VS_FP32[dtype], "ms": ms,
-                   "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "passes_ms": passes,
+                   "event_ms": event_ms, "plain_ms": plain_ms,
+                   "library_ms": lib_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
-                   "bytes": nbytes, "flops": flops}
+                   "bytes": nbytes, "flops": flops,
+                   **shares(dtype, ms, bound_ms, lib_ms)}
             log("k2", json.dumps(row))
             rows.append(row)
             if not (math.isfinite(err) and err <= K2_ATOL[dtype]
@@ -351,7 +418,7 @@ def sdpa_backward_ms(q, k, v, bias, do, rate):
     def fwd_bwd():
         torch.autograd.grad(fwd(), leaves, do)
 
-    return cuda_ms(fwd_bwd, iters=20) - cuda_ms(fwd, iters=20)
+    return device_ms(fwd_bwd) - device_ms(fwd)
 
 
 # ---------------------------------------------------------------------------
@@ -771,6 +838,63 @@ def profile_train(cfg, bert_cfg, params, steps=3):
     return out
 
 
+def _kernel_name(mangled):
+    """(name, template arguments) of a mangled ``..._kernel<...>`` symbol:
+    the identifier ending in "kernel" whose length prefix matches."""
+    end = mangled.find("kernel") + len("kernel")
+    for start in range(end - 1, 0, -1):
+        for k in (1, 2, 3):
+            digits = mangled[start - k:start]
+            if digits.isdigit() and int(digits) == end - start:
+                args = mangled[end:]
+                args = args[1:].split("EEv")[0] if args[:1] == "I" else ""
+                return mangled[start:end], args
+    return mangled, ""
+
+
+def ptxas_report(logs):
+    """Registers, static shared memory and spills of every kernel instance,
+    from ``nvcc -Xptxas -v``; fails on any spill.  The bf16 kernels take
+    their tiles in dynamic shared memory, which ptxas does not see: each
+    library reports its block's bytes (``dynamic_smem``)."""
+    import re
+    from mtvaf_tpu_torch.kernels.prefix_attention import _fn
+    rows = []
+    for lib, text in logs.items():
+        row = None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                kernel, args = _kernel_name(m.group(1))
+                row = {"lib": lib, "kernel": kernel, "template": args,
+                       "route": "wgmma+TMA" if "bf16" in kernel
+                       else "cuda-cores"}
+                if "bf16" in kernel:   # the backward's size is per pass
+                    args = (int(kernel.startswith("dkdv")),) \
+                        if lib == "prefix_attention_bwd" else ()
+                    row["dynamic_smem"] = _fn(lib, f"mtvaf_{lib}_smem")(*args)
+                rows.append(row)
+            elif row is not None:
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", line)
+                if m:
+                    row["spill_stores"] = int(m.group(1))
+                    row["spill_loads"] = int(m.group(2))
+                m = re.search(r"Used (\d+) registers", line)
+                if m:
+                    row["registers"] = int(m.group(1))
+                    sm = re.search(r"(\d+) bytes smem", line)
+                    row["static_smem"] = int(sm.group(1)) if sm else 0
+    for row in rows:
+        log("ptxas", json.dumps(row))
+    if any(logs.values()) and not rows:
+        raise AssertionError("no ptxas report in the build logs")
+    spills = [r for r in rows if r.get("spill_stores") or r.get("spill_loads")]
+    if spills:
+        raise AssertionError(f"ptxas spilled registers: {spills}")
+    return rows
+
+
 def card_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -792,10 +916,7 @@ def main() -> int:
     t0 = time.perf_counter()
     built = build.build(build.all_kernels())
     log(f"build: {sorted(built)} in {time.perf_counter() - t0:.1f} s")
-    for name, text in built.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+    ptxas = ptxas_report(built)
 
     k1_rows = check_prefix_attention()
     mask_row, k1_train = check_dropout()
@@ -823,9 +944,12 @@ def main() -> int:
     log(card)
     log(json.dumps({"kernels": [{
         "name": "prefix_attention_fwd",
-        "route": "cuda",
+        "route": "cuda", "design": {"bfloat16": DESIGN[torch.bfloat16],
+                                    "float32": DESIGN[torch.float32]},
         "source": "mtvaf_tpu_torch/csrc/prefix_attention_fwd.cu",
         "replaces": "mtvaf_tpu/kernels/prefix_attention.py:71",
+        "ptxas": [r for r in ptxas if r["lib"] == "prefix_attention_fwd"
+                  and r["kernel"] != "keep_mask_kernel"],
         "launches": train_path["k1_launches"],
         "max_abs_err": k1_train["max_abs_err_o"],
         **{k: k1_train[k] for k in keys},
@@ -834,15 +958,17 @@ def main() -> int:
                   **{k: serve_row[k] for k in keys}},
     }, {
         "name": "prefix_attention_bwd",
-        "route": "cuda",
+        "route": "cuda", "design": {"bfloat16": DESIGN[torch.bfloat16],
+                                    "float32": DESIGN[torch.float32]},
         "source": "mtvaf_tpu_torch/csrc/prefix_attention_bwd.cu",
         "replaces": "mtvaf_tpu/kernels/prefix_attention.py:99",
+        "ptxas": [r for r in ptxas if r["lib"] == "prefix_attention_bwd"],
         "launches": train_path["k2_launches"],
         "max_abs_err": k2_row["max_abs_err"],
         **{k: k2_row[k] for k in keys},
     }, {
         "name": "prefix_attention_keep_mask",
-        "route": "cuda",
+        "route": "cuda", "design": "cuda-cores",
         "source": "mtvaf_tpu_torch/csrc/prefix_attention_fwd.cu",
         "replaces": "tests/test_attention_dropout_tpu.py:91",
         "on_main_path": False,

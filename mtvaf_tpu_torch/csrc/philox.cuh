@@ -5,8 +5,9 @@
 // attention-probability keep mask of element (b, h, row, col) is word
 // (col & 3) of philox(counter = (col >> 2, row, h, b), key = (seed_lo,
 // seed_hi)); the element is kept when that word is >= threshold =
-// uint32(rate * 2^32).  The forward, both backward passes and the mask entry
-// point call these functions, so they agree bit for bit whatever their
+// uint32(rate * 2^32).  The forward, the backward (in bf16 its dq pass,
+// which hands the bits to its dk/dv pass; in fp32 both passes) and the mask
+// entry point call these functions, so they agree bit for bit whatever their
 // tiling, and ``keep_mask_reference`` in kernels/prefix_attention.py is the
 // same function in plain PyTorch.
 #pragma once

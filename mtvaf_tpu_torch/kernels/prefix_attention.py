@@ -21,7 +21,10 @@ a CUDA tensor it runs :class:`PrefixAttention` (forward kernel
 ``csrc/prefix_attention_fwd.cu``, backward kernel
 ``csrc/prefix_attention_bwd.cu``) or raises; on a CPU tensor it runs
 :func:`prefix_attention_reference`, whose gradient comes from autograd.
-There is no shape-based dispatch and no fallback on the card.
+There is no shape-based dispatch and no fallback on the card.  Inside the
+kernels the dtype picks the design: bf16 runs on the tensor cores (wgmma
+fed by TMA, ``csrc/hopper.cuh``; q, k, v, o and do must be 16-byte
+aligned), fp32 on the CUDA cores (wgmma has no fp32 operand).
 :func:`prefix_attention_bwd_reference` is the backward kernel's arithmetic
 step by step, for holding the kernel against it.
 """
@@ -158,6 +161,8 @@ _SIGNATURES = {
         [_P] + [_I] * 4 + [_U] * 3 + [_P],
     ("prefix_attention_bwd", "mtvaf_prefix_attention_bwd"):
         [_P] * 11 + [_I] * 6 + [_F, _I, _U, _U, _U, _F, _P],
+    ("prefix_attention_fwd", "mtvaf_prefix_attention_fwd_smem"): [],
+    ("prefix_attention_bwd", "mtvaf_prefix_attention_bwd_smem"): [_I],
 }
 
 
@@ -170,9 +175,14 @@ def _fn(lib_name: str, symbol: str):
     return fn
 
 
+_ENTRY_ERRORS = {-1: "head dimension or dtype not compiled",
+                 -2: "the driver refused a TMA tensor map"}
+
+
 def _raise_on(err: int, what: str):
     if err != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+        why = _ENTRY_ERRORS.get(err, f"CUDA error {err}")
+        raise RuntimeError(f"{what} launch failed: {why}")
 
 
 def _dropout_args(seed: int, rate: float):
@@ -205,10 +215,19 @@ def _check(q, k, v, bias, *more):
             or bias.shape[2] not in (1, s) or bias.shape[3] != t):
         raise ValueError(f"prefix_attention_cuda: bias {tuple(bias.shape)} "
                          f"is not (B, 1, 1|S, T) = ({b}, 1, 1|{s}, {t})")
-    for name, x in (("q", q), ("k", k), ("v", v)):
+    _check_rows(q=q, k=k, v=v)
+
+
+def _check_rows(**tensors):
+    """Contiguous, 16-byte aligned: the bf16 kernels load 128-byte rows by
+    TMA, which takes no other address."""
+    for name, x in tensors.items():
         if not x.is_contiguous():
             raise ValueError(f"prefix_attention_cuda: {name} must be "
                              "contiguous")
+        if x.data_ptr() % 16:
+            raise ValueError(f"prefix_attention_cuda: {name} is not "
+                             "16-byte aligned")
 
 
 def prefix_attention_cuda(q, k, v, bias, *, seed: int = 0,
@@ -232,6 +251,18 @@ def prefix_attention_cuda(q, k, v, bias, *, seed: int = 0,
     return o, lse
 
 
+def _bwd_scratch(q, t: int, rate: float):
+    """The backward kernel's fp32 scratch: delta = rowsum(do * o), (B, H, S),
+    then, for bf16 with dropout, from a 16-byte boundary, the keep bits its
+    dq pass draws for its dk/dv pass: one 32-bit word per thread of each
+    (64-query, 64-key) tile pair."""
+    b, h, s, _ = q.shape
+    n = -(-b * h * s // 4) * 4
+    if rate > 0.0 and q.dtype == torch.bfloat16:
+        n += b * h * -(-s // 64) * -(-t // 64) * 128
+    return torch.empty(n, dtype=torch.float32, device=q.device)
+
+
 def prefix_attention_bwd_cuda(q, k, v, bias, o, lse, do, *, seed: int = 0,
                               rate: float = 0.0):
     """Launch the backward kernel (its two passes) on the current stream;
@@ -241,9 +272,10 @@ def prefix_attention_bwd_cuda(q, k, v, bias, o, lse, do, *, seed: int = 0,
     b, h, s, d = q.shape
     t = k.shape[2]
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
-            or do.dtype != q.dtype or not o.is_contiguous():
-        raise ValueError("prefix_attention_bwd_cuda: o and do must be "
-                         "contiguous, with q's shape and dtype")
+            or do.dtype != q.dtype:
+        raise ValueError("prefix_attention_bwd_cuda: o and do must have "
+                         "q's shape and dtype")
+    _check_rows(o=o, do=do)
     if lse.shape != (b, h, s, 1) or lse.dtype != torch.float32 \
             or not lse.is_contiguous():
         raise ValueError("prefix_attention_bwd_cuda: lse must be a "
@@ -252,13 +284,13 @@ def prefix_attention_bwd_cuda(q, k, v, bias, o, lse, do, *, seed: int = 0,
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    scratch = _bwd_scratch(q, t, rate)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = _fn("prefix_attention_bwd", "mtvaf_prefix_attention_bwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             o.data_ptr(), lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), b, h, s, t, d,
+            dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), b, h, s, t, d,
             bias.shape[2], 1.0 / math.sqrt(d), _DTYPE_CODES[q.dtype],
             *_dropout_args(seed, rate), stream)
     _raise_on(err, "prefix_attention_bwd")

@@ -155,3 +155,93 @@ def test_autograd_runs_both_kernels_and_regenerates_the_mask(cuda):
                                rtol=0)
     for a, b in ((q, cq), (k, ck), (v, cv)):
         torch.testing.assert_close(a.grad.cpu(), b.grad, atol=1e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 kernels (wgmma tiles of 64 rows fed by TMA) at the tile edges:
+# S and T one short of, one past, and a quarter into a 64-row tile, T = 17
+# inside one tile.  Tolerances are those of the cases above.
+
+EDGE_SHAPES = [(2, 3, 1, 17), (2, 3, 63, 80), (2, 3, 65, 129),
+               (1, 12, 192, 208)]
+
+
+def _edge_inputs(device, B, H, S, T, bias_rows, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, do = (torch.randn(B, H, n, 64, device=device, generator=g)
+                   .to(torch.bfloat16) for n in (S, T, T, S))
+    mask = torch.ones(B, 1 if bias_rows == "one" else S, T, device=device)
+    mask[-1, :, -7:] = 0.0
+    mask[0, -1, :3] = 0.0
+    return q, k, v, do, ((1.0 - mask) * -10000.0)[:, None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,S,T", EDGE_SHAPES)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("bias_rows", ["one", "per_row"])
+def test_bf16_kernels_at_tile_edges(cuda, B, H, S, T, rate, bias_rows):
+    q, k, v, do, bias = _edge_inputs(cuda, B, H, S, T, bias_rows, seed=3)
+    keep = keep_factors(SEED, rate, (B, H, S, T), cuda) if rate else None
+    o, lse = prefix_attention_cuda(q, k, v, bias, seed=SEED, rate=rate)
+    torch.cuda.synchronize()
+    ro, _ = prefix_attention_reference(q, k, v, bias, keep)
+    _, rlse = prefix_attention_reference(q, k, v, bias)   # dropout-free
+    fo, flse = prefix_attention_reference(q.float(), k.float(), v.float(),
+                                          bias, keep)
+    torch.testing.assert_close(o.float(), ro.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(lse, rlse, atol=2e-2, rtol=0)
+    torch.testing.assert_close(o.float(), fo, atol=1e-2, rtol=0)
+    torch.testing.assert_close(lse, flse, atol=1e-2, rtol=0)
+    grads = prefix_attention_bwd_cuda(q, k, v, bias, o, lse, do, seed=SEED,
+                                      rate=rate)
+    torch.cuda.synchronize()
+    plain = prefix_attention_bwd_reference(q, k, v, bias, o, lse, do, keep)
+    for name, got, want in zip("qkv", grads, plain):
+        torch.testing.assert_close(got.float(), want.float(), atol=8e-3,
+                                   rtol=0, msg=f"d{name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_kernel_is_bitwise_deterministic(cuda, dtype):
+    """No atomics: two runs on the same inputs give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v, do = (torch.randn(32, 12, n, 64, device=cuda, generator=g)
+                   .to(dtype) for n in (128, 144, 144, 128))
+    bias = torch.zeros(32, 1, 1, 144, device=cuda)
+    bias[-1, ..., -9:] = -10000.0
+    o, lse = prefix_attention_cuda(q, k, v, bias, seed=SEED, rate=0.1)
+    first = prefix_attention_bwd_cuda(q, k, v, bias, o, lse, do, seed=SEED,
+                                      rate=0.1)
+    second = prefix_attention_bwd_cuda(q, k, v, bias, o, lse, do, seed=SEED,
+                                       rate=0.1)
+    torch.cuda.synchronize()
+    for name, a, b in zip("qkv", first, second):
+        assert torch.equal(a, b), f"d{name} differs between two runs"
+
+
+@pytest.mark.cuda
+def test_misaligned_rows_raise_instead_of_launching(cuda):
+    """A view one element into its storage is contiguous but not 16-byte
+    aligned, which TMA cannot load: the wrappers raise before launching."""
+    shape = (2, 3, 13, 64)
+    n = 2 * 3 * 13 * 64
+    base = torch.randn(n + 1, device=cuda, dtype=torch.bfloat16)
+    bad = base[1:].view(shape)
+    assert bad.is_contiguous() and bad.data_ptr() % 16
+    good = torch.randn(shape, device=cuda, dtype=torch.bfloat16)
+    kv = torch.randn(2, 3, 17, 64, device=cuda, dtype=torch.bfloat16)
+    bias = torch.zeros(2, 1, 1, 17, device=cuda)
+    fwd0 = prefix_attention.launches.value
+    with pytest.raises(ValueError, match="aligned"):
+        prefix_attention_cuda(bad, kv, kv, bias)
+    o, lse = prefix_attention_cuda(good, kv, kv, bias)
+    bwd0 = prefix_attention_bwd_cuda.launches.value
+    with pytest.raises(ValueError, match="aligned"):
+        prefix_attention_bwd_cuda(bad, kv, kv, bias, o, lse, good)
+    with pytest.raises(ValueError, match="aligned"):
+        prefix_attention_bwd_cuda(good, kv, kv, bias, o, lse, bad)
+    torch.cuda.synchronize()
+    assert prefix_attention.launches.value == fwd0 + 1
+    assert prefix_attention_bwd_cuda.launches.value == bwd0

@@ -59,9 +59,24 @@ def _torch(*xs):
     return [torch.from_numpy(x) for x in xs]
 
 
-@pytest.mark.parametrize("bias_rows", [1, 13])
-def test_plain_version_matches_pallas_and_xla(bias_rows):
-    q, k, v, bias = make_inputs(bias_rows)
+# (bias_rows, (B, H, S, P, D)): the first two cases, then the edges of the
+# card kernels' 64-row tiles at the model's head dim (T = S + P = 17, 80,
+# 129; bias rows one and per-row where S allows).
+FWD_CASES = [
+    pytest.param(1, (2, 3, 13, 4, 8), id="1"),
+    pytest.param(13, (2, 3, 13, 4, 8), id="13"),
+    pytest.param(1, (2, 3, 1, 16, 64), id="1-S1-T17"),
+    pytest.param(1, (2, 3, 63, 17, 64), id="1-S63-T80"),
+    pytest.param(63, (2, 3, 63, 17, 64), id="63-S63-T80"),
+    pytest.param(1, (2, 3, 65, 64, 64), id="1-S65-T129"),
+    pytest.param(65, (2, 3, 65, 64, 64), id="65-S65-T129"),
+]
+
+
+@pytest.mark.parametrize("bias_rows,shape", FWD_CASES)
+def test_plain_version_matches_pallas_and_xla(bias_rows, shape):
+    B, H, S, P, D = shape
+    q, k, v, bias = make_inputs(bias_rows, B=B, H=H, S=S, P=P, D=D)
     with jax.default_matmul_precision("highest"):
         jq, jk, jv, jb = (jnp.asarray(x) for x in (q, k, v, bias))
         want_o, res = _attention_fwd_impl(jq, jk, jv, jb, _ZERO_SEED,
@@ -121,11 +136,22 @@ def _dropout_inputs(B=1, H=2, S=16, P=4, D=8, seed=0):
     return q, k, v, np.array(mask_to_bias(jnp.asarray(mask)))
 
 
-@pytest.mark.parametrize("S", [8, 16])
-def test_backward_matches_pallas_backward(S):
+# (B, H, S, P, D): the first two cases, then the tile edges at D=64.
+BWD_CASES = [
+    pytest.param((1, 2, 8, 4, 8), id="8"),
+    pytest.param((1, 2, 16, 4, 8), id="16"),
+    pytest.param((2, 3, 1, 16, 64), id="S1-T17"),
+    pytest.param((2, 3, 63, 17, 64), id="S63-T80"),
+    pytest.param((2, 3, 65, 64, 64), id="S65-T129"),
+]
+
+
+@pytest.mark.parametrize("shape", BWD_CASES)
+def test_backward_matches_pallas_backward(shape):
     """Plain backward and autograd of the plain forward against jax.grad of
     the Pallas kernel (its custom VJP runs the backward kernel)."""
-    q, k, v, bias = _dropout_inputs(S=S, seed=1)
+    B, H, S, P, D = shape
+    q, k, v, bias = _dropout_inputs(B=B, H=H, S=S, P=P, D=D, seed=1)
     w = np.random.RandomState(9).randn(*q.shape).astype(np.float32)
     with jax.default_matmul_precision("highest"):
         want = jax.grad(lambda *a: (prefix_flash_attention(
