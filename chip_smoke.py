@@ -39,7 +39,23 @@ Phases, each of which fails the run by raising:
    below the first, 12 K1 and 12 K2 launches per timed step, and none of
    the mask entry (the kernels draw their masks themselves); print
    step time, examples/s, MFU and the forward / backward / optimizer split
-   of one step.
+   of one step;
+10. trainer: the CLI (``cli.main.main``) → ``CrfTrainer.train()`` /
+   ``.test()`` at the flagship configuration for 2 epochs on a synthetic
+   Twitter-2015 tree in the reference layout (320/96/96 examples, the
+   pixel cache seeded so that nothing is decoded); check finite losses, 12
+   K1 + 12 K2 launches per train step and 12 K1 per dev/test batch, none of
+   the mask entry, every parameter, moment and guide-table tensor on the
+   card, no placeholder image and no all-zero guide row, and the run's
+   files; reload the best model with ``load_predictor`` and tag a few
+   sentences; print per-epoch time and examples/s beside phase 9's bare
+   step, the guide-fill time, eval sentences/s and the checkpoint's write
+   and load times; then stop a run with a real SIGTERM after epoch 1,
+   resume it, and require its params and optimizer state to equal an
+   uninterrupted run's bit for bit (under
+   ``torch.use_deterministic_algorithms``, in a child process started with
+   ``--resume-check``, so that the fixed cuBLAS workspace it needs does not
+   reach the timed phases).
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times: the
 kernels' summed durations under ``torch.profiler``.  ``event_ms`` is the
@@ -60,6 +76,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -105,32 +122,50 @@ def log(*a):
     print(*a, flush=True)
 
 
+PROFILE_TRIES = 3
+# Profiler sessions that recorded fewer kernel records than calls, and were
+# profiled again or timed with CUDA events; printed with the kernels line.
+profiler_misses = {"retried": 0, "event_timed": 0}
+
+
 def device_profile(fn, iters=20, warmup=3):
     """Device time of one ``fn()`` by kernel: each kernel's summed durations
     under ``torch.profiler`` over ``iters`` calls, per call, in ms.  Unlike
     :func:`cuda_ms` it leaves out the host's time between launches, which
-    sets the pace of a call that runs for a few microseconds on the card."""
+    sets the pace of a call that runs for a few microseconds on the card.
+
+    Every call launches at least one kernel, so a session with fewer kernel
+    records than calls lost some of them (CUPTI now and then delivers none);
+    it is profiled again, and after ``PROFILE_TRIES`` such sessions ``fn`` is
+    timed with CUDA events instead, under the key ``event_timer``."""
     import re
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    by_kernel = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            m = re.search(r"(\w+_kernel)\b", e.key)
-            name = m.group(1) if m else e.key[:60]
-            by_kernel[name] = (by_kernel.get(name, 0.0)
-                               + e.self_device_time_total / iters / 1e3)
-    if not by_kernel:
-        raise AssertionError("the profiler recorded no device time")
-    return by_kernel
+    for attempt in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by_kernel, records = {}, 0
+        for e in prof.key_averages():
+            if (e.device_type == DeviceType.CUDA
+                    and e.self_device_time_total > 0):
+                m = re.search(r"(\w+_kernel)\b", e.key)
+                name = m.group(1) if m else e.key[:60]
+                by_kernel[name] = (by_kernel.get(name, 0.0)
+                                   + e.self_device_time_total / iters / 1e3)
+                records += e.count
+        if records >= iters:
+            return by_kernel
+        log(f"profiler: {records} kernel records for {iters} calls "
+            f"(session {attempt + 1} of {PROFILE_TRIES})")
+        profiler_misses["retried"] += 1
+    profiler_misses["event_timed"] += 1
+    return {"event_timer": cuda_ms(fn, iters, warmup)}
 
 
 def device_ms(fn, iters=20, warmup=3):
@@ -838,6 +873,444 @@ def profile_train(cfg, bert_cfg, params, steps=3):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the trainer, through the CLI, on a synthetic Twitter-2015 tree.
+
+# Twitter-2015's train/dev/test sizes, and the cut the smoke trains on: at
+# least 10 steps per epoch at B=32.
+TWITTER2015_SIZES = {"train": 3179, "dev": 1122, "test": 1037}
+TRAINER_SIZES = {"train": 320, "dev": 96, "test": 96}
+TRAINER_EPOCHS = 2
+TRAINER_EVAL_BATCH = 16
+
+def trainer_tree(tmp):
+    """The reference's data layout (``cli.main.data_paths``) under
+    ``tmp``: the Twitter-2015 splits in the ``IMGID:`` TSV format from the
+    port's ``data/synthetic.py``, the ANP JSON over 2089 classes, one image
+    file per id (empty: nothing is decoded) with its normalized pixel rows
+    seeded in the ``.npy`` cache, and a ``bert`` directory with a vocab."""
+    import os
+    from mtvaf_tpu_torch.data.images import _normalize
+    from mtvaf_tpu_torch.data.synthetic import make_crf_files, make_vocab_file
+
+    root = os.path.join(tmp, "data")
+    base = os.path.join(root, "twitter2015", "twitter2015")
+    img_dir = os.path.join(root, "twitter2015_images")
+    pix_dir = os.path.join(tmp, "cache", "img")
+    for d in (base, img_dir, pix_dir, os.path.join(root, "ANP_data"),
+              os.path.join(tmp, "bert")):
+        os.makedirs(d, exist_ok=True)
+    anp, ids = {}, []
+    rng = np.random.default_rng(SEED)
+    for k, (mode, fname) in enumerate((("train", "train.txt"),
+                                       ("dev", "valid.txt"),
+                                       ("test", "test.txt"))):
+        split_ids = [f"{700000 + 10000 * k + i}.jpg"
+                     for i in range(TRAINER_SIZES[mode])]
+        make_crf_files(os.path.join(base, fname),
+                       os.path.join(tmp, f"anp_{mode}.json"),
+                       TRAINER_SIZES[mode], seed=SEED + k, max_len=30,
+                       num_anp=2089, image_ids=split_ids)
+        with open(os.path.join(tmp, f"anp_{mode}.json")) as f:
+            anp.update(json.load(f))
+        ids += split_ids
+    with open(os.path.join(root, "ANP_data", "image_output2015.json"),
+              "w") as f:
+        json.dump(anp, f)
+    for img in ids:
+        open(os.path.join(img_dir, img), "wb").close()
+        np.save(os.path.join(pix_dir, img + ".npy"), _normalize(
+            rng.integers(0, 256, (224, 224, 3), np.uint8)))
+    make_vocab_file(os.path.join(tmp, "bert", "vocab.txt"))
+    return root, os.path.join(tmp, "bert"), os.path.join(tmp, "cache"), ids
+
+
+def run_cli(argv, bert_cfg, on_epoch_log=None):
+    """``cli.main.main(argv)`` with the trainer it built kept (and its
+    params at the end of ``train()``, before the CLI reloads the best
+    model); ``on_epoch_log`` is called with each trainer log message."""
+    import logging
+    import mtvaf_tpu_torch.train.trainer_crf as trainer_crf
+    from mtvaf_tpu_torch.cli.main import main as cli_main
+    from mtvaf_tpu_torch.train.optim import tree_items
+
+    made = []
+    base_cls = trainer_crf.CrfTrainer
+
+    class Kept(base_cls):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+        def train(self):
+            out = super().train()
+            self.trained_params = {k: v.detach().clone()
+                                   for k, v in tree_items(self.state.params)}
+            return out
+
+    class Hook(logging.Handler):
+        def emit(self, record):
+            on_epoch_log(record.getMessage())
+
+    log = logging.getLogger("mtvaf_tpu_torch.train.trainer_crf")
+    hook = Hook() if on_epoch_log else None
+    trainer_crf.CrfTrainer = Kept
+    if hook:
+        log.addHandler(hook)
+    try:
+        metrics = cli_main(argv, bert_cfg_override=bert_cfg,
+                           device="cuda")
+    finally:
+        trainer_crf.CrfTrainer = base_cls
+        if hook:
+            log.removeHandler(hook)
+    return metrics, made[0]
+
+
+def _trainer_argv(root, bert_dir, cache, save, *extra):
+    return ["--dataset_name", "twitter2015", "--bert_name", bert_dir,
+            "--data_root", root, "--save_path", save, "--cache_dir", cache,
+            "--use_prefix", "--use_152", "--vao", "--use_probe", "--bf16",
+            "--max_seq", str(TRAIN_S), "--train_batch_size", str(TRAIN_B),
+            "--eval_batch_size", str(TRAINER_EVAL_BATCH),
+            "--num_epochs", str(TRAINER_EPOCHS), "--eval_begin_epoch", "1",
+            "--seed", str(SEED), *extra]
+
+
+def trainer_phase(bare_step):
+    """Phase 10: train the flagship configuration through the CLI for two
+    epochs, check launches, devices and files, reload the best model into
+    a predictor, time eval and checkpoints; then preempt a run with a real
+    SIGTERM after epoch 1, resume it, and hold the result against an
+    uninterrupted run."""
+    import os
+    import shutil
+    from mtvaf_tpu_torch.core.checkpoint import (load_checkpoint,
+                                                 save_checkpoint)
+    from mtvaf_tpu_torch.data.readers import PLACEHOLDER
+    from mtvaf_tpu_torch.kernels.prefix_attention import (
+        keep_mask_cuda, prefix_attention, prefix_attention_bwd_cuda)
+    from mtvaf_tpu_torch.nn.bert import BertConfig
+    from mtvaf_tpu_torch.train.optim import tree_items
+
+    bert_cfg = BertConfig.base()
+    layers = bert_cfg.num_hidden_layers
+    counters = (prefix_attention.launches, prefix_attention_bwd_cuda.launches,
+                keep_mask_cuda.launches)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        root, bert_dir, cache, ids = trainer_tree(tmp)
+        log(f"trainer data: {TRAINER_SIZES} examples (train/dev/test) cut "
+            f"from Twitter-2015's {TWITTER2015_SIZES}, {len(ids)} images "
+            f"in the pixel cache, in {time.perf_counter() - t0:.1f} s")
+        save = os.path.join(tmp, "run")
+        for c in counters:
+            c.reset()
+        t0 = time.perf_counter()
+        metrics, tr = run_cli(_trainer_argv(root, bert_dir, cache, save,
+                                            "--do_train",
+                                            "--save_checkpoints"), bert_cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1, k2, masks = (c.value for c in counters)
+
+        steps = sum(h["steps"] for h in tr.history)
+        per_eval = sum(-(-len(d) // TRAINER_EVAL_BATCH)
+                       for d in (tr.dev_dataset, tr.test_dataset))
+        eval_batches = TRAINER_EPOCHS * per_eval \
+            + -(-len(tr.test_dataset) // TRAINER_EVAL_BATCH)
+        losses = [h["train_loss"] for h in tr.history]
+        if not all(math.isfinite(x) for x in losses) or not all(
+                math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"non-finite trainer result: {losses} "
+                                 f"{metrics}")
+        if steps != TRAINER_EPOCHS * -(-TRAINER_SIZES["train"] // TRAIN_B):
+            raise AssertionError(f"{steps} train steps")
+        if k2 != layers * steps or k1 != layers * (steps + eval_batches):
+            raise AssertionError(
+                f"K1 ran {k1} and K2 {k2} times for {steps} train steps and "
+                f"{eval_batches} eval batches: not {layers} K1 + {layers} K2 "
+                f"per step and {layers} K1 per eval batch")
+        if masks != 0:
+            raise AssertionError(f"the mask entry ran {masks} times")
+        gc = tr.guide_cache
+        tensors = [p for _, p in tree_items(tr.state.params)] \
+            + list(tr.state.opt_state.mu) + list(tr.state.opt_state.nu) \
+            + [gc._dev_main, gc._dev_aux]
+        if any(t is None or not t.is_cuda for t in tensors):
+            raise AssertionError("a parameter, moment or guide-table tensor "
+                                 "is not on the card")
+        fallbacks = sum(i == PLACEHOLDER for d in (tr.train_dataset,
+                                                   tr.dev_dataset,
+                                                   tr.test_dataset)
+                        for i in d.image_ids)
+        rows = torch.tensor(sorted(gc._dev_rows.values()),
+                            device="cuda")
+        zero_rows = int((gc._dev_main.index_select(0, rows).float().abs()
+                         .amax(dim=(1, 2)) == 0).sum())
+        if fallbacks or zero_rows or gc.computed != len(ids):
+            raise AssertionError(
+                f"{fallbacks} examples fell back to the placeholder image, "
+                f"{zero_rows} main-guide rows are all zeros, "
+                f"{gc.computed} of {len(ids)} images got guides")
+        for name in ("best_model.npz", "dev_predictions.json",
+                     "test_predictions.json", "final_metrics.json",
+                     "run_config.json", "ckpt/step_2"):
+            if not os.path.exists(os.path.join(save, name)):
+                raise AssertionError(f"the run wrote no {name}")
+
+        predictor = check_predictor(tr, save)
+
+        # eval alone: one pass over each split, K1 counted per batch
+        evals = {}
+        for name, ds in (("dev", tr.dev_dataset), ("test", tr.test_dataset)):
+            prefix_attention.launches.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr._predict(ds)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            n_batches = -(-len(ds) // TRAINER_EVAL_BATCH)
+            if prefix_attention.launches.value != layers * n_batches:
+                raise AssertionError(
+                    f"{name} eval: K1 ran {prefix_attention.launches.value} "
+                    f"times in {n_batches} batches")
+            evals[name] = {"sentences": len(ds), "seconds": dt,
+                           "sentences_per_s": len(ds) / dt}
+
+        # checkpoint write and load of the full train state
+        ckpt = os.path.join(tmp, "ckpt_timing")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_checkpoint(ckpt, tr.state, step=99)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        load_checkpoint(ckpt, tr.state, 99)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        ckpt_bytes = os.path.getsize(path)
+        shutil.rmtree(ckpt)
+        split = step_split(tr)
+        guide = {"images": gc.computed, "seconds": gc.compute_s,
+                 "ms_per_image": gc.compute_s / gc.computed * 1e3}
+        out = {"epochs": tr.history, "wall_s": wall,
+               "bare_step_examples_per_s": bare_step["examples_per_s"],
+               "bare_step_wall_examples_per_s":
+                   bare_step["wall_examples_per_s"],
+               "guide_fill": guide, "eval": evals,
+               "checkpoint": {"bytes": ckpt_bytes, "write_s": write_s,
+                              "load_s": load_s},
+               "step_split": split,
+               "train_steps": steps, "eval_batches": eval_batches,
+               "k1_launches": k1, "k2_launches": k2, "mask_launches": masks,
+               "metrics": metrics}
+        out["predictor"] = predictor
+        del tr
+        shutil.rmtree(save)
+        torch.cuda.empty_cache()
+        log("trainer_path", json.dumps(out))
+
+        out["resume"] = resume_in_child(root, bert_dir, cache, tmp)
+    return out
+
+
+def check_predictor(tr, save):
+    """Training feeds serving: the port's ``load_predictor`` on the run
+    directory holds the trainer's best model bit for bit (the trainer's
+    state is that model once the CLI's test has reloaded it), its forward
+    on a dev batch gives the emissions and the tags of the trainer's
+    decode step on the same batch, and it answers raw sentences."""
+    from mtvaf_tpu_torch.data.datasets import iterate_batches
+    from mtvaf_tpu_torch.infer import load_predictor, serving_params
+    from mtvaf_tpu_torch.nn.models import crf_model_forward
+    from mtvaf_tpu_torch.train.optim import tree_items
+    from mtvaf_tpu_torch.train.steps import _split_guides, export_params
+
+    pred = load_predictor(save, device="cuda")
+    want = dict(tree_items(serving_params(export_params(tr.state),
+                                          pred.dtype, pred.device)))
+    got = dict(tree_items(pred.params))
+    if got.keys() != want.keys():
+        raise AssertionError(f"the predictor's params differ in keys: "
+                             f"{sorted(got.keys() ^ want.keys())[:8]}")
+    differ = [k for k in want if got[k].dtype != want[k].dtype
+              or not torch.equal(got[k], want[k])]
+    if differ:
+        raise AssertionError(f"the predictor's params differ from the "
+                             f"trainer's best model in {differ[:8]}")
+
+    ds = tr.dev_dataset
+    batch = tr._attach_guides(
+        next(iterate_batches(ds.arrays, TRAINER_EVAL_BATCH)), ds)
+    batch.pop("batch_valid")
+    dev = tr._device_batch(batch)
+    trained = tr.decode_step(tr.state.params, dev)
+    with torch.inference_mode():
+        served = crf_model_forward(
+            pred.params, pred.cfg, pred.bert_cfg, dev,
+            visual_guides=_split_guides(dev), dtype=pred.dtype,
+            with_loss=False, with_decode=True)
+        again = crf_model_forward(
+            export_params(tr.state), tr.cfg, tr.bert_cfg, dev,
+            visual_guides=_split_guides(dev), dtype=pred.dtype,
+            with_loss=False, with_decode=True)
+    if not torch.equal(served["emissions"], again["emissions"]):
+        gap = (served["emissions"] - again["emissions"]).abs().max().item()
+        raise AssertionError("the predictor's emissions differ from the "
+                             f"trainer's by {gap}")
+    if not torch.equal(served["pred_tags"], trained["pred_tags"]):
+        raise AssertionError("the predictor's tags differ from the "
+                             "trainer's decode step on a dev batch")
+    mask = dev["input_mask"].bool()
+    outside = tr.label_map["O"]
+    tagged = int(((trained["pred_tags"] != outside) & mask).sum())
+
+    answers = pred.predict(["the pizza was great", "service slow",
+                            "nice view from the room"])
+    if len(answers) != 3 or not all(
+            isinstance(r, list) and all(
+                isinstance(term, str) and pol in ("POS", "NEG", "NEU")
+                for term, pol in r) for r in answers):
+        raise AssertionError(f"malformed predictions {answers!r}")
+    del pred
+    torch.cuda.empty_cache()
+    return {"params_bitwise": len(want), "dev_rows_compared": int(len(mask)),
+            "dev_tokens_tagged_not_O": tagged, "answers": answers}
+
+
+def resume_in_child(root, bert_dir, cache, tmp, timeout=600):
+    """:func:`check_resume` in a process of its own: deterministic mode
+    needs cuBLAS's workspace fixed before cuBLAS starts, which would also
+    change the timed phases of this process.  Returns its result line."""
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--resume-check", root,
+         bert_dir, cache, tmp], env=env, capture_output=True, text=True,
+        timeout=timeout)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("trainer_resume ")]
+    if proc.returncode != 0 or not lines:
+        sys.stderr.write(proc.stderr[-8000:])
+        raise AssertionError(f"the resume check exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]}")
+    log(lines[-1])
+    return json.loads(lines[-1].split(" ", 1)[1])
+
+
+def step_split(tr, steps=10):
+    """Where an epoch's time goes: the trainer's step (its forward also
+    decodes the train tags) and the same step without the decode, each
+    timed over ``steps`` steps on one batch (host clock, synchronised);
+    the rest of a steady epoch's time per step is the host's ingest."""
+    from mtvaf_tpu_torch.data.datasets import iterate_batches
+    from mtvaf_tpu_torch.train.steps import make_crf_loss_fn, make_train_step
+
+    ds = tr.train_dataset
+    batch = tr._attach_guides(next(iterate_batches(ds.arrays, TRAIN_B)), ds)
+    batch.pop("batch_valid")
+    dev = tr._device_batch(batch)
+    without = make_train_step(make_crf_loss_fn(tr.cfg, tr.bert_cfg),
+                              tr.optimizer)
+    out = {}
+    for name, step in (("step_with_decode_ms", tr.train_step),
+                       ("step_without_decode_ms", without)):
+        for _ in range(3):
+            tr.state, _ = step(tr.state, dev, SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            tr.state, _ = step(tr.state, dev, SEED)
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / steps * 1e3
+    last = tr.history[-1]
+    out["epoch_ms_per_step"] = last["seconds"] / last["steps"] * 1e3
+    out["ingest_ms_per_step"] = out["epoch_ms_per_step"] \
+        - out["step_with_decode_ms"]
+    return out
+
+
+def check_resume(root, bert_dir, cache, tmp):
+    """A run stopped by a real SIGTERM after epoch 1 and resumed, against
+    an uninterrupted run, under ``torch.use_deterministic_algorithms``:
+    the end-of-training params and the optimizer state must be bitwise
+    equal.  An op without a deterministic CUDA implementation is named
+    (the mode only warns) and fails the check."""
+    import signal
+    import warnings
+    from mtvaf_tpu_torch.nn.bert import BertConfig
+    from mtvaf_tpu_torch.train import resume as resume_mod
+
+    bert_cfg = BertConfig.base()
+
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            _, straight = run_cli(_trainer_argv(
+                root, bert_dir, cache, os.path.join(tmp, "straight"),
+                "--do_train"), bert_cfg)
+            snap_a = (straight.trained_params, straight.state.step,
+                      [m.clone() for m in straight.state.opt_state.mu],
+                      [v.clone() for v in straight.state.opt_state.nu])
+            del straight
+            torch.cuda.empty_cache()
+
+            def kill_after_epoch_1(msg):
+                if msg.startswith("epoch 1 train loss"):
+                    os.kill(os.getpid(), signal.SIGTERM)
+
+            pre = os.path.join(tmp, "preempted")
+            resume_mod.clear_stop()
+            _, first = run_cli(_trainer_argv(
+                root, bert_dir, cache, pre, "--do_train",
+                "--save_checkpoints", "--checkpoint_every", "99"), bert_cfg,
+                on_epoch_log=kill_after_epoch_1)
+            stopped_at = first.state.step
+            written = sorted(os.listdir(os.path.join(pre, "ckpt")))
+            del first
+            torch.cuda.empty_cache()
+            _, rest = run_cli(_trainer_argv(
+                root, bert_dir, cache, pre, "--do_train", "--resume",
+                "--save_checkpoints", "--checkpoint_every", "99"), bert_cfg)
+        nondeterministic = sorted({str(w.message)[:160] for w in caught
+                                   if "deterministic" in str(w.message)})
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    steps_per_epoch = -(-TRAINER_SIZES["train"] // TRAIN_B)
+    if stopped_at != steps_per_epoch or written != ["meta_1.json",
+                                                    "step_1"]:
+        raise AssertionError(f"the preempted run stopped at step "
+                             f"{stopped_at} and wrote {written}")
+    params_a, step_a, mu_a, nu_a = snap_a
+    diffs = {"params": max((rest.trained_params[k].float()
+                            - params_a[k].float()).abs().max().item()
+                           for k in params_a),
+             "mu": max((a.float() - b.float()).abs().max().item()
+                       for a, b in zip(mu_a, rest.state.opt_state.mu)),
+             "nu": max((a.float() - b.float()).abs().max().item()
+                       for a, b in zip(nu_a, rest.state.opt_state.nu))}
+    bitwise = all(torch.equal(rest.trained_params[k], params_a[k])
+                  for k in params_a) \
+        and all(torch.equal(a, b) for a, b in zip(mu_a,
+                                                  rest.state.opt_state.mu)) \
+        and all(torch.equal(a, b) for a, b in zip(nu_a,
+                                                  rest.state.opt_state.nu))
+    out = {"stopped_at_step": stopped_at, "checkpoint_files": written,
+           "steps": [step_a, rest.state.step], "bitwise": bitwise,
+           "max_abs_diff": diffs, "nondeterministic_ops": nondeterministic}
+    del rest
+    torch.cuda.empty_cache()
+    log("trainer_resume", json.dumps(out))
+    if nondeterministic:
+        raise AssertionError("ops without a deterministic CUDA "
+                             f"implementation ran: {nondeterministic}")
+    if out["steps"][0] != out["steps"][1] or not bitwise:
+        raise AssertionError("the resumed run differs from the "
+                             f"uninterrupted one: {out}")
+    return out
+
+
 def _kernel_name(mangled):
     """(name, template arguments) of a mangled ``..._kernel<...>`` symbol:
     the identifier ending in "kernel" whose length prefix matches."""
@@ -906,6 +1379,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--resume-check"]:       # phase 10's child
+        check_resume(*sys.argv[2:6])
+        return 0
     from mtvaf_tpu_torch.data.tokenization import FullTokenizer
     from mtvaf_tpu_torch.kernels import build
 
@@ -936,11 +1412,15 @@ def main() -> int:
     train_path = train(cfg, bert_cfg, params)
     if "--profile" in sys.argv[1:]:
         profile_train(cfg, bert_cfg, params)
+    del params, resnet
+    torch.cuda.empty_cache()
+    trainer_path = trainer_phase(train_path)
 
     serve_row = next(r for r in k1_rows if r["shape"] == "serve_bf16")
     k2_row = next(r for r in k2_rows
                   if r["shape"] == "train_bf16" and r["rate"] > 0)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    log("profiler_misses", json.dumps(profiler_misses))
     log(card)
     log(json.dumps({"kernels": [{
         "name": "prefix_attention_fwd",
@@ -956,6 +1436,7 @@ def main() -> int:
         "serve": {"launches": serve_path["k1_launches"],
                   "max_abs_err": serve_row["max_abs_err_o"],
                   **{k: serve_row[k] for k in keys}},
+        "trainer": {"launches": trainer_path["k1_launches"]},
     }, {
         "name": "prefix_attention_bwd",
         "route": "cuda", "design": {"bfloat16": DESIGN[torch.bfloat16],
@@ -966,6 +1447,7 @@ def main() -> int:
         "launches": train_path["k2_launches"],
         "max_abs_err": k2_row["max_abs_err"],
         **{k: k2_row[k] for k in keys},
+        "trainer": {"launches": trainer_path["k2_launches"]},
     }, {
         "name": "prefix_attention_keep_mask",
         "route": "cuda", "design": "cuda-cores",
@@ -973,6 +1455,7 @@ def main() -> int:
         "replaces": "tests/test_attention_dropout_tpu.py:91",
         "on_main_path": False,
         "launches": train_path["mask_launches"],
+        "trainer": {"launches": trainer_path["mask_launches"]},
         "max_abs_err": float(mask_row["mismatches"]),
         **{k: mask_row[k] for k in keys[:4]},
         "library_ms": None,

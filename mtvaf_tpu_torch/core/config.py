@@ -1,9 +1,13 @@
 """Configuration for the port's CRF serving and training paths.
 
-The fields of ``mtvaf_tpu.core.config.Config`` that the CRF serving path and
-the CRF train step read, with the same names, defaults, checks and derived
-properties.  A training run's ``run_config.json`` holds every field of the
-full config; :meth:`Config.from_dict` keeps the ones listed here.
+The fields of ``mtvaf_tpu.core.config.Config`` that the CRF serving path,
+the CRF trainer and the CLI read, with the same names, defaults, checks and
+derived properties.  A JAX run's ``run_config.json`` holds every field of
+the full config; :meth:`Config.from_dict` keeps the ones listed here.  The
+port's own ``run_config.json`` holds only these, all of which the JAX
+package's ``Config`` accepts.  :func:`config_from_args` parses the CLI's
+``--flag`` / ``--no_flag`` surface over these fields, and
+:func:`check_ported` names what a config asks for that the port lacks.
 """
 
 from __future__ import annotations
@@ -34,9 +38,13 @@ RESNET_STAGE_CHANNELS = {
 class Config:
     dataset_name: str = "twitter15"
     bert_name: str = "bert-base-uncased"
+    num_epochs: int = 35
     train_batch_size: int = 32
+    eval_batch_size: int = 16
     lr: float = 5e-5
     warmup_ratio: float = 0.01
+    eval_begin_epoch: int = 16
+    seed: int = 1
 
     # visual prefix
     prefix_len: int = 4
@@ -52,11 +60,24 @@ class Config:
     num_anp_classes: int = 2089
     alpha: float = 0.25          # weight of the ANP loss
 
+    # auxiliary text channel
+    only_caption: bool = False   # caption-only merge files (with use_align)
+
     # probe (its head is trained only; serving never reads it)
     use_probe: bool = False
     beta: float = 0.5            # CombineLoss factor
     probe_rank: int = 384
     probe_layer: int = 7         # hidden layer the probe reads (0 = embeddings)
+    probe_ckpt: Optional[str] = None  # psdProbe .pt to warm-start the probe
+
+    # run modes / IO
+    do_train: bool = False
+    only_test: bool = False
+    load_path: Optional[str] = None
+    save_path: Optional[str] = None
+    use_pretrained: bool = False   # load_path is a torch file to transplant
+    notes: str = ""
+    cache_dir: str = "data/image_cache_dir/"
 
     # sequence / decoding
     use_align: bool = False
@@ -76,6 +97,17 @@ class Config:
     log_grad_norm: bool = False
     remat: bool = False              # per-layer checkpointing (not ported)
     deterministic: bool = False      # no train-time dropout
+    nodes: int = 1                   # hosts (multi-host is not ported)
+
+    # ingest and checkpoints
+    guide_cache_size: int = 8192     # images whose guides stay in host RAM
+                                     # (LRU; evicted entries spill to disk)
+    guide_cache_device_items: int = 8192  # rows of the device-resident bf16
+                                     # guide table (bf16 runs); 0 disables
+    profile_dir: Optional[str] = None  # trace directory (not ported)
+    save_checkpoints: bool = False   # full train state after each epoch
+    checkpoint_every: int = 1        # ... every N epochs
+    resume: bool = False             # resume from the latest checkpoint
 
     def __post_init__(self):
         if self.crf_decode_impl not in ("scan", "parallel"):
@@ -90,6 +122,10 @@ class Config:
             raise ValueError(
                 "train_batch_size must be divisible by "
                 "gradient_accumulation_steps (micro-batching)")
+        if self.checkpoint_every < 1:
+            raise ValueError(
+                "checkpoint_every must be >= 1 (use --no_save_checkpoints "
+                "to disable checkpointing)")
         if self.groups_mode not in ("all", "reference"):
             raise ValueError(
                 f"groups_mode must be 'all' or 'reference', got "
@@ -146,3 +182,46 @@ class Config:
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
+
+
+def check_ported(cfg: Config) -> None:
+    """Raise, naming the missing piece, when ``cfg`` asks the trainer or
+    the CLI for something the port does not have yet."""
+    missing = []
+    if cfg.is_span_pipeline:
+        missing.append(f"dataset {cfg.dataset_name!r} runs the span "
+                       "pipeline, which is not ported (ROADMAP A.2)")
+    if cfg.nodes > 1:
+        missing.append("nodes > 1: multi-host training is not ported "
+                       "(ROADMAP A.4)")
+    if cfg.profile_dir:
+        missing.append("profile_dir: the step profiler is not ported "
+                       "(ROADMAP A.6)")
+    if cfg.remat:
+        missing.append("remat: per-layer checkpointing is not ported")
+    if cfg.params_bf16:
+        missing.append("params_bf16: bf16 live params with an fp32 master "
+                       "are not ported")
+    if missing:
+        raise NotImplementedError("; ".join(missing))
+
+
+def config_from_args(argv=None) -> Config:
+    """Parse the CLI's flag surface into a Config: ``--field value`` for
+    every field, ``--flag`` / ``--no_flag`` for the booleans."""
+    import argparse
+
+    p = argparse.ArgumentParser(description="MTVAF training (PyTorch)")
+    for f in dataclasses.fields(Config):
+        name = "--" + f.name
+        if f.type == "bool" or isinstance(f.default, bool):
+            group = p.add_mutually_exclusive_group()
+            group.add_argument(name, dest=f.name, action="store_true",
+                               default=f.default)
+            group.add_argument("--no_" + f.name, dest=f.name,
+                               action="store_false")
+        elif f.default is None:
+            p.add_argument(name, default=None, type=str)
+        else:
+            p.add_argument(name, default=f.default, type=type(f.default))
+    return Config(**vars(p.parse_args(argv)))

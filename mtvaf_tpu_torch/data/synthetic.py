@@ -1,19 +1,41 @@
-"""Synthetic CRF training batches, made from a numpy seed.
+"""Synthetic data made from a seed: training batches, and dataset files in
+the reference's formats.
 
-The port of ``__graft_entry__._batch``, which ``bench.py`` trains on: the
-same draws from ``np.random.RandomState(seed)`` in the same order, so the
-two packages get identical batches from one seed.  Token ids are uniform
-over the vocabulary (so some are the pad id), the mask is all ones, labels
-are uniform in 1..N-1, image labels are Dirichlet(1) rows over the ANP
-classes and the cached ResNet guides are standard normal.
+* :func:`crf_batch` is the port of ``__graft_entry__._batch``, which
+  ``bench.py`` trains on: the same draws from ``np.random.RandomState(seed)``
+  in the same order, so the two packages get identical batches from one
+  seed.  Token ids are uniform over the vocabulary (so some are the pad
+  id), the mask is all ones, labels are uniform in 1..N-1, image labels are
+  Dirichlet(1) rows over the ANP classes and the cached ResNet guides are
+  standard normal.
+* :func:`make_crf_files`, :func:`make_learnable_crf_files`,
+  :func:`make_vocab_file` and :func:`make_images` are the ports of their
+  namesakes in ``mtvaf_tpu/data/synthetic.py``: the same files from the
+  same seed (the Twitter data is not redistributable).  Pipeline-B
+  ``IMGID:`` TSV with an ANP JSON (modules/dataset.py:150-209), a small
+  WordPiece vocab, and random images (PIL, imported there).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import json
+import os
+import random
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+
+WORDS = ("the phone screen battery camera service staff food pizza room view "
+         "great awful nice slow fast friendly rude amazing terrible crisp "
+         "blurry loud quiet warm cold fresh stale I we they it was is are "
+         "really very so and but with at on in of for").split()
+CRF_TYPES = ["POS", "NEG", "NEU"]
+NOUNS = ("phone screen battery camera service staff food pizza room "
+         "view").split()
+POS_WORDS = "great amazing nice friendly fresh".split()
+NEG_WORDS = "awful terrible slow rude stale".split()
+FILLER = "the was is really very so and it I".split()
 
 
 def crf_batch(cfg, bert_cfg, b: int, s: int, seed: int = 0) -> Dict:
@@ -35,3 +57,92 @@ def crf_batch(cfg, bert_cfg, b: int, s: int, seed: int = 0) -> Dict:
     ints = ("input_ids", "input_mask", "segment_ids", "label_ids")
     return {k: torch.from_numpy(v.astype(np.int64) if k in ints else v)
             for k, v in batch.items()}
+
+
+def _sentence(rng: random.Random, n_words: int) -> List[str]:
+    return [rng.choice(WORDS) for _ in range(n_words)]
+
+
+def _anp_row(rng: random.Random, num_anp: int) -> Dict[str, float]:
+    dist = [rng.random() for _ in range(num_anp)]
+    s = sum(dist)
+    return {f"anp_{k:04d}": v / s for k, v in enumerate(dist)}
+
+
+def _write(tsv_path, anp_path, lines, anp) -> None:
+    with open(tsv_path, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    with open(anp_path, "w", encoding="utf-8") as f:
+        json.dump(anp, f)
+
+
+def make_crf_files(tsv_path: str, anp_path: str, n: int, *, seed: int = 0,
+                   max_len: int = 14, num_anp: int = 16,
+                   image_ids: Optional[List[str]] = None) -> None:
+    """``n`` sentences of 4..``max_len`` words, one entity of one or two
+    words each, image ids ``700000 + i`` (or cycled from ``image_ids``),
+    and an ANP distribution per image."""
+    rng = random.Random(seed)
+    lines: List[str] = []
+    anp: Dict[str, Dict[str, float]] = {}
+    for i in range(n):
+        img = (image_ids[i % len(image_ids)] if image_ids
+               else f"{700000 + i}.jpg")
+        lines.append("IMGID:" + img[:-4])
+        length = rng.randint(4, max_len)
+        words = _sentence(rng, length)
+        tags = ["O"] * length
+        start = rng.randint(0, length - 2)
+        width = rng.randint(1, 2)
+        t = rng.choice(CRF_TYPES)
+        tags[start] = f"B-{t}"
+        for j in range(start + 1, min(start + width, length)):
+            tags[j] = f"I-{t}"
+        lines.extend(f"{w}\t{tag}" for w, tag in zip(words, tags))
+        lines.append("")
+        anp[img] = _anp_row(rng, num_anp)
+    _write(tsv_path, anp_path, lines, anp)
+
+
+def make_learnable_crf_files(tsv_path: str, anp_path: str, n: int, *,
+                             seed: int = 0, num_anp: int = 8) -> None:
+    """Sentences with a learnable rule: one aspect noun after a sentiment
+    word that sets its polarity."""
+    rng = random.Random(seed)
+    lines: List[str] = []
+    anp: Dict[str, Dict[str, float]] = {}
+    for i in range(n):
+        img = f"{800000 + (i % 4)}.jpg"
+        lines.append("IMGID:" + img[:-4])
+        noun = rng.choice(NOUNS)
+        positive = rng.random() < 0.5
+        sent_word = rng.choice(POS_WORDS if positive else NEG_WORDS)
+        t = "POS" if positive else "NEG"
+        pre = [rng.choice(FILLER) for _ in range(rng.randint(1, 3))]
+        words = pre + [sent_word, noun]
+        tags = ["O"] * len(pre) + ["O", f"B-{t}"]
+        lines.extend(f"{w}\t{tag}" for w, tag in zip(words, tags))
+        lines.append("")
+        anp[img] = _anp_row(rng, num_anp)
+    _write(tsv_path, anp_path, lines, anp)
+
+
+def make_vocab_file(path: str) -> None:
+    """Small WordPiece vocab covering the synthetic word list."""
+    specials = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    pieces = sorted(set(WORDS))
+    subwords = sorted({w[:3] for w in pieces if len(w) > 3} |
+                      {"##" + w[3:] for w in pieces if len(w) > 3})
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(specials + pieces + subwords) + "\n")
+
+
+def make_images(img_dir: str, image_ids: List[str], *, size: int = 256,
+                seed: int = 0) -> None:
+    """Uniform random RGB images, one file per id (needs PIL)."""
+    from PIL import Image
+    os.makedirs(img_dir, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    for img in image_ids:
+        arr = rng.randint(0, 255, (size, size, 3), dtype=np.uint8)
+        Image.fromarray(arr).save(os.path.join(img_dir, img))

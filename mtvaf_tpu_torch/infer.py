@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from .core.config import CRF_LABEL_LIST, Config
-from .core.platform import resolve_device
+from .core.platform import resolve_device, tree_to, upload
 from .data.features import convert_mm_examples_to_features
 from .data.images import denormalize_to_u8
 from .data.readers import MMInputExample
@@ -59,14 +59,6 @@ def _pad_rows(a, n: int):
     return np.concatenate([a, np.repeat(a[-1:], n - a.shape[0], axis=0)])
 
 
-def _tree_to(tree, device, dtype=None):
-    if isinstance(tree, dict):
-        return {k: _tree_to(v, device, dtype) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_tree_to(v, device, dtype) for v in tree]
-    return tree.to(device=device, dtype=dtype or tree.dtype)
-
-
 def serving_params(params: Dict, dtype, device) -> Dict:
     """The subtrees the decode forward reads, on ``device``: the encoder's
     matmul weights and the prefix generator pre-cast to the activation
@@ -75,14 +67,14 @@ def serving_params(params: Dict, dtype, device) -> Dict:
     or unused outputs and stay behind."""
     bert = params["bert"]
     out = {
-        "bert": {"embeddings": _tree_to(bert["embeddings"], device),
-                 "layers": _tree_to(cast_layers(bert["layers"], dtype),
-                                    device)},
-        "fc": _tree_to(params["fc"], device),
-        "crf": _tree_to(params["crf"], device),
+        "bert": {"embeddings": tree_to(bert["embeddings"], device),
+                 "layers": tree_to(cast_layers(bert["layers"], dtype),
+                                   device)},
+        "fc": tree_to(params["fc"], device),
+        "crf": tree_to(params["crf"], device),
     }
     if "prefix" in params:
-        out["prefix"] = {k: _tree_to(params["prefix"][k], device, dtype)
+        out["prefix"] = {k: tree_to(params["prefix"][k], device, dtype)
                          for k in ("conv_in", "conv_out", "projectors")}
     return out
 
@@ -98,7 +90,7 @@ class _PredictorBase:
         self.params = serving_params(params, self.dtype, self.device)
         self.resnet_params = None
         if cfg.use_prefix and resnet_params is not None:
-            self.resnet_params = _tree_to(resnet_params, self.device)
+            self.resnet_params = tree_to(resnet_params, self.device)
         # host→device transfer dtype of image rows: fp32, fp16 (cast back
         # on the device) or uint8 (raw pixels, re-normalized on the device)
         self.image_dtype = np.dtype(image_dtype)
@@ -120,12 +112,6 @@ class _PredictorBase:
                           self.tokenizer, resnet_params=self.resnet_params,
                           image_dtype=self.image_dtype, device=device)
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
-
     def _cast_image_rows(self, a) -> np.ndarray:
         """Normalized fp32 rows → this predictor's transfer representation."""
         if self.image_dtype == np.uint8:
@@ -138,10 +124,11 @@ class _PredictorBase:
         crops gets zero crops made on the device."""
         if self.resnet_params is None or images is None:
             return None
-        imgs = image_rows_to_f32(self._upload(self._cast_image_rows(images)))
+        imgs = image_rows_to_f32(
+            upload(self._cast_image_rows(images), self.device))
         if aux_images is not None:
             aux = image_rows_to_f32(
-                self._upload(self._cast_image_rows(aux_images)))
+                upload(self._cast_image_rows(aux_images), self.device))
         else:
             aux = torch.zeros((imgs.shape[0], _AUX_CROPS, _CROP, _CROP, 3),
                               dtype=torch.float32, device=self.device)
@@ -167,12 +154,17 @@ class CrfPredictor(_PredictorBase):
         self.inv_label_map[0] = "PAD"
 
     def _make_host_batch(self, sentences: Sequence[str]) -> Dict:
-        examples = [MMInputExample(guid=str(i), text_a=s,
-                                   label=["O"] * len(s.split()))
-                    for i, s in enumerate(sentences)]
+        examples = []
+        for i, s in enumerate(sentences):
+            labels = ["O"] * len(s.split())
+            examples.append(MMInputExample(
+                guid=str(i), text_a=s, img_id="", label=labels,
+                auxlabel=labels, imagelabel=None))
+        # serving reads no ANP distribution: an empty vector per row
         feats = convert_mm_examples_to_features(
-            examples, CRF_LABEL_LIST, self.cfg.effective_max_seq,
-            self.tokenizer, is_roberta=self.cfg.is_roberta)
+            examples, CRF_LABEL_LIST, CRF_LABEL_LIST,
+            self.cfg.effective_max_seq, self.tokenizer,
+            is_roberta=self.cfg.is_roberta, num_anp_classes=0)
         return {
             "input_ids": np.asarray([f.input_ids for f in feats], np.int64),
             "input_mask": np.asarray([f.input_mask for f in feats], np.int64),
@@ -185,7 +177,7 @@ class CrfPredictor(_PredictorBase):
         """The device forward of one host batch: emissions, pred_tags and
         lengths as device tensors (not synchronised)."""
         with torch.inference_mode():
-            batch = {k: self._upload(host[k])
+            batch = {k: upload(host[k], self.device)
                      for k in ("input_ids", "input_mask", "segment_ids")}
             return crf_model_forward(
                 self.params, self.cfg, self.bert_cfg, batch,

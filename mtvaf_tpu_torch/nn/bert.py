@@ -58,6 +58,27 @@ class BertConfig:
         return BertConfig()
 
     @staticmethod
+    def from_hf_dir(path: str, is_roberta: bool = False) -> "BertConfig":
+        """From a local HF checkpoint's ``config.json``, or :meth:`base`
+        when the directory has none."""
+        import dataclasses
+        import json
+        import os
+        p = os.path.join(path, "config.json")
+        if not os.path.isfile(p):
+            return BertConfig.base(is_roberta)
+        with open(p) as f:
+            d = json.load(f)
+        is_roberta = is_roberta or d.get("model_type") == "roberta"
+        keys = ("vocab_size", "hidden_size", "num_hidden_layers",
+                "num_attention_heads", "intermediate_size",
+                "max_position_embeddings", "type_vocab_size",
+                "hidden_dropout_prob", "attention_probs_dropout_prob",
+                "layer_norm_eps", "initializer_range", "pad_token_id")
+        return dataclasses.replace(BertConfig.base(is_roberta),
+                                   **{k: d[k] for k in keys if k in d})
+
+    @staticmethod
     def tiny(is_roberta: bool = False, **kw) -> "BertConfig":
         """Small config for tests."""
         base = dict(vocab_size=99, hidden_size=32, num_hidden_layers=4,

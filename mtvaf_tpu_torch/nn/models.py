@@ -132,8 +132,9 @@ def crf_model_forward(params, cfg, bert_cfg: BertConfig, batch: Dict,
         if cfg.crf_decode_impl != "scan":
             raise NotImplementedError(
                 "crf_decode_impl='parallel' is not ported")
-        tags, lengths = crf_decode(params["crf"], emissions,
-                                   batch["input_mask"])
+        with torch.no_grad():
+            tags, lengths = crf_decode(params["crf"], emissions.detach(),
+                                       batch["input_mask"])
         result["pred_tags"] = tags
         result["lengths"] = lengths
     return result
@@ -210,15 +211,18 @@ def init_prefix_params(rng, *, in_channels: int, mid_dim: int,
     return params
 
 
-def init_crf_model_params(cfg, bert_cfg: BertConfig, *, seed: int = 0
-                          ) -> Dict:
+def init_crf_model_params(cfg, bert_cfg: BertConfig, *, seed: int = 0,
+                          bert_params=None) -> Dict:
     """Random CRF-model params with the tree of the JAX package's
-    ``init_crf_model_params`` (bert, fc, crf, prefix, probe)."""
+    ``init_crf_model_params`` (bert, fc, crf, prefix, probe).  Given
+    ``bert_params`` (pretrained weights), the encoder is those and draws
+    no random weights."""
     rng = np.random.default_rng(seed)
     h, n = bert_cfg.hidden_size, cfg.num_crf_labels
     u = lambda shape: rng.uniform(-0.1, 0.1, shape).astype(np.float32)  # noqa
     params = {
-        "bert": init_bert_params(rng, bert_cfg),
+        "bert": bert_params if bert_params is not None
+        else init_bert_params(rng, bert_cfg),
         "fc": _dense_init(rng, h, n),
         "crf": {"start": u((n,)), "end": u((n,)), "transitions": u((n, n))},
     }

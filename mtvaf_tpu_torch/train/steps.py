@@ -3,10 +3,11 @@
 Counterpart of the CRF half of ``mtvaf_tpu/train/steps.py``:
 ``create_train_state`` → ``make_crf_loss_fn`` → ``make_train_step``, one
 forward + backward + AdamW update per call, with optional gradient
-accumulation over micro-batches.  PyTorch runs eagerly, so the step is a
-plain function; the gradient is ``torch.autograd.grad`` over the parameter
-leaves (a leaf the loss does not reach gets zeros, as ``jax.grad`` gives),
-and the update is :class:`..train.optim.AdamW`, in place.
+accumulation over micro-batches; ``make_crf_decode_step`` is the eval
+forward.  PyTorch runs eagerly, so the step is a plain function; the
+gradient is ``torch.autograd.grad`` over the parameter leaves (a leaf the
+loss does not reach gets zeros, as ``jax.grad`` gives), and the update is
+:class:`..train.optim.AdamW`, in place.
 
 A step's randomness is the host generator ``fold_in(seed, state.step)``
 (``core.rng``), the counterpart of the JAX package's per-step
@@ -53,22 +54,45 @@ def create_train_state(params, optimizer, device=None) -> TrainState:
     return TrainState(params=params, opt_state=optimizer.init(params), step=0)
 
 
+def export_params(state: TrainState):
+    """The model params of a train state (the template for best-model
+    saves, transplant and torch interop)."""
+    return state.params
+
+
+@torch.no_grad()
+def replace_params(state: TrainState, new_params) -> TrainState:
+    """Copy ``new_params`` (a tree of the same structure, on any device)
+    into the live params in place (best-model reload, transplant); the
+    optimizer state is kept."""
+    new = dict(tree_items(new_params))
+    for path, p in tree_items(state.params):
+        p.copy_(torch.as_tensor(new[path]))
+    return state
+
+
 def _split_guides(batch: Dict):
     if "main_guides" in batch:
         return batch["main_guides"], batch.get("aux_guides")
     return None
 
 
-def make_crf_loss_fn(cfg, bert_cfg: BertConfig):
+def make_crf_loss_fn(cfg, bert_cfg: BertConfig, with_decode: bool = False):
     """loss_fn(params, batch, generator) -> (loss, metrics): the CRF loss
-    with the probe and ANP terms, in bf16 activations under ``cfg.bf16``."""
+    with the probe and ANP terms, in bf16 activations under ``cfg.bf16``.
+    ``with_decode`` adds the Viterbi tags of the step's own forward to the
+    metrics (``pred_tags``, on the device): decoded before the update, with
+    the transitions the loss saw, as the JAX package fuses it."""
     dtype = torch.bfloat16 if cfg.bf16 else torch.float32
 
     def loss_fn(params, batch, generator):
         out = crf_model_forward(params, cfg, bert_cfg, batch,
                                 visual_guides=_split_guides(batch),
-                                generator=generator, dtype=dtype)
+                                generator=generator, dtype=dtype,
+                                with_decode=with_decode)
         metrics = {"loss": out["loss"], "emissions": out["emissions"]}
+        if with_decode:
+            metrics["pred_tags"] = out["pred_tags"]
         if "probe_loss" in out:
             metrics["probe_loss"] = out["probe_loss"]
         metrics["img_tag_loss"] = torch.as_tensor(
@@ -135,3 +159,21 @@ def make_train_step(loss_fn: Callable, optimizer, *, accum_steps: int = 1,
         return finish(state, grads, metrics)
 
     return accum_step if accum_steps > 1 else single_step
+
+
+def make_crf_decode_step(cfg, bert_cfg: BertConfig) -> Callable:
+    """decode(params, batch) -> {loss, pred_tags, lengths}: the eval
+    forward (no dropout, no gradient) with the loss and the Viterbi path,
+    device tensors not synchronised."""
+    dtype = torch.bfloat16 if cfg.bf16 else torch.float32
+
+    @torch.no_grad()
+    def decode(params, batch):
+        out = crf_model_forward(params, cfg, bert_cfg, batch,
+                                visual_guides=_split_guides(batch),
+                                generator=None, dtype=dtype, with_loss=True,
+                                with_decode=True)
+        return {"loss": out["loss"], "pred_tags": out["pred_tags"],
+                "lengths": out["lengths"]}
+
+    return decode
