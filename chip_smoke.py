@@ -9,17 +9,20 @@ Phases, each of which fails the run by raising:
    nvcc per source, all started together), print each instance's ptxas
    registers, static shared memory and spills, and fail on a spill;
 2. hold the prefix-attention forward kernel (K1) against its plain PyTorch
-   version on the card, at the shapes the serving path gives it, and time
-   kernel, plain version and the one-call PyTorch yardstick (SDPA) beside
-   the kernel's bound (each row names its dtype's design: bf16 on wgmma
-   fed by TMA, fp32 on the CUDA cores; its share of the bound; its time
-   over SDPA's);
+   version on the card, at the shapes the serving path gives it and at the
+   span pipeline's (``span_s128``: B=32, S=T=128; ``span_s500``: S=T=500,
+   a length that is not a multiple of 64; no prefix, bias (B,1,1,S)) with
+   dropout 0.1 and without, and time kernel, plain version and the
+   one-call PyTorch yardstick (SDPA) beside the kernel's bound (each row
+   names its dtype's design: bf16 on wgmma fed by TMA, fp32 on the CUDA
+   cores; its share of the bound; its time over SDPA's);
 3. at the train shape: the dropout-mask entry point's masks bit-identical
    to the plain Philox masks, the kept fraction within 1% of 1 - rate, and
    K1 with dropout against the plain forward given the same masks;
 4. hold the backward kernel (K2) against the plain backward in the same
    dtype and against fp32 autograd of the plain forward, at the train shape
-   (bf16 and fp32) and at S=512 (bf16), with dropout off and on; time K2
+   (bf16 and fp32), at S=512 (bf16) and at the two span shapes (bf16),
+   with dropout off and on; time K2
    (and each of its two passes), the plain backward and SDPA's backward
    beside K2's bound;
 5. check the whole decode forward on the card against the same forward on
@@ -55,7 +58,21 @@ Phases, each of which fails the run by raising:
    uninterrupted run's bit for bit (under
    ``torch.use_deterministic_algorithms``, in a child process started with
    ``--resume-check``, so that the fixed cuBLAS workspace it needs does not
-   reach the timed phases).
+   reach the timed phases);
+11. span: the span pipeline (text-only BERT-base, twitter15) with random
+   weights from a seed: (a) the bare span train step
+   (``make_span_loss_fn`` → ``make_train_step``, one fixed ``span_batch``,
+   B=32, S=128, 20 candidates of width up to 12, bf16, dropout live; 15
+   untimed and 30 timed steps; finite losses, the last 5 below the first,
+   12 K1 and 12 K2 launches per step); (b) one fp32 span step on the card
+   against the CPU (B=2, S=32, TF32 off, no dropout); (c) the CLI →
+   ``SpanTrainer`` for 2 epochs on a synthetic Twitter-2015 span tree
+   (320/96/96 sentences), 12 K1 + 12 K2 per train step and 12 K1 per eval
+   batch, eval sentences/s and the host's candidate/NMS share of it; (d)
+   ``load_predictor`` on that run → ``BatchingServer`` → ``SpanPredictor``,
+   64 requests from 16 threads, each result equal to ``predict_many``'s,
+   the serving params and a dev batch's extraction logits equal to the
+   trainer's bit for bit.
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times: the
 kernels' summed durations under ``torch.profiler``.  ``event_ms`` is the
@@ -116,6 +133,10 @@ TRAIN_B, TRAIN_S = 32, 128
 # BERT-base width, the loss first rises through the 10-step warmup (to 4x
 # step 1's by step 17 on the card) and is back below step 1's only by ~35.
 WARMUP_STEPS, TIMED_STEPS = 15, 30
+# The span pipeline's attention shapes (no prefix: T = S, bias (B,1,1,S)):
+# the text-only configuration's S=128, and S=500 under --use_align.
+SPAN_SHAPES = {"span_s128": (TRAIN_B, 12, 128, 128, 64, torch.bfloat16),
+               "span_s500": (TRAIN_B, 12, 500, 500, 64, torch.bfloat16)}
 
 
 def log(*a):
@@ -234,23 +255,31 @@ def check_prefix_attention():
     import torch.nn.functional as F
 
     from mtvaf_tpu_torch.kernels.prefix_attention import (
-        prefix_attention_cuda, prefix_attention_reference)
+        keep_factors, prefix_attention_cuda, prefix_attention_reference)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
-    for name, (b, h, s, t, d, dtype) in {
-            "serve_bf16": (16, 12, 128, 144, 64, torch.bfloat16),
-            "serve_fp32": (16, 12, 128, 144, 64, torch.float32),
-            "s512_bf16": (16, 12, 512, 528, 64, torch.bfloat16)}.items():
+    for name, (b, h, s, t, d, dtype), rate in (
+            ("serve_bf16", (16, 12, 128, 144, 64, torch.bfloat16), 0.0),
+            ("serve_fp32", (16, 12, 128, 144, 64, torch.float32), 0.0),
+            ("s512_bf16", (16, 12, 512, 528, 64, torch.bfloat16), 0.0),
+            *((span, shape, r) for span, shape in SPAN_SHAPES.items()
+              for r in (0.0, 0.1))):
         q, k, v, bias = attention_inputs(g, b, h, s, t, d, dtype)
-        o, lse = prefix_attention_cuda(q, k, v, bias)
+        keep = keep_factors(DROPOUT_SEED, rate, (b, h, s, t), dev) \
+            if rate else None
+        o, lse = prefix_attention_cuda(q, k, v, bias, seed=DROPOUT_SEED,
+                                       rate=rate)
         torch.cuda.synchronize()
-        ro, rlse = prefix_attention_reference(q, k, v, bias)
+        ro, _ = prefix_attention_reference(q, k, v, bias, keep)
+        _, rlse = prefix_attention_reference(q, k, v, bias)  # dropout-free
         err_o = (o.float() - ro.float()).abs().max().item()
         err_lse = (lse - rlse).abs().max().item()
-        fo, flse = prefix_attention_reference(q.float(), k.float(),
-                                              v.float(), bias)
+        fo, _ = prefix_attention_reference(q.float(), k.float(), v.float(),
+                                           bias, keep)
+        _, flse = prefix_attention_reference(q.float(), k.float(),
+                                             v.float(), bias)
         err_fp32 = (o.float() - fo).abs().max().item()
         err_lse_fp32 = (lse - flse).abs().max().item()
         ok = (math.isfinite(err_o) and err_o <= K1_ATOL[dtype]
@@ -258,14 +287,18 @@ def check_prefix_attention():
               and err_fp32 <= K1_ATOL_VS_FP32[dtype]
               and err_lse_fp32 <= K1_ATOL_VS_FP32[dtype])
         mask_q = bias.to(dtype)
-        ms = device_ms(lambda: prefix_attention_cuda(q, k, v, bias))
-        event_ms = cuda_ms(lambda: prefix_attention_cuda(q, k, v, bias))
+        ms = device_ms(lambda: prefix_attention_cuda(
+            q, k, v, bias, seed=DROPOUT_SEED, rate=rate))
+        event_ms = cuda_ms(lambda: prefix_attention_cuda(
+            q, k, v, bias, seed=DROPOUT_SEED, rate=rate))
         plain_ms = device_ms(lambda: prefix_attention_reference(q, k, v,
-                                                                bias))
+                                                                bias, keep))
         lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask_q))
+            q, k, v, attn_mask=mask_q, dropout_p=rate))
         bound_ms, bound_by, nbytes, flops = k1_bound(b, h, s, t, d, dtype)
+        del keep
         row = {"shape": name, "B": b, "H": h, "S": s, "T": t, "D": d,
+               "rate": rate,
                "dtype": str(dtype).split(".")[1], "max_abs_err_o": err_o,
                "max_abs_err_lse": err_lse, "max_abs_err_o_vs_fp32": err_fp32,
                "max_abs_err_lse_vs_fp32": err_lse_fp32,
@@ -388,7 +421,8 @@ def check_backward():
                            torch.bfloat16),
             "train_fp32": (TRAIN_B, 12, TRAIN_S, TRAIN_S + 16, 64,
                            torch.float32),
-            "s512_bf16": (16, 12, 512, 528, 64, torch.bfloat16)}.items():
+            "s512_bf16": (16, 12, 512, 528, 64, torch.bfloat16),
+            **SPAN_SHAPES}.items():
         q, k, v, bias = attention_inputs(g, b, h, s, t, d, dtype)
         do = torch.randn(b, h, s, d, device=dev, generator=g).to(dtype)
         for rate in (0.0, 0.1):
@@ -682,17 +716,24 @@ def breakdown(pred):
 # Phase 6: one fp32 train step on the card against the CPU.
 
 
-def check_train_step_against_cpu(cfg, bert_cfg, params, device="cuda"):
-    from mtvaf_tpu_torch.data.synthetic import crf_batch
+def check_train_step_against_cpu(cfg, bert_cfg, params, device="cuda",
+                                 span=False):
+    """One fp32 step's loss and gradients on the card against the CPU:
+    the CRF step, or with ``span`` the span step."""
+    from mtvaf_tpu_torch.data.synthetic import crf_batch, span_batch
     from mtvaf_tpu_torch.train.optim import build_optimizer, tree_items
     from mtvaf_tpu_torch.train.steps import (create_train_state,
-                                             make_crf_loss_fn)
+                                             make_crf_loss_fn,
+                                             make_span_loss_fn)
 
     cfg32 = cfg.replace(bf16=False)
-    loss_fn = make_crf_loss_fn(cfg32, bert_cfg)
+    make_loss, make_batch, pipeline = \
+        (make_span_loss_fn, span_batch, "span") if span \
+        else (make_crf_loss_fn, crf_batch, "crf")
+    loss_fn = make_loss(cfg32, bert_cfg)
     optimizer, _ = build_optimizer(params, cfg32, total_steps=1000,
-                                   pipeline="crf")
-    batch = crf_batch(cfg, bert_cfg, 2, 32, seed=SEED + 5)
+                                   pipeline=pipeline)
+    batch = make_batch(cfg, bert_cfg, 2, 32, seed=SEED + 5)
     prev = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -725,11 +766,15 @@ def check_train_step_against_cpu(cfg, bert_cfg, params, device="cuda"):
             / (1e-3 * max(1.0, want.abs().max().item()))
         if not math.isfinite(ratio) or ratio > worst:
             worst, worst_path = ratio, path
-    log(f"train step fp32 card vs CPU (B=2, S=32): loss {loss_gpu:.6f} vs "
+    log(f"{pipeline} train step fp32 card vs CPU (B=2, S=32): loss "
+        f"{loss_gpu:.6f} vs "
         f"{loss_cpu:.6f} (rel {rel:.2e}, limit 1e-4); worst gradient leaf "
         f"{worst_path} at {worst:.3f} of its limit 1e-3*max(1, max|g|)")
     if not (rel <= 1e-4 and worst <= 1.0):
-        raise AssertionError("train step on the card disagrees with the CPU")
+        raise AssertionError(f"{pipeline} train step on the card disagrees "
+                             "with the CPU")
+    return {"loss_rel_err": rel, "worst_leaf": worst_path,
+            "worst_share_of_limit": worst}
 
 
 # ---------------------------------------------------------------------------
@@ -925,17 +970,21 @@ def trainer_tree(tmp):
     return root, os.path.join(tmp, "bert"), os.path.join(tmp, "cache"), ids
 
 
-def run_cli(argv, bert_cfg, on_epoch_log=None):
+def run_cli(argv, bert_cfg, on_epoch_log=None, span=False):
     """``cli.main.main(argv)`` with the trainer it built kept (and its
     params at the end of ``train()``, before the CLI reloads the best
-    model); ``on_epoch_log`` is called with each trainer log message."""
+    model); ``on_epoch_log`` is called with each trainer log message.
+    ``span``: the run trains the span model (``SpanTrainer``)."""
     import logging
     import mtvaf_tpu_torch.train.trainer_crf as trainer_crf
+    import mtvaf_tpu_torch.train.trainer_span as trainer_span
     from mtvaf_tpu_torch.cli.main import main as cli_main
     from mtvaf_tpu_torch.train.optim import tree_items
 
     made = []
-    base_cls = trainer_crf.CrfTrainer
+    module, cls_name = (trainer_span, "SpanTrainer") if span \
+        else (trainer_crf, "CrfTrainer")
+    base_cls = getattr(module, cls_name)
 
     class Kept(base_cls):
         def __init__(self, *a, **kw):
@@ -952,16 +1001,16 @@ def run_cli(argv, bert_cfg, on_epoch_log=None):
         def emit(self, record):
             on_epoch_log(record.getMessage())
 
-    log = logging.getLogger("mtvaf_tpu_torch.train.trainer_crf")
+    log = logging.getLogger(module.__name__)
     hook = Hook() if on_epoch_log else None
-    trainer_crf.CrfTrainer = Kept
+    setattr(module, cls_name, Kept)
     if hook:
         log.addHandler(hook)
     try:
         metrics = cli_main(argv, bert_cfg_override=bert_cfg,
                            device="cuda")
     finally:
-        trainer_crf.CrfTrainer = base_cls
+        setattr(module, cls_name, base_cls)
         if hook:
             log.removeHandler(hook)
     return metrics, made[0]
@@ -1311,6 +1360,337 @@ def check_resume(root, bert_dir, cache, tmp):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the span pipeline (text-only BERT-base, twitter15).
+
+SPAN_N_BEST, SPAN_WIDTH = 20, 12    # the reference's n_best_size and
+                                    # max_answer_length
+TWITTER15_SIZES = {"train": 3179, "dev": 1122, "test": 1037}
+
+
+def span_config():
+    from mtvaf_tpu_torch.core.config import Config
+    return Config(dataset_name="twitter15", bf16=True, max_seq=TRAIN_S,
+                  n_best_size=SPAN_N_BEST, max_answer_length=SPAN_WIDTH)
+
+
+def span_train(bert_cfg):
+    """(a) The bare span train step: ``make_span_loss_fn`` →
+    ``make_train_step`` on one fixed ``span_batch`` (B=32, S=128, n_best
+    20, W=12), bf16, dropout live, 15 untimed and 30 timed steps."""
+    from mtvaf_tpu_torch.core.convert import params_from_jax
+    from mtvaf_tpu_torch.core.flops import (H100_BF16_PEAK,
+                                            train_flops_per_example)
+    from mtvaf_tpu_torch.data.synthetic import span_batch
+    from mtvaf_tpu_torch.kernels.prefix_attention import (
+        keep_mask_cuda, prefix_attention, prefix_attention_bwd_cuda)
+    from mtvaf_tpu_torch.nn.models import init_span_model_params
+    from mtvaf_tpu_torch.train.optim import build_optimizer
+    from mtvaf_tpu_torch.train.steps import (create_train_state,
+                                             make_span_loss_fn,
+                                             make_train_step)
+
+    cfg = span_config()
+    t0 = time.perf_counter()
+    params = params_from_jax(init_span_model_params(cfg, bert_cfg,
+                                                    seed=SEED))
+    optimizer, _ = build_optimizer(params, cfg, total_steps=1000,
+                                   pipeline="span")
+    state = create_train_state(params, optimizer, device="cuda")
+    step = make_train_step(make_span_loss_fn(cfg, bert_cfg), optimizer)
+    batch = {k: v.cuda() for k, v in span_batch(
+        cfg, bert_cfg, TRAIN_B, TRAIN_S, seed=SEED).items()}
+    losses = []
+    for _ in range(WARMUP_STEPS):
+        state, metrics = step(state, batch, SEED)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    counters = (prefix_attention.launches, prefix_attention_bwd_cuda.launches,
+                keep_mask_cuda.launches)
+    for c in counters:
+        c.reset()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(TIMED_STEPS):
+        state, metrics = step(state, batch, SEED)
+        losses.append(metrics["loss"])
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2, masks = (c.value for c in counters)
+    losses = [x.item() for x in losses]
+    step_ms = start.elapsed_time(end) / TIMED_STEPS
+    ex_per_s = TRAIN_B / (step_ms / 1e3)
+    flops = train_flops_per_example(bert_cfg, TRAIN_S, prefix_len=0)
+    out = {"batch": TRAIN_B, "seq": TRAIN_S, "n_best": SPAN_N_BEST,
+           "width": SPAN_WIDTH, "steps": TIMED_STEPS,
+           "setup_and_untimed_s": setup_s, "step_ms": step_ms,
+           "wall_step_ms": wall / TIMED_STEPS * 1e3,
+           "examples_per_s": ex_per_s,
+           "wall_examples_per_s": TRAIN_B * TIMED_STEPS / wall,
+           "flops_per_example": flops,
+           "mfu": flops * ex_per_s / H100_BF16_PEAK,
+           "k1_launches": k1, "k2_launches": k2, "mask_launches": masks,
+           "losses": losses}
+    log("span_train_step", json.dumps(out))
+    layers = bert_cfg.num_hidden_layers
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite span train loss: {losses}")
+    if not sum(losses[-5:]) / 5 < losses[0]:
+        raise AssertionError(f"span train loss did not fall: {losses}")
+    if k1 != layers * TIMED_STEPS or k2 != layers * TIMED_STEPS or masks:
+        raise AssertionError(f"K1 ran {k1}, K2 {k2} and the mask entry "
+                             f"{masks} times in {TIMED_STEPS} span steps")
+    del state, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def span_tree(tmp):
+    """The reference's span layout under ``tmp`` (``data/twitter2015/
+    {train,valid,test}.txt``, learnable sentences from the port's
+    ``data/synthetic.py``) and a ``bert`` directory with a vocab."""
+    from mtvaf_tpu_torch.data.synthetic import (make_learnable_span_file,
+                                                make_vocab_file)
+    root = os.path.join(tmp, "span_data")
+    base = os.path.join(root, "twitter2015")
+    bert_dir = os.path.join(tmp, "span_bert")
+    for d in (base, bert_dir):
+        os.makedirs(d, exist_ok=True)
+    for k, (mode, fname) in enumerate((("train", "train.txt"),
+                                       ("dev", "valid.txt"),
+                                       ("test", "test.txt"))):
+        make_learnable_span_file(os.path.join(base, fname),
+                                 TRAINER_SIZES[mode], seed=SEED + k)
+    make_vocab_file(os.path.join(bert_dir, "vocab.txt"))
+    return root, bert_dir
+
+
+def span_requests(n, seed):
+    from mtvaf_tpu_torch.data.synthetic import WORDS as SYN_WORDS
+    rng = np.random.default_rng(seed)
+    return [" ".join(rng.choice(SYN_WORDS, size=int(rng.integers(3, 30))))
+            for _ in range(n)]
+
+
+def span_phase(bare_step):
+    """Phase 11: (a) the bare span train step; (b) one fp32 span step on
+    the card against the CPU; (c) the span trainer through the CLI for two
+    epochs; (d) ``load_predictor`` on its run directory behind
+    ``BatchingServer``, held to ``predict_many`` and, on a dev batch, to
+    the trainer's extraction step bit for bit."""
+    import mtvaf_tpu_torch.train.trainer_span as trainer_span
+    from mtvaf_tpu_torch.core.convert import params_from_jax
+    from mtvaf_tpu_torch.data.datasets import iterate_batches
+    from mtvaf_tpu_torch.infer import (SpanPredictor, load_predictor,
+                                       serving_params)
+    from mtvaf_tpu_torch.kernels.prefix_attention import (
+        keep_mask_cuda, prefix_attention, prefix_attention_bwd_cuda)
+    from mtvaf_tpu_torch.nn.bert import BertConfig
+    from mtvaf_tpu_torch.nn.models import init_span_model_params
+    from mtvaf_tpu_torch.serve import BatchingServer
+    from mtvaf_tpu_torch.train.optim import tree_items
+    from mtvaf_tpu_torch.train.steps import export_params
+
+    bert_cfg = BertConfig.base()
+    layers = bert_cfg.num_hidden_layers
+    t_phase = time.perf_counter()
+    out = {"train_step": span_train(bert_cfg)}
+    out["bare_crf_step_examples_per_s"] = bare_step["examples_per_s"]
+
+    # (b) one fp32 span step, card against CPU
+    cfg = span_config()
+    out["fp32_step_vs_cpu"] = check_train_step_against_cpu(
+        cfg, bert_cfg, params_from_jax(init_span_model_params(
+            cfg, bert_cfg, seed=SEED + 6)), span=True)
+    torch.cuda.empty_cache()
+
+    counters = (prefix_attention.launches, prefix_attention_bwd_cuda.launches,
+                keep_mask_cuda.launches)
+    with tempfile.TemporaryDirectory() as tmp:
+        # (c) the trainer through the CLI
+        root, bert_dir = span_tree(tmp)
+        save = os.path.join(tmp, "span_run")
+        # --logit_threshold 0: with random weights no start + end logit
+        # pair reaches the reference's 8.0, so eval would pick nothing (its
+        # loss the reference's NaN) and serving would answer only empty
+        # lists, leaving the checks below nothing to compare
+        argv = ["--dataset_name", "twitter15", "--bert_name", bert_dir,
+                "--logit_threshold", "0",
+                "--data_root", root, "--save_path", save, "--bf16",
+                "--max_seq", str(TRAIN_S), "--train_batch_size",
+                str(TRAIN_B), "--eval_batch_size", str(TRAINER_EVAL_BATCH),
+                "--num_epochs", str(TRAINER_EPOCHS), "--eval_begin_epoch",
+                "1", "--seed", str(SEED), "--do_train", "--save_checkpoints"]
+        for c in counters:
+            c.reset()
+        t0 = time.perf_counter()
+        metrics, tr = run_cli(argv, bert_cfg, span=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1, k2, masks = (c.value for c in counters)
+        steps = sum(h["steps"] for h in tr.history)
+        eval_batches = TRAINER_EPOCHS * -(-len(tr.dev_dataset)
+                                          // TRAINER_EVAL_BATCH) \
+            + -(-len(tr.test_dataset) // TRAINER_EVAL_BATCH)
+        losses = [h["train_loss"] for h in tr.history]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"non-finite span trainer loss: {losses}")
+        if steps != TRAINER_EPOCHS * -(-TRAINER_SIZES["train"] // TRAIN_B):
+            raise AssertionError(f"{steps} span train steps")
+        if k2 != layers * steps or k1 != layers * (steps + eval_batches) \
+                or masks:
+            raise AssertionError(
+                f"K1 ran {k1}, K2 {k2}, the mask entry {masks} times for "
+                f"{steps} span train steps and {eval_batches} eval "
+                f"batches: not {layers} K1 + {layers} K2 per step and "
+                f"{layers} K1 per eval batch")
+        if any(not p.is_cuda for _, p in tree_items(tr.state.params)):
+            raise AssertionError("a span parameter is not on the card")
+        for name in ("best_model.npz", "train_predictions.json",
+                     "dev_predictions.json", "test_predictions.json",
+                     "final_metrics.json", "run_config.json", "ckpt/step_2"):
+            if not os.path.exists(os.path.join(save, name)):
+                raise AssertionError(f"the span run wrote no {name}")
+
+        # eval alone, with the host's candidate/NMS share of its wall time
+        host = {"s": 0.0}
+        picker = trainer_span.batch_eval_candidates
+
+        def timed_picker(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return picker(*a, **kw)
+            finally:
+                host["s"] += time.perf_counter() - t
+
+        evals = {}
+        trainer_span.batch_eval_candidates = timed_picker
+        try:
+            for name, ds in (("dev", tr.dev_dataset),
+                             ("test", tr.test_dataset)):
+                prefix_attention.launches.reset()
+                host["s"] = 0.0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, loss = tr._predict(ds, compute_loss=True)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                n_batches = -(-len(ds) // TRAINER_EVAL_BATCH)
+                if prefix_attention.launches.value != layers * n_batches:
+                    raise AssertionError(
+                        f"span {name} eval: K1 ran "
+                        f"{prefix_attention.launches.value} times in "
+                        f"{n_batches} batches")
+                evals[name] = {"sentences": len(ds), "seconds": dt,
+                               "sentences_per_s": len(ds) / dt,
+                               "host_candidates_s": host["s"],
+                               "host_candidates_share": host["s"] / dt,
+                               "loss": loss}
+        finally:
+            trainer_span.batch_eval_candidates = picker
+        out["trainer"] = {
+            "epochs": tr.history, "wall_s": wall, "metrics": metrics,
+            "sizes": TRAINER_SIZES, "cut_from": TWITTER15_SIZES,
+            "bare_step_examples_per_s": out["train_step"]["examples_per_s"],
+            "train_steps": steps, "eval_batches": eval_batches,
+            "k1_launches": k1, "k2_launches": k2, "mask_launches": masks,
+            "eval": evals}
+        log("span_trainer_path", json.dumps(out["trainer"]))
+
+        # (d) serving the run directory
+        pred = load_predictor(save, device="cuda")
+        if not isinstance(pred, SpanPredictor):
+            raise AssertionError(f"load_predictor built {type(pred)}")
+        want = dict(tree_items(serving_params(export_params(tr.state),
+                                              pred.dtype, pred.device)))
+        got = dict(tree_items(pred.params))
+        if got.keys() != want.keys() or any(
+                got[k].dtype != want[k].dtype
+                or not torch.equal(got[k], want[k]) for k in want):
+            raise AssertionError("the span predictor's params differ from "
+                                 "the trainer's best model")
+        ds = tr.dev_dataset
+        b = next(iterate_batches(ds.arrays, TRAINER_EVAL_BATCH))
+        b.pop("batch_valid")
+        s_tr, e_tr, _, _ = tr.extraction_step(tr.state.params,
+                                              tr._device_batch(b))
+        s_pr, e_pr, _, _ = pred.extract(
+            {k: b[k].astype(np.int64) for k in ("input_ids", "input_mask",
+                                                "segment_ids")})
+        if not (torch.equal(s_tr, s_pr) and torch.equal(e_tr, e_pr)):
+            gap = max((s_tr - s_pr).abs().max().item(),
+                      (e_tr - e_pr).abs().max().item())
+            raise AssertionError("the predictor's extraction logits differ "
+                                 f"from the trainer's by {gap}")
+        del tr
+        torch.cuda.empty_cache()
+
+        sents = span_requests(N_REQUESTS, seed=SEED + 11)
+        server = BatchingServer(pred, max_batch=16, max_wait_ms=5.0,
+                                pipeline_depth=4)
+        results, errors = [None] * len(sents), []
+        try:
+            server.warmup()
+            torch.cuda.synchronize()
+
+            def client(idx):
+                try:
+                    for i in idx:
+                        results[i] = server.submit(sents[i]).result(
+                            timeout=300)
+                except BaseException as e:    # re-raised on the main thread
+                    errors.append(e)
+
+            prefix_attention.launches.reset()
+            t0 = time.perf_counter()
+            threads = [threading.Thread(
+                target=client, args=(range(c, len(sents), CLIENTS),))
+                for c in range(CLIENTS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            torch.cuda.synchronize()
+            serve_wall = time.perf_counter() - t0
+            serve_k1 = prefix_attention.launches.value
+            stats = server.stats()
+        finally:
+            server.close()
+        if errors:
+            raise errors[0]
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("a span client did not finish")
+        many = pred.predict_many(sents, batch_size=16)
+        if results != many:
+            bad = [i for i, (r, m) in enumerate(zip(results, many)) if r != m]
+            raise AssertionError(f"served span results differ from "
+                                 f"predict_many at requests {bad[:8]}")
+        if stats["served"] != len(sents) or serve_k1 != layers \
+                * stats["batches"]:
+            raise AssertionError(f"span serving: served {stats['served']}, "
+                                 f"K1 ran {serve_k1} times for "
+                                 f"{stats['batches']} batches")
+        out["serve"] = {"requests": len(sents), "batches": stats["batches"],
+                        "mean_batch": stats["mean_batch"],
+                        "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
+                        "wall_s": serve_wall,
+                        "sentences_per_s": len(sents) / serve_wall,
+                        "k1_launches": serve_k1,
+                        "spans": sum(len(r) for r in results),
+                        "extraction_bitwise_rows": TRAINER_EVAL_BATCH,
+                        "params_bitwise": len(want)}
+        log("span_serve_path", json.dumps(out["serve"]))
+        del pred
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"span phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def _kernel_name(mangled):
     """(name, template arguments) of a mangled ``..._kernel<...>`` symbol:
     the identifier ending in "kernel" whose length prefix matches."""
@@ -1415,11 +1795,25 @@ def main() -> int:
     del params, resnet
     torch.cuda.empty_cache()
     trainer_path = trainer_phase(train_path)
+    span_path = span_phase(train_path)
 
     serve_row = next(r for r in k1_rows if r["shape"] == "serve_bf16")
     k2_row = next(r for r in k2_rows
                   if r["shape"] == "train_bf16" and r["rate"] > 0)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+    def span_rows(rows, err):
+        return [{"shape": r["shape"], "rate": r["rate"], "S": r["S"],
+                 "T": r["T"], "max_abs_err": r[err],
+                 **{k: r[k] for k in keys}}
+                for r in rows if r["shape"] in SPAN_SHAPES]
+
+    span_launches = {
+        name: {"train_step": span_path["train_step"][f"{name}_launches"],
+               "trainer": span_path["trainer"][f"{name}_launches"],
+               "serve": span_path["serve"]["k1_launches"]
+               if name == "k1" else 0}
+        for name in ("k1", "k2", "mask")}
     log("profiler_misses", json.dumps(profiler_misses))
     log(card)
     log(json.dumps({"kernels": [{
@@ -1437,6 +1831,8 @@ def main() -> int:
                   "max_abs_err": serve_row["max_abs_err_o"],
                   **{k: serve_row[k] for k in keys}},
         "trainer": {"launches": trainer_path["k1_launches"]},
+        "span": {"launches": span_launches["k1"],
+                 "shapes": span_rows(k1_rows, "max_abs_err_o")},
     }, {
         "name": "prefix_attention_bwd",
         "route": "cuda", "design": {"bfloat16": DESIGN[torch.bfloat16],
@@ -1448,6 +1844,8 @@ def main() -> int:
         "max_abs_err": k2_row["max_abs_err"],
         **{k: k2_row[k] for k in keys},
         "trainer": {"launches": trainer_path["k2_launches"]},
+        "span": {"launches": span_launches["k2"],
+                 "shapes": span_rows(k2_rows, "max_abs_err")},
     }, {
         "name": "prefix_attention_keep_mask",
         "route": "cuda", "design": "cuda-cores",
@@ -1456,6 +1854,7 @@ def main() -> int:
         "on_main_path": False,
         "launches": train_path["mask_launches"],
         "trainer": {"launches": trainer_path["mask_launches"]},
+        "span": {"launches": span_launches["mask"]},
         "max_abs_err": float(mask_row["mismatches"]),
         **{k: mask_row[k] for k in keys[:4]},
         "library_ms": None,

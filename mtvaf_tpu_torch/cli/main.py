@@ -1,13 +1,15 @@
-"""Command-line entry of the CRF pipeline: the CRF half of
-``mtvaf_tpu/cli/main.py`` (reference ``MTVAF_training.py``).
+"""Command-line entry of both pipelines: ``mtvaf_tpu/cli/main.py``
+(reference ``MTVAF_training.py``).
 
 The reference's path table relative to ``--data_root``, seeds, the frozen
 ResNet and BERT weights, ``run_config.json`` at train start, the datasets,
-:class:`..train.trainer_crf.CrfTrainer`, ``--load_path`` (a best model, or
-a torch file to transplant with ``--use_pretrained``), ``--do_train`` /
-``--only_test`` and ``final_metrics.json``.  The flags are the reference's
-over the port's config fields (``core.config.config_from_args``); the span
-datasets raise (the span pipeline is not ported).
+:class:`..train.trainer_span.SpanTrainer` (twitter15/17) or
+:class:`..train.trainer_crf.CrfTrainer` (twitter2015/2017), ``--load_path``
+(a best model, or a torch file to transplant with ``--use_pretrained``),
+``--do_train`` / ``--only_test`` and ``final_metrics.json``.  The flags are
+the reference's over the port's config fields
+(``core.config.config_from_args``); what is not ported raises
+(``core.config.check_ported``).
 
     python -m mtvaf_tpu_torch.cli.main --dataset_name twitter2015 \\
         --do_train --bert_name BERT_DIR --data_root DATA --save_path OUT
@@ -34,15 +36,18 @@ logger = logging.getLogger(__name__)
 
 
 def data_paths(cfg: Config, data_root: str) -> dict:
-    """Path table (reference MTVAF_training.py:52-192), CRF datasets."""
+    """Path table (reference MTVAF_training.py:52-192): the span datasets'
+    splits sit in ``twitter{year}/``, the CRF datasets' one level deeper."""
     year = "2015" if "15" in cfg.dataset_name else "2017"
     base = os.path.join(data_root, f"twitter{year}")
+    split_dir = base if cfg.is_span_pipeline \
+        else os.path.join(base, f"twitter{year}")
     agn = os.path.join(data_root, "AGN_data", f"twitter{year}")
     modes = ("train", "dev", "test")
     return {
-        "train": os.path.join(base, f"twitter{year}", "train.txt"),
-        "dev": os.path.join(base, f"twitter{year}", "valid.txt"),
-        "test": os.path.join(base, f"twitter{year}", "test.txt"),
+        "train": os.path.join(split_dir, "train.txt"),
+        "dev": os.path.join(split_dir, "valid.txt"),
+        "test": os.path.join(split_dir, "test.txt"),
         "img_dir": os.path.join(data_root, f"twitter{year}_images"),
         "aux_dir": {m: os.path.join(data_root, f"twitter{year}_aux_images",
                                     m if m != "dev" else "val", "crops")
@@ -52,6 +57,7 @@ def data_paths(cfg: Config, data_root: str) -> dict:
             for m in modes},
         "anp": os.path.join(data_root, "ANP_data",
                             f"image_output{year}.json"),
+        "agn": {m: os.path.join(agn, f"aux_{m}.txt") for m in modes},
         "merge": {m: os.path.join(agn, f"merge_{m}.txt") for m in modes},
         "caption": {m: os.path.join(agn, f"{year[2:]}_{m}_caption.txt")
                     for m in modes},
@@ -112,11 +118,12 @@ def main(argv=None, bert_cfg_override: Optional[BertConfig] = None,
     from ..core.convert import load_probe_checkpoint, load_resnet, \
         params_from_jax
     from ..core.platform import resolve_device
-    from ..data.datasets import CrfDataset
+    from ..data.datasets import CrfDataset, SpanDataset
     from ..data.tokenization import build_tokenizer
-    from ..nn.models import init_crf_model_params
+    from ..nn.models import init_crf_model_params, init_span_model_params
     from ..train.steps import export_params, replace_params
     from ..train.trainer_crf import CrfTrainer
+    from ..train.trainer_span import SpanTrainer
 
     device = resolve_device(device)
     paths = data_paths(cfg, data_root)
@@ -145,6 +152,13 @@ def main(argv=None, bert_cfg_override: Optional[BertConfig] = None,
         writer = SummaryWriter(logdir=f"logs/{cfg.dataset_name}_"
                                f"{cfg.train_batch_size}_{cfg.lr}{cfg.notes}")
 
+    def span_ds(mode):
+        return SpanDataset.load(
+            cfg, tokenizer, paths[mode], mode=mode, img_dir=paths["img_dir"],
+            aux_dir=paths["aux_dir"][mode],
+            aux_map=load_aux_map(paths["aux_map"][mode]),
+            agn_file=paths["agn"][mode] if cfg.use_align else None)
+
     def crf_ds(mode):
         merge = None
         if cfg.use_align:
@@ -154,14 +168,25 @@ def main(argv=None, bert_cfg_override: Optional[BertConfig] = None,
             img_dir=paths["img_dir"], aux_dir=paths["aux_dir"][mode],
             aux_map=load_aux_map(paths["aux_map"][mode]), merge_file=merge)
 
-    params = params_from_jax(init_crf_model_params(
-        cfg, bert_cfg, seed=cfg.seed, bert_params=bert_params))
+    if cfg.is_span_pipeline:
+        make_ds, init_fn, trainer_cls = span_ds, init_span_model_params, \
+            SpanTrainer
+    else:
+        make_ds, init_fn, trainer_cls = crf_ds, init_crf_model_params, \
+            CrfTrainer
+    params = params_from_jax(init_fn(cfg, bert_cfg, seed=cfg.seed,
+                                     bert_params=bert_params))
     if cfg.use_probe and cfg.probe_ckpt and os.path.exists(cfg.probe_ckpt):
         params["probe"] = load_probe_checkpoint(cfg.probe_ckpt)
-    trainer = CrfTrainer(
-        cfg, bert_cfg, params, train_dataset=crf_ds("train"),
-        dev_dataset=crf_ds("dev"), test_dataset=crf_ds("test"),
+    trainer = trainer_cls(
+        cfg, bert_cfg, params, train_dataset=make_ds("train"),
+        dev_dataset=make_ds("dev"), test_dataset=make_ds("test"),
         resnet_params=resnet_params, writer=writer, device=device)
+
+    def test():
+        if cfg.is_span_pipeline:
+            return float(trainer.test())
+        return float(trainer.test(cfg.num_epochs, load_best_model=True))
 
     if cfg.load_path:
         if cfg.use_pretrained:
@@ -174,11 +199,9 @@ def main(argv=None, bert_cfg_override: Optional[BertConfig] = None,
     metrics = {}
     if cfg.do_train:
         metrics["best_dev_f1"] = float(trainer.train())
-        metrics["test_f1"] = float(
-            trainer.test(cfg.num_epochs, load_best_model=True))
+        metrics["test_f1"] = test()
     if cfg.only_test:
-        metrics["test_f1"] = float(
-            trainer.test(cfg.num_epochs, load_best_model=True))
+        metrics["test_f1"] = test()
     if metrics and cfg.save_path:
         with open(os.path.join(cfg.save_path, "final_metrics.json"),
                   "w") as f:

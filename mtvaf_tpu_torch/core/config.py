@@ -1,8 +1,8 @@
-"""Configuration for the port's CRF serving and training paths.
+"""Configuration for the port's serving and training paths.
 
-The fields of ``mtvaf_tpu.core.config.Config`` that the CRF serving path,
-the CRF trainer and the CLI read, with the same names, defaults, checks and
-derived properties.  A JAX run's ``run_config.json`` holds every field of
+The fields of ``mtvaf_tpu.core.config.Config`` that the CRF and span
+serving paths, their trainers and the CLI read, with the same names,
+defaults, checks and derived properties.  A JAX run's ``run_config.json`` holds every field of
 the full config; :meth:`Config.from_dict` keeps the ones listed here.  The
 port's own ``run_config.json`` holds only these, all of which the JAX
 package's ``Config`` accepts.  :func:`config_from_args` parses the CLI's
@@ -15,6 +15,11 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional
+
+# Reference polarity inventory (modules/dataset.py:65, models/utils.py:16).
+POLARITY_TO_ID = {"other": 0, "neutral": 1, "positive": 2, "negative": 3,
+                  "conflict": 4}
+ID_TO_POLARITY = {v: k for k, v in POLARITY_TO_ID.items()}
 
 # Pipeline B label list (reference modules/dataset.py:212).
 CRF_LABEL_LIST = [
@@ -63,6 +68,12 @@ class Config:
     # auxiliary text channel
     only_caption: bool = False   # caption-only merge files (with use_align)
 
+    # auxiliary heads (not ported: check_ported raises for them)
+    gcn_layer_number: int = 0    # DiGCN depth
+    num_layers: int = 0          # DualGCN depth
+    do_aug: bool = False         # cutoff augmentation
+    aug_type: Optional[str] = None   # span_cutoff | token_cutoff | dim_cutoff
+
     # probe (its head is trained only; serving never reads it)
     use_probe: bool = False
     beta: float = 0.5            # CombineLoss factor
@@ -83,9 +94,21 @@ class Config:
     use_align: bool = False
     max_seq: int = 128
     max_seq_agn: int = 500
+    sample_ratio: float = 1.0        # low-resource sampling of train
     do_lower_case: bool = True
     bf16: bool = True
     crf_decode_impl: str = "scan"
+
+    # span candidates (pipeline A)
+    n_best_size: int = 20            # candidate slots per sentence
+    max_answer_length: int = 12      # widest span, in tokens
+    logit_threshold: float = 8.0     # start + end logit a candidate needs
+    filter_type: str = "f1"          # NMS redundancy: 'em' or 'f1'
+    use_heuristics: bool = True      # rank by logits less the span width
+    use_nms: bool = True
+    span_ac_loss_mode: str = "reference"  # 'reference' (the unmasked mean
+                                     # CE, NaN on a batch with no
+                                     # candidate) or 'masked'
 
     # optimisation
     gradient_accumulation_steps: int = 1
@@ -138,6 +161,22 @@ class Config:
                     self.use_18]) > 1:
                 raise ValueError("at most one of use_152/use_101/use_34/"
                                  "use_18")
+        if self.do_aug and self.aug_type not in (
+                "span_cutoff", "token_cutoff", "dim_cutoff"):
+            raise ValueError(f"do_aug requires a valid aug_type, got "
+                             f"{self.aug_type!r}")
+        if self.filter_type not in ("em", "f1"):
+            raise ValueError(f"filter_type must be 'em' or 'f1', got "
+                             f"{self.filter_type!r}")
+        if self.sample_ratio <= 0 or self.sample_ratio > 1:
+            raise ValueError("sample_ratio must be in (0, 1]")
+        if self.deterministic and self.do_aug:
+            raise ValueError(
+                "deterministic training is incompatible with cutoff "
+                "augmentation (--do_aug draws random cut masks)")
+        if self.span_ac_loss_mode not in ("reference", "masked"):
+            raise ValueError(f"span_ac_loss_mode must be 'reference' or "
+                             f"'masked', got {self.span_ac_loss_mode!r}")
 
     @classmethod
     def from_dict(cls, d: dict) -> "Config":
@@ -188,9 +227,15 @@ def check_ported(cfg: Config) -> None:
     """Raise, naming the missing piece, when ``cfg`` asks the trainer or
     the CLI for something the port does not have yet."""
     missing = []
-    if cfg.is_span_pipeline:
-        missing.append(f"dataset {cfg.dataset_name!r} runs the span "
-                       "pipeline, which is not ported (ROADMAP A.2)")
+    if cfg.do_aug:
+        missing.append("do_aug: cutoff augmentation is not ported "
+                       "(ROADMAP A.3)")
+    if cfg.gcn_layer_number > 0:
+        missing.append("gcn_layer_number > 0: the DiGCN head is not ported "
+                       "(ROADMAP A.3)")
+    if cfg.num_layers > 0:
+        missing.append("num_layers > 0: the DualGCN head is not ported "
+                       "(ROADMAP A.3)")
     if cfg.nodes > 1:
         missing.append("nodes > 1: multi-host training is not ported "
                        "(ROADMAP A.4)")

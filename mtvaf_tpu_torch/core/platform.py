@@ -29,6 +29,19 @@ def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
+def to_host_async(t: torch.Tensor):
+    """(a host copy of ``t``, the CUDA event that marks it done or None):
+    from a CUDA tensor, a non-blocking copy into pinned memory on the
+    current stream; a CPU tensor is its own copy."""
+    if not t.is_cuda:
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
 def tree_to(tree, device, dtype=None):
     """A nested dict/list of tensors on ``device`` (cast to ``dtype`` when
     given)."""

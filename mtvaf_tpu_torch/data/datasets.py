@@ -1,7 +1,7 @@
-"""The CRF dataset and the host batching loop.
+"""The datasets of both pipelines and the host batching loop.
 
-Counterpart of ``CrfDataset``, ``iterate_batches`` and ``prefetch`` in
-``mtvaf_tpu/data/datasets.py``: text features are converted once into
+Counterpart of ``SpanDataset``, ``CrfDataset``, ``iterate_batches`` and
+``prefetch`` in ``mtvaf_tpu/data/datasets.py``: text features are converted once into
 padded numpy arrays; pixels (or cached ResNet guides) are attached at batch
 time; batches have a fixed size, the tail padded by repeating the last row
 with ``batch_valid`` marking the real rows.  Multi-process batching is not
@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import os
 import queue
+import random
 import threading
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional
@@ -19,11 +20,64 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 
 from ..core.config import CRF_LABEL_LIST
-from .features import convert_mm_examples_to_features, stack_mm_features
+from .features import (attach_gold_candidates, convert_absa_examples,
+                       convert_examples_to_features,
+                       convert_mm_examples_to_features, stack_mm_features,
+                       stack_span_features)
 from .images import ImageStore
-from .readers import create_mm_examples, read_mmtsv, read_visual_context
+from .readers import (create_mm_examples, read_absa_data, read_agn_data,
+                      read_mmtsv, read_visual_context, sample_dataset)
 
 PREFETCH_DEPTH = 4   # batches the producer thread runs ahead
+
+
+@dataclass
+class SpanDataset:
+    """Pipeline A (twitter15/17): examples with at least one aspect term,
+    their features with the train-mode candidates attached, the stacked
+    arrays, each feature's image id and, for prefix runs with an image
+    directory, the image store."""
+    examples: list
+    features: list
+    arrays: Dict[str, np.ndarray]
+    image_ids: List[str]
+    image_store: Optional[ImageStore]
+
+    @classmethod
+    def load(cls, cfg, tokenizer, data_file: str, *, mode: str = "train",
+             img_dir: Optional[str] = None, aux_dir: Optional[str] = None,
+             aux_map: Optional[dict] = None, agn_file: Optional[str] = None,
+             gcn_file: Optional[str] = None) -> "SpanDataset":
+        """``sample_ratio`` < 1 samples the train split with replacement
+        (``random.Random(cfg.seed)``); ``agn_file`` appends the AGN aux
+        text (``--use_align``).  The GCN side data (``gcn_file``) is not
+        ported and raises."""
+        if gcn_file:
+            raise NotImplementedError(
+                "gcn_file: the GCN side data of the DiGCN and DualGCN heads "
+                "is not ported (ROADMAP A.3)")
+        dataset = read_absa_data(data_file)
+        if cfg.sample_ratio != 1.0 and mode == "train":
+            dataset = sample_dataset(dataset, cfg.sample_ratio,
+                                     random.Random(cfg.seed))
+        if agn_file:
+            dataset = read_agn_data(agn_file, dataset)
+        examples = convert_absa_examples(dataset)
+        features = convert_examples_to_features(
+            examples, tokenizer, cfg.effective_max_seq,
+            is_roberta=cfg.is_roberta)
+        attach_gold_candidates(examples, features, cfg.n_best_size,
+                               cfg.do_lower_case)
+        store = None
+        if cfg.use_prefix and img_dir:
+            store = ImageStore(img_dir, aux_dir,
+                               cache_dir=os.path.join(cfg.cache_dir, "img"),
+                               aux_map=aux_map)
+        return cls(examples, features, stack_span_features(features),
+                   [f.image_id or "" for f in features], store)
+
+    def __len__(self):
+        return len(self.features)
 
 
 @dataclass

@@ -8,12 +8,20 @@ the reference's formats.
   id), the mask is all ones, labels are uniform in 1..N-1, image labels are
   Dirichlet(1) rows over the ANP classes and the cached ResNet guides are
   standard normal.
-* :func:`make_crf_files`, :func:`make_learnable_crf_files`,
-  :func:`make_vocab_file` and :func:`make_images` are the ports of their
+* :func:`span_batch` is the port of ``bench_configs._span_batch``, the
+  span train step's batch, drawn the same way: distant-supervision
+  indicators with two terms per row, ``n_best_size`` candidates of random
+  widths, random polarity labels and a 30% candidate mask.
+* :func:`make_span_file`, :func:`make_learnable_span_file`,
+  :func:`make_agn_file`, :func:`make_crf_files`,
+  :func:`make_learnable_crf_files`, :func:`make_vocab_file`,
+  :func:`make_roberta_vocab` and :func:`make_images` are the ports of their
   namesakes in ``mtvaf_tpu/data/synthetic.py``: the same files from the
-  same seed (the Twitter data is not redistributable).  Pipeline-B
-  ``IMGID:`` TSV with an ANP JSON (modules/dataset.py:150-209), a small
-  WordPiece vocab, and random images (PIL, imported there).
+  same seed (the Twitter data is not redistributable).  Pipeline-A
+  ``word=TAG`` lines (models/utils.py:697-705) and AGN aux text,
+  pipeline-B ``IMGID:`` TSV with an ANP JSON (modules/dataset.py:150-209),
+  small WordPiece and byte-level BPE vocabularies, and random images (PIL,
+  imported there).
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ WORDS = ("the phone screen battery camera service staff food pizza room view "
          "blurry loud quiet warm cold fresh stale I we they it was is are "
          "really very so and but with at on in of for").split()
 CRF_TYPES = ["POS", "NEG", "NEU"]
+POLAR = ["POS", "NEG", "NEU"]
 NOUNS = ("phone screen battery camera service staff food pizza room "
          "view").split()
 POS_WORDS = "great amazing nice friendly fresh".split()
@@ -59,6 +68,43 @@ def crf_batch(cfg, bert_cfg, b: int, s: int, seed: int = 0) -> Dict:
             for k, v in batch.items()}
 
 
+def span_batch(cfg, bert_cfg, b: int, s: int, seed: int = 0) -> Dict:
+    """One span train batch of CPU tensors: input_ids, input_mask,
+    segment_ids, start_positions, end_positions (B, S) and span_starts,
+    span_ends, span_labels, span_masks (B, n_best) int64; with the prefix
+    also the guides main_guides (B, 4, C), aux_guides (B, 3, 4, C) fp32."""
+    rng = np.random.RandomState(seed)
+    m = cfg.n_best_size
+    starts = np.zeros((b, s), np.int64)
+    ends = np.zeros((b, s), np.int64)
+    for i in range(b):
+        for _ in range(2):
+            j = rng.randint(0, s - 4)
+            starts[i, j] = 1
+            ends[i, j + rng.randint(0, 3)] = 1
+    span_starts = rng.randint(0, s - cfg.max_answer_length, (b, m))
+    batch = {
+        "input_ids": rng.randint(0, bert_cfg.vocab_size, (b, s)),
+        "input_mask": np.ones((b, s)),
+        "segment_ids": np.zeros((b, s)),
+        "start_positions": starts,
+        "end_positions": ends,
+        "span_starts": span_starts,
+        "span_ends": span_starts + rng.randint(
+            0, cfg.max_answer_length - 1, (b, m)),
+        "span_labels": rng.randint(0, 4, (b, m)),
+        "span_masks": rng.rand(b, m) < 0.3,
+    }
+    batch = {k: torch.from_numpy(v.astype(np.int64)) for k, v in batch.items()}
+    if cfg.use_prefix:
+        c = cfg.resnet_concat_channels
+        batch["main_guides"] = torch.from_numpy(
+            rng.randn(b, 4, c).astype(np.float32))
+        batch["aux_guides"] = torch.from_numpy(
+            rng.randn(b, 3, 4, c).astype(np.float32))
+    return batch
+
+
 def _sentence(rng: random.Random, n_words: int) -> List[str]:
     return [rng.choice(WORDS) for _ in range(n_words)]
 
@@ -74,6 +120,68 @@ def _write(tsv_path, anp_path, lines, anp) -> None:
         f.write("\n".join(lines) + "\n")
     with open(anp_path, "w", encoding="utf-8") as f:
         json.dump(anp, f)
+
+
+def make_span_file(path: str, n: int, *, seed: int = 0, max_len: int = 16,
+                   image_ids: Optional[List[str]] = None) -> None:
+    """``n`` pipeline-A lines of 5..``max_len`` words with one or two
+    aspect terms of one or two words each (an overlapping draw is
+    skipped), image ids ``img_{i}.jpg`` (or cycled from ``image_ids``)."""
+    rng = random.Random(seed)
+    lines = []
+    for i in range(n):
+        length = rng.randint(5, max_len)
+        words = _sentence(rng, length)
+        tags = ["O"] * length
+        n_terms = rng.randint(1, min(2, length // 3))
+        used = set()
+        for _ in range(n_terms):
+            start = rng.randint(0, length - 2)
+            width = rng.randint(1, 2)
+            span = set(range(start, min(start + width, length)))
+            if span & used:
+                continue
+            used |= span
+            pol = rng.choice(POLAR)
+            tags[start] = f"T-{pol}-B"
+            for j in range(start + 1, min(start + width, length)):
+                tags[j] = f"T-{pol}"
+        img = image_ids[i % len(image_ids)] if image_ids else f"img_{i}.jpg"
+        pair_str = " ".join(f"{w}={t}" for w, t in zip(words, tags))
+        lines.append(f"{' '.join(words)}####{pair_str}"
+                     f"____label=[1, 0]____imgid=['{img}']")
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def make_learnable_span_file(path: str, n: int, *, seed: int = 0) -> None:
+    """Pipeline-A lines with a learnable rule: one aspect noun after a
+    sentiment word that sets its polarity; images ``img_{i % 4}.jpg``."""
+    rng = random.Random(seed)
+    lines = []
+    for i in range(n):
+        noun = rng.choice(NOUNS)
+        positive = rng.random() < 0.5
+        sent_word = rng.choice(POS_WORDS if positive else NEG_WORDS)
+        pol = "POS" if positive else "NEG"
+        pre = [rng.choice(FILLER) for _ in range(rng.randint(1, 3))]
+        post = [rng.choice(FILLER) for _ in range(rng.randint(0, 2))]
+        words = pre + [sent_word, noun] + post
+        tags = ["O"] * len(pre) + ["O", f"T-{pol}-B"] + ["O"] * len(post)
+        pair_str = " ".join(f"{w}={t}" for w, t in zip(words, tags))
+        lines.append(f"{' '.join(words)}####{pair_str}"
+                     f"____label=[1, 0]____imgid=['img_{i % 4}.jpg']")
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def make_agn_file(path: str, image_ids: List[str], *, seed: int = 0) -> None:
+    """AGN aux text: one line ``<imgid> w w ...`` of 2-5 words per id."""
+    rng = random.Random(seed)
+    with open(path, "w", encoding="utf-8") as f:
+        for img in image_ids:
+            aux = " ".join(_sentence(rng, rng.randint(2, 5)))
+            f.write(f"{img} {aux}\n")
 
 
 def make_crf_files(tsv_path: str, anp_path: str, n: int, *, seed: int = 0,
@@ -135,6 +243,27 @@ def make_vocab_file(path: str) -> None:
                       {"##" + w[3:] for w in pieces if len(w) > 3})
     with open(path, "w", encoding="utf-8") as f:
         f.write("\n".join(specials + pieces + subwords) + "\n")
+
+
+def make_roberta_vocab(dir_path: str) -> None:
+    """A small byte-level BPE vocab (``vocab.json`` + ``merges.txt``):
+    the specials, single characters, the space marker and its merges with
+    the lowercase letters."""
+    import string
+    os.makedirs(dir_path, exist_ok=True)
+    tokens = ["<s>", "<pad>", "</s>", "<unk>", "<mask>"]
+    tokens += list(string.ascii_lowercase) + list(string.ascii_uppercase)
+    tokens += list(string.digits) + list("!#=',.?[]()-_/")
+    tokens += ["Ġ"]                       # the space marker
+    tokens += ["Ġ" + c for c in string.ascii_lowercase]
+    merges = [f"Ġ {c}" for c in string.ascii_lowercase]
+    vocab = {t: i for i, t in enumerate(dict.fromkeys(tokens))}
+    with open(os.path.join(dir_path, "vocab.json"), "w",
+              encoding="utf-8") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(dir_path, "merges.txt"), "w",
+              encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "\n".join(merges) + "\n")
 
 
 def make_images(img_dir: str, image_ids: List[str], *, size: int = 256,

@@ -1,11 +1,14 @@
-"""Pure-Python WordPiece tokenizer (BasicTokenizer + greedy longest-match
-WordPiece over a BERT ``vocab.txt``), as ``mtvaf_tpu.data.tokenization``
-implements it."""
+"""Pure-Python tokenizers, as ``mtvaf_tpu.data.tokenization`` implements
+them: WordPiece (BasicTokenizer + greedy longest-match WordPiece over a
+BERT ``vocab.txt``) and RoBERTa's byte-level BPE (``vocab.json`` +
+``merges.txt``)."""
 
 from __future__ import annotations
 
 import collections
+import json
 import os
+import re
 import unicodedata
 from typing import Dict, Iterable, List
 
@@ -182,11 +185,110 @@ class FullTokenizer:
         return [self.vocab.get(t, unk) for t in tokens]
 
 
+# ---------------------------------------------------------------------------
+# Byte-level BPE (RoBERTa).
+
+
+def _bytes_to_unicode() -> Dict[int, str]:
+    """GPT-2's reversible byte → unicode character mapping."""
+    bs = (list(range(ord("!"), ord("~") + 1))
+          + list(range(ord("¡"), ord("¬") + 1))
+          + list(range(ord("®"), ord("ÿ") + 1)))
+    cs = bs[:]
+    n = 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    return dict(zip(bs, [chr(c) for c in cs]))
+
+
+class ByteLevelBPETokenizer:
+    """GPT-2/RoBERTa byte-level BPE over ``vocab.json`` + ``merges.txt``."""
+
+    cls_token = "<s>"
+    sep_token = "</s>"
+    pad_token = "<pad>"
+    unk_token = "<unk>"
+
+    def __init__(self, vocab_file: str, merges_file: str):
+        with open(vocab_file, encoding="utf-8") as f:
+            self.vocab: Dict[str, int] = json.load(f)
+        with open(merges_file, encoding="utf-8") as f:
+            merges = [tuple(line.split()) for line in f.read().split("\n")
+                      if line and not line.startswith("#version")]
+        self.bpe_ranks = dict(zip(merges, range(len(merges))))
+        self.byte_encoder = _bytes_to_unicode()
+        self.cache: Dict[str, str] = {}
+        self.pat = re.compile(
+            r"""'s|'t|'re|'ve|'m|'ll|'d| ?\w+| ?[^\s\w]+|\s+(?!\S)|\s+""",
+            re.UNICODE)
+
+    def _bpe(self, token: str) -> str:
+        if token in self.cache:
+            return self.cache[token]
+        word = tuple(token)
+        pairs = {(word[i], word[i + 1]) for i in range(len(word) - 1)}
+        if not pairs:
+            return token
+        while True:
+            bigram = min(pairs,
+                         key=lambda p: self.bpe_ranks.get(p, float("inf")))
+            if bigram not in self.bpe_ranks:
+                break
+            first, second = bigram
+            new_word: List[str] = []
+            i = 0
+            while i < len(word):
+                try:
+                    j = word.index(first, i)
+                except ValueError:
+                    new_word.extend(word[i:])
+                    break
+                new_word.extend(word[i:j])
+                i = j
+                if i < len(word) - 1 and word[i] == first \
+                        and word[i + 1] == second:
+                    new_word.append(first + second)
+                    i += 2
+                else:
+                    new_word.append(word[i])
+                    i += 1
+            word = tuple(new_word)
+            if len(word) == 1:
+                break
+            pairs = {(word[i], word[i + 1]) for i in range(len(word) - 1)}
+        out = " ".join(word)
+        self.cache[token] = out
+        return out
+
+    def tokenize(self, text: str) -> List[str]:
+        bpe_tokens: List[str] = []
+        for token in self.pat.findall(text):
+            token_trans = "".join(self.byte_encoder[b]
+                                  for b in token.encode("utf-8"))
+            bpe_tokens.extend(self._bpe(token_trans).split(" "))
+        return bpe_tokens
+
+    def convert_tokens_to_ids(self, tokens: Iterable[str]) -> List[int]:
+        unk = self.vocab.get(self.unk_token, 0)
+        return [self.vocab.get(t, unk) for t in tokens]
+
+
 def build_tokenizer(bert_name: str, do_lower_case: bool = True):
-    """The WordPiece tokenizer of a local model directory holding
-    ``vocab.txt``.  RoBERTa's byte-level BPE is not ported yet."""
+    """The tokenizer of a local model directory: RoBERTa's byte-level BPE
+    (``vocab.json`` + ``merges.txt``) when "roberta" is in the name, as the
+    reference dispatches (modules/dataset.py:20-23), else WordPiece over
+    ``vocab.txt``."""
     if "roberta" in bert_name:
-        raise NotImplementedError("the RoBERTa tokenizer is not ported yet")
+        files = [os.path.join(bert_name, n)
+                 for n in ("vocab.json", "merges.txt")]
+        if not all(os.path.isfile(p) for p in files):
+            raise ValueError(f"cannot build a tokenizer for {bert_name!r}: "
+                             "no vocab.json and merges.txt in that "
+                             "directory")
+        return ByteLevelBPETokenizer(*files)
     path = os.path.join(bert_name, "vocab.txt")
     if not os.path.isfile(path):
         raise ValueError(f"cannot build a tokenizer for {bert_name!r}: no "

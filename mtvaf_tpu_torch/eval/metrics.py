@@ -1,12 +1,67 @@
-"""Prediction and error JSONs of the CRF pipeline.
+"""Metrics and prediction JSONs of both pipelines.
 
-Counterpart of ``eval_json`` in ``mtvaf_tpu/eval/metrics.py`` (reference
-modules/eval_metrics.py:126-170)."""
+Counterpart of ``mtvaf_tpu/eval/metrics.py``: the span pipeline's
+exact-match (term, polarity) F1 with its per-example prediction JSON
+(reference modules/eval_metrics.py:80-124), and the CRF pipeline's
+prediction and error JSONs (modules/eval_metrics.py:126-170)."""
 
 from __future__ import annotations
 
 import collections
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
+
+from ..core.config import ID_TO_POLARITY
+from .span_decode import RawFinalResult, detokenized_span_text
+from .squad_eval import exact_match_score
+
+
+def metric_max_over_ground_truths(metric_fn, term, polarity, gold_terms,
+                                  gold_polarities) -> int:
+    """1 when (term, polarity) matches some gold pair under ``metric_fn``."""
+    hit = 0
+    for gold_term, gold_polarity in zip(gold_terms, gold_polarities):
+        if metric_fn(term, gold_term) and polarity == gold_polarity:
+            hit = 1
+    return hit
+
+
+def eval_absa(all_examples, all_features,
+              all_results: Sequence[RawFinalResult], do_lower_case: bool
+              ) -> Tuple[Dict, Dict]:
+    """Exact-match micro P/R/F1 over (term, polarity) pairs, and the
+    per-example JSON of predicted and gold terms, keyed by example id."""
+    unique_id_to_result = {r.unique_id: r for r in all_results}
+    all_nbest_json = collections.OrderedDict()
+    common, relevant, retrieved = 0.0, 0.0, 0.0
+    for feature in all_features:
+        example = all_examples[feature.example_index]
+        result = unique_id_to_result[feature.unique_id]
+        pred_terms, pred_polarities = [], []
+        for start_index, end_index, cls_pred, span_mask in zip(
+                result.start_indexes, result.end_indexes, result.cls_pred,
+                result.span_masks):
+            if span_mask:
+                pred_terms.append(detokenized_span_text(
+                    example, feature, start_index, end_index,
+                    do_lower_case))
+                pred_polarities.append(ID_TO_POLARITY[int(cls_pred)])
+        # "gold_polarites" is the reference's key, spelled as it spells it
+        all_nbest_json[example.example_id] = {
+            "pred_terms": pred_terms, "pred_polarities": pred_polarities,
+            "gold_terms": example.term_texts,
+            "gold_polarites": example.polarities,
+        }
+        for term, polarity in zip(pred_terms, pred_polarities):
+            common += metric_max_over_ground_truths(
+                exact_match_score, term, polarity, example.term_texts,
+                example.polarities)
+        retrieved += len(pred_terms)
+        relevant += len(example.term_texts)
+    p = common / retrieved if retrieved > 0 else 0.0
+    r = common / relevant if relevant > 0 else 0.0
+    f1 = (2 * p * r) / (p + r) if p > 0 and r > 0 else 0.0
+    return ({"p": p, "r": r, "f1": f1, "common": common,
+             "retrieved": retrieved, "relevant": relevant}, all_nbest_json)
 
 
 def eval_json(all_examples, y_true: List[List[str]], y_pred: List[List[str]]

@@ -1,13 +1,19 @@
-"""Inference API for the CRF pipeline: raw text (+ images) → aspect terms
+"""Inference API for both pipelines: raw text (+ images) → aspect terms
 and polarities, on the GPU.
 
-Counterpart of ``CrfPredictor`` in ``mtvaf_tpu/infer.py``.  Each batch is
-tokenized on the host, copied to the device through pinned memory, and runs
-one forward: the frozen-ResNet guides (image-bearing batches), the visual
-prefix, the encoder (whose attention core is the hand-written CUDA kernel
-on a GPU), ``fc`` and Viterbi.  The JAX package's single packed upload
-buffer answered a high-latency host link; here each host array is its own
-pinned, non-blocking copy.
+Counterpart of ``CrfPredictor``, ``SpanPredictor`` and ``load_predictor`` in
+``mtvaf_tpu/infer.py``.  Each batch is tokenized on the host and copied to
+the device through pinned memory.  ``CrfPredictor`` runs one forward: the
+frozen-ResNet guides (image-bearing batches), the visual prefix, the
+encoder (whose attention core is the hand-written CUDA kernel on a GPU),
+``fc`` and Viterbi.  ``SpanPredictor`` runs the extraction forward (guides,
+prefix, encoder, start/end logits), copies the logits back, picks the
+candidate spans on the host (top-k pairs, filters, NMS:
+``eval.span_decode``) and classifies them in a second, small forward.  The
+JAX package's single packed upload buffer and its fetch thread pool
+answered a high-latency host link; here each host array is its own pinned,
+non-blocking copy, and the logits come back by a non-blocking copy into
+pinned memory that a CUDA event marks done.
 
   >>> predictor = CrfPredictor(cfg, bert_cfg, params, tokenizer)
   >>> predictor.predict(["the pizza was great but service slow"])
@@ -26,15 +32,18 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from .core.config import CRF_LABEL_LIST, Config
-from .core.platform import resolve_device, tree_to, upload
-from .data.features import convert_mm_examples_to_features
+from .core.config import CRF_LABEL_LIST, Config, ID_TO_POLARITY
+from .core.platform import resolve_device, to_host_async, tree_to, upload
+from .data.features import (SemEvalExample, convert_examples_to_features,
+                            convert_mm_examples_to_features)
 from .data.images import denormalize_to_u8
 from .data.readers import MMInputExample
+from .eval.span_decode import batch_eval_candidates, detokenized_span_text
 from .eval.tagging import extract_entities, labels_to_tags
 from .nn.bert import BertConfig, cast_layers
 from .nn.models import compute_visual_guides, crf_model_forward, \
     image_rows_to_f32
+from .train.steps import make_classification_step, make_extraction_step
 
 _AUX_CROPS = 3
 _CROP = 224
@@ -60,19 +69,21 @@ def _pad_rows(a, n: int):
 
 
 def serving_params(params: Dict, dtype, device) -> Dict:
-    """The subtrees the decode forward reads, on ``device``: the encoder's
+    """The subtrees the serving forward reads, on ``device``: the encoder's
     matmul weights and the prefix generator pre-cast to the activation
-    dtype once (LN params, embeddings, ``fc`` and CRF stay fp32, as in the
-    JAX package's forward).  The ANP heads, probe and pooler are training
-    or unused outputs and stay behind."""
+    dtype once (LN params, embeddings and the heads, ``fc`` and CRF or the
+    span heads, stay fp32, as in the JAX package's forward).  The ANP
+    heads, probe and pooler are training or unused outputs and stay
+    behind."""
     bert = params["bert"]
     out = {
         "bert": {"embeddings": tree_to(bert["embeddings"], device),
                  "layers": tree_to(cast_layers(bert["layers"], dtype),
                                    device)},
-        "fc": tree_to(params["fc"], device),
-        "crf": tree_to(params["crf"], device),
     }
+    for name, sub in params.items():
+        if name not in ("bert", "prefix", "probe"):
+            out[name] = tree_to(sub, device)
     if "prefix" in params:
         out["prefix"] = {k: tree_to(params["prefix"][k], device, dtype)
                          for k in ("conv_in", "conv_out", "projectors")}
@@ -141,10 +152,6 @@ class CrfPredictor(_PredictorBase):
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
-        if self.cfg.is_span_pipeline:
-            raise NotImplementedError(
-                "the span pipeline is not ported yet; CrfPredictor serves "
-                "the CRF datasets")
         if self.cfg.crf_decode_impl != "scan":
             raise NotImplementedError(
                 "crf_decode_impl='parallel' is not ported yet")
@@ -253,13 +260,128 @@ class CrfPredictor(_PredictorBase):
         return results
 
 
+class SpanPredictor(_PredictorBase):
+    """Span extraction and polarity: (term text, polarity name) pairs per
+    sentence, the polarity one of ``core.config.ID_TO_POLARITY``."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        if self.cfg.gcn_layer_number > 0 or self.cfg.num_layers > 0:
+            raise NotImplementedError("the DiGCN and DualGCN heads are not "
+                                      "ported")
+        self._extract = make_extraction_step(self.cfg, self.bert_cfg)
+        self._classify = make_classification_step(self.cfg, self.bert_cfg)
+
+    def _make_host_batch(self, sentences: Sequence[str]):
+        """(examples, features, host arrays input_ids, input_mask,
+        segment_ids (B, S) int64)."""
+        cfg = self.cfg
+        examples = [
+            SemEvalExample(example_id=str(i), sent_tokens=s.split(),
+                           term_texts=[], start_positions=[],
+                           end_positions=[], polarities=[])
+            for i, s in enumerate(sentences)]
+        feats = convert_examples_to_features(
+            examples, self.tokenizer, cfg.effective_max_seq,
+            is_roberta=cfg.is_roberta, max_term_num=1)
+        host = {k: np.asarray([getattr(f, k) for f in feats], np.int64)
+                for k in ("input_ids", "input_mask", "segment_ids")}
+        return examples, feats, host
+
+    def extract(self, host: Dict, images=None, aux_images=None):
+        """The extraction forward of one host batch: (start_logits,
+        end_logits, seq, captured) as device tensors (not synchronised).
+        Guides enter in the activation dtype, as in the trainer's eval."""
+        with torch.inference_mode():
+            batch = {k: upload(v, self.device) for k, v in host.items()}
+            guides = self._guides(images, aux_images)
+            if guides is not None:
+                batch["main_guides"], batch["aux_guides"] = guides
+            return self._extract(self.params, batch)
+
+    def _to_results(self, examples, feats, all_ss, all_se, all_masks,
+                    preds) -> List[List[Tuple[str, str]]]:
+        results = []
+        for j, feature in enumerate(feats):
+            results.append([
+                (detokenized_span_text(examples[j], feature, all_ss[j][k],
+                                       all_se[j][k], self.cfg.do_lower_case),
+                 ID_TO_POLARITY[int(preds[j][k])])
+                for k in range(self.cfg.n_best_size) if all_masks[j][k]])
+        return results
+
+    def dispatch(self, sentences: Sequence[str], images=None,
+                 aux_images=None):
+        """Tokenize and launch one batch's extraction, with the start/end
+        logits' copy back to the host, without waiting; returns a handle
+        for :meth:`collect`."""
+        _check_aligned(len(sentences), images, aux_images)
+        examples, feats, host = self._make_host_batch(sentences)
+        s_logits, e_logits, seq, _ = self.extract(host, images, aux_images)
+        with torch.inference_mode():
+            logits, done = to_host_async(torch.stack([s_logits, e_logits]))
+        return examples, feats, logits, done, seq
+
+    def collect(self, handle) -> List[List[Tuple[str, str]]]:
+        """Wait for one :meth:`dispatch` handle's logits, pick the
+        candidates on the host, classify them on the device, decode."""
+        examples, feats, logits, done, seq = handle
+        if done is not None:
+            done.synchronize()
+        se_np = logits.numpy()
+        all_ss, all_se, _, all_masks = batch_eval_candidates(
+            examples, feats, range(len(feats)), se_np[0], se_np[1],
+            self.cfg)
+        with torch.inference_mode():
+            pairs = upload(np.asarray([all_ss, all_se], np.int64),
+                           self.device)
+            preds = self._classify(self.params, seq, pairs).argmax(dim=-1)
+        return self._to_results(examples, feats, all_ss, all_se, all_masks,
+                                preds.cpu().numpy())
+
+    def predict(self, sentences: Sequence[str], images=None,
+                aux_images=None) -> List[List[Tuple[str, str]]]:
+        return self.collect(self.dispatch(sentences, images, aux_images))
+
+    def predict_many(self, sentences: Sequence[str], *, images=None,
+                     aux_images=None, batch_size: int = 16,
+                     window: int = 4) -> List[List[Tuple[str, str]]]:
+        """Fixed-size batches (the tail padded by repeating its last
+        sentence, padding dropped), with up to ``window`` extractions in
+        flight: the host picks one batch's candidates while the device runs
+        the next batches' encoders."""
+        from collections import deque
+
+        _check_aligned(len(sentences), images, aux_images)
+        results: List[List[Tuple[str, str]]] = []
+        pending = deque()
+        for i in range(0, len(sentences), batch_size):
+            chunk = list(sentences[i:i + batch_size])
+            n = len(chunk)
+            chunk += [chunk[-1]] * (batch_size - n)
+            img = None if images is None else \
+                _pad_rows(images[i:i + batch_size], len(chunk))
+            aux = None if aux_images is None else \
+                _pad_rows(aux_images[i:i + batch_size], len(chunk))
+            pending.append((n, self.dispatch(chunk, images=img,
+                                             aux_images=aux)))
+            if len(pending) > window:
+                n0, handle = pending.popleft()
+                results.extend(self.collect(handle)[:n0])
+        while pending:
+            n0, handle = pending.popleft()
+            results.extend(self.collect(handle)[:n0])
+        return results
+
+
 def load_predictor(save_path: str, *, bert_name: str = None,
-                   image_dtype=np.float32, device=None) -> CrfPredictor:
-    """Rebuild a CRF predictor from a training run's save directory:
+                   image_dtype=np.float32, device=None):
+    """Rebuild the predictor of a training run's save directory, a
+    :class:`SpanPredictor` or a :class:`CrfPredictor` by its dataset:
     ``run_config.json`` (``config`` and ``bert_config``), ``best_model.npz``
-    as ``mtvaf_tpu.core.checkpoint.save_best`` writes it, the tokenizer from
-    the run's ``bert_name`` directory (or the override), and for prefix
-    runs the frozen ResNet from ``resnet_root/resnet{depth}.pth``."""
+    as either package's ``save_best`` writes it, the tokenizer from the
+    run's ``bert_name`` directory (or the override), and for prefix runs
+    the frozen ResNet from ``resnet_root/resnet{depth}.pth``."""
     from .core.convert import load_resnet, params_from_jax
     from .data.tokenization import build_tokenizer
 
@@ -273,6 +395,6 @@ def load_predictor(save_path: str, *, bert_name: str = None,
     with np.load(os.path.join(save_path, "best_model.npz")) as data:
         params = params_from_jax({k: data[k] for k in data.files})
     resnet_params = load_resnet(cfg) if cfg.use_prefix else None
-    return CrfPredictor(cfg, bert_cfg, params, tokenizer,
-                        resnet_params=resnet_params, image_dtype=image_dtype,
-                        device=device)
+    cls = SpanPredictor if cfg.is_span_pipeline else CrfPredictor
+    return cls(cfg, bert_cfg, params, tokenizer, resnet_params=resnet_params,
+               image_dtype=image_dtype, device=device)

@@ -1,15 +1,23 @@
-"""The CRF tagging model (TVNetSAModel2): training and serving forward.
+"""The two models, training and serving forward: the span model
+(TVNetSAModel, pipeline A) and the CRF tagging model (TVNetSAModel2,
+pipeline B).
 
-Counterpart of the pipeline-B half of ``mtvaf_tpu/nn/models.py``: visual
-guides from the frozen ResNet → per-layer prefix K/V → BERT encoder with the
-prefix prepended to keys and values → ``fc`` emissions → the CRF loss
-(with the probe loss and the ANP KL loss of the prefix) and/or Viterbi.
+Counterpart of ``mtvaf_tpu/nn/models.py``.  Both share visual guides from
+the frozen ResNet → per-layer prefix K/V → BERT encoder with the prefix
+prepended to keys and values.  The span model puts start/end logits on the
+encoder's output (``binary_affine``), gathers each candidate span's tokens
+(at most ``max_answer_length``), pools them by self-attention and
+classifies their polarity; its loss is the distant-supervision CE of the
+start/end logits plus the polarity CE (plus the probe term).  The CRF model
+puts ``fc`` emissions on it → the CRF loss (with the probe loss and the ANP
+KL loss of the prefix) and/or Viterbi.
 
-``init_crf_model_params`` and ``init_resnet_params`` draw random weights
-from a numpy seed in the JAX package's parameter layout (nested dicts of
-numpy arrays, dense kernels (in, out), stacked layers, HWIO convs); pass them
-through :func:`mtvaf_tpu_torch.core.convert.params_from_jax` to get the
-port's tensors, as for any checkpoint the JAX package wrote.
+``init_span_model_params``, ``init_crf_model_params`` and
+``init_resnet_params`` draw random weights from a numpy seed in the JAX
+package's parameter layout (nested dicts of numpy arrays, dense kernels
+(in, out), stacked layers, HWIO convs); pass them through
+:func:`mtvaf_tpu_torch.core.convert.params_from_jax` to get the port's
+tensors, as for any checkpoint the JAX package wrote.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..data.images import IMAGENET_MEAN, IMAGENET_STD
 from .bert import BertConfig, bert_model
@@ -78,7 +87,156 @@ def prompt_attention_mask(input_mask, prefix_len: int):
 
 
 # ---------------------------------------------------------------------------
-# Forward.
+# Pipeline A: the span model.
+
+
+def distant_cross_entropy(logits, positions):
+    """Distant-supervision CE over 0/1 indicator vectors, in fp32 (reference
+    models/bert_model.py:181-190)."""
+    log_probs = F.log_softmax(logits.float(), dim=-1)
+    pos = positions.float()
+    per_ex = (pos * log_probs).sum(-1) / pos.sum(-1).clamp_min(1e-9)
+    return -per_ex.mean()
+
+
+def get_span_representation(seq_output, span_starts, span_ends, *,
+                            max_span_width: int):
+    """seq_output (B, S, H); span_starts/ends (B, M) → the tokens of each
+    span at a static width, (B, M, W, H), and their mask (B, M, W).
+    Positions past a span's end read clamped rows that the mask removes.
+    The gather takes one (B, M·W) index, never a (B, M, W, H) one."""
+    b, s_len, h = seq_output.shape
+    m = span_starts.shape[1]
+    width = torch.arange(max_span_width, device=seq_output.device)
+    idx = (span_starts[:, :, None] + width).clamp_max(s_len - 1)
+    rows = torch.arange(b, device=seq_output.device)[:, None]
+    span_emb = seq_output[rows, idx.reshape(b, m * max_span_width)]
+    span_emb = span_emb.reshape(b, m, max_span_width, h)
+    span_mask = width < (span_ends - span_starts + 1)[:, :, None]
+    return span_emb, span_mask
+
+
+def self_attentive_pool(span_emb, span_score, span_mask):
+    """Masked self-attentive pooling, softmax in fp32 with a -10000 bias on
+    masked positions (reference models/bert_model.py:172-179)."""
+    bias = (1.0 - span_mask.float()) * -10000.0
+    probs = torch.softmax(span_score.float() + bias, dim=-1)
+    return torch.einsum("bmw,bmwh->bmh", probs.to(span_emb.dtype), span_emb)
+
+
+def span_extraction(params, cfg, bert_cfg: BertConfig, input_ids, input_mask,
+                    segment_ids, prefix_kvs=None, generator=None,
+                    dtype=torch.float32, capture_layer=None):
+    """Encoder → start/end logits (B, S) fp32, the sequence output and the
+    hidden state of ``capture_layer`` (or None) (reference
+    models/bert_model.py:323-361).  ``generator`` turns dropout on; it is
+    split between the output dropout and the encoder, as the JAX package
+    splits its key."""
+    drop_rng, bert_rng = (None, None) if generator is None \
+        else split(generator, 2)
+    mask = input_mask if prefix_kvs is None else \
+        prompt_attention_mask(input_mask, prefix_kvs.shape[-2])
+    seq, captured = bert_model(
+        params["bert"], bert_cfg, input_ids, mask,
+        token_type_ids=segment_ids, prefix_kvs=prefix_kvs, dtype=dtype,
+        generator=bert_rng, capture_layer=capture_layer)
+    seq = dropout(seq, bert_cfg.hidden_dropout_prob, drop_rng)
+    ae_logits = dense(params["binary_affine"], seq).float()
+    return ae_logits[..., 0], ae_logits[..., 1], seq, captured
+
+
+def span_classification(params, cfg, seq_output, span_starts, span_ends,
+                        generator=None):
+    """Span gather → self-attentive pool → dense/tanh → dropout → 4-way
+    polarity logits (B, M, 4) fp32 (reference models/bert_model.py:363-376)."""
+    span_emb, span_mask = get_span_representation(
+        seq_output, span_starts, span_ends,
+        max_span_width=cfg.max_answer_length)
+    span_score = dense(params["unary_affine"], span_emb)[..., 0]
+    pooled = self_attentive_pool(span_emb, span_score, span_mask)
+    pooled = torch.tanh(dense(params["dense"], pooled))
+    pooled = dropout(pooled, 0.1, generator)
+    return dense(params["classifier"], pooled).float()
+
+
+def span_model_loss(params, cfg, bert_cfg: BertConfig, batch: Dict,
+                    visual_guides: Optional[Tuple] = None, generator=None,
+                    dtype=torch.float32,
+                    epoch_const: Optional[int] = None) -> Dict:
+    """The train loss in one encoder pass: extraction and classification of
+    the batch's (gold) candidates share the sequence output.
+
+    batch keys: input_ids, input_mask, segment_ids, start_positions,
+    end_positions, span_starts, span_ends, span_labels, span_masks.
+    ``generator`` turns dropout on, split three ways (extraction,
+    classification, and a third the GCN heads would take) as the JAX
+    package splits its key."""
+    rngs = [None] * 3 if generator is None else split(generator, 3)
+    prefix_kvs = None
+    if cfg.use_prefix and visual_guides is not None:
+        main_g, aux_g = visual_guides
+        prefix_kvs, _, _ = visual_prompt(
+            params["prefix"], main_g.to(dtype),
+            None if aux_g is None else aux_g.to(dtype), bert_cfg)
+    start_logits, end_logits, seq, captured = span_extraction(
+        params, cfg, bert_cfg, batch["input_ids"], batch["input_mask"],
+        batch["segment_ids"], prefix_kvs=prefix_kvs, generator=rngs[0],
+        dtype=dtype, capture_layer=cfg.probe_layer if cfg.use_probe
+        else None)
+    return span_model_tail(params, cfg, bert_cfg, batch, seq, start_logits,
+                           end_logits, captured=captured,
+                           generator=rngs[1], epoch_const=epoch_const)
+
+
+def span_model_tail(params, cfg, bert_cfg: BertConfig, batch: Dict, seq,
+                    start_logits, end_logits, captured=None, generator=None,
+                    epoch_const: Optional[int] = None) -> Dict:
+    """The loss after the encoder (reference models/bert_model.py:270-316):
+    span classification, the distant CE of the start/end logits and the
+    polarity CE, plus the probe term.  The eval loss applies it to the
+    extraction pass's own outputs (dropout is off there, so that is the
+    reference's second full forward).
+
+    ``span_ac_loss_mode='reference'`` keeps the reference's quirk: the CE is
+    mean-reduced before its mask, so sum(mask·ce)/sum(mask) cancels to the
+    unmasked mean; the cancelled factor msum/msum stays, so a batch with no
+    candidate at all gives NaN, as the reference's 0/0 does.  'masked'
+    averages over the masked candidates."""
+    if cfg.gcn_layer_number > 0 or cfg.num_layers > 0:
+        raise NotImplementedError("the DiGCN and DualGCN heads are not "
+                                  "ported")
+    ac_logits = span_classification(params, cfg, seq, batch["span_starts"],
+                                    batch["span_ends"], generator=generator)
+    start_loss = distant_cross_entropy(start_logits, batch["start_positions"])
+    end_loss = distant_cross_entropy(end_logits, batch["end_positions"])
+    ae_loss = (start_loss + end_loss) / 2
+
+    log_probs = F.log_softmax(ac_logits.reshape(-1, 4), dim=-1)
+    labels = batch["span_labels"].reshape(-1).long()
+    ce = -log_probs.gather(1, labels[:, None])[:, 0]
+    m = batch["span_masks"].reshape(-1).float()
+    if cfg.span_ac_loss_mode == "masked":
+        ac_loss = (ce * m).sum() / m.sum().clamp_min(1.0)
+    else:
+        msum = m.sum()
+        ac_loss = ce.mean() * (msum / msum)
+
+    tot_loss = ae_loss + ac_loss
+    out = {"start_logits": start_logits, "end_logits": end_logits,
+           "ac_logits": ac_logits, "ae_loss": ae_loss, "ac_loss": ac_loss}
+    if cfg.use_probe:
+        p_loss = probe_loss(params["probe"], captured)
+        out["probe_loss"] = p_loss
+        out["ori_loss"] = tot_loss
+        tot_loss = combine_loss(tot_loss, p_loss, cfg.beta,
+                                epoch_const if epoch_const is not None
+                                else cfg.num_epochs)
+    out["loss"] = tot_loss
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Pipeline B: the CRF model.
 
 
 def crf_model_forward(params, cfg, bert_cfg: BertConfig, batch: Dict,
@@ -208,6 +366,37 @@ def init_prefix_params(rng, *, in_channels: int, mid_dim: int,
                for _ in range(num_aux)]
         params["aux_img_classifiers"] = {
             k: np.stack([a[k] for a in aux]) for k in ("kernel", "bias")}
+    return params
+
+
+def init_span_model_params(cfg, bert_cfg: BertConfig, *, seed: int = 0,
+                           bert_params=None) -> Dict:
+    """Random span-model params with the tree of the JAX package's
+    ``init_span_model_params`` (bert, dense, unary_affine, binary_affine,
+    classifier, prefix without the ANP heads, probe).  Given
+    ``bert_params`` (pretrained weights), the encoder is those and draws
+    no random weights."""
+    if cfg.gcn_layer_number > 0 or cfg.num_layers > 0:
+        raise NotImplementedError("the DiGCN and DualGCN heads are not "
+                                  "ported")
+    rng = np.random.default_rng(seed)
+    h = bert_cfg.hidden_size
+    params = {
+        "bert": bert_params if bert_params is not None
+        else init_bert_params(rng, bert_cfg),
+        "dense": _dense_init(rng, h, h),
+        "unary_affine": _dense_init(rng, h, 1),
+        "binary_affine": _dense_init(rng, h, 2),
+        "classifier": _dense_init(rng, h, 4),
+    }
+    if cfg.use_prefix:
+        params["prefix"] = init_prefix_params(
+            rng, in_channels=cfg.resnet_concat_channels,
+            mid_dim=cfg.prefix_dim, hidden_size=h,
+            num_layers=bert_cfg.num_hidden_layers, with_anp=False)
+    if cfg.use_probe:
+        params["probe"] = {"proj": rng.uniform(
+            -0.05, 0.05, (h, cfg.probe_rank)).astype(np.float32)}
     return params
 
 

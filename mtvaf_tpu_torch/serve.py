@@ -1,4 +1,5 @@
-"""Online serving: dynamic request batching around a ``CrfPredictor``.
+"""Online serving: dynamic request batching around a predictor
+(``CrfPredictor`` or ``SpanPredictor``).
 
 Counterpart of ``mtvaf_tpu/serve.py``.  Concurrent callers submit single
 sentences (with an optional image each); a background worker per replica
@@ -35,7 +36,10 @@ import numpy as np
 
 
 class BatchingServer:
-    """Dynamic-batching front-end for a ``CrfPredictor``.
+    """Dynamic-batching front-end for a predictor: anything with
+    ``dispatch(sentences, images=None)`` → handle, ``collect(handle)`` →
+    one result per sentence, ``predict``, ``serves_images`` and
+    ``to_device``, as ``CrfPredictor`` and ``SpanPredictor`` have.
 
     >>> server = BatchingServer(predictor, max_batch=16, max_wait_ms=5.0)
     >>> server.submit("the pizza was great but service slow").result()

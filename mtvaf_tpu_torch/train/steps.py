@@ -1,10 +1,13 @@
-"""The CRF train step.
+"""The train step of both pipelines, and their eval steps.
 
-Counterpart of the CRF half of ``mtvaf_tpu/train/steps.py``:
-``create_train_state`` → ``make_crf_loss_fn`` → ``make_train_step``, one
+Counterpart of ``mtvaf_tpu/train/steps.py``: ``create_train_state`` →
+``make_span_loss_fn`` or ``make_crf_loss_fn`` → ``make_train_step``, one
 forward + backward + AdamW update per call, with optional gradient
-accumulation over micro-batches; ``make_crf_decode_step`` is the eval
-forward.  PyTorch runs eagerly, so the step is a plain function; the
+accumulation over micro-batches.  ``make_crf_decode_step`` is the CRF eval
+forward; the span pipeline's eval is three steps around a host seam:
+``make_extraction_step`` (the encoder and the start/end logits), the host's
+candidate picking (``eval.span_decode``), then ``make_classification_step``
+or, with the logged eval loss, ``make_span_eval_loss_step``.  PyTorch runs eagerly, so the step is a plain function; the
 gradient is ``torch.autograd.grad`` over the parameter leaves (a leaf the
 loss does not reach gets zeros, as ``jax.grad`` gives), and the update is
 :class:`..train.optim.AdamW`, in place.
@@ -25,7 +28,9 @@ import torch
 from ..core.platform import resolve_device
 from ..nn.bert import BertConfig
 from ..core.rng import fold_in, split
-from ..nn.models import crf_model_forward
+from ..nn.models import (crf_model_forward, span_classification,
+                         span_extraction, span_model_loss, span_model_tail,
+                         visual_prompt)
 from .optim import tree_items
 
 
@@ -75,6 +80,27 @@ def _split_guides(batch: Dict):
     if "main_guides" in batch:
         return batch["main_guides"], batch.get("aux_guides")
     return None
+
+
+def make_span_loss_fn(cfg, bert_cfg: BertConfig):
+    """loss_fn(params, batch, generator) -> (loss, metrics): the span loss
+    on the batch's gold candidates, in bf16 activations under ``cfg.bf16``.
+    The metrics carry the polarity logits of the candidates (``ac_logits``,
+    on the device) for the train F1."""
+    dtype = torch.bfloat16 if cfg.bf16 else torch.float32
+
+    def loss_fn(params, batch, generator):
+        out = span_model_loss(params, cfg, bert_cfg, batch,
+                              visual_guides=_split_guides(batch),
+                              generator=generator, dtype=dtype)
+        metrics = {k: out[k] for k in ("loss", "ae_loss", "ac_loss",
+                                       "ac_logits")}
+        if "probe_loss" in out:
+            metrics["probe_loss"] = out["probe_loss"]
+            metrics["ori_loss"] = out["ori_loss"]
+        return out["loss"], metrics
+
+    return loss_fn
 
 
 def make_crf_loss_fn(cfg, bert_cfg: BertConfig, with_decode: bool = False):
@@ -177,3 +203,61 @@ def make_crf_decode_step(cfg, bert_cfg: BertConfig) -> Callable:
                 "lengths": out["lengths"]}
 
     return decode
+
+
+def make_extraction_step(cfg, bert_cfg: BertConfig) -> Callable:
+    """extract(params, batch) -> (start_logits, end_logits, seq, captured):
+    the span eval's encoder pass (no dropout, no gradient), device tensors
+    not synchronised.  Guides, when the batch has them, are cast to the
+    activation dtype, as the train loss casts them."""
+    dtype = torch.bfloat16 if cfg.bf16 else torch.float32
+
+    @torch.no_grad()
+    def extraction(params, batch):
+        prefix_kvs = None
+        guides = _split_guides(batch)
+        if cfg.use_prefix and guides is not None:
+            prefix_kvs, _, _ = visual_prompt(
+                params["prefix"], guides[0].to(dtype),
+                None if guides[1] is None else guides[1].to(dtype),
+                bert_cfg)
+        return span_extraction(
+            params, cfg, bert_cfg, batch["input_ids"], batch["input_mask"],
+            batch["segment_ids"], prefix_kvs=prefix_kvs, dtype=dtype,
+            capture_layer=cfg.probe_layer if cfg.use_probe else None)
+
+    return extraction
+
+
+def make_span_eval_loss_step(cfg, bert_cfg: BertConfig) -> Callable:
+    """eval_loss(params, batch, seq, start_logits, end_logits, captured,
+    span_pack) -> (ac_logits, loss): the loss after the encoder
+    (``span_model_tail``) on the extraction pass's own outputs and the
+    host-picked candidates, stacked as one (4, B, n_best) integer tensor
+    (starts, ends, labels, masks).  Dropout is off in eval, so this is the
+    reference's second full forward (modules/train.py:197-199, 295-305)
+    without running the encoder again."""
+
+    @torch.no_grad()
+    def eval_loss(params, batch, seq, start_logits, end_logits, captured,
+                  span_pack):
+        b = {**batch, "span_starts": span_pack[0], "span_ends": span_pack[1],
+             "span_labels": span_pack[2], "span_masks": span_pack[3]}
+        out = span_model_tail(params, cfg, bert_cfg, b, seq, start_logits,
+                              end_logits, captured=captured)
+        return out["ac_logits"], out["loss"]
+
+    return eval_loss
+
+
+def make_classification_step(cfg, bert_cfg: BertConfig) -> Callable:
+    """classify(params, seq, span_pairs) -> ac_logits (B, n_best, 4): the
+    polarity of the host-picked candidates, stacked as one (2, B, n_best)
+    integer tensor (starts, ends)."""
+
+    @torch.no_grad()
+    def classify(params, seq_output, span_pairs):
+        return span_classification(params, cfg, seq_output, span_pairs[0],
+                                   span_pairs[1])
+
+    return classify

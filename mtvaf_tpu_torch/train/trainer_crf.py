@@ -59,6 +59,9 @@ class CrfTrainer:
                  train_dataset=None, dev_dataset=None, test_dataset=None,
                  resnet_params=None, writer=None, device=None):
         check_ported(cfg)
+        if cfg.is_span_pipeline:
+            raise ValueError(f"dataset {cfg.dataset_name!r} runs the span "
+                             "pipeline: use SpanTrainer")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.bert_cfg = bert_cfg

@@ -24,7 +24,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     out = subprocess.run([sys.executable, "-c", IMPORT_ALL],
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split(maxsplit=1)
-    assert int(out[0]) >= 38                     # every module was imported
+    assert int(out[0]) >= 41                     # every module was imported
     assert out[1].strip() == "[]"
 
 
@@ -33,12 +33,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
     from mtvaf_tpu_torch.cli.main import main as cli_main
     from mtvaf_tpu_torch.core.config import Config
     from mtvaf_tpu_torch.core.platform import resolve_device
-    from mtvaf_tpu_torch.infer import CrfPredictor, load_predictor
+    from mtvaf_tpu_torch.infer import (CrfPredictor, SpanPredictor,
+                                       load_predictor)
     from mtvaf_tpu_torch.nn.bert import BertConfig
     from mtvaf_tpu_torch.train.optim import build_optimizer
     from mtvaf_tpu_torch.train.ingest import GuideCache
     from mtvaf_tpu_torch.train.steps import create_train_state
     from mtvaf_tpu_torch.train.trainer_crf import CrfTrainer
+    from mtvaf_tpu_torch.train.trainer_span import SpanTrainer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = Config(dataset_name="twitter2015")
@@ -54,6 +56,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
         load_predictor(str(tmp_path))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         CrfTrainer(cfg, BertConfig.tiny(), params)
+    span_cfg = Config(dataset_name="twitter15")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SpanPredictor(span_cfg, BertConfig.tiny(), {}, tokenizer=None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SpanTrainer(span_cfg, BertConfig.tiny(), params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_main(["--dataset_name", "twitter15", "--bert_name",
+                  str(tmp_path)])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         GuideCache({}, 18)
     with pytest.raises(RuntimeError, match="no CUDA device"):
