@@ -72,7 +72,25 @@ Phases, each of which fails the run by raising:
    ``load_predictor`` on that run → ``BatchingServer`` → ``SpanPredictor``,
    64 requests from 16 threads, each result equal to ``predict_many``'s,
    the serving params and a dev batch's extraction logits equal to the
-   trainer's bit for bit.
+   trainer's bit for bit;
+12. aux heads: the span pipeline with cutoff augmentation (``span_cutoff``
+   at ratio 0.1, CE and JS weights 1), DiGCN (2 layers) and DualGCN (2
+   layers), BERT-base, bf16, random weights from a seed: (a) the bare aux
+   train step (two encoder passes, B=32, S=128, GCN side arrays drawn from
+   the seed, dropout live; 15 untimed and 30 timed steps; finite losses,
+   the last 5 below the first, 24 K1 and 24 K2 launches per step); (b) one
+   fp32 aux step on the card against the CPU (B=2, S=32, TF32 off, dropout
+   off, the cut drawn from one host seed on both); (c) the CLI →
+   ``SpanTrainer`` with images (ResNet-152 guides, the visual prefix, the
+   pixel cache seeded as in phase 10) for 2 epochs, side files for train
+   and dev and none for test, 24 K1 + 24 K2 per train step and 12 K1 per
+   eval batch; (d) ``load_predictor`` on that run → ``SpanPredictor``
+   (bf16, with images): the DiGCN classification given a dev batch's side
+   arrays equal to the trainer's, the extraction with images equal to the
+   trainer's fp32-prefix forward bit for bit, ``BatchingServer`` with 64
+   image-bearing requests equal to ``predict_many``.  Phases 2 and 4 also
+   hold K1 and K2 at ``span_s128_cut``: the span shape with the span
+   cutoff's holes inside the bias row.
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times: the
 kernels' summed durations under ``torch.profiler``.  ``event_ms`` is the
@@ -108,9 +126,11 @@ import torch
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # Kernel tolerances (max abs over o and lse).  Against the plain version in
-# the inputs' dtype: in bf16 that version rounds scores and probabilities to
-# bf16 while the kernel keeps fp32, so they differ by a few bf16 ulps (H100
-# reading: o 0.0117, lse 0.0062 at the serving shape).  Against the plain
+# the inputs' dtype: in bf16 that version rounds the normalised
+# probabilities to bf16 where the kernel rounds the unnormalised ones, so
+# they differ by a bf16 ulp or two (H100 reading: o 0.0117, lse 0.0062 at
+# the serving shape, when the plain version still rounded its scores to
+# bf16 too, which alone moves o by up to 2 ulps).  Against the plain
 # version in fp32 on the same values only the kernel's bf16 output rounding
 # is left (reading: o 0.0036 at the serving shape, 0.0020 at S=512).
 K1_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -134,9 +154,13 @@ TRAIN_B, TRAIN_S = 32, 128
 # step 1's by step 17 on the card) and is back below step 1's only by ~35.
 WARMUP_STEPS, TIMED_STEPS = 15, 30
 # The span pipeline's attention shapes (no prefix: T = S, bias (B,1,1,S)):
-# the text-only configuration's S=128, and S=500 under --use_align.
+# the text-only configuration's S=128, and S=500 under --use_align; the
+# "_cut" shape's bias also has the holes that --do_aug's span cutoff puts
+# inside each row (a contiguous tenth of the text, at a random start).
 SPAN_SHAPES = {"span_s128": (TRAIN_B, 12, 128, 128, 64, torch.bfloat16),
-               "span_s500": (TRAIN_B, 12, 500, 500, 64, torch.bfloat16)}
+               "span_s500": (TRAIN_B, 12, 500, 500, 64, torch.bfloat16),
+               "span_s128_cut": (TRAIN_B, 12, 128, 128, 64, torch.bfloat16)}
+CUT_RATIO = 0.1
 
 
 def log(*a):
@@ -239,15 +263,22 @@ def shares(dtype, ms, bound_ms, lib_ms):
             "ms_over_library": ms / lib_ms}
 
 
-def attention_inputs(g, b, h, s, t, d, dtype):
+def attention_inputs(g, b, h, s, t, d, dtype, cut=False):
     """q (B,H,S,D), k and v (B,H,T,D) in ``dtype``, drawn from ``g``, and an
-    fp32 bias (B,1,1,T) that masks a ragged tail of each row's keys."""
+    fp32 bias (B,1,1,T) that masks a ragged tail of each row's keys; with
+    ``cut`` also the keys that the span cutoff cuts inside the text
+    (``train.augment.span_cutoff`` at ``CUT_RATIO``)."""
+    from mtvaf_tpu_torch.train.augment import span_cutoff
     dev = g.device
     q = torch.randn(b, h, s, d, device=dev, generator=g).to(dtype)
     k = torch.randn(b, h, t, d, device=dev, generator=g).to(dtype)
     v = torch.randn(b, h, t, d, device=dev, generator=g).to(dtype)
     lengths = torch.randint(t // 2, t + 1, (b,), device=dev, generator=g)
-    mask = (torch.arange(t, device=dev)[None, :] < lengths[:, None])
+    mask = (torch.arange(t, device=dev)[None, :] < lengths[:, None]).long()
+    if cut:
+        u = torch.rand((b,), device=dev, generator=g)
+        _, mask = span_cutoff(torch.zeros(b, t, 1, device=dev), mask, u,
+                              CUT_RATIO)
     return q, k, v, ((1.0 - mask.float()) * -10000.0)[:, None, None, :]
 
 
@@ -266,7 +297,8 @@ def check_prefix_attention():
             ("s512_bf16", (16, 12, 512, 528, 64, torch.bfloat16), 0.0),
             *((span, shape, r) for span, shape in SPAN_SHAPES.items()
               for r in (0.0, 0.1))):
-        q, k, v, bias = attention_inputs(g, b, h, s, t, d, dtype)
+        q, k, v, bias = attention_inputs(g, b, h, s, t, d, dtype,
+                                         cut=name.endswith("_cut"))
         keep = keep_factors(DROPOUT_SEED, rate, (b, h, s, t), dev) \
             if rate else None
         o, lse = prefix_attention_cuda(q, k, v, bias, seed=DROPOUT_SEED,
@@ -423,7 +455,8 @@ def check_backward():
                            torch.float32),
             "s512_bf16": (16, 12, 512, 528, 64, torch.bfloat16),
             **SPAN_SHAPES}.items():
-        q, k, v, bias = attention_inputs(g, b, h, s, t, d, dtype)
+        q, k, v, bias = attention_inputs(g, b, h, s, t, d, dtype,
+                                         cut=name.endswith("_cut"))
         do = torch.randn(b, h, s, d, device=dev, generator=g).to(dtype)
         for rate in (0.0, 0.1):
             keep = keep_factors(DROPOUT_SEED, rate, (b, h, s, t), dev) \
@@ -717,10 +750,16 @@ def breakdown(pred):
 
 
 def check_train_step_against_cpu(cfg, bert_cfg, params, device="cuda",
-                                 span=False):
+                                 span=False, aux=False):
     """One fp32 step's loss and gradients on the card against the CPU:
-    the CRF step, or with ``span`` the span step."""
+    the CRF step, or with ``span`` the span step, or with ``aux`` the span
+    step with its aux heads (``cfg``'s cutoff and GCN heads, the batch
+    with GCN side arrays): the base loss and the cut pass's, dropout off,
+    the cut drawn on both devices from one host seed.  A leaf that no
+    forward reads (``dep_embedding``) is held to 1e-6 absolute."""
     from mtvaf_tpu_torch.data.synthetic import crf_batch, span_batch
+    from mtvaf_tpu_torch.nn.models import span_model_loss
+    from mtvaf_tpu_torch.train.augment import add_consistency, make_cutoff_fn
     from mtvaf_tpu_torch.train.optim import build_optimizer, tree_items
     from mtvaf_tpu_torch.train.steps import (create_train_state,
                                              make_crf_loss_fn,
@@ -728,12 +767,26 @@ def check_train_step_against_cpu(cfg, bert_cfg, params, device="cuda",
 
     cfg32 = cfg.replace(bf16=False)
     make_loss, make_batch, pipeline = \
-        (make_span_loss_fn, span_batch, "span") if span \
+        (make_span_loss_fn, span_batch, "span") if span or aux \
         else (make_crf_loss_fn, crf_batch, "crf")
     loss_fn = make_loss(cfg32, bert_cfg)
+    if aux:
+        base_fn = loss_fn
+        cutoff = make_cutoff_fn(cfg32.aug_type, cfg32.aug_cutoff_ratio)
+
+        def loss_fn(params, batch, generator):
+            base, metrics = base_fn(params, batch, None)
+            out = span_model_loss(params, cfg32, bert_cfg, batch,
+                                  cutoff=(cutoff, torch.Generator()
+                                          .manual_seed(SEED + 7)))
+            return add_consistency(cfg32, base, metrics, out)
+        pipeline = "aux"
     optimizer, _ = build_optimizer(params, cfg32, total_steps=1000,
-                                   pipeline=pipeline)
+                                   pipeline="crf" if pipeline == "crf"
+                                   else "span")
     batch = make_batch(cfg, bert_cfg, 2, 32, seed=SEED + 5)
+    if aux:
+        batch.update(gcn_side_arrays(2, 32, seed=SEED + 5))
     prev = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -762,14 +815,16 @@ def check_train_step_against_cpu(cfg, bert_cfg, params, device="cuda",
             raise AssertionError(f"gradient of {path} on one device only")
         if want is None:
             continue
-        ratio = (got - want).abs().max().item() \
-            / (1e-3 * max(1.0, want.abs().max().item()))
+        limit = 1e-6 if path == "dep_embedding" \
+            else 1e-3 * max(1.0, want.abs().max().item())
+        ratio = (got - want).abs().max().item() / limit
         if not math.isfinite(ratio) or ratio > worst:
             worst, worst_path = ratio, path
     log(f"{pipeline} train step fp32 card vs CPU (B=2, S=32): loss "
         f"{loss_gpu:.6f} vs "
         f"{loss_cpu:.6f} (rel {rel:.2e}, limit 1e-4); worst gradient leaf "
-        f"{worst_path} at {worst:.3f} of its limit 1e-3*max(1, max|g|)")
+        f"{worst_path} at {worst:.3f} of its limit 1e-3*max(1, max|g|) "
+        "(dep_embedding: 1e-6)")
     if not (rel <= 1e-4 and worst <= 1.0):
         raise AssertionError(f"{pipeline} train step on the card disagrees "
                              "with the CPU")
@@ -935,7 +990,6 @@ def trainer_tree(tmp):
     file per id (empty: nothing is decoded) with its normalized pixel rows
     seeded in the ``.npy`` cache, and a ``bert`` directory with a vocab."""
     import os
-    from mtvaf_tpu_torch.data.images import _normalize
     from mtvaf_tpu_torch.data.synthetic import make_crf_files, make_vocab_file
 
     root = os.path.join(tmp, "data")
@@ -962,12 +1016,20 @@ def trainer_tree(tmp):
     with open(os.path.join(root, "ANP_data", "image_output2015.json"),
               "w") as f:
         json.dump(anp, f)
+    seed_pixel_cache(img_dir, pix_dir, ids, rng)
+    make_vocab_file(os.path.join(tmp, "bert", "vocab.txt"))
+    return root, os.path.join(tmp, "bert"), os.path.join(tmp, "cache"), ids
+
+
+def seed_pixel_cache(img_dir, pix_dir, ids, rng):
+    """One empty image file per id, with its normalized pixel rows (random
+    from ``rng``) in the ``.npy`` cache that ``ImageStore`` reads first, so
+    that nothing is decoded (the card's machine has no PIL)."""
+    from mtvaf_tpu_torch.data.images import _normalize
     for img in ids:
         open(os.path.join(img_dir, img), "wb").close()
         np.save(os.path.join(pix_dir, img + ".npy"), _normalize(
             rng.integers(0, 256, (224, 224, 3), np.uint8)))
-    make_vocab_file(os.path.join(tmp, "bert", "vocab.txt"))
-    return root, os.path.join(tmp, "bert"), os.path.join(tmp, "cache"), ids
 
 
 def run_cli(argv, bert_cfg, on_epoch_log=None, span=False):
@@ -1601,7 +1663,9 @@ def span_phase(bare_step):
             "eval": evals}
         log("span_trainer_path", json.dumps(out["trainer"]))
 
-        # (d) serving the run directory
+        # (d) serving the run directory; every serving leaf equals the
+        # trainer's (this model has no prefix: a span predictor keeps its
+        # prefix generator in fp32, which phase 12 checks)
         pred = load_predictor(save, device="cuda")
         if not isinstance(pred, SpanPredictor):
             raise AssertionError(f"load_predictor built {type(pred)}")
@@ -1688,6 +1752,456 @@ def span_phase(bare_step):
         torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"span phase: {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the span pipeline's aux heads (cutoff augmentation, DiGCN,
+# DualGCN), BERT-base, twitter15, bf16.
+
+AUX_GCN_LAYERS, AUX_DUAL_LAYERS = 2, 2
+
+
+def aux_config():
+    return span_config().replace(
+        do_aug=True, aug_type="span_cutoff", aug_cutoff_ratio=CUT_RATIO,
+        aug_ce_loss=1.0, aug_js_loss=1.0, gcn_layer_number=AUX_GCN_LAYERS,
+        num_layers=AUX_DUAL_LAYERS)
+
+
+def gcn_side_arrays(b, s, seed):
+    """GCN side arrays for a batch of full-length rows, from ``seed``: a
+    dependency adjacency (a random tree over the tokens, plus self-loops)
+    as both ``adj_matrix`` and ``adjacency_matrix``, ``src_mask``, a
+    two-token ``aspect_mask``, ``polaritys`` and ``valid_ids``."""
+    rng = np.random.RandomState(seed)
+    adj = np.zeros((b, s, s), np.float32)
+    aspect = np.zeros((b, s), np.int64)
+    for i in range(b):
+        for t in range(1, s):
+            p = rng.randint(0, t)
+            adj[i, t, p] = adj[i, p, t] = 1.0
+        adj[i][np.arange(s), np.arange(s)] = 1.0
+        a = rng.randint(1, s - 2)
+        aspect[i, a:a + 2] = 1
+    valid = (rng.rand(b, s) > 0.2).astype(np.int64)
+    valid[:, 0] = 1
+    adj = torch.from_numpy(adj)
+    return {"adj_matrix": adj, "adjacency_matrix": adj,
+            "src_mask": torch.ones((b, s), dtype=torch.int64),
+            "aspect_mask": torch.from_numpy(aspect),
+            "polaritys": torch.from_numpy(rng.randint(0, 3, (b,))),
+            "valid_ids": torch.from_numpy(valid)}
+
+
+def aux_train(bert_cfg, span_step):
+    """(a) The bare aux train step: ``make_span_loss_fn`` + the cutoff's
+    ``augment_fn`` → ``make_train_step`` on one fixed ``span_batch`` (B=32,
+    S=128) with GCN side arrays, bf16, dropout live, 15 untimed and 30
+    timed steps; two encoder passes per step (the base and the cut one)."""
+    from mtvaf_tpu_torch.core.convert import params_from_jax
+    from mtvaf_tpu_torch.core.flops import (H100_BF16_PEAK,
+                                            train_flops_per_example)
+    from mtvaf_tpu_torch.data.synthetic import span_batch
+    from mtvaf_tpu_torch.kernels.prefix_attention import (
+        keep_mask_cuda, prefix_attention, prefix_attention_bwd_cuda)
+    from mtvaf_tpu_torch.nn.models import init_span_model_params
+    from mtvaf_tpu_torch.train.augment import make_span_augment_fn
+    from mtvaf_tpu_torch.train.optim import build_optimizer
+    from mtvaf_tpu_torch.train.steps import (create_train_state,
+                                             make_span_loss_fn,
+                                             make_train_step)
+
+    cfg = aux_config()
+    t0 = time.perf_counter()
+    params = params_from_jax(init_span_model_params(cfg, bert_cfg,
+                                                    seed=SEED))
+    optimizer, _ = build_optimizer(params, cfg, total_steps=1000,
+                                   pipeline="span")
+    state = create_train_state(params, optimizer, device="cuda")
+    step = make_train_step(make_span_loss_fn(cfg, bert_cfg), optimizer,
+                           augment_fn=make_span_augment_fn(cfg, bert_cfg))
+    batch = span_batch(cfg, bert_cfg, TRAIN_B, TRAIN_S, seed=SEED)
+    batch.update(gcn_side_arrays(TRAIN_B, TRAIN_S, seed=SEED))
+    batch = {k: v.cuda() for k, v in batch.items()}
+    losses = []
+    for _ in range(WARMUP_STEPS):
+        state, metrics = step(state, batch, SEED)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    counters = (prefix_attention.launches, prefix_attention_bwd_cuda.launches,
+                keep_mask_cuda.launches)
+    for c in counters:
+        c.reset()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(TIMED_STEPS):
+        state, metrics = step(state, batch, SEED)
+        losses.append(metrics["loss"])
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2, masks = (c.value for c in counters)
+    losses = [x.item() for x in losses]
+    step_ms = start.elapsed_time(end) / TIMED_STEPS
+    ex_per_s = TRAIN_B / (step_ms / 1e3)
+    # two encoder passes per example; the heads' FLOPs are left out
+    flops = 2 * train_flops_per_example(bert_cfg, TRAIN_S, prefix_len=0)
+    out = {"batch": TRAIN_B, "seq": TRAIN_S, "steps": TIMED_STEPS,
+           "aug": cfg.aug_type, "ratio": cfg.aug_cutoff_ratio,
+           "gcn_layer_number": cfg.gcn_layer_number,
+           "num_layers": cfg.num_layers,
+           "setup_and_untimed_s": setup_s, "step_ms": step_ms,
+           "wall_step_ms": wall / TIMED_STEPS * 1e3,
+           "examples_per_s": ex_per_s,
+           "wall_examples_per_s": TRAIN_B * TIMED_STEPS / wall,
+           "flops_per_example": flops,
+           "mfu": flops * ex_per_s / H100_BF16_PEAK,
+           "span_step_ms": span_step["step_ms"],
+           "span_step_mfu": span_step["mfu"],
+           "k1_launches": k1, "k2_launches": k2, "mask_launches": masks,
+           "cutoff_loss": metrics["cutoff_loss"].item(),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "losses": losses}
+    log("aux_train_step", json.dumps(out))
+    per_step = 2 * bert_cfg.num_hidden_layers
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite aux train loss: {losses}")
+    if not sum(losses[-5:]) / 5 < losses[0]:
+        raise AssertionError(f"aux train loss did not fall: {losses}")
+    if k1 != per_step * TIMED_STEPS or k2 != per_step * TIMED_STEPS \
+            or masks:
+        raise AssertionError(f"K1 ran {k1}, K2 {k2} and the mask entry "
+                             f"{masks} times in {TIMED_STEPS} aux steps, "
+                             f"not {per_step} K1 + {per_step} K2 per step")
+    del state, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def write_gcn_side_file(path, dataset, seed):
+    """The GCN side file of a span split: one record per example (in
+    ``example_index`` order) over its tokens, as ``gcn_side_arrays``
+    draws them, and every other record with its own ``valid_ids``."""
+    rng = np.random.RandomState(seed)
+    records = []
+    for mask in dataset.arrays["input_mask"]:
+        n = max(int(mask.sum()), 4)
+        side = gcn_side_arrays(1, n, seed=int(rng.randint(1 << 30)))
+        rec = {"adj_matrix": side["adj_matrix"][0].tolist(),
+               "src_mask": [1] * n,
+               "aspect_mask": side["aspect_mask"][0].tolist(),
+               "polarity": int(side["polaritys"][0])}
+        if len(records) % 2:
+            rec["valid_ids"] = side["valid_ids"][0].tolist()
+        records.append(rec)
+    with open(path, "w") as f:
+        json.dump(records, f)
+
+
+def aux_tree(tmp):
+    """Phase 11's span tree with images: each sentence its own image id
+    (an empty file, its pixels seeded in the ``.npy`` cache as phase 10
+    seeds them) and GCN side files for train and dev, none for test (the
+    CLI drops a missing one).  Returns (data root, bert dir, cache dir,
+    image ids)."""
+    import re
+    from mtvaf_tpu_torch.core.config import Config
+    from mtvaf_tpu_torch.data.datasets import SpanDataset
+    from mtvaf_tpu_torch.data.tokenization import build_tokenizer
+
+    root, bert_dir = span_tree(tmp)
+    base = os.path.join(root, "twitter2015")
+    img_dir = os.path.join(root, "twitter2015_images")
+    cache = os.path.join(tmp, "aux_cache")
+    pix_dir = os.path.join(cache, "img")
+    for d in (img_dir, pix_dir):
+        os.makedirs(d, exist_ok=True)
+    cfg = Config(dataset_name="twitter15", max_seq=TRAIN_S)
+    tok = build_tokenizer(bert_dir, cfg.do_lower_case)
+    ids = []
+    for k, (mode, fname) in enumerate((("train", "train.txt"),
+                                       ("dev", "valid.txt"),
+                                       ("test", "test.txt"))):
+        path = os.path.join(base, fname)
+        with open(path) as f:
+            lines = f.read().splitlines()
+        split_ids = [f"{800000 + 10000 * k + i}.jpg"
+                     for i in range(len(lines))]
+        with open(path, "w") as f:
+            f.write("\n".join(re.sub(r"imgid=\['[^']*'\]",
+                                     f"imgid=['{img}']", line)
+                              for line, img in zip(lines, split_ids)) + "\n")
+        ids += split_ids
+        if mode != "test":
+            write_gcn_side_file(
+                os.path.join(base, f"twitter15_{mode}.json"),
+                SpanDataset.load(cfg, tok, path), seed=SEED + 20 + k)
+    seed_pixel_cache(img_dir, pix_dir, ids, np.random.default_rng(SEED + 2))
+    return root, bert_dir, cache, ids
+
+
+def aux_phase(span_path):
+    """Phase 12: (a) the bare aux train step; (b) one fp32 aux step on the
+    card against the CPU; (c) the aux heads through the CLI →
+    ``SpanTrainer`` with images (ResNet-152 guides, the visual prefix)
+    for two epochs; (d) ``load_predictor`` on its run directory: the
+    DiGCN classification with a dev batch's side arrays against the
+    trainer's, the extraction with images against the trainer's
+    fp32-prefix forward, and ``BatchingServer`` with images held to
+    ``predict_many``."""
+    from mtvaf_tpu_torch.core.convert import params_from_jax
+    from mtvaf_tpu_torch.eval.span_decode import batch_eval_candidates
+    from mtvaf_tpu_torch.infer import (SpanPredictor, load_predictor,
+                                       serving_params)
+    from mtvaf_tpu_torch.kernels.prefix_attention import (
+        keep_mask_cuda, prefix_attention, prefix_attention_bwd_cuda)
+    from mtvaf_tpu_torch.nn.bert import BertConfig
+    from mtvaf_tpu_torch.nn.models import init_span_model_params
+    from mtvaf_tpu_torch.serve import BatchingServer
+    from mtvaf_tpu_torch.train.optim import tree_items
+    from mtvaf_tpu_torch.train.steps import export_params
+
+    bert_cfg = BertConfig.base()
+    layers = bert_cfg.num_hidden_layers
+    t_phase = time.perf_counter()
+    out = {"train_step": aux_train(bert_cfg, span_path["train_step"])}
+
+    # (b) one fp32 aux step, card against CPU
+    cfg = aux_config()
+    out["fp32_step_vs_cpu"] = check_train_step_against_cpu(
+        cfg, bert_cfg, params_from_jax(init_span_model_params(
+            cfg, bert_cfg, seed=SEED + 6)), aux=True)
+    torch.cuda.empty_cache()
+
+    counters = (prefix_attention.launches, prefix_attention_bwd_cuda.launches,
+                keep_mask_cuda.launches)
+    with tempfile.TemporaryDirectory() as tmp:
+        # (c) the trainer through the CLI, with images and the aux heads
+        root, bert_dir, cache, ids = aux_tree(tmp)
+        save = os.path.join(tmp, "aux_run")
+        argv = ["--dataset_name", "twitter15", "--bert_name", bert_dir,
+                "--logit_threshold", "0", "--data_root", root,
+                "--save_path", save, "--cache_dir", cache, "--bf16",
+                "--use_prefix", "--use_152",
+                "--max_seq", str(TRAIN_S), "--train_batch_size",
+                str(TRAIN_B), "--eval_batch_size", str(TRAINER_EVAL_BATCH),
+                "--num_epochs", str(TRAINER_EPOCHS), "--eval_begin_epoch",
+                "1", "--seed", str(SEED), "--do_train",
+                "--do_aug", "--aug_type", cfg.aug_type,
+                "--aug_cutoff_ratio", str(cfg.aug_cutoff_ratio),
+                "--gcn_layer_number", str(cfg.gcn_layer_number),
+                "--num_layers", str(cfg.num_layers)]
+        for c in counters:
+            c.reset()
+        t0 = time.perf_counter()
+        metrics, tr = run_cli(argv, bert_cfg, span=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1, k2, masks = (c.value for c in counters)
+        steps = sum(h["steps"] for h in tr.history)
+        eval_batches = TRAINER_EPOCHS * -(-len(tr.dev_dataset)
+                                          // TRAINER_EVAL_BATCH) \
+            + -(-len(tr.test_dataset) // TRAINER_EVAL_BATCH)
+        losses = [h["train_loss"] for h in tr.history]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"non-finite aux trainer loss: {losses}")
+        if steps != TRAINER_EPOCHS * -(-TRAINER_SIZES["train"] // TRAIN_B):
+            raise AssertionError(f"{steps} aux train steps")
+        if k2 != 2 * layers * steps \
+                or k1 != 2 * layers * steps + layers * eval_batches \
+                or masks:
+            raise AssertionError(
+                f"K1 ran {k1}, K2 {k2}, the mask entry {masks} times for "
+                f"{steps} aux train steps and {eval_batches} eval batches: "
+                f"not {2 * layers} K1 + {2 * layers} K2 per step and "
+                f"{layers} K1 per eval batch")
+        gc = tr.guide_cache
+        tensors = [p for _, p in tree_items(tr.state.params)] \
+            + list(tr.state.opt_state.mu) + list(tr.state.opt_state.nu) \
+            + [gc._dev_main, gc._dev_aux]
+        if any(t is None or not t.is_cuda for t in tensors):
+            raise AssertionError("an aux parameter, moment or guide-table "
+                                 "tensor is not on the card")
+        sides = [("adjacency_matrix" in d.arrays) for d in
+                 (tr.train_dataset, tr.dev_dataset, tr.test_dataset)]
+        if sides != [True, True, False] or gc.computed != len(ids):
+            raise AssertionError(f"side arrays per split {sides}, "
+                                 f"{gc.computed} of {len(ids)} images got "
+                                 "guides")
+        for name in ("best_model.npz", "train_predictions.json",
+                     "dev_predictions.json", "test_predictions.json",
+                     "final_metrics.json", "run_config.json"):
+            if not os.path.exists(os.path.join(save, name)):
+                raise AssertionError(f"the aux run wrote no {name}")
+
+        evals = {}
+        for name, ds in (("dev", tr.dev_dataset), ("test", tr.test_dataset)):
+            prefix_attention.launches.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, loss = tr._predict(ds, compute_loss=True)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            n_batches = -(-len(ds) // TRAINER_EVAL_BATCH)
+            if prefix_attention.launches.value != layers * n_batches:
+                raise AssertionError(
+                    f"aux {name} eval: K1 ran "
+                    f"{prefix_attention.launches.value} times in "
+                    f"{n_batches} batches")
+            evals[name] = {"sentences": len(ds), "seconds": dt,
+                           "sentences_per_s": len(ds) / dt, "loss": loss}
+        out["trainer"] = {
+            "epochs": tr.history, "wall_s": wall, "metrics": metrics,
+            "images": len(ids), "guide_fill": {
+                "images": gc.computed, "seconds": gc.compute_s},
+            "bare_step_examples_per_s": out["train_step"]["examples_per_s"],
+            "train_steps": steps, "eval_batches": eval_batches,
+            "k1_launches": k1, "k2_launches": k2, "mask_launches": masks,
+            "eval": evals}
+        log("aux_trainer_path", json.dumps(out["trainer"]))
+
+        # (d) serving the run directory
+        pred = load_predictor(save, device="cuda")
+        if not isinstance(pred, SpanPredictor) or not pred.serves_images:
+            raise AssertionError(f"load_predictor built {type(pred)}")
+        # every serving leaf equals the trainer's best model; the span
+        # predictor keeps the prefix generator in fp32 (it builds the
+        # prefix in fp32, as the JAX predictor does), so its prefix leaves
+        # are held to the trainer's fp32 leaves, not to a bf16 cast
+        want = dict(tree_items(serving_params(
+            export_params(tr.state), pred.dtype, pred.device,
+            prefix_dtype=torch.float32)))
+        got = dict(tree_items(pred.params))
+        if got.keys() != want.keys() or any(
+                got[k].dtype != want[k].dtype
+                or not torch.equal(got[k], want[k]) for k in want):
+            raise AssertionError("the aux predictor's params differ from "
+                                 "the trainer's best model")
+        ds = tr.dev_dataset
+        rows = list(range(TRAINER_EVAL_BATCH))
+        host = {k: ds.arrays[k][rows].astype(np.int64)
+                for k in ("input_ids", "input_mask", "segment_ids")}
+        sents = [" ".join(ds.examples[ds.features[i].example_index]
+                          .sent_tokens) for i in rows]
+        examples, feats, pred_host = pred._make_host_batch(sents)
+        if any(not np.array_equal(pred_host[k], host[k]) for k in host):
+            raise AssertionError("the predictor tokenizes the dev "
+                                 "sentences otherwise than the dataset")
+        images = np.stack([ds.image_store.main_image(ds.image_ids[i])
+                           for i in rows])
+        gcn = (ds.arrays["valid_ids"][rows],
+               ds.arrays["adjacency_matrix"][rows])
+        # the trainer's steps on the same batch with the predictor's fp32
+        # guides: an fp32-prefix forward
+        dev = tr._device_batch({k: ds.arrays[k][rows] for k in
+                                ("input_ids", "input_mask", "segment_ids",
+                                 "valid_ids", "adjacency_matrix")})
+        with torch.inference_mode():
+            main_g, aux_g = pred._guides(images, None)
+        s_tr, e_tr, seq_tr, _ = tr.extraction_step(
+            tr.state.params, {**dev, "main_guides": main_g,
+                              "aux_guides": aux_g})
+        s_pr, e_pr, _, _ = pred.extract(host, images)
+        if not (torch.equal(s_tr, s_pr) and torch.equal(e_tr, e_pr)):
+            gap = max((s_tr - s_pr).abs().max().item(),
+                      (e_tr - e_pr).abs().max().item())
+            raise AssertionError("the predictor's extraction with images "
+                                 "differs from the fp32-prefix forward by "
+                                 f"{gap}")
+        # what building the prefix from the bf16 guide table (the
+        # trainer's eval) moves on the same batch
+        table = tr._attach_guides({"example_index": np.asarray(rows)}, ds)
+        s_tb, e_tb, _, _ = tr.extraction_step(
+            tr.state.params, {**dev, "main_guides": table["main_guides"],
+                              "aux_guides": table["aux_guides"]})
+        bf16_prefix_gap = max((s_tb - s_tr).abs().max().item(),
+                              (e_tb - e_tr).abs().max().item())
+        se_np = torch.stack([s_tr, e_tr]).cpu().numpy()
+        ss, se, _, cand = batch_eval_candidates(
+            examples, feats, range(len(feats)), se_np[0], se_np[1], pred.cfg)
+        pairs = torch.tensor(np.asarray([ss, se]), dtype=torch.int64,
+                             device=pred.device)
+        trained = tr.classification_step(tr.state.params, seq_tr, pairs,
+                                         dev["valid_ids"],
+                                         dev["adjacency_matrix"])
+        want_res = pred._to_results(examples, feats, ss, se, cand,
+                                    trained.argmax(dim=-1).cpu().numpy())
+        got_res = pred.predict(sents, images=images, gcn=gcn)
+        if got_res != want_res:
+            raise AssertionError("the predictor's DiGCN classification "
+                                 "with a dev batch's side arrays differs "
+                                 "from the trainer's")
+        del tr
+        torch.cuda.empty_cache()
+
+        sents = span_requests(N_REQUESTS, seed=SEED + 12)
+        pix = [img for _, img in requests(2 * N_REQUESTS, seed=SEED + 13)
+               if img is not None][:N_REQUESTS]
+        server = BatchingServer(pred, max_batch=16, max_wait_ms=5.0,
+                                pipeline_depth=4)
+        results, errors = [None] * len(sents), []
+        try:
+            server.warmup()
+            torch.cuda.synchronize()
+
+            def client(idx):
+                try:
+                    for i in idx:
+                        results[i] = server.submit(
+                            sents[i], pix[i]).result(timeout=300)
+                except BaseException as e:    # re-raised on the main thread
+                    errors.append(e)
+
+            prefix_attention.launches.reset()
+            t0 = time.perf_counter()
+            threads = [threading.Thread(
+                target=client, args=(range(c, len(sents), CLIENTS),))
+                for c in range(CLIENTS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            torch.cuda.synchronize()
+            serve_wall = time.perf_counter() - t0
+            serve_k1 = prefix_attention.launches.value
+            stats = server.stats()
+        finally:
+            server.close()
+        if errors:
+            raise errors[0]
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("an aux client did not finish")
+        many = pred.predict_many(sents, images=np.stack(pix), batch_size=16)
+        if results != many:
+            bad = [i for i, (r, m) in enumerate(zip(results, many)) if r != m]
+            raise AssertionError(f"served aux results differ from "
+                                 f"predict_many at requests {bad[:8]}")
+        if stats["served"] != len(sents) or serve_k1 != layers \
+                * stats["batches"]:
+            raise AssertionError(f"aux serving: served {stats['served']}, "
+                                 f"K1 ran {serve_k1} times for "
+                                 f"{stats['batches']} batches")
+        out["serve"] = {"requests": len(sents), "images": len(pix),
+                        "batches": stats["batches"],
+                        "mean_batch": stats["mean_batch"],
+                        "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
+                        "wall_s": serve_wall,
+                        "sentences_per_s": len(sents) / serve_wall,
+                        "k1_launches": serve_k1,
+                        "spans": sum(len(r) for r in results),
+                        "params_bitwise": len(want),
+                        "extraction_bitwise_rows": len(rows),
+                        "gcn_dispatch_rows": len(rows),
+                        "bf16_guide_prefix_logit_gap": bf16_prefix_gap}
+        log("aux_serve_path", json.dumps(out["serve"]))
+        del pred
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"aux phase: {out['phase_s']:.1f} s")
     return out
 
 
@@ -1796,6 +2310,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     trainer_path = trainer_phase(train_path)
     span_path = span_phase(train_path)
+    aux_path = aux_phase(span_path)
 
     serve_row = next(r for r in k1_rows if r["shape"] == "serve_bf16")
     k2_row = next(r for r in k2_rows
@@ -1808,12 +2323,15 @@ def main() -> int:
                  **{k: r[k] for k in keys}}
                 for r in rows if r["shape"] in SPAN_SHAPES]
 
-    span_launches = {
-        name: {"train_step": span_path["train_step"][f"{name}_launches"],
-               "trainer": span_path["trainer"][f"{name}_launches"],
-               "serve": span_path["serve"]["k1_launches"]
-               if name == "k1" else 0}
-        for name in ("k1", "k2", "mask")}
+    def path_launches(path):
+        return {name: {"train_step": path["train_step"][f"{name}_launches"],
+                       "trainer": path["trainer"][f"{name}_launches"],
+                       "serve": path["serve"]["k1_launches"]
+                       if name == "k1" else 0}
+                for name in ("k1", "k2", "mask")}
+
+    span_launches, aux_launches = path_launches(span_path), \
+        path_launches(aux_path)
     log("profiler_misses", json.dumps(profiler_misses))
     log(card)
     log(json.dumps({"kernels": [{
@@ -1833,6 +2351,7 @@ def main() -> int:
         "trainer": {"launches": trainer_path["k1_launches"]},
         "span": {"launches": span_launches["k1"],
                  "shapes": span_rows(k1_rows, "max_abs_err_o")},
+        "aux": {"launches": aux_launches["k1"]},
     }, {
         "name": "prefix_attention_bwd",
         "route": "cuda", "design": {"bfloat16": DESIGN[torch.bfloat16],
@@ -1846,6 +2365,7 @@ def main() -> int:
         "trainer": {"launches": trainer_path["k2_launches"]},
         "span": {"launches": span_launches["k2"],
                  "shapes": span_rows(k2_rows, "max_abs_err")},
+        "aux": {"launches": aux_launches["k2"]},
     }, {
         "name": "prefix_attention_keep_mask",
         "route": "cuda", "design": "cuda-cores",
@@ -1855,6 +2375,7 @@ def main() -> int:
         "launches": train_path["mask_launches"],
         "trainer": {"launches": trainer_path["mask_launches"]},
         "span": {"launches": span_launches["mask"]},
+        "aux": {"launches": aux_launches["mask"]},
         "max_abs_err": float(mask_row["mismatches"]),
         **{k: mask_row[k] for k in keys[:4]},
         "library_ms": None,

@@ -61,6 +61,8 @@ def data_paths(cfg: Config, data_root: str) -> dict:
         "merge": {m: os.path.join(agn, f"merge_{m}.txt") for m in modes},
         "caption": {m: os.path.join(agn, f"{year[2:]}_{m}_caption.txt")
                     for m in modes},
+        "gcn": {m: os.path.join(base, f"twitter{year[2:]}_{m}.json")
+                for m in modes},
     }
 
 
@@ -153,11 +155,19 @@ def main(argv=None, bert_cfg_override: Optional[BertConfig] = None,
                                f"{cfg.train_batch_size}_{cfg.lr}{cfg.notes}")
 
     def span_ds(mode):
+        # a GCN head's side file is read where it exists; a split without
+        # one trains and evaluates without the heads' arrays, as in the
+        # reference's CLI
+        gcn_file = None
+        if (cfg.num_layers > 0 or cfg.gcn_layer_number > 0) \
+                and os.path.exists(paths["gcn"][mode]):
+            gcn_file = paths["gcn"][mode]
         return SpanDataset.load(
             cfg, tokenizer, paths[mode], mode=mode, img_dir=paths["img_dir"],
             aux_dir=paths["aux_dir"][mode],
             aux_map=load_aux_map(paths["aux_map"][mode]),
-            agn_file=paths["agn"][mode] if cfg.use_align else None)
+            agn_file=paths["agn"][mode] if cfg.use_align else None,
+            gcn_file=gcn_file)
 
     def crf_ds(mode):
         merge = None

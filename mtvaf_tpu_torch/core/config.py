@@ -68,11 +68,18 @@ class Config:
     # auxiliary text channel
     only_caption: bool = False   # caption-only merge files (with use_align)
 
-    # auxiliary heads (not ported: check_ported raises for them)
+    # auxiliary heads of the span pipeline (off by default, as in the
+    # reference); alpha and beta also weight the DualGCN penalties
     gcn_layer_number: int = 0    # DiGCN depth
     num_layers: int = 0          # DualGCN depth
+    direct: bool = False         # directed dependency types (type_num)
+    gcn_dropout: float = 0.1     # DualGCN between-layer dropout
+    bert_dropout: float = 0.3    # DualGCN input and pooled-output dropout
     do_aug: bool = False         # cutoff augmentation
     aug_type: Optional[str] = None   # span_cutoff | token_cutoff | dim_cutoff
+    aug_cutoff_ratio: float = 0.1
+    aug_ce_loss: float = 1.0     # weight of the augmented pass's loss
+    aug_js_loss: float = 1.0     # weight of the JS consistency term
 
     # probe (its head is trained only; serving never reads it)
     use_probe: bool = False
@@ -211,6 +218,12 @@ class Config:
         return sum(RESNET_STAGE_CHANNELS[self.resnet_depth])
 
     @property
+    def type_num(self) -> int:
+        """Dependency-type inventory of the DiGCN ``dep_embedding``
+        (reference models/utils.py:836: 100 if direct else 50)."""
+        return 100 if self.direct else 50
+
+    @property
     def effective_max_seq(self) -> int:
         return self.max_seq_agn if self.use_align else self.max_seq
 
@@ -227,18 +240,9 @@ def check_ported(cfg: Config) -> None:
     """Raise, naming the missing piece, when ``cfg`` asks the trainer or
     the CLI for something the port does not have yet."""
     missing = []
-    if cfg.do_aug:
-        missing.append("do_aug: cutoff augmentation is not ported "
-                       "(ROADMAP A.3)")
-    if cfg.gcn_layer_number > 0:
-        missing.append("gcn_layer_number > 0: the DiGCN head is not ported "
-                       "(ROADMAP A.3)")
-    if cfg.num_layers > 0:
-        missing.append("num_layers > 0: the DualGCN head is not ported "
-                       "(ROADMAP A.3)")
     if cfg.nodes > 1:
         missing.append("nodes > 1: multi-host training is not ported "
-                       "(ROADMAP A.4)")
+                       "(ROADMAP A.5)")
     if cfg.profile_dir:
         missing.append("profile_dir: the step profiler is not ported "
                        "(ROADMAP A.6)")

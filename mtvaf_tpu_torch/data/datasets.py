@@ -10,6 +10,7 @@ ported (``process_count > 1`` raises).
 
 from __future__ import annotations
 
+import json
 import os
 import queue
 import random
@@ -50,12 +51,8 @@ class SpanDataset:
              gcn_file: Optional[str] = None) -> "SpanDataset":
         """``sample_ratio`` < 1 samples the train split with replacement
         (``random.Random(cfg.seed)``); ``agn_file`` appends the AGN aux
-        text (``--use_align``).  The GCN side data (``gcn_file``) is not
-        ported and raises."""
-        if gcn_file:
-            raise NotImplementedError(
-                "gcn_file: the GCN side data of the DiGCN and DualGCN heads "
-                "is not ported (ROADMAP A.3)")
+        text (``--use_align``); ``gcn_file`` adds the GCN heads' side
+        arrays (:func:`load_gcn_arrays`)."""
         dataset = read_absa_data(data_file)
         if cfg.sample_ratio != 1.0 and mode == "train":
             dataset = sample_dataset(dataset, cfg.sample_ratio,
@@ -73,7 +70,11 @@ class SpanDataset:
             store = ImageStore(img_dir, aux_dir,
                                cache_dir=os.path.join(cfg.cache_dir, "img"),
                                aux_map=aux_map)
-        return cls(examples, features, stack_span_features(features),
+        arrays = stack_span_features(features)
+        if gcn_file:
+            arrays.update(load_gcn_arrays(gcn_file, features,
+                                          cfg.effective_max_seq))
+        return cls(examples, features, arrays,
                    [f.image_id or "" for f in features], store)
 
     def __len__(self):
@@ -113,6 +114,54 @@ class CrfDataset:
 
     def __len__(self):
         return len(self.features)
+
+
+def load_gcn_arrays(gcn_file: str, features, max_seq: int
+                    ) -> Dict[str, np.ndarray]:
+    """The GCN heads' per-example side arrays, padded to ``max_seq``.
+
+    ``gcn_file`` is a JSON list with one record per kept example (those
+    with aspect terms), indexed by ``example_index`` as the reference does
+    (models/utils.py:674-679): ``adj_matrix`` (L, L), ``src_mask`` (L),
+    ``aspect_mask`` (L), ``polarity`` and optionally ``valid_ids`` (L).  An
+    example without a record keeps zeros.  ``valid_ids`` flags each word's
+    first sub-token, from ``token_to_orig_map``, unless the record gives
+    its own.  The dependency adjacency is both ``adj_matrix`` (DualGCN) and
+    ``adjacency_matrix`` (DiGCN)."""
+    with open(gcn_file, encoding="utf-8") as f:
+        records = json.load(f)
+    n = len(features)
+    adj = np.zeros((n, max_seq, max_seq), np.float32)
+    src = np.zeros((n, max_seq), np.int32)
+    asp = np.zeros((n, max_seq), np.int32)
+    pol = np.zeros((n,), np.int32)
+    valid = np.zeros((n, max_seq), np.int32)
+    for i, feat in enumerate(features):
+        prev = None
+        for tok_idx in sorted(feat.token_to_orig_map):
+            orig = feat.token_to_orig_map[tok_idx]
+            if orig != prev and tok_idx < max_seq:
+                valid[i, tok_idx] = 1
+            prev = orig
+        rec = records[feat.example_index] \
+            if feat.example_index < len(records) else None
+        if rec is None:
+            continue
+        a = np.asarray(rec.get("adj_matrix", []), np.float32)
+        size = min(a.shape[0] if a.ndim == 2 else 0, max_seq)
+        if size:
+            adj[i, :size, :size] = a[:size, :size]
+        s = np.asarray(rec.get("src_mask", []), np.int32)[:max_seq]
+        src[i, :len(s)] = s
+        m = np.asarray(rec.get("aspect_mask", []), np.int32)[:max_seq]
+        asp[i, :len(m)] = m
+        pol[i] = int(rec.get("polarity", 0))
+        v = np.asarray(rec.get("valid_ids", []), np.int32)[:max_seq]
+        if len(v):
+            valid[i, :] = 0
+            valid[i, :len(v)] = v
+    return {"adj_matrix": adj, "src_mask": src, "aspect_mask": asp,
+            "polaritys": pol, "adjacency_matrix": adj, "valid_ids": valid}
 
 
 def iterate_batches(arrays: Dict[str, np.ndarray], batch_size: int, *,

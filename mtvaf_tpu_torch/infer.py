@@ -68,13 +68,14 @@ def _pad_rows(a, n: int):
     return np.concatenate([a, np.repeat(a[-1:], n - a.shape[0], axis=0)])
 
 
-def serving_params(params: Dict, dtype, device) -> Dict:
+def serving_params(params: Dict, dtype, device, prefix_dtype=None) -> Dict:
     """The subtrees the serving forward reads, on ``device``: the encoder's
-    matmul weights and the prefix generator pre-cast to the activation
-    dtype once (LN params, embeddings and the heads, ``fc`` and CRF or the
-    span heads, stay fp32, as in the JAX package's forward).  The ANP
-    heads, probe and pooler are training or unused outputs and stay
-    behind."""
+    matmul weights pre-cast to the activation dtype once, the prefix
+    generator to ``prefix_dtype`` (the activation dtype unless given; LN
+    params, embeddings and the heads, ``fc`` and CRF or the span heads and
+    DiGCN, stay fp32, as in the JAX package's forward).  The ANP heads,
+    probe, pooler, DualGCN and the dependency-type table are training or
+    unused outputs and stay behind."""
     bert = params["bert"]
     out = {
         "bert": {"embeddings": tree_to(bert["embeddings"], device),
@@ -82,15 +83,20 @@ def serving_params(params: Dict, dtype, device) -> Dict:
                                    device)},
     }
     for name, sub in params.items():
-        if name not in ("bert", "prefix", "probe"):
+        if name not in ("bert", "prefix", "probe", "dualgcn",
+                        "dep_embedding"):
             out[name] = tree_to(sub, device)
     if "prefix" in params:
-        out["prefix"] = {k: tree_to(params["prefix"][k], device, dtype)
+        out["prefix"] = {k: tree_to(params["prefix"][k], device,
+                                    prefix_dtype or dtype)
                          for k in ("conv_in", "conv_out", "projectors")}
     return out
 
 
 class _PredictorBase:
+    # the dtype the prefix generator is kept in (None: the activation dtype)
+    PREFIX_DTYPE = None
+
     def __init__(self, cfg: Config, bert_cfg: BertConfig, params, tokenizer,
                  resnet_params=None, image_dtype=np.float32, device=None):
         self.device = resolve_device(device)
@@ -98,7 +104,8 @@ class _PredictorBase:
         self.bert_cfg = bert_cfg
         self.tokenizer = tokenizer
         self.dtype = torch.bfloat16 if cfg.bf16 else torch.float32
-        self.params = serving_params(params, self.dtype, self.device)
+        self.params = serving_params(params, self.dtype, self.device,
+                                     self.PREFIX_DTYPE)
         self.resnet_params = None
         if cfg.use_prefix and resnet_params is not None:
             self.resnet_params = tree_to(resnet_params, self.device)
@@ -262,13 +269,19 @@ class CrfPredictor(_PredictorBase):
 
 class SpanPredictor(_PredictorBase):
     """Span extraction and polarity: (term text, polarity name) pairs per
-    sentence, the polarity one of ``core.config.ID_TO_POLARITY``."""
+    sentence, the polarity one of ``core.config.ID_TO_POLARITY``.
+
+    The prefix is built from the fp32 guides with fp32 prefix params, as
+    the JAX predictor builds it.  A DiGCN model (``gcn_layer_number > 0``)
+    re-encodes before classifying when :meth:`dispatch` is given the side
+    arrays; raw-text traffic (:meth:`predict_many`, ``BatchingServer``)
+    has no dependency parse and skips the re-encode, as the trainers do
+    without a side file.  The DualGCN head only adds a train loss."""
+
+    PREFIX_DTYPE = torch.float32
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
-        if self.cfg.gcn_layer_number > 0 or self.cfg.num_layers > 0:
-            raise NotImplementedError("the DiGCN and DualGCN heads are not "
-                                      "ported")
         self._extract = make_extraction_step(self.cfg, self.bert_cfg)
         self._classify = make_classification_step(self.cfg, self.bert_cfg)
 
@@ -290,8 +303,7 @@ class SpanPredictor(_PredictorBase):
 
     def extract(self, host: Dict, images=None, aux_images=None):
         """The extraction forward of one host batch: (start_logits,
-        end_logits, seq, captured) as device tensors (not synchronised).
-        Guides enter in the activation dtype, as in the trainer's eval."""
+        end_logits, seq, captured) as device tensors (not synchronised)."""
         with torch.inference_mode():
             batch = {k: upload(v, self.device) for k, v in host.items()}
             guides = self._guides(images, aux_images)
@@ -311,21 +323,28 @@ class SpanPredictor(_PredictorBase):
         return results
 
     def dispatch(self, sentences: Sequence[str], images=None,
-                 aux_images=None):
+                 aux_images=None, gcn=None):
         """Tokenize and launch one batch's extraction, with the start/end
         logits' copy back to the host, without waiting; returns a handle
-        for :meth:`collect`."""
+        for :meth:`collect`.  ``gcn``: optional (valid_ids (B, S),
+        adjacency_matrix (B, S, S)) host arrays for a DiGCN model (either
+        may be None); without them the classification skips the
+        re-encode."""
         _check_aligned(len(sentences), images, aux_images)
         examples, feats, host = self._make_host_batch(sentences)
         s_logits, e_logits, seq, _ = self.extract(host, images, aux_images)
         with torch.inference_mode():
             logits, done = to_host_async(torch.stack([s_logits, e_logits]))
-        return examples, feats, logits, done, seq
+        if gcn is not None:
+            gcn = tuple(None if g is None else upload(np.asarray(g),
+                                                      self.device)
+                        for g in gcn)
+        return examples, feats, logits, done, seq, gcn
 
     def collect(self, handle) -> List[List[Tuple[str, str]]]:
         """Wait for one :meth:`dispatch` handle's logits, pick the
         candidates on the host, classify them on the device, decode."""
-        examples, feats, logits, done, seq = handle
+        examples, feats, logits, done, seq, gcn = handle
         if done is not None:
             done.synchronize()
         se_np = logits.numpy()
@@ -335,13 +354,15 @@ class SpanPredictor(_PredictorBase):
         with torch.inference_mode():
             pairs = upload(np.asarray([all_ss, all_se], np.int64),
                            self.device)
-            preds = self._classify(self.params, seq, pairs).argmax(dim=-1)
+            preds = self._classify(self.params, seq, pairs,
+                                   *(gcn or ())).argmax(dim=-1)
         return self._to_results(examples, feats, all_ss, all_se, all_masks,
                                 preds.cpu().numpy())
 
     def predict(self, sentences: Sequence[str], images=None,
-                aux_images=None) -> List[List[Tuple[str, str]]]:
-        return self.collect(self.dispatch(sentences, images, aux_images))
+                aux_images=None, gcn=None) -> List[List[Tuple[str, str]]]:
+        return self.collect(self.dispatch(sentences, images, aux_images,
+                                          gcn=gcn))
 
     def predict_many(self, sentences: Sequence[str], *, images=None,
                      aux_images=None, batch_size: int = 16,

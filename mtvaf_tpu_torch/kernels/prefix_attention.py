@@ -99,15 +99,17 @@ def keep_factors(seed: int, rate: float, shape, device):
 
 
 def prefix_attention_reference(q, k, v, bias, keep=None):
-    """Plain PyTorch twin of ``mtvaf_tpu.nn.bert.xla_attention``, returning
-    (o, lse): scores in q's dtype, softmax in fp32, probabilities times the
-    fp32 keep factors ``keep`` (B, H, S, T) when given, cast back to q's
-    dtype before the second product.  lse is dropout-free."""
-    scores = torch.einsum("bhsd,bhtd->bhst", q, k) / math.sqrt(q.shape[-1])
-    scores = scores + bias.to(scores.dtype)
-    scores32 = scores.float()
-    lse = torch.logsumexp(scores32, dim=-1, keepdim=True)
-    probs = torch.softmax(scores32, dim=-1)
+    """The forward's plain PyTorch version, returning (o, lse): scores and
+    softmax in fp32 (as the Pallas ``_fwd_kernel`` computes them),
+    probabilities times the fp32 keep factors ``keep`` (B, H, S, T) when
+    given, cast to q's dtype for the second product, whose result is in
+    q's dtype.  lse is dropout-free.  (``mtvaf_tpu.nn.bert.xla_attention``
+    rounds the scores to q's dtype; in bf16 that rounding alone moves o by
+    up to 2 bf16 ulps.)"""
+    scores = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) \
+        / math.sqrt(q.shape[-1]) + bias.float()
+    lse = torch.logsumexp(scores, dim=-1, keepdim=True)
+    probs = torch.softmax(scores, dim=-1)
     if keep is not None:
         probs = probs * keep
     return torch.einsum("bhst,bhtd->bhsd", probs.to(q.dtype), v), lse

@@ -212,6 +212,12 @@ def bert_encoder(params, cfg: BertConfig, embedding_output, attention_mask,
     return hidden, captured
 
 
+def bert_pooler(params, last_hidden):
+    """tanh(dense(pooler, h[:, 0])): the [CLS] row's pooled output, which
+    the DualGCN head reads."""
+    return torch.tanh(dense(params["pooler"], last_hidden[:, 0]))
+
+
 def bert_model(params, cfg: BertConfig, input_ids, attention_mask=None,
                token_type_ids=None, prefix_kvs=None, dtype=torch.float32,
                generator=None, capture_layer=None):

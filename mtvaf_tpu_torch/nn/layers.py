@@ -10,10 +10,26 @@ draw waits for the device.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..core.rng import draw_seed
+
+
+def dense_init(rng, din: int, dout: int, stddev=None):
+    """Random dense params in the JAX package's layout, as numpy: a
+    normal (din, dout) kernel with std 1/sqrt(din) (or ``stddev``), drawn
+    from the numpy generator ``rng``, and a zero bias."""
+    stddev = 1.0 / np.sqrt(din) if stddev is None else stddev
+    return {"kernel": (rng.standard_normal((din, dout), np.float32)
+                       * np.float32(stddev)),
+            "bias": np.zeros((dout,), np.float32)}
+
+
+def layer_norm_init(dim: int):
+    return {"scale": np.ones((dim,), np.float32),
+            "bias": np.zeros((dim,), np.float32)}
 
 
 def dense(params, x):

@@ -8,7 +8,8 @@ prepended to keys and values.  The span model puts start/end logits on the
 encoder's output (``binary_affine``), gathers each candidate span's tokens
 (at most ``max_answer_length``), pools them by self-attention and
 classifies their polarity; its loss is the distant-supervision CE of the
-start/end logits plus the polarity CE (plus the probe term).  The CRF model
+start/end logits plus the polarity CE (plus the probe term, and the
+optional GCN heads of ``nn/gcn.py``).  The CRF model
 puts ``fc`` emissions on it → the CRF loss (with the probe loss and the ANP
 KL loss of the prefix) and/or Viterbi.
 
@@ -29,10 +30,13 @@ import torch
 import torch.nn.functional as F
 
 from ..data.images import IMAGENET_MEAN, IMAGENET_STD
-from .bert import BertConfig, bert_model
+from .bert import (BertConfig, bert_embeddings, bert_encoder, bert_model,
+                   bert_pooler)
 from .crf import crf_decode, crf_loss
 from ..core.rng import split
-from .layers import dense, dropout
+from .gcn import (compress_valid_ids, digcn_forward, dualgcn_forward,
+                  init_digcn_params, init_dualgcn_params)
+from .layers import dense, dense_init, dropout, layer_norm_init
 from .prefix import anp_kl_loss, build_prefix_kvs
 from .probe import combine_loss, probe_loss
 from .resnet import BLOCK_COUNTS, BOTTLENECK, resnet_stage_guides
@@ -126,20 +130,41 @@ def self_attentive_pool(span_emb, span_score, span_mask):
 
 def span_extraction(params, cfg, bert_cfg: BertConfig, input_ids, input_mask,
                     segment_ids, prefix_kvs=None, generator=None,
-                    dtype=torch.float32, capture_layer=None):
+                    dtype=torch.float32, cutoff=None, capture_layer=None):
     """Encoder → start/end logits (B, S) fp32, the sequence output and the
     hidden state of ``capture_layer`` (or None) (reference
     models/bert_model.py:323-361).  ``generator`` turns dropout on; it is
     split between the output dropout and the encoder, as the JAX package
-    splits its key."""
+    splits its key.
+
+    ``cutoff``: an optional (cutoff_fn, generator) pair
+    (``train.augment.make_cutoff_fn``) that cuts the embeddings and the
+    text mask between the embeddings and the encoder (reference
+    modules/augument.py:54-76); the encoder then attends through the cut
+    mask (with the prefix's ones before it), so a cut puts holes inside the
+    attention bias row.  The cut lengths come from the text mask, as in
+    the JAX package."""
     drop_rng, bert_rng = (None, None) if generator is None \
         else split(generator, 2)
-    mask = input_mask if prefix_kvs is None else \
-        prompt_attention_mask(input_mask, prefix_kvs.shape[-2])
-    seq, captured = bert_model(
-        params["bert"], bert_cfg, input_ids, mask,
-        token_type_ids=segment_ids, prefix_kvs=prefix_kvs, dtype=dtype,
-        generator=bert_rng, capture_layer=capture_layer)
+    if cutoff is not None:
+        cutoff_fn, cut_rng = cutoff
+        emb_rng, enc_rng = (None, None) if bert_rng is None \
+            else split(bert_rng, 2)
+        embeds = bert_embeddings(params["bert"], bert_cfg, input_ids,
+                                 segment_ids, dtype=dtype, generator=emb_rng)
+        embeds, cut_mask = cutoff_fn(embeds, input_mask, cut_rng)
+        mask = cut_mask if prefix_kvs is None else \
+            prompt_attention_mask(cut_mask, prefix_kvs.shape[-2])
+        seq, captured = bert_encoder(
+            params["bert"], bert_cfg, embeds, mask, prefix_kvs=prefix_kvs,
+            generator=enc_rng, capture_layer=capture_layer)
+    else:
+        mask = input_mask if prefix_kvs is None else \
+            prompt_attention_mask(input_mask, prefix_kvs.shape[-2])
+        seq, captured = bert_model(
+            params["bert"], bert_cfg, input_ids, mask,
+            token_type_ids=segment_ids, prefix_kvs=prefix_kvs, dtype=dtype,
+            generator=bert_rng, capture_layer=capture_layer)
     seq = dropout(seq, bert_cfg.hidden_dropout_prob, drop_rng)
     ae_logits = dense(params["binary_affine"], seq).float()
     return ae_logits[..., 0], ae_logits[..., 1], seq, captured
@@ -161,16 +186,17 @@ def span_classification(params, cfg, seq_output, span_starts, span_ends,
 
 def span_model_loss(params, cfg, bert_cfg: BertConfig, batch: Dict,
                     visual_guides: Optional[Tuple] = None, generator=None,
-                    dtype=torch.float32,
-                    epoch_const: Optional[int] = None) -> Dict:
+                    dtype=torch.float32, epoch_const: Optional[int] = None,
+                    cutoff=None) -> Dict:
     """The train loss in one encoder pass: extraction and classification of
     the batch's (gold) candidates share the sequence output.
 
     batch keys: input_ids, input_mask, segment_ids, start_positions,
-    end_positions, span_starts, span_ends, span_labels, span_masks.
-    ``generator`` turns dropout on, split three ways (extraction,
-    classification, and a third the GCN heads would take) as the JAX
-    package splits its key."""
+    end_positions, span_starts, span_ends, span_labels, span_masks, and
+    the GCN heads' side arrays where the batch has them (see
+    :func:`span_model_tail`).  ``generator`` turns dropout on, split three
+    ways (extraction, classification, the GCN heads) as the JAX package
+    splits its key.  ``cutoff``: see :func:`span_extraction`."""
     rngs = [None] * 3 if generator is None else split(generator, 3)
     prefix_kvs = None
     if cfg.use_prefix and visual_guides is not None:
@@ -181,32 +207,47 @@ def span_model_loss(params, cfg, bert_cfg: BertConfig, batch: Dict,
     start_logits, end_logits, seq, captured = span_extraction(
         params, cfg, bert_cfg, batch["input_ids"], batch["input_mask"],
         batch["segment_ids"], prefix_kvs=prefix_kvs, generator=rngs[0],
-        dtype=dtype, capture_layer=cfg.probe_layer if cfg.use_probe
-        else None)
+        dtype=dtype, cutoff=cutoff,
+        capture_layer=cfg.probe_layer if cfg.use_probe else None)
     return span_model_tail(params, cfg, bert_cfg, batch, seq, start_logits,
                            end_logits, captured=captured,
-                           generator=rngs[1], epoch_const=epoch_const)
+                           generators=(rngs[1], rngs[2]),
+                           epoch_const=epoch_const)
 
 
 def span_model_tail(params, cfg, bert_cfg: BertConfig, batch: Dict, seq,
-                    start_logits, end_logits, captured=None, generator=None,
+                    start_logits, end_logits, captured=None,
+                    generators=(None, None),
                     epoch_const: Optional[int] = None) -> Dict:
     """The loss after the encoder (reference models/bert_model.py:270-316):
-    span classification, the distant CE of the start/end logits and the
-    polarity CE, plus the probe term.  The eval loss applies it to the
-    extraction pass's own outputs (dropout is off there, so that is the
-    reference's second full forward).
+    the DiGCN re-encode, span classification, the distant CE of the
+    start/end logits and the polarity CE, plus the DualGCN and probe
+    terms.  The eval loss applies it to the extraction pass's own outputs
+    (dropout is off there, so that is the reference's second full
+    forward).  ``generators`` = (classification, GCN heads) turn dropout
+    on.
+
+    Each GCN head runs only when its side arrays are in the batch, as in
+    the JAX package (a run without a side file trains without it): DiGCN
+    (``gcn_layer_number > 0``) on ``adjacency_matrix``, after
+    ``compress_valid_ids`` when the batch has ``valid_ids``, and a fixed
+    input dropout of 0.1; DualGCN (``num_layers > 0``) on ``adj_matrix``,
+    ``src_mask``, ``aspect_mask`` and ``polaritys``, adding its
+    sentence-polarity CE and penalties to the loss.
 
     ``span_ac_loss_mode='reference'`` keeps the reference's quirk: the CE is
     mean-reduced before its mask, so sum(mask·ce)/sum(mask) cancels to the
     unmasked mean; the cancelled factor msum/msum stays, so a batch with no
     candidate at all gives NaN, as the reference's 0/0 does.  'masked'
     averages over the masked candidates."""
-    if cfg.gcn_layer_number > 0 or cfg.num_layers > 0:
-        raise NotImplementedError("the DiGCN and DualGCN heads are not "
-                                  "ported")
+    cls_rng, gcn_rng = generators
+    if cfg.gcn_layer_number > 0 and "adjacency_matrix" in batch:
+        if "valid_ids" in batch:
+            seq = compress_valid_ids(seq, batch["valid_ids"])
+        seq = dropout(seq, 0.1, gcn_rng)
+        seq = digcn_forward(params["digcn"], seq, batch["adjacency_matrix"])
     ac_logits = span_classification(params, cfg, seq, batch["span_starts"],
-                                    batch["span_ends"], generator=generator)
+                                    batch["span_ends"], generator=cls_rng)
     start_loss = distant_cross_entropy(start_logits, batch["start_positions"])
     end_loss = distant_cross_entropy(end_logits, batch["end_positions"])
     ae_loss = (start_loss + end_loss) / 2
@@ -224,6 +265,16 @@ def span_model_tail(params, cfg, bert_cfg: BertConfig, batch: Dict, seq,
     tot_loss = ae_loss + ac_loss
     out = {"start_logits": start_logits, "end_logits": end_logits,
            "ac_logits": ac_logits, "ae_loss": ae_loss, "ac_loss": ac_loss}
+    if cfg.num_layers > 0 and "adj_matrix" in batch:
+        gcn_logits, penal = dualgcn_forward(
+            params["dualgcn"], cfg, seq, bert_pooler(params["bert"], seq),
+            batch["adj_matrix"], batch["src_mask"], batch["aspect_mask"],
+            generator=gcn_rng, heads=bert_cfg.num_attention_heads)
+        lp = F.log_softmax(gcn_logits, dim=-1)
+        tat_loss = -lp.gather(1, batch["polaritys"].long()[:, None]).mean()
+        tot_loss = tot_loss + tat_loss + penal
+        out["tat_loss"] = tat_loss
+        out["penal"] = penal
     if cfg.use_probe:
         p_loss = probe_loss(params["probe"], captured)
         out["probe_loss"] = p_loss
@@ -302,18 +353,6 @@ def crf_model_forward(params, cfg, bert_cfg: BertConfig, batch: Dict,
 # Random init in the JAX package's layout (numpy).
 
 
-def _dense_init(rng, din, dout, stddev=None):
-    stddev = 1.0 / np.sqrt(din) if stddev is None else stddev
-    return {"kernel": (rng.standard_normal((din, dout), np.float32)
-                       * np.float32(stddev)),
-            "bias": np.zeros((dout,), np.float32)}
-
-
-def _ln_init(dim):
-    return {"scale": np.ones((dim,), np.float32),
-            "bias": np.zeros((dim,), np.float32)}
-
-
 def init_bert_params(rng, cfg: BertConfig) -> Dict:
     h, i, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
     sd = cfg.initializer_range
@@ -333,7 +372,7 @@ def init_bert_params(rng, cfg: BertConfig) -> Dict:
             * np.float32(sd),
             "token_type": rng.standard_normal(
                 (cfg.type_vocab_size, h), np.float32) * np.float32(sd),
-            "ln": _ln_init(h),
+            "ln": layer_norm_init(h),
         },
         "layers": {
             "attn": {"qkv": stack(h, 3 * h), "out": stack(h, h),
@@ -341,7 +380,7 @@ def init_bert_params(rng, cfg: BertConfig) -> Dict:
             "mlp": {"in": stack(h, i), "out": stack(i, h),
                     "ln": {k: v.copy() for k, v in ln.items()}},
         },
-        "pooler": _dense_init(rng, h, h, sd),
+        "pooler": dense_init(rng, h, h, sd),
     }
 
 
@@ -351,8 +390,8 @@ def init_prefix_params(rng, *, in_channels: int, mid_dim: int,
                        with_anp: bool = False, num_aux: int = 3) -> Dict:
     out_dim = num_chunks * 2 * hidden_size
     params = {
-        "conv_in": _dense_init(rng, in_channels, mid_dim),
-        "conv_out": _dense_init(rng, mid_dim, out_dim),
+        "conv_in": dense_init(rng, in_channels, mid_dim),
+        "conv_out": dense_init(rng, mid_dim, out_dim),
         "projectors": {
             "kernel": rng.standard_normal((num_layers, out_dim, num_chunks),
                                           np.float32)
@@ -361,8 +400,8 @@ def init_prefix_params(rng, *, in_channels: int, mid_dim: int,
         },
     }
     if with_anp:
-        params["img_classifier"] = _dense_init(rng, out_dim, num_anp_classes)
-        aux = [_dense_init(rng, out_dim, num_anp_classes)
+        params["img_classifier"] = dense_init(rng, out_dim, num_anp_classes)
+        aux = [dense_init(rng, out_dim, num_anp_classes)
                for _ in range(num_aux)]
         params["aux_img_classifiers"] = {
             k: np.stack([a[k] for a in aux]) for k in ("kernel", "bias")}
@@ -373,21 +412,19 @@ def init_span_model_params(cfg, bert_cfg: BertConfig, *, seed: int = 0,
                            bert_params=None) -> Dict:
     """Random span-model params with the tree of the JAX package's
     ``init_span_model_params`` (bert, dense, unary_affine, binary_affine,
-    classifier, prefix without the ANP heads, probe).  Given
+    classifier, prefix without the ANP heads, probe, and the GCN heads:
+    digcn with the dependency-type table dep_embedding, dualgcn).  Given
     ``bert_params`` (pretrained weights), the encoder is those and draws
     no random weights."""
-    if cfg.gcn_layer_number > 0 or cfg.num_layers > 0:
-        raise NotImplementedError("the DiGCN and DualGCN heads are not "
-                                  "ported")
     rng = np.random.default_rng(seed)
     h = bert_cfg.hidden_size
     params = {
         "bert": bert_params if bert_params is not None
         else init_bert_params(rng, bert_cfg),
-        "dense": _dense_init(rng, h, h),
-        "unary_affine": _dense_init(rng, h, 1),
-        "binary_affine": _dense_init(rng, h, 2),
-        "classifier": _dense_init(rng, h, 4),
+        "dense": dense_init(rng, h, h),
+        "unary_affine": dense_init(rng, h, 1),
+        "binary_affine": dense_init(rng, h, 2),
+        "classifier": dense_init(rng, h, 4),
     }
     if cfg.use_prefix:
         params["prefix"] = init_prefix_params(
@@ -397,6 +434,17 @@ def init_span_model_params(cfg, bert_cfg: BertConfig, *, seed: int = 0,
     if cfg.use_probe:
         params["probe"] = {"proj": rng.uniform(
             -0.05, 0.05, (h, cfg.probe_rank)).astype(np.float32)}
+    if cfg.gcn_layer_number > 0:
+        params["digcn"] = init_digcn_params(rng, cfg.gcn_layer_number, h)
+        # the reference builds this table (models/bert_model.py:235) with
+        # padding_idx 0 and its forward never reads it: kept so that
+        # checkpoints line up
+        emb = rng.standard_normal((cfg.type_num, h), np.float32) \
+            * np.float32(0.02)
+        emb[0] = 0.0
+        params["dep_embedding"] = emb
+    if cfg.num_layers > 0:
+        params["dualgcn"] = init_dualgcn_params(rng, cfg.num_layers, h)
     return params
 
 
@@ -412,7 +460,7 @@ def init_crf_model_params(cfg, bert_cfg: BertConfig, *, seed: int = 0,
     params = {
         "bert": bert_params if bert_params is not None
         else init_bert_params(rng, bert_cfg),
-        "fc": _dense_init(rng, h, n),
+        "fc": dense_init(rng, h, n),
         "crf": {"start": u((n,)), "end": u((n,)), "transitions": u((n, n))},
     }
     if cfg.use_prefix:

@@ -7,7 +7,8 @@ accumulation over micro-batches.  ``make_crf_decode_step`` is the CRF eval
 forward; the span pipeline's eval is three steps around a host seam:
 ``make_extraction_step`` (the encoder and the start/end logits), the host's
 candidate picking (``eval.span_decode``), then ``make_classification_step``
-or, with the logged eval loss, ``make_span_eval_loss_step``.  PyTorch runs eagerly, so the step is a plain function; the
+or, with the logged eval loss, ``make_span_eval_loss_step``.  PyTorch runs
+eagerly, so the step is a plain function; the
 gradient is ``torch.autograd.grad`` over the parameter leaves (a leaf the
 loss does not reach gets zeros, as ``jax.grad`` gives), and the update is
 :class:`..train.optim.AdamW`, in place.
@@ -28,6 +29,7 @@ import torch
 from ..core.platform import resolve_device
 from ..nn.bert import BertConfig
 from ..core.rng import fold_in, split
+from ..nn.gcn import compress_valid_ids, digcn_forward
 from ..nn.models import (crf_model_forward, span_classification,
                          span_extraction, span_model_loss, span_model_tail,
                          visual_prompt)
@@ -139,14 +141,27 @@ def make_train_step(loss_fn: Callable, optimizer, *, accum_steps: int = 1,
     in fp32 and divided by ``accum_steps`` before one update; scalar
     metrics are averaged and per-example ones concatenated back to the full
     batch.  ``with_grad_norm`` adds the global fp32 gradient norm.
-    Cutoff augmentation (``augment_fn``) is not ported and raises."""
-    if augment_fn is not None:
-        raise NotImplementedError("augment_fn (cutoff augmentation) is not "
-                                  "ported")
+
+    ``augment_fn(params, batch, generator, base_loss, base_metrics) ->
+    (loss, metrics)`` adds cutoff-consistency training
+    (``train.augment.make_span_augment_fn``): the base loss and the
+    augmented one take two generators split from the step's (each
+    micro-batch's), as the JAX package splits its key.  It draws random
+    cuts, so it needs a seed."""
+
+    def compute(params, batch, generator):
+        if augment_fn is None:
+            return loss_fn(params, batch, generator)
+        if generator is None:
+            raise ValueError("cutoff augmentation draws random cuts: the "
+                             "train step needs a seed")
+        base_rng, aug_rng = split(generator, 2)
+        loss, metrics = loss_fn(params, batch, base_rng)
+        return augment_fn(params, batch, aug_rng, loss, metrics)
 
     def grads_of(params, batch, generator):
         leaves = [p for _, p in tree_items(params)]
-        loss, metrics = loss_fn(params, batch, generator)
+        loss, metrics = compute(params, batch, generator)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
@@ -208,8 +223,9 @@ def make_crf_decode_step(cfg, bert_cfg: BertConfig) -> Callable:
 def make_extraction_step(cfg, bert_cfg: BertConfig) -> Callable:
     """extract(params, batch) -> (start_logits, end_logits, seq, captured):
     the span eval's encoder pass (no dropout, no gradient), device tensors
-    not synchronised.  Guides, when the batch has them, are cast to the
-    activation dtype, as the train loss casts them."""
+    not synchronised.  Guides, when the batch has them, enter the prefix
+    in their own dtype, as in the JAX package: a predictor's fp32 guides
+    give an fp32 prefix, the trainer's bf16 guide table a bf16 one."""
     dtype = torch.bfloat16 if cfg.bf16 else torch.float32
 
     @torch.no_grad()
@@ -217,10 +233,8 @@ def make_extraction_step(cfg, bert_cfg: BertConfig) -> Callable:
         prefix_kvs = None
         guides = _split_guides(batch)
         if cfg.use_prefix and guides is not None:
-            prefix_kvs, _, _ = visual_prompt(
-                params["prefix"], guides[0].to(dtype),
-                None if guides[1] is None else guides[1].to(dtype),
-                bert_cfg)
+            prefix_kvs, _, _ = visual_prompt(params["prefix"], guides[0],
+                                             guides[1], bert_cfg)
         return span_extraction(
             params, cfg, bert_cfg, batch["input_ids"], batch["input_mask"],
             batch["segment_ids"], prefix_kvs=prefix_kvs, dtype=dtype,
@@ -234,9 +248,11 @@ def make_span_eval_loss_step(cfg, bert_cfg: BertConfig) -> Callable:
     span_pack) -> (ac_logits, loss): the loss after the encoder
     (``span_model_tail``) on the extraction pass's own outputs and the
     host-picked candidates, stacked as one (4, B, n_best) integer tensor
-    (starts, ends, labels, masks).  Dropout is off in eval, so this is the
-    reference's second full forward (modules/train.py:197-199, 295-305)
-    without running the encoder again."""
+    (starts, ends, labels, masks); ``batch`` holds the tail's other keys
+    (the start/end positions and any GCN side arrays).  Dropout is off in
+    eval, so this is the reference's second full forward
+    (modules/train.py:197-199, 295-305) without running the encoder
+    again."""
 
     @torch.no_grad()
     def eval_loss(params, batch, seq, start_logits, end_logits, captured,
@@ -251,13 +267,24 @@ def make_span_eval_loss_step(cfg, bert_cfg: BertConfig) -> Callable:
 
 
 def make_classification_step(cfg, bert_cfg: BertConfig) -> Callable:
-    """classify(params, seq, span_pairs) -> ac_logits (B, n_best, 4): the
-    polarity of the host-picked candidates, stacked as one (2, B, n_best)
-    integer tensor (starts, ends)."""
+    """classify(params, seq, span_pairs, valid_ids=None,
+    adjacency_matrix=None) -> ac_logits (B, n_best, 4): the polarity of the
+    host-picked candidates, stacked as one (2, B, n_best) integer tensor
+    (starts, ends).  With the DiGCN head (``gcn_layer_number > 0``) and an
+    adjacency the sequence is re-encoded first (after ``compress_valid_ids``
+    when valid_ids is given), as the reference's eval forward does
+    (models/bert_model.py:270-284); without an adjacency it is not, as the
+    train loss skips it without a side file."""
 
     @torch.no_grad()
-    def classify(params, seq_output, span_pairs):
-        return span_classification(params, cfg, seq_output, span_pairs[0],
+    def classify(params, seq_output, span_pairs, valid_ids=None,
+                 adjacency_matrix=None):
+        seq = seq_output
+        if cfg.gcn_layer_number > 0 and adjacency_matrix is not None:
+            if valid_ids is not None:
+                seq = compress_valid_ids(seq, valid_ids)
+            seq = digcn_forward(params["digcn"], seq, adjacency_matrix)
+        return span_classification(params, cfg, seq, span_pairs[0],
                                    span_pairs[1])
 
     return classify

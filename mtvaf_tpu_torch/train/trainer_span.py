@@ -9,7 +9,11 @@ forward in every step); the train F1 from the step's own polarity logits;
 dev/test eval as extraction → host candidates and NMS → classification,
 with the reference's logged eval loss; ``best_model.npz`` on every dev F1
 at least as good as the best; per-epoch checkpoints, SIGTERM preemption
-and ``--resume``.
+and ``--resume``.  The aux heads ride along: ``--do_aug`` adds the cutoff
+pass to every step (its draws come from the step's generator, so
+``--resume`` stays bit-identical), and a split with a GCN side file
+carries its arrays into the train loss, the eval loss and the DiGCN
+classification.
 
 Device and stream rules are the CRF trainer's: each step's loss and logits
 stay on the device until the epoch ends and then come back in one stacked
@@ -45,6 +49,7 @@ from ..data.datasets import iterate_batches, prefetch
 from ..eval.metrics import eval_absa
 from ..eval.span_decode import RawFinalResult, batch_eval_candidates
 from ..nn.bert import BertConfig
+from .augment import make_span_augment_fn
 from .ingest import GuideCache
 from .optim import build_optimizer
 from .resume import (install_preemption_handler, load_latest_checkpoint,
@@ -60,8 +65,11 @@ logger = logging.getLogger(__name__)
 # host batch keys no device step reads
 _HOST_ONLY = ("batch_valid", "example_index", "bio_labels",
               "polarity_positions")
-# batch keys the eval loss reads besides the candidates
-_TAIL_KEYS = ("start_positions", "end_positions")
+# batch keys the eval loss reads besides the candidates (the GCN side
+# arrays where the split has a side file)
+_TAIL_KEYS = ("start_positions", "end_positions", "adjacency_matrix",
+              "valid_ids", "adj_matrix", "src_mask", "aspect_mask",
+              "polaritys")
 # eval batches whose extraction may be in flight while the host picks the
 # candidates of an earlier one
 _EVAL_WINDOW = 4
@@ -100,6 +108,8 @@ class SpanTrainer:
         self.train_step = make_train_step(
             make_span_loss_fn(cfg, bert_cfg), self.optimizer,
             accum_steps=cfg.gradient_accumulation_steps,
+            augment_fn=make_span_augment_fn(cfg, bert_cfg) if cfg.do_aug
+            else None,
             with_grad_norm=cfg.log_grad_norm)
         self.extraction_step = make_extraction_step(cfg, bert_cfg)
         self.classification_step = make_classification_step(cfg, bert_cfg)
@@ -298,7 +308,7 @@ class SpanTrainer:
             if compute_loss:
                 pack = np.asarray([ss, se, labels, masks], np.int64)
                 n = int(valid.sum())
-                tail = {k: dev[k] for k in _TAIL_KEYS}
+                tail = {k: dev[k] for k in _TAIL_KEYS if k in dev}
                 if n < len(valid):      # the padding rows are at the tail
                     tail = {k: v[:n] for k, v in tail.items()}
                     ext = tuple(None if t is None else t[:n] for t in ext)
@@ -309,7 +319,10 @@ class SpanTrainer:
                     upload(pack, self.device))
             else:
                 pairs = upload(np.asarray([ss, se], np.int64), self.device)
-                ac_logits = self.classification_step(params, ext[2], pairs)
+                # DiGCN re-encodes on the split's side arrays, if it has any
+                ac_logits = self.classification_step(
+                    params, ext[2], pairs, dev.get("valid_ids"),
+                    dev.get("adjacency_matrix"))
             picked.append((batch, valid, ss, se, masks,
                            ac_logits.argmax(dim=-1), loss))
 

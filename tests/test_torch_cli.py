@@ -123,8 +123,8 @@ def test_the_port_run_loads_in_both_predictors(trained):
 
 def test_span_datasets_and_unported_flags_raise(data_tree, tmp_path):
     root, bert, _ = data_tree
-    for extra, match in ((("--dataset_name", "twitter15", "--do_aug",
-                           "--aug_type", "span_cutoff"), "do_aug"),
+    for extra, match in ((("--dataset_name", "twitter15", "--nodes", "2"),
+                          "multi-host"),
                          (("--nodes", "2"), "multi-host"),
                          (("--remat",), "remat"),
                          (("--params_bf16",), "params_bf16"),

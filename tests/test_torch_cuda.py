@@ -12,6 +12,7 @@ from mtvaf_tpu_torch.kernels.prefix_attention import (
     keep_factors, keep_mask_cuda, keep_mask_reference, prefix_attention,
     prefix_attention_bwd_cuda, prefix_attention_bwd_reference,
     prefix_attention_cuda, prefix_attention_reference)
+from mtvaf_tpu_torch.train.augment import span_cutoff
 
 
 @pytest.fixture
@@ -25,9 +26,10 @@ def cuda():
 
 # (B, H, S, T, D, dtype, atol, atol_vs_fp32), max abs over o and lse.
 # atol: against the plain version in the inputs' dtype.  fp32 agrees to fp32
-# rounding; in bf16 the plain version rounds the scores and the
-# probabilities to bf16, the kernel keeps them in fp32, so the two differ by
-# a few bf16 ulps (H100 reading at the serving shape: o 0.0117, lse 0.0062).
+# rounding; in bf16 the plain version rounds the normalised probabilities to
+# bf16 where the kernel rounds the unnormalised ones, so the two differ by a
+# bf16 ulp or two (H100 reading at the serving shape: o 0.0078; 0.0117 when
+# the plain version also rounded its scores to bf16).
 # atol_vs_fp32: against the plain version in fp32 on the same values, where
 # only the kernel's bf16 output rounding is left (reading: o 0.0036).
 CASES = [
@@ -131,6 +133,47 @@ def test_prefix_attention_backward_kernel_matches_plain(cuda, B, H, S, T,
         assert got.dtype == dtype
         torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                    rtol=0, msg=f"d{name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_kernels_hold_a_cut_mask_bias(cuda, rate):
+    """The span cutoff (``--do_aug``) zeroes a tenth of each row's keys
+    inside the text: the bias row has holes, not only a ragged tail.  K1
+    against its plain version (2e-2 in bf16, 1e-2 against fp32 on the same
+    values) and K2 against its plain backward (1e-2) and fp32 autograd
+    (1.5e-2), as the cases above."""
+    B, H, S = 4, 12, 128
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v, do = (torch.randn(B, H, S, 64, device=cuda, generator=g)
+                   .to(torch.bfloat16) for _ in range(4))
+    lengths = torch.tensor([128, 100, 77, 64], device=cuda)
+    mask = (torch.arange(S, device=cuda)[None] < lengths[:, None]).long()
+    _, cut = span_cutoff(torch.zeros(B, S, 1, device=cuda), mask,
+                         torch.tensor([0.0, 0.3, 0.6, 0.99], device=cuda),
+                         0.1)
+    assert ((mask - cut).sum(dim=1) == (lengths * 0.1).floor()).all()
+    assert (cut[:, 1:] > cut[:, :-1]).any()         # holes inside the row
+    bias = ((1.0 - cut.float()) * -10000.0)[:, None, None, :]
+    keep = keep_factors(SEED, rate, (B, H, S, S), cuda) if rate else None
+    o, lse = prefix_attention_cuda(q, k, v, bias, seed=SEED, rate=rate)
+    ro, rlse = prefix_attention_reference(q, k, v, bias, keep)
+    fo, _ = prefix_attention_reference(q.float(), k.float(), v.float(), bias,
+                                       keep)
+    torch.testing.assert_close(o.float(), ro.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(o.float(), fo, atol=1e-2, rtol=0)
+    grads = prefix_attention_bwd_cuda(q, k, v, bias, o, lse, do, seed=SEED,
+                                      rate=rate)
+    plain = prefix_attention_bwd_reference(q, k, v, bias, o, lse, do, keep)
+    leaves = [x.float().requires_grad_() for x in (q, k, v)]
+    auto = torch.autograd.grad(
+        prefix_attention_reference(*leaves, bias, keep)[0], leaves,
+        do.float())
+    for name, got, want, want32 in zip("qkv", grads, plain, auto):
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-2,
+                                   rtol=0, msg=f"d{name}")
+        torch.testing.assert_close(got.float(), want32, atol=1.5e-2,
+                                   rtol=0, msg=f"d{name} vs fp32")
 
 
 @pytest.mark.cuda

@@ -208,7 +208,10 @@ def test_sampled_train_split_matches_jax(tree):
 
 
 def test_gcn_side_data_raises(tree):
+    """A side file that is named but missing raises (the CLI names only
+    side files that exist; tests/test_torch_gcn_data.py loads real ones)."""
     tok, _ = _tokenizers(tree, False)
-    with pytest.raises(NotImplementedError, match="A.3"):
+    with pytest.raises(FileNotFoundError):
         SpanDataset.load(Config(dataset_name="twitter15"), tok,
-                         str(tree / "train.txt"), gcn_file="x.json")
+                         str(tree / "train.txt"),
+                         gcn_file=str(tree / "missing_gcn.json"))

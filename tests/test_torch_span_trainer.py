@@ -245,10 +245,9 @@ def test_span_trainer_refuses_what_it_does_not_run(tree, tmp_path):
     bert_cfg = BertConfig.tiny(vocab_size=len(tok.vocab))
     for kw, error, match in (
             (dict(dataset_name="twitter2015"), ValueError, "CrfTrainer"),
-            (dict(do_aug=True, aug_type="span_cutoff", deterministic=False),
-             NotImplementedError, "A.3"),
-            (dict(gcn_layer_number=2), NotImplementedError, "DiGCN"),
-            (dict(num_layers=1), NotImplementedError, "DualGCN")):
+            (dict(nodes=2), NotImplementedError, "multi-host"),
+            (dict(remat=True), NotImplementedError, "remat"),
+            (dict(profile_dir="prof"), NotImplementedError, "profiler")):
         with pytest.raises(error, match=match):
             SpanTrainer(Config(**{**BASE, **kw}), bert_cfg, {},
                         device="cpu")

@@ -214,9 +214,11 @@ def test_what_is_not_ported_raises():
         build_optimizer(params, cfg.replace(params_bf16=True),
                         total_steps=10, pipeline="crf")
     opt, _ = build_optimizer(params, cfg, total_steps=10, pipeline="crf")
-    with pytest.raises(NotImplementedError, match="augment_fn"):
+    with pytest.raises(ValueError, match="seed"):     # augment draws cuts
         make_train_step(make_crf_loss_fn(cfg, bert_cfg), opt,
-                        augment_fn=lambda *a: a)
+                        augment_fn=lambda *a: a)(
+            create_train_state(params, opt, device="cpu"),
+            crf_batch(cfg, bert_cfg, B, S), None)
     loss_fn = make_crf_loss_fn(cfg, dataclasses.replace(bert_cfg, remat=True))
     with pytest.raises(NotImplementedError, match="remat"):
         loss_fn(params, crf_batch(cfg, bert_cfg, B, S), None)
