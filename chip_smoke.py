@@ -90,7 +90,25 @@ Phases, each of which fails the run by raising:
    trainer's fp32-prefix forward bit for bit, ``BatchingServer`` with 64
    image-bearing requests equal to ``predict_many``.  Phases 2 and 4 also
    hold K1 and K2 at ``span_s128_cut``: the span shape with the span
-   cutoff's holes inside the bias row.
+   cutoff's holes inside the bias row;
+13. the serving tier: (a) phase 10's run through the export CLI
+   (``cli.export_main``) for ``cuda`` at rungs 1 and 16 with shared
+   weights (six ``torch.export`` programs: text, images, images without
+   aux crops), the bundle loaded (``load_exported_predictor``), its
+   emissions against the live forward's, phase 7's 64 requests through
+   ``BatchingServer`` with every batch's results equal to the live
+   ``load_predictor``'s on the same batch and 12 K1 launches per batch
+   from the programs (K1 is the operator ``mtvaf::prefix_attention_fwd``
+   inside them); (b) phase 12(c)'s run (prefix, images, DiGCN) exported
+   at rung 16, 64 image-bearing requests held the same way; (c)
+   ``cli.serve_main --bundle`` over (a) in a child process, 64 text-only
+   POSTs from 16 threads held to the in-process bundle, /stats and
+   /metrics parsed, 12 K1 per batch in the child; then ``build_app`` in
+   this process: 16 base64 PNG images through the eval transform (where
+   PIL is installed; else said so and held on the CPU only) and a burst
+   against ``max_queue=1`` that must give both 200 and 429; (d) the host
+   time of one K1 call through the wrapper, the operator and
+   ``prefix_attention``.
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times: the
 kernels' summed durations under ``torch.profiler``.  ``event_ms`` is the
@@ -1088,12 +1106,22 @@ def _trainer_argv(root, bert_dir, cache, save, *extra):
             "--seed", str(SEED), *extra]
 
 
-def trainer_phase(bare_step):
+def keep_run(save, bert_dir, keep, name):
+    """Move a run directory (without its checkpoints) and copy its
+    tokenizer directory into ``keep`` for phase 13; returns their paths."""
+    import shutil
+    run = shutil.move(save, os.path.join(keep, f"{name}_run"))
+    shutil.rmtree(os.path.join(run, "ckpt"), ignore_errors=True)
+    bert = shutil.copytree(bert_dir, os.path.join(keep, f"{name}_bert"))
+    return run, bert
+
+
+def trainer_phase(bare_step, keep):
     """Phase 10: train the flagship configuration through the CLI for two
     epochs, check launches, devices and files, reload the best model into
     a predictor, time eval and checkpoints; then preempt a run with a real
     SIGTERM after epoch 1, resume it, and hold the result against an
-    uninterrupted run."""
+    uninterrupted run.  The run directory goes to ``keep`` (phase 13)."""
     import os
     import shutil
     from mtvaf_tpu_torch.core.checkpoint import (load_checkpoint,
@@ -1217,7 +1245,7 @@ def trainer_phase(bare_step):
                "metrics": metrics}
         out["predictor"] = predictor
         del tr
-        shutil.rmtree(save)
+        out["kept"] = keep_run(save, bert_dir, keep, "crf")
         torch.cuda.empty_cache()
         log("trainer_path", json.dumps(out))
 
@@ -1944,7 +1972,7 @@ def aux_tree(tmp):
     return root, bert_dir, cache, ids
 
 
-def aux_phase(span_path):
+def aux_phase(span_path, keep):
     """Phase 12: (a) the bare aux train step; (b) one fp32 aux step on the
     card against the CPU; (c) the aux heads through the CLI →
     ``SpanTrainer`` with images (ResNet-152 guides, the visual prefix)
@@ -1952,7 +1980,7 @@ def aux_phase(span_path):
     DiGCN classification with a dev batch's side arrays against the
     trainer's, the extraction with images against the trainer's
     fp32-prefix forward, and ``BatchingServer`` with images held to
-    ``predict_many``."""
+    ``predict_many``.  The run directory goes to ``keep`` (phase 13)."""
     from mtvaf_tpu_torch.core.convert import params_from_jax
     from mtvaf_tpu_torch.eval.span_decode import batch_eval_candidates
     from mtvaf_tpu_torch.infer import (SpanPredictor, load_predictor,
@@ -2200,8 +2228,506 @@ def aux_phase(span_path):
         log("aux_serve_path", json.dumps(out["serve"]))
         del pred
         torch.cuda.empty_cache()
+        out["kept"] = keep_run(save, bert_dir, keep, "span")
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"aux phase: {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the serving tier: export bundles and the HTTP front end.
+
+
+class Recorded:
+    """A predictor behind ``BatchingServer`` that records every batch it is
+    given (sentences and image rows, as the server padded them) with the
+    results it returned, so that each can be held against the live
+    predictor on the same batch: a text-only request's result depends on
+    whether its batch carried images."""
+
+    def __init__(self, pred):
+        self.pred = pred
+        self.serves_images = pred.serves_images
+        self.batches = []
+
+    def dispatch(self, sentences, images=None):
+        return list(sentences), images, self.pred.dispatch(sentences,
+                                                           images=images)
+
+    def collect(self, handle):
+        sentences, images, inner = handle
+        out = self.pred.collect(inner)
+        self.batches.append((sentences, images, out))
+        return out
+
+    def predict(self, sentences, images=None):
+        return self.pred.predict(sentences, images=images)
+
+
+def serve_threaded(server, reqs, timeout=300):
+    """``reqs`` ((sentence, image or None) pairs) from ``CLIENTS`` closed-
+    loop threads; (results, wall seconds)."""
+    results, errors = [None] * len(reqs), []
+
+    def client(idx):
+        try:
+            for i in idx:
+                results[i] = server.submit(*reqs[i]).result(timeout=timeout)
+        except BaseException as e:          # re-raised on the main thread
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client,
+                                args=(range(c, len(reqs), CLIENTS),))
+               for c in range(CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=2 * timeout)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a client did not finish")
+    return results, wall
+
+
+def serve_bundle(name, bundle, live, reqs):
+    """``reqs`` through ``BatchingServer`` → the bundle's predictor: every
+    batch's results equal the live predictor's on the same batch, and K1
+    ran once per layer per batch, inside the bundle's programs."""
+    from mtvaf_tpu_torch.kernels.prefix_attention import prefix_attention
+    from mtvaf_tpu_torch.serve import BatchingServer
+
+    layers = live.bert_cfg.num_hidden_layers
+    rec = Recorded(bundle)
+    with BatchingServer(rec, max_batch=16, max_wait_ms=5.0,
+                        pipeline_depth=4) as server:
+        server.warmup()
+        torch.cuda.synchronize()
+        prefix_attention.launches.reset()
+        results, wall = serve_threaded(server, reqs)
+        launches = prefix_attention.launches.value
+        stats = server.stats()
+    if stats["served"] != len(reqs) or len(rec.batches) != stats["batches"]:
+        raise AssertionError(f"{name} bundle: served {stats['served']} in "
+                             f"{stats['batches']} batches")
+    if launches != layers * stats["batches"]:
+        raise AssertionError(f"{name} bundle: K1 ran {launches} times for "
+                             f"{stats['batches']} batches")
+    for sentences, images, got in rec.batches:
+        if live.predict(sentences, images=images) != got:
+            raise AssertionError(f"{name} bundle: a served batch differs "
+                                 "from the live predictor's on it")
+    out = {"requests": len(reqs), "batches": stats["batches"],
+           "mean_batch": stats["mean_batch"], "p50_ms": stats["p50_ms"],
+           "p99_ms": stats["p99_ms"], "wall_s": wall,
+           "sentences_per_s": len(reqs) / wall, "k1_launches": launches,
+           "image_batches": sum(i is not None for _, i, _ in rec.batches),
+           "terms": sum(len(r) for r in results)}
+    return results, out
+
+
+def export_run(run, bert, out, rungs):
+    """The run through the export CLI for cuda, in this process:
+    (manifest, wall s); logs each program's seconds and bytes."""
+    from mtvaf_tpu_torch.cli.export_main import main as export_main
+    t0 = time.perf_counter()
+    manifest = export_main(["--save_path", run, "--out", out,
+                            "--batch_sizes", ",".join(map(str, rungs)),
+                            "--platforms", "cuda", "--bert_name", bert])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    programs = {p["name"]: {"seconds": p["seconds"], "bytes": p["bytes"]}
+                for p in manifest["programs"]}
+    log(f"export {os.path.basename(out)}: {len(programs)} programs in "
+        f"{wall:.1f} s", json.dumps(programs))
+    return manifest, wall
+
+
+class Child:
+    """A child process of this repository's code (``python -m module
+    args``), its output in a log file under ``tmp``; stopped by
+    :meth:`stop` (SIGINT, then a kill after 60 s)."""
+
+    def __init__(self, tmp, name, module, args):
+        self.log_path = os.path.join(tmp, f"{name}.log")
+        self.t0 = time.perf_counter()
+        with open(self.log_path, "w") as f:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", module, *args],
+                cwd=os.path.dirname(os.path.abspath(__file__)), stdout=f,
+                stderr=subprocess.STDOUT)
+
+    def text(self):
+        with open(self.log_path) as f:
+            return f.read()
+
+    def stop(self):
+        import signal
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGINT)
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        return self.proc.returncode
+
+
+def http_json(url, data=None, timeout=120):
+    """(status, JSON body, seconds) of a GET, or a POST of ``data``."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        url, data=None if data is None else json.dumps(data).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            body = json.loads(r.read())
+            return r.status, body, time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), time.perf_counter() - t0
+
+
+def http_text(url):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return r.read().decode()
+
+
+def parse_metrics(text):
+    """Prometheus text → {name{labels}: value}; fails on a malformed line."""
+    out = {}
+    for line in text.strip().splitlines():
+        if not line.startswith("#"):
+            name, value = line.rsplit(" ", 1)
+            out[name] = float(value)
+    return out
+
+
+def as_json(results):
+    return [[list(term) for term in r] for r in results]
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def wait_ready(child, base, timeout=300):
+    """Poll the child server's /healthz until it answers: seconds since
+    its start."""
+    while True:
+        if child.proc.poll() is not None:
+            raise AssertionError("serve_main exited early: "
+                                 + child.text()[-3000:])
+        if time.perf_counter() - child.t0 > timeout:
+            raise AssertionError(f"serve_main did not come up in {timeout} s")
+        try:
+            if http_json(f"{base}/healthz", timeout=5)[0] == 200:
+                return time.perf_counter() - child.t0
+        except OSError:
+            time.sleep(0.2)
+
+
+def http_requests(child, base, sents, want):
+    """POST ``sents`` one per request to the child server from ``CLIENTS``
+    threads, hold each result to ``want``, read /stats and /metrics, stop
+    the child with SIGINT and read its K1 count from its last log line."""
+    replies, errors = [None] * len(sents), []
+
+    def client(idx):
+        try:
+            for i in idx:
+                replies[i] = http_json(f"{base}/predict",
+                                       {"sentences": [sents[i]]})
+        except BaseException as e:          # re-raised on the main thread
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client,
+                                args=(range(c, len(sents), CLIENTS),))
+               for c in range(CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    code, stats, _ = http_json(f"{base}/stats")
+    metrics = parse_metrics(http_text(f"{base}/metrics"))
+    rc = child.stop()
+    bad = [i for i, r in enumerate(replies)
+           if r is None or r[0] != 200 or r[1]["results"] != as_json(
+               [want[i]])]
+    if bad:
+        raise AssertionError(f"HTTP results differ from the in-process "
+                             f"bundle's at requests {bad[:8]}: "
+                             f"{replies[bad[0]]}")
+    if code != 200 or stats["served"] != len(sents) \
+            or metrics["mtvaf_served_total"] != len(sents):
+        raise AssertionError(f"/stats {stats}, /metrics {metrics}")
+    stopped = [line for line in child.text().splitlines()
+               if "stopped:" in line]
+    if rc != 0 or not stopped:
+        raise AssertionError("serve_main did not stop cleanly: "
+                             + child.text()[-3000:])
+    k1 = json.loads(stopped[-1].split("stopped: ", 1)[1])["k1_launches"]
+    if k1 != 12 * stats["batches"]:
+        raise AssertionError(f"serve_main: K1 ran {k1} times for "
+                             f"{stats['batches']} batches")
+    lat = sorted(r[2] * 1e3 for r in replies)
+    return {"requests": len(sents), "wall_s": wall,
+            "sentences_per_s": len(sents) / wall,
+            "client_p50_ms": lat[len(lat) // 2],
+            "client_p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+            "server_p50_ms": stats["p50_ms"],
+            "server_p99_ms": stats["p99_ms"], "batches": stats["batches"],
+            "mean_batch": stats["mean_batch"], "k1_launches": k1,
+            "metrics_lines": len(metrics)}
+
+
+def http_in_process(bundle, sents):
+    """``build_app`` in this process over the bundle: base64 PNG images
+    through the eval transform (where PIL is installed), and a burst
+    against ``max_queue=1`` that must give both 200 and 429 with the
+    rejections in /stats and /metrics."""
+    import base64
+    import io
+    from mtvaf_tpu_torch.cli.serve_main import HTTPServer, build_app
+    from mtvaf_tpu_torch.serve import BatchingServer
+
+    def serving(server):
+        httpd = HTTPServer(("127.0.0.1", 0), build_app(server))
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        return httpd, f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    out = {}
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    if Image is None:
+        out["images"] = "held on the CPU only: no PIL on this machine"
+    else:
+        from mtvaf_tpu_torch.data.images import process_image_bytes
+        rng = np.random.default_rng(SEED + 21)
+        pngs = []
+        for i in range(16):
+            buf = io.BytesIO()
+            Image.fromarray(rng.integers(0, 256, (180 + 8 * i, 240, 3),
+                                         dtype=np.uint8)).save(buf, "PNG")
+            pngs.append(buf.getvalue())
+        with BatchingServer(bundle, max_batch=16, max_wait_ms=5.0) as server:
+            httpd, base = serving(server)
+            try:
+                code, body, dt = http_json(f"{base}/predict", {
+                    "sentences": sents[:16],
+                    "images": [base64.b64encode(p).decode() for p in pngs]})
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+        want = bundle.predict(sents[:16], images=np.stack(
+            [process_image_bytes(p) for p in pngs]))
+        if code != 200 or body["results"] != as_json(want):
+            raise AssertionError(f"HTTP with images: {code}, results "
+                                 "differ from the bundle's")
+        out["images"] = {"requests": 1, "sentences": 16, "seconds": dt}
+
+    with BatchingServer(bundle, max_batch=16, max_wait_ms=5.0,
+                        max_queue=1) as server:
+        httpd, base = serving(server)
+        try:
+            # alone, a request finds the queue empty.  In the burst the
+            # 3-sentence POSTs go at once and each overflows the queue by
+            # itself; the 1-sentence ones follow 30 ms apart, so the later
+            # ones find the queue drained and must be served
+            solo = http_json(f"{base}/predict", {"sentences": sents[:1]})[0]
+            codes = [None] * 32
+
+            def post(i):
+                n = 1 if i % 2 else 3
+                if n == 1:
+                    time.sleep(0.03 * (i // 2))
+                codes[i] = http_json(f"{base}/predict",
+                                     {"sentences": sents[i:i + n]})[0]
+
+            threads = [threading.Thread(target=post, args=(i,))
+                       for i in range(len(codes))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            stats = http_json(f"{base}/stats")[1]
+            metrics = parse_metrics(http_text(f"{base}/metrics"))
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+    if not (solo == 200 and 200 in codes and 429 in codes
+            and set(codes) <= {200, 429}):
+        raise AssertionError(f"max_queue=1: alone {solo}, burst {codes}")
+    if stats["rejected"] < 1 \
+            or metrics["mtvaf_rejected_total"] != stats["rejected"]:
+        raise AssertionError(f"rejections not counted: {stats} {metrics}")
+    out["max_queue_1"] = {"solo": solo, "burst_posts": len(codes),
+                          "burst_ok": codes.count(200),
+                          "burst_shed_429": codes.count(429),
+                          "rejected": stats["rejected"]}
+    return out
+
+
+def k1_host_ms():
+    """Host time of one K1 call at the serving shape (B=16, H=12, S=128,
+    T=144, bf16), between events over back-to-back calls (the kernel
+    itself takes ~0.008 ms there): the ctypes wrapper alone, the operator
+    ``mtvaf::prefix_attention_fwd``, and ``prefix_attention`` (the call
+    each encoder layer makes), in turns."""
+    from mtvaf_tpu_torch.kernels.prefix_attention import (
+        prefix_attention, prefix_attention_cuda)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    q, k, v, bias = attention_inputs(g, 16, 12, 128, 144, 64, torch.bfloat16)
+    calls = {
+        "wrapper": lambda: prefix_attention_cuda(q, k, v, bias),
+        "operator": lambda: torch.ops.mtvaf.prefix_attention_fwd(
+            q, k, v, bias, 0, 0.0),
+        "prefix_attention": lambda: prefix_attention(q, k, v, bias)}
+    times = {name: [] for name in calls}
+    with torch.inference_mode():
+        for name in ("wrapper", "operator", "prefix_attention",
+                     "prefix_attention", "operator", "wrapper"):
+            times[name].append(cuda_ms(calls[name], iters=200, warmup=20))
+    return {f"{name}_event_ms": sum(t) / len(t) for name, t in times.items()}
+
+
+def serving_tier_phase(runs, serve_path):
+    """Phase 13: (a) phase 10's flagship CRF run exported for cuda at rungs
+    1 and 16 (shared weights), loaded, held against the live predictor
+    (emissions; phase 7's 64 requests through ``BatchingServer``); (b)
+    phase 12(c)'s span run (prefix, images, DiGCN) exported at rung 16,
+    64 image-bearing requests; (c) ``cli.serve_main --bundle`` over (a) in
+    a child process, 64 text POSTs from 16 threads, then ``build_app`` in
+    this process with images and with ``max_queue=1``; (d) K1's host time
+    per call through the operator.  The HTTP child loads its bundle while
+    this process exports the span bundle and loads its own; every timed
+    serving run starts after the child is up and idle."""
+    from mtvaf_tpu_torch.export import load_exported_predictor
+    from mtvaf_tpu_torch.infer import load_predictor
+
+    t_phase = time.perf_counter()
+    out = {}
+    tmp = runs["dir"]
+    crf_run, crf_bert = runs["crf"]
+    span_run, span_bert = runs["span"]
+    bundle_dir = os.path.join(tmp, "crf_bundle")
+    span_dir = os.path.join(tmp, "span_bundle")
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    children = []
+    try:
+        manifest, export_s = export_run(crf_run, crf_bert, bundle_dir,
+                                        (1, 16))
+        names = sorted(p["name"] for p in manifest["programs"])
+        if names != sorted(f"crf_decode{v}_b{r}" for r in (1, 16)
+                           for v in ("", "_images", "_images_noaux")):
+            raise AssertionError(f"CRF bundle programs {names}")
+        server_child = Child(tmp, "serve_main",
+                             "mtvaf_tpu_torch.cli.serve_main",
+                             ["--bundle", bundle_dir, "--bert_name",
+                              crf_bert, "--port", str(port), "--max_batch",
+                              "16", "--max_wait_ms", "5"])
+        children.append(server_child)
+        span_manifest, span_export_s = export_run(span_run, span_bert,
+                                                  span_dir, (16,))
+
+        # (a) the CRF bundle
+        live = load_predictor(crf_run, bert_name=crf_bert, device="cuda")
+        t0 = time.perf_counter()
+        bundle = load_exported_predictor(bundle_dir, bert_name=crf_bert,
+                                         device="cuda")
+        reqs = requests(N_REQUESTS, seed=SEED)
+        blank = np.zeros((224, 224, 3), np.float32)
+        host = live._make_host_batch([s for s, _ in reqs[:16]])
+        imgs16 = np.stack([blank if i is None else i for _, i in reqs[:16]])
+        cases = {"text": None, "images": imgs16}
+        with torch.inference_mode():
+            got = {k: bundle.forward(host, v) for k, v in cases.items()}
+            # load_s: manifest, weights, and the two programs that serving
+            # at rung 16 runs (the others load on first use), one forward
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            gaps = {}
+            for key, images in cases.items():
+                a, b = got[key], live.forward(host, images)
+                gaps[key] = (a["emissions"].float()
+                             - b["emissions"].float()).abs().max().item()
+                if not torch.equal(a["pred_tags"], b["pred_tags"]):
+                    raise AssertionError(f"bundle tags differ ({key})")
+        log(f"CRF bundle vs live forward: largest emission difference "
+            f"{gaps}")
+        ready_s = wait_ready(server_child, base)
+
+        results, served = serve_bundle("CRF", bundle, live, reqs)
+        out["crf"] = {"export_s": export_s, "load_s": load_s,
+                      "programs": manifest["programs"],
+                      "weights_bytes": os.path.getsize(
+                          os.path.join(bundle_dir, "weights.npz")),
+                      "resnet_bytes": os.path.getsize(
+                          os.path.join(bundle_dir, "resnet.npz")),
+                      "emission_gap": gaps, "serve": served,
+                      "live_serve_phase7": {k: serve_path[k] for k in (
+                          "p50_ms", "p99_ms", "sentences_per_s")}}
+        log("bundle_crf_path", json.dumps(out["crf"]))
+        del live
+        torch.cuda.empty_cache()
+
+        # (b) the span bundle with images and DiGCN
+        live_span = load_predictor(span_run, bert_name=span_bert,
+                                   device="cuda")
+        t0 = time.perf_counter()
+        span_bundle = load_exported_predictor(span_dir, bert_name=span_bert,
+                                              device="cuda")
+        sents = span_requests(N_REQUESTS, seed=SEED + 12)
+        pix = [img for _, img in requests(2 * N_REQUESTS, seed=SEED + 13)
+               if img is not None][:N_REQUESTS]
+        span_bundle.predict(sents[:16])                  # as (a): the
+        span_bundle.predict(sents[:16], images=np.stack(pix[:16]))
+        torch.cuda.synchronize()                         # programs served
+        span_load_s = time.perf_counter() - t0
+        _, out["span"] = serve_bundle("span", span_bundle, live_span,
+                                      list(zip(sents, pix)))
+        out["span"].update(export_s=span_export_s, load_s=span_load_s,
+                           programs=span_manifest["programs"])
+        log("bundle_span_path", json.dumps(out["span"]))
+        del live_span, span_bundle
+        torch.cuda.empty_cache()
+
+        # (c) HTTP: serve_main in the child process, then build_app here
+        text = [s for s, _ in reqs]
+        want = bundle.predict_many(text, batch_size=16)
+        out["http"] = {"ready_s": ready_s,
+                       **http_requests(server_child, base, text, want),
+                       "in_process_live_phase7": out["crf"][
+                           "live_serve_phase7"]}
+        log("http_path", json.dumps(out["http"]))
+        out["http_in_process"] = http_in_process(bundle, text)
+        log("http_in_process", json.dumps(out["http_in_process"]))
+        del bundle
+        torch.cuda.empty_cache()
+    finally:
+        for child in children:
+            child.stop()
+
+    # (d) K1's host time per call through the operator
+    out["k1_host"] = k1_host_ms()
+    log("k1_host_ms", json.dumps(out["k1_host"]))
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"serving tier phase: {out['phase_s']:.1f} s")
     return out
 
 
@@ -2308,9 +2834,13 @@ def main() -> int:
         profile_train(cfg, bert_cfg, params)
     del params, resnet
     torch.cuda.empty_cache()
-    trainer_path = trainer_phase(train_path)
-    span_path = span_phase(train_path)
-    aux_path = aux_phase(span_path)
+    with tempfile.TemporaryDirectory() as keep:
+        trainer_path = trainer_phase(train_path, keep)
+        span_path = span_phase(train_path)
+        aux_path = aux_phase(span_path, keep)
+        tier_path = serving_tier_phase(
+            {"dir": keep, "crf": trainer_path.pop("kept"),
+             "span": aux_path.pop("kept")}, serve_path)
 
     serve_row = next(r for r in k1_rows if r["shape"] == "serve_bf16")
     k2_row = next(r for r in k2_rows
@@ -2352,6 +2882,10 @@ def main() -> int:
         "span": {"launches": span_launches["k1"],
                  "shapes": span_rows(k1_rows, "max_abs_err_o")},
         "aux": {"launches": aux_launches["k1"]},
+        "bundle": {"launches": {"crf": tier_path["crf"]["serve"]["k1_launches"],
+                                "span": tier_path["span"]["k1_launches"]}},
+        "http": {"launches": tier_path["http"]["k1_launches"]},
+        "host_ms_per_call": tier_path["k1_host"],
     }, {
         "name": "prefix_attention_bwd",
         "route": "cuda", "design": {"bfloat16": DESIGN[torch.bfloat16],

@@ -71,8 +71,23 @@ def _center_crop(img: np.ndarray) -> np.ndarray:
 def process_image(path: str) -> np.ndarray:
     """path → (224, 224, 3) float32 normalized array (the eval transform:
     bilinear short-side resize, centre crop)."""
+    return _process_raw(_decode_rgb(path))
+
+
+def process_image_bytes(data: bytes) -> np.ndarray:
+    """Encoded image bytes (JPEG, PNG, ...) → (224, 224, 3) float32, the
+    same transform as :func:`process_image`: the serving path's entry,
+    where images arrive over the wire."""
+    import io
+
     from PIL import Image
-    raw = _decode_rgb(path)
+    with Image.open(io.BytesIO(data)) as im:
+        raw = np.asarray(im.convert("RGB"), np.uint8)
+    return _process_raw(raw)
+
+
+def _process_raw(raw: np.ndarray) -> np.ndarray:
+    from PIL import Image
     nh, nw = _resize_dims(raw.shape[0], raw.shape[1])
     img = np.asarray(Image.fromarray(raw).resize((nw, nh), Image.BILINEAR),
                      np.uint8)

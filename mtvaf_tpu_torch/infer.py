@@ -68,6 +68,20 @@ def _pad_rows(a, n: int):
     return np.concatenate([a, np.repeat(a[-1:], n - a.shape[0], axis=0)])
 
 
+def guides_from_rows(resnet_params, images, aux_images, *, depth: int):
+    """Visual guides of a batch from its image rows on the device, in the
+    transfer dtype (``nn.models.image_rows_to_f32``): (main (B, 4, C), aux
+    (B, 3, 4, C)).  A batch without aux crops (``aux_images`` None) gets
+    zero crops made on the device."""
+    imgs = image_rows_to_f32(images)
+    if aux_images is not None:
+        aux = image_rows_to_f32(aux_images)
+    else:
+        aux = torch.zeros((imgs.shape[0], _AUX_CROPS, _CROP, _CROP, 3),
+                          dtype=torch.float32, device=imgs.device)
+    return compute_visual_guides(resnet_params, imgs, aux, depth=depth)
+
+
 def serving_params(params: Dict, dtype, device, prefix_dtype=None) -> Dict:
     """The subtrees the serving forward reads, on ``device``: the encoder's
     matmul weights pre-cast to the activation dtype once, the prefix
@@ -104,8 +118,9 @@ class _PredictorBase:
         self.bert_cfg = bert_cfg
         self.tokenizer = tokenizer
         self.dtype = torch.bfloat16 if cfg.bf16 else torch.float32
-        self.params = serving_params(params, self.dtype, self.device,
-                                     self.PREFIX_DTYPE)
+        # None: the device work is another's (an export bundle's programs)
+        self.params = None if params is None else serving_params(
+            params, self.dtype, self.device, self.PREFIX_DTYPE)
         self.resnet_params = None
         if cfg.use_prefix and resnet_params is not None:
             self.resnet_params = tree_to(resnet_params, self.device)
@@ -142,16 +157,12 @@ class _PredictorBase:
         crops gets zero crops made on the device."""
         if self.resnet_params is None or images is None:
             return None
-        imgs = image_rows_to_f32(
-            upload(self._cast_image_rows(images), self.device))
-        if aux_images is not None:
-            aux = image_rows_to_f32(
-                upload(self._cast_image_rows(aux_images), self.device))
-        else:
-            aux = torch.zeros((imgs.shape[0], _AUX_CROPS, _CROP, _CROP, 3),
-                              dtype=torch.float32, device=self.device)
-        return compute_visual_guides(self.resnet_params, imgs, aux,
-                                     depth=self.cfg.resnet_depth)
+        aux = None if aux_images is None else \
+            upload(self._cast_image_rows(aux_images), self.device)
+        return guides_from_rows(
+            self.resnet_params, upload(self._cast_image_rows(images),
+                                       self.device),
+            aux, depth=self.cfg.resnet_depth)
 
 
 class CrfPredictor(_PredictorBase):
@@ -187,16 +198,29 @@ class CrfPredictor(_PredictorBase):
             "label_ids": np.asarray([f.label_id for f in feats], np.int64),
         }
 
+    def _decode(self, params, batch: Dict) -> Dict:
+        """The pure device stage of one batch: input_ids, input_mask and
+        segment_ids (B, S), and optionally main_guides / aux_guides →
+        emissions (B, S, N) fp32, pred_tags (B, S) and lengths (B,).  The
+        counterpart of the JAX predictor's ``_decode``; ``export`` traces
+        it."""
+        guides = None
+        if "main_guides" in batch:
+            guides = batch["main_guides"], batch.get("aux_guides")
+        return crf_model_forward(params, self.cfg, self.bert_cfg, batch,
+                                 visual_guides=guides, dtype=self.dtype,
+                                 with_loss=False, with_decode=True)
+
     def forward(self, host: Dict, images=None, aux_images=None) -> Dict:
         """The device forward of one host batch: emissions, pred_tags and
         lengths as device tensors (not synchronised)."""
         with torch.inference_mode():
             batch = {k: upload(host[k], self.device)
                      for k in ("input_ids", "input_mask", "segment_ids")}
-            return crf_model_forward(
-                self.params, self.cfg, self.bert_cfg, batch,
-                visual_guides=self._guides(images, aux_images),
-                dtype=self.dtype, with_loss=False, with_decode=True)
+            guides = self._guides(images, aux_images)
+            if guides is not None:
+                batch["main_guides"], batch["aux_guides"] = guides
+            return self._decode(self.params, batch)
 
     def _to_results(self, sentences: Sequence[str], label_ids, input_mask,
                     tags_np) -> List[List[Tuple[str, str]]]:

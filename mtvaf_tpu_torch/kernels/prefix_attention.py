@@ -1,5 +1,5 @@
 """Prefix-KV softmax attention, forward and backward: hand-written CUDA
-kernels, their plain PyTorch versions, and the autograd function over them.
+kernels, their plain PyTorch versions, and the PyTorch operators over them.
 
 Counterpart of ``mtvaf_tpu/kernels/prefix_attention.py`` (the Pallas
 ``_fwd_kernel`` and ``_bwd_kernel`` under a ``custom_vjp``).  The caller has
@@ -16,12 +16,19 @@ Attention-probability dropout is counter-based: the keep bit of element
 kernel, the backward kernel, the mask entry point and the plain version all
 draw the same mask without storing it.
 
-:func:`prefix_attention` is the attention core of every encoder layer.  On
-a CUDA tensor it runs :class:`PrefixAttention` (forward kernel
-``csrc/prefix_attention_fwd.cu``, backward kernel
-``csrc/prefix_attention_bwd.cu``) or raises; on a CPU tensor it runs
-:func:`prefix_attention_reference`, whose gradient comes from autograd.
-There is no shape-based dispatch and no fallback on the card.  Inside the
+:func:`prefix_attention` is the attention core of every encoder layer.  It
+calls the operator ``mtvaf::prefix_attention_fwd`` (``torch.library``),
+whose gradient is the operator ``mtvaf::prefix_attention_bwd``, so that
+``torch.export`` can trace the encoder and a saved program finds the
+kernels again by name.  For CUDA tensors the operators launch the forward
+kernel (``csrc/prefix_attention_fwd.cu``) and the backward kernel
+(``csrc/prefix_attention_bwd.cu``) or raise; for CPU tensors they run
+:func:`prefix_attention_reference` and :func:`prefix_attention_bwd_reference`.
+So a CPU gradient, too, is the plain backward, which recomputes the
+probabilities from the saved lse as the kernel does (rather than autograd
+through the plain forward): every comparison of the port's tests holds at
+its tolerance that way.  There is no shape-based dispatch and no fallback
+on the card.  Inside the
 kernels the dtype picks the design: bf16 runs on the tensor cores (wgmma
 fed by TMA, ``csrc/hopper.cuh``; q, k, v, o and do must be 16-byte
 aligned), fp32 on the CUDA cores (wgmma has no fp32 operand).
@@ -34,6 +41,7 @@ from __future__ import annotations
 import ctypes
 import math
 import threading
+from typing import Tuple
 
 import torch
 
@@ -318,44 +326,101 @@ def keep_mask_cuda(seed: int, rate: float, shape, device):
     return out > 0.5
 
 
-class PrefixAttention(torch.autograd.Function):
-    """The kernels under autograd: forward kernel → (o, lse); backward
-    kernel → (dq, dk, dv), with no gradient for the bias (a constant mask),
-    the seed or the rate.  lse is not differentiable."""
+# ---------------------------------------------------------------------------
+# The kernels as PyTorch operators.  The dispatcher picks the implementation
+# by the tensors' device: the kernels for CUDA tensors (launch or raise), the
+# plain versions for CPU tensors; a fake implementation gives the shapes
+# ``torch.export`` traces with.
 
-    @staticmethod
-    def forward(ctx, q, k, v, bias, seed: int, rate: float):
-        o, lse = prefix_attention_cuda(q, k, v, bias, seed=seed, rate=rate)
-        ctx.save_for_backward(q, k, v, bias, o, lse)
-        ctx.seed, ctx.rate = seed, rate
-        ctx.mark_non_differentiable(lse)
-        return o, lse
 
-    @staticmethod
-    def backward(ctx, do, _dlse):
-        q, k, v, bias, o, lse = ctx.saved_tensors
-        dq, dk, dv = prefix_attention_bwd_cuda(q, k, v, bias, o, lse, do,
-                                               seed=ctx.seed, rate=ctx.rate)
-        return dq, dk, dv, None, None, None
+@torch.library.custom_op("mtvaf::prefix_attention_fwd", mutates_args=(),
+                         device_types="cpu")
+def prefix_attention_fwd_op(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, bias: torch.Tensor, seed: int,
+                            rate: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse) of the forward, dropout ``rate`` under ``seed``."""
+    keep = None
+    if rate > 0.0:
+        keep = keep_factors(seed, rate, q.shape[:3] + (k.shape[2],),
+                            q.device)
+    o, lse = prefix_attention_reference(q, k, v, bias, keep)
+    return o.contiguous(), lse.contiguous()
+
+
+@prefix_attention_fwd_op.register_kernel("cuda")
+def _fwd_cuda(q, k, v, bias, seed, rate):
+    return prefix_attention_cuda(q, k, v, bias, seed=seed, rate=rate)
+
+
+@prefix_attention_fwd_op.register_fake
+def _fwd_fake(q, k, v, bias, seed, rate):
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty(q.shape[:3] + (1,), dtype=torch.float32))
+
+
+@torch.library.custom_op("mtvaf::prefix_attention_bwd", mutates_args=(),
+                         device_types="cpu")
+def prefix_attention_bwd_op(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, bias: torch.Tensor,
+                            o: torch.Tensor, lse: torch.Tensor,
+                            do: torch.Tensor, seed: int, rate: float
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """(dq, dk, dv) of the backward, regenerating the forward's masks."""
+    keep = None
+    if rate > 0.0:
+        keep = keep_factors(seed, rate, q.shape[:3] + (k.shape[2],),
+                            q.device)
+    return tuple(g.contiguous() for g in prefix_attention_bwd_reference(
+        q, k, v, bias, o, lse, do, keep))
+
+
+@prefix_attention_bwd_op.register_kernel("cuda")
+def _bwd_cuda(q, k, v, bias, o, lse, do, seed, rate):
+    return prefix_attention_bwd_cuda(q, k, v, bias, o, lse, do, seed=seed,
+                                     rate=rate)
+
+
+@prefix_attention_bwd_op.register_fake
+def _bwd_fake(q, k, v, bias, o, lse, do, seed, rate):
+    return tuple(torch.empty_like(x, memory_format=torch.contiguous_format)
+                 for x in (q, k, v))
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, bias, seed, rate = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, bias, o, lse)
+    ctx.seed, ctx.rate = seed, rate
+    ctx.mark_non_differentiable(lse)
+
+
+def _backward(ctx, do, _dlse):
+    q, k, v, bias, o, lse = ctx.saved_tensors
+    dq, dk, dv = prefix_attention_bwd_op(q, k, v, bias, o, lse, do, ctx.seed,
+                                         ctx.rate)
+    return dq, dk, dv, None, None, None
+
+
+# No gradient for the bias (a constant mask), the seed or the rate; lse is
+# not differentiable.
+prefix_attention_fwd_op.register_autograd(_backward,
+                                          setup_context=_setup_context)
 
 
 def prefix_attention(q, k, v, bias, *, dropout_rate: float = 0.0, rng=None):
-    """Attention core of the encoder: (o, lse).
+    """Attention core of the encoder: (o, lse), through the operator
+    ``mtvaf::prefix_attention_fwd`` (its gradient through
+    ``mtvaf::prefix_attention_bwd``).
 
     ``rng`` (a host ``torch.Generator``) with a nonzero ``dropout_rate``
     turns attention-probability dropout on: one 63-bit seed is drawn from
     it per call, and the backward regenerates the same mask from that seed.
-    CUDA tensors go to the kernels, CPU tensors to the plain version.
+    CUDA tensors go to the kernels, CPU tensors to the plain versions.
     """
     rate = float(dropout_rate) if rng is not None else 0.0
     seed = draw_seed(rng) if rate > 0.0 else 0
-    if q.is_cuda:
-        return PrefixAttention.apply(q, k, v, bias, seed, rate)
-    keep = None
-    if rate > 0.0:
-        keep = keep_factors(seed, rate, q.shape[:3] + (k.shape[2],),
-                             q.device)
-    return prefix_attention_reference(q, k, v, bias, keep)
+    return prefix_attention_fwd_op(q, k, v, bias, seed, rate)
 
 
 prefix_attention.launches = _LaunchCount()

@@ -19,6 +19,10 @@ Batching policy:
                    than ``min(2, pipeline_depth)`` batches are in flight on
                    its replica; full batches dispatch up to
                    ``pipeline_depth``.
+* ``max_queue``    backpressure bound: once this many requests wait,
+                   ``submit`` raises :class:`QueueFull` at once instead of
+                   queueing (the HTTP tier answers 429).  ``None``:
+                   unbounded.
 * ``devices``      optional list of ``torch.device``: one predictor replica
                    (``predictor.to_device``) and one worker per device, all
                    draining the shared queue.
@@ -35,6 +39,11 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 
+class QueueFull(RuntimeError):
+    """Raised by :meth:`BatchingServer.submit` when ``max_queue`` requests
+    already wait: the load-shedding signal (HTTP tier: 429)."""
+
+
 class BatchingServer:
     """Dynamic-batching front-end for a predictor: anything with
     ``dispatch(sentences, images=None)`` → handle, ``collect(handle)`` →
@@ -49,11 +58,15 @@ class BatchingServer:
 
     def __init__(self, predictor, *, max_batch: int = 16,
                  max_wait_ms: float = 5.0, pipeline_depth: int = 4,
-                 devices: Optional[Sequence[Any]] = None):
+                 devices: Optional[Sequence[Any]] = None,
+                 max_queue: Optional[int] = None):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         if pipeline_depth < 1:
             raise ValueError("pipeline_depth must be >= 1")
+        if max_queue is not None and max_queue < 1:
+            raise ValueError("max_queue must be >= 1 (or None = unbounded)")
+        self._max_queue = max_queue
         self._predictors = ([predictor.to_device(d) for d in devices]
                             if devices else [predictor])
         self._max_batch = int(max_batch)
@@ -65,6 +78,7 @@ class BatchingServer:
         self._queue: List[Tuple[str, Optional[Any], Future]] = []
         self._closed = False
         self._served = 0
+        self._rejected = 0
         self._batches = 0
         self._latencies_ms = deque(maxlen=8192)
         self._batch_sizes = deque(maxlen=8192)
@@ -80,12 +94,18 @@ class BatchingServer:
 
     def submit(self, sentence: str, image=None) -> Future:
         """Enqueue one sentence (+ optional preprocessed (224, 224, 3) fp32
-        image); returns a Future of that sentence's predictions."""
+        image); returns a Future of that sentence's predictions.  Raises
+        :class:`QueueFull` when ``max_queue`` requests already wait."""
         fut: Future = Future()
         fut._mtvaf_t0 = time.perf_counter()
         with self._lock:
             if self._closed:
                 raise RuntimeError("server is closed")
+            if self._max_queue is not None \
+                    and len(self._queue) >= self._max_queue:
+                self._rejected += 1
+                raise QueueFull(
+                    f"request queue at max_queue={self._max_queue}")
             self._queue.append((sentence, image, fut))
             self._lock.notify_all()
         return fut
@@ -105,15 +125,17 @@ class BatchingServer:
                           images=np.zeros((n, 224, 224, 3), np.float32))
 
     def stats(self) -> Dict[str, float]:
-        """Cumulative served/batch counts plus latency percentiles
-        (ms) and mean batch occupancy over the last 8192 entries."""
+        """Cumulative served/rejected/batch counts (monotonic) plus latency
+        percentiles (ms) and mean batch occupancy over the last 8192
+        entries."""
         with self._lock:
             served = self._served
+            rejected = self._rejected
             batches = self._batches
             lats = sorted(self._latencies_ms)
             sizes = list(self._batch_sizes)
             replica_batches = list(self._replica_batches)
-        base = {"served": served,
+        base = {"served": served, "rejected": rejected,
                 "replicas": len(self._predictors), "batches": batches}
         if len(replica_batches) > 1:
             base["replica_batches"] = replica_batches

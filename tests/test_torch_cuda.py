@@ -288,3 +288,81 @@ def test_misaligned_rows_raise_instead_of_launching(cuda):
     torch.cuda.synchronize()
     assert prefix_attention.launches.value == fwd0 + 1
     assert prefix_attention_bwd_cuda.launches.value == bwd0
+
+
+# ---------------------------------------------------------------------------
+# The kernels as operators, and an exported program on the card.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,fwd_atol,bwd_atol",
+                         [(torch.float32, 1e-5, 1e-5),
+                          (torch.bfloat16, 2e-2, 8e-3)], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_operators_launch_the_kernels(cuda, dtype, fwd_atol, bwd_atol, rate):
+    """``mtvaf::prefix_attention_fwd`` / ``_bwd`` on CUDA tensors launch K1
+    and K2 (the counters move) and agree with the plain versions at the
+    wrappers' tolerances."""
+    B, H, S, T = 2, 12, 40, 56
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v, do = (torch.randn(B, H, n, 64, device=cuda, generator=g)
+                   .to(dtype) for n in (S, T, T, S))
+    mask = torch.ones(B, 1, T, device=cuda)
+    mask[-1, :, -9:] = 0.0
+    bias = ((1.0 - mask) * -10000.0)[:, None]
+    keep = keep_factors(SEED, rate, (B, H, S, T), cuda) if rate else None
+    fwd0 = prefix_attention.launches.value
+    bwd0 = prefix_attention_bwd_cuda.launches.value
+    o, lse = torch.ops.mtvaf.prefix_attention_fwd(q, k, v, bias, SEED, rate)
+    dq, dk, dv = torch.ops.mtvaf.prefix_attention_bwd(q, k, v, bias, o, lse,
+                                                      do, SEED, rate)
+    torch.cuda.synchronize()
+    assert prefix_attention.launches.value == fwd0 + 1
+    assert prefix_attention_bwd_cuda.launches.value == bwd0 + 1
+    ro, _ = prefix_attention_reference(q, k, v, bias, keep)
+    _, rlse = prefix_attention_reference(q, k, v, bias)
+    torch.testing.assert_close(o.float(), ro.float(), atol=fwd_atol, rtol=0)
+    torch.testing.assert_close(lse, rlse, atol=fwd_atol, rtol=0)
+    plain = prefix_attention_bwd_reference(q, k, v, bias, o, lse, do, keep)
+    for name, got, want in zip("qkv", (dq, dk, dv), plain):
+        torch.testing.assert_close(got.float(), want.float(), atol=bwd_atol,
+                                   rtol=0, msg=f"d{name}")
+
+
+@pytest.mark.cuda
+def test_an_exported_program_launches_k1(cuda, tmp_path):
+    """A CRF bundle exported for cuda (head dim 64, so the kernel takes
+    it): its program launches K1 once per layer, and the served results
+    equal the live predictor's on the card."""
+    from mtvaf_tpu_torch.core.config import Config
+    from mtvaf_tpu_torch.core.convert import params_from_jax
+    from mtvaf_tpu_torch.data.synthetic import make_vocab_file
+    from mtvaf_tpu_torch.data.tokenization import FullTokenizer
+    from mtvaf_tpu_torch.export import (export_predictor,
+                                        load_exported_predictor)
+    from mtvaf_tpu_torch.infer import CrfPredictor
+    from mtvaf_tpu_torch.nn.bert import BertConfig
+    from mtvaf_tpu_torch.nn.models import init_crf_model_params
+
+    make_vocab_file(str(tmp_path / "vocab.txt"))
+    tok = FullTokenizer(str(tmp_path / "vocab.txt"))
+    cfg = Config(dataset_name="twitter2015", max_seq=32, bf16=True)
+    bert_cfg = BertConfig.tiny(vocab_size=len(tok.vocab), hidden_size=128,
+                               num_attention_heads=2, intermediate_size=256)
+    live = CrfPredictor(cfg, bert_cfg,
+                        params_from_jax(init_crf_model_params(cfg, bert_cfg,
+                                                              seed=0)),
+                        tok, device=cuda)
+    manifest = export_predictor(live, str(tmp_path / "b"), batch_sizes=(4,),
+                                platforms=("cuda",))
+    assert [p["file"] for p in manifest["programs"]] == ["crf_decode_b4"
+                                                         ".cuda.pt2"]
+    served = load_exported_predictor(str(tmp_path / "b"), tok, device=cuda)
+    sents = ["the pizza was great", "bad battery", "nice view"]
+    want = live.predict(sents)
+    before = prefix_attention.launches.value
+    got = served.predict(sents)
+    torch.cuda.synchronize()
+    assert prefix_attention.launches.value == before \
+        + bert_cfg.num_hidden_layers
+    assert got == want

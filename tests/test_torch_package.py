@@ -24,13 +24,16 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     out = subprocess.run([sys.executable, "-c", IMPORT_ALL],
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split(maxsplit=1)
-    assert int(out[0]) >= 41                     # every module was imported
+    assert int(out[0]) >= 44                     # every module was imported
     assert out[1].strip() == "[]"
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
                                                            tmp_path):
+    from mtvaf_tpu_torch.cli.export_main import main as export_main
     from mtvaf_tpu_torch.cli.main import main as cli_main
+    from mtvaf_tpu_torch.cli.serve_main import main as serve_main
+    from mtvaf_tpu_torch.export import load_exported_predictor
     from mtvaf_tpu_torch.core.config import Config
     from mtvaf_tpu_torch.core.platform import resolve_device
     from mtvaf_tpu_torch.infer import (CrfPredictor, SpanPredictor,
@@ -69,6 +72,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli_main(["--dataset_name", "twitter2015", "--bert_name",
                   str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        export_main(["--save_path", str(tmp_path), "--out",
+                     str(tmp_path / "b")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_main(["--save_path", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_exported_predictor(str(tmp_path))
     assert resolve_device("cpu") == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert resolve_device() == torch.device("cuda")

@@ -291,3 +291,72 @@ def test_dropout_forward_backward_vs_extracted_masks():
                                    rtol=1e-4, err_msg=f"autograd d{name}")
         np.testing.assert_allclose(c.numpy(), b.grad.numpy(), atol=1e-4,
                                    rtol=1e-4, err_msg=f"plain d{name}")
+
+
+# ---------------------------------------------------------------------------
+# The kernels as operators (torch.library): schema, fake and autograd, and
+# what torch.export sees.
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["plain", "dropout"])
+def test_operators_pass_opcheck(dtype, rate):
+    """``torch.library.opcheck`` on both operators with CPU tensors: the
+    schema, the fake implementation against the real one, and (for the
+    forward) the autograd registration."""
+    from mtvaf_tpu_torch.kernels.prefix_attention import (
+        prefix_attention_bwd_op, prefix_attention_fwd_op)
+
+    q, k, v, bias = (x.to(dtype) for x in _torch(*make_inputs(13)))
+    bias = bias.float()
+    seed = 0x0123456789ABCDEF
+    torch.library.opcheck(prefix_attention_fwd_op,
+                          (q.requires_grad_(), k.requires_grad_(),
+                           v.requires_grad_(), bias, seed, rate))
+    q, k, v = (x.detach() for x in (q, k, v))
+    o, lse = prefix_attention_fwd_op(q, k, v, bias, seed, rate)
+    assert lse.dtype == torch.float32 and lse.shape == q.shape[:3] + (1,)
+    do = torch.from_numpy(np.random.RandomState(3).randn(*q.shape)
+                          .astype(np.float32)).to(dtype)
+    torch.library.opcheck(prefix_attention_bwd_op,
+                          (q, k, v, bias, o, lse, do, seed, rate))
+
+
+def test_operator_gradient_is_the_plain_backward():
+    """On the CPU autograd of the forward operator runs the backward
+    operator, whose value is the plain backward's, masks regenerated from
+    the seed; lse is not differentiable."""
+    q, k, v, bias = _torch(*make_inputs(1))
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    g = torch.Generator().manual_seed(5)
+    seed = draw_seed(torch.Generator().manual_seed(5))
+    o, lse = prefix_attention(q, k, v, bias, dropout_rate=0.1, rng=g)
+    assert not lse.requires_grad
+    w = torch.from_numpy(np.random.RandomState(4).randn(*q.shape)
+                         .astype(np.float32))
+    (o * w).sum().backward()
+    from mtvaf_tpu_torch.kernels.prefix_attention import keep_factors
+    keep = keep_factors(seed, 0.1, q.shape[:3] + (k.shape[2],), q.device)
+    want = prefix_attention_bwd_reference(q.detach(), k.detach(), v.detach(),
+                                          bias, o.detach(), lse, w, keep)
+    for got, ref in zip((q.grad, k.grad, v.grad), want):
+        assert torch.equal(got, ref)
+
+
+def test_export_traces_the_operator():
+    """torch.export of a module that calls ``prefix_attention`` keeps the
+    operator ``mtvaf.prefix_attention_fwd`` in its graph, and the program
+    gives the plain version's values."""
+    class Attend(torch.nn.Module):
+        def forward(self, q, k, v, bias):
+            return prefix_attention(q, k, v, bias)[0] * 2.0
+
+    args = tuple(_torch(*make_inputs(1)))
+    with torch.no_grad():
+        ep = torch.export.export(Attend(), args, strict=False)
+    targets = [str(n.target) for n in ep.graph.nodes
+               if n.op == "call_function"]
+    assert "mtvaf.prefix_attention_fwd.default" in targets
+    assert torch.equal(ep.module()(*args),
+                       prefix_attention_reference(*args)[0] * 2.0)
