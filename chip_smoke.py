@@ -108,7 +108,28 @@ Phases, each of which fails the run by raising:
    PIL is installed; else said so and held on the CPU only) and a burst
    against ``max_queue=1`` that must give both 200 and 429; (d) the host
    time of one K1 call through the wrapper, the operator and
-   ``prefix_attention``.
+   ``prefix_attention``;
+14. the options: (a) the span step at ``--use_align``'s S=T=500
+   (text-only BERT-base, B=32, bf16, dropout live) without and with
+   per-layer remat: one step each from one generator, the loss bit for
+   bit and every gradient leaf bitwise or within rtol 1e-4 / atol 1e-5
+   (the largest difference printed with its reason), K1 12 → 24 and K2 12
+   launches a step, then 10 untimed and 20 timed steps of each with
+   their peak memory; (b) phase 9's step with ``--params_bf16`` (15 +
+   30 steps): finite losses, the last 5 below the first, live ==
+   bf16(master), kernel launches and device ms per step beside the
+   fp32-param step's; (c) the CLI → ``SpanTrainer`` with ``--use_align
+   --remat --params_bf16 --profile_dir`` for 2 epochs on a synthetic
+   twitter15 tree with AGN files (320/96/96): 24 K1 + 12 K2 per train
+   step and 12 K1 per eval batch, a trace whose kernel records name K1
+   and K2, an fp32 ``best_model.npz``, then ``load_predictor`` →
+   ``BatchingServer`` → ``SpanPredictor`` at S=500 (64 requests from 16
+   threads, each equal to ``predict_many``'s); (d) phase 7's requests
+   through a ``CrfPredictor`` with ``crf_decode_impl="parallel"``, each
+   batch held to the scan predictor's (a tie that breaks otherwise is
+   printed with both path scores, which must be equal), fc + Viterbi's
+   device ms and launches for both decodes at the batch of 16, and one
+   text decode program of each exported for ``cuda`` (nodes, seconds).
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times: the
 kernels' summed durations under ``torch.profiler``.  ``event_ms`` is the
@@ -141,6 +162,8 @@ import torch
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16
 # tensor-core FLOP/s, fp32 (non-tensor) FLOP/s.
+# The device the CLI runs (``run_cli``) and phase 14's paths are given.
+DEVICE = "cuda"
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # Kernel tolerances (max abs over o and lse).  Against the plain version in
@@ -1088,7 +1111,7 @@ def run_cli(argv, bert_cfg, on_epoch_log=None, span=False):
         log.addHandler(hook)
     try:
         metrics = cli_main(argv, bert_cfg_override=bert_cfg,
-                           device="cuda")
+                           device=DEVICE)
     finally:
         setattr(module, cls_name, base_cls)
         if hook:
@@ -2731,6 +2754,522 @@ def serving_tier_phase(runs, serve_path):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the options (per-layer remat, --params_bf16, the parallel
+# Viterbi, the step profiler), with --use_align's S=500.
+
+LONG_S = 500                     # --use_align's max_seq_agn
+LONG_WARMUP, LONG_TIMED = 10, 20
+# remat against no remat on the card (gradients): the replay runs the same
+# kernels on the same inputs, so a leaf may differ only where a library
+# sums in an order it picks anew per call
+REMAT_RTOL, REMAT_ATOL = 1e-4, 1e-5
+AGN_IDS = [f"img_{i}.jpg" for i in range(4)]   # make_learnable_span_file's
+KERNEL_NAMES = {"k1": ("fwd_bf16_kernel",),
+                "k2": ("dq_bf16_kernel", "dkdv_bf16_kernel")}
+
+
+def kernel_counters():
+    from mtvaf_tpu_torch.kernels.prefix_attention import (
+        keep_mask_cuda, prefix_attention, prefix_attention_bwd_cuda)
+    return {"k1": prefix_attention.launches,
+            "k2": prefix_attention_bwd_cuda.launches,
+            "mask": keep_mask_cuda.launches}
+
+
+def reset_counts():
+    for c in kernel_counters().values():
+        c.reset()
+
+
+def read_counts():
+    return {k: c.value for k, c in kernel_counters().items()}
+
+
+def profiled_calls(fn, iters=10):
+    """(device ms, kernel launches) per call of ``fn`` under
+    ``torch.profiler``: the summed kernel durations and the count of
+    kernel records."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in kernels) / iters / 1e3,
+            sum(e.count for e in kernels) / iters)
+
+
+def timed_steps(step, state, batch, n):
+    """``n`` steps between two events: (state, losses, device ms per
+    step, wall ms per step, peak bytes allocated)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    losses = []
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(n):
+        state, metrics = step(state, batch, SEED)
+        losses.append(metrics["loss"])
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (state, [x.item() for x in losses], start.elapsed_time(end) / n,
+            wall / n * 1e3, torch.cuda.max_memory_allocated())
+
+
+def long_step(bert_cfg):
+    """(a) The span step at S=T=500 (text-only BERT-base, B=32, bf16,
+    dropout live), without and with remat: one step each from one
+    generator (the loss bit for bit, every gradient leaf bitwise or within
+    ``REMAT_RTOL``/``REMAT_ATOL``; K1 12 → 24 launches, K2 12), then
+    ``LONG_WARMUP`` untimed and ``LONG_TIMED`` timed steps of each, with
+    the peak memory of the timed steps."""
+    import dataclasses
+    from mtvaf_tpu_torch.core.convert import params_from_jax
+    from mtvaf_tpu_torch.core.flops import (H100_BF16_PEAK,
+                                            train_flops_per_example)
+    from mtvaf_tpu_torch.core.rng import fold_in
+    from mtvaf_tpu_torch.data.synthetic import span_batch
+    from mtvaf_tpu_torch.nn.models import init_span_model_params
+    from mtvaf_tpu_torch.train.optim import build_optimizer, tree_items
+    from mtvaf_tpu_torch.train.steps import (create_train_state,
+                                             make_span_loss_fn,
+                                             make_train_step)
+
+    cfg = span_config().replace(use_align=True, max_seq_agn=LONG_S)
+    params = params_from_jax(init_span_model_params(cfg, bert_cfg,
+                                                    seed=SEED))
+    optimizer, _ = build_optimizer(params, cfg, total_steps=1000,
+                                   pipeline="span")
+    batch = {k: v.to(DEVICE) for k, v in span_batch(
+        cfg, bert_cfg, TRAIN_B, LONG_S, seed=SEED).items()}
+    flops = train_flops_per_example(bert_cfg, LONG_S, prefix_len=0)
+    layers = bert_cfg.num_hidden_layers
+    loss_fns = {name: make_span_loss_fn(
+        cfg, dataclasses.replace(bert_cfg, remat=name == "remat"))
+        for name in ("plain", "remat")}
+
+    # one step's loss and gradients each, from one generator
+    grads, one = {}, {}
+    for name, loss_fn in loss_fns.items():
+        state = create_train_state(params, optimizer, device=DEVICE)
+        leaves = dict(tree_items(state.params))
+        reset_counts()
+        loss, _ = loss_fn(state.params, batch, fold_in(SEED, 0))
+        g = torch.autograd.grad(loss, list(leaves.values()),
+                                allow_unused=True)
+        torch.cuda.synchronize()
+        one[name] = read_counts()
+        grads[name] = (loss.detach(), dict(zip(leaves, g)))
+        del state, leaves, loss, g
+    (loss0, g0), (loss1, g1) = grads["plain"], grads["remat"]
+    worst, worst_path, not_bitwise = 0.0, None, []
+    for path, a in g0.items():
+        b = g1[path]
+        if (a is None) != (b is None):
+            raise AssertionError(f"remat: gradient of {path} on one side")
+        if a is None or torch.equal(a, b):
+            continue
+        not_bitwise.append(path)
+        diff = (a.float() - b.float()).abs().max().item()
+        if diff > worst:
+            worst, worst_path = diff, path
+        if not torch.allclose(b.float(), a.float(), rtol=REMAT_RTOL,
+                              atol=REMAT_ATOL):
+            raise AssertionError(f"remat: the gradient of {path} differs by "
+                                 f"{diff} (rtol {REMAT_RTOL}, atol "
+                                 f"{REMAT_ATOL})")
+    reason = "all bitwise" if not not_bitwise else (
+        "the same kernels on the same inputs: these leaves were summed in "
+        "an order a library picked anew for the replay")
+    out = {"remat_vs_plain": {
+        "loss": [loss0.item(), loss1.item()],
+        "loss_bitwise": bool(torch.equal(loss0, loss1)),
+        "leaves": len(g0), "leaves_not_bitwise": not_bitwise,
+        "largest_diff": worst, "largest_diff_leaf": worst_path,
+        "reason": reason, "rtol": REMAT_RTOL, "atol": REMAT_ATOL,
+        "one_step_launches": one}}
+    log("long_step_remat_vs_plain", json.dumps(out["remat_vs_plain"]))
+    if not out["remat_vs_plain"]["loss_bitwise"]:
+        raise AssertionError(f"remat: loss {loss1.item()} against "
+                             f"{loss0.item()} without")
+    for name, want_k1 in (("plain", layers), ("remat", 2 * layers)):
+        if one[name] != {"k1": want_k1, "k2": layers, "mask": 0}:
+            raise AssertionError(f"S=500 {name} step launched {one[name]}: "
+                                 f"not {want_k1} K1 + {layers} K2")
+    del grads, g0, g1, loss0, loss1
+    torch.cuda.empty_cache()
+
+    # timed steps of each
+    for name, loss_fn in loss_fns.items():
+        state = create_train_state(params, optimizer, device=DEVICE)
+        step = make_train_step(loss_fn, optimizer)
+        losses = []
+        for _ in range(LONG_WARMUP):
+            state, metrics = step(state, batch, SEED)
+            losses.append(metrics["loss"].item())
+        reset_counts()
+        state, timed, step_ms, wall_ms, peak = timed_steps(step, state,
+                                                           batch, LONG_TIMED)
+        counts = read_counts()
+        losses += timed
+        ex_per_s = TRAIN_B / (step_ms / 1e3)
+        out[name] = {"batch": TRAIN_B, "seq": LONG_S, "steps": LONG_TIMED,
+                     "step_ms": step_ms, "wall_step_ms": wall_ms,
+                     "examples_per_s": ex_per_s,
+                     "mfu": flops * ex_per_s / H100_BF16_PEAK,
+                     "peak_mem_gb": peak / 1e9,
+                     "k1_launches": counts["k1"],
+                     "k2_launches": counts["k2"],
+                     "mask_launches": counts["mask"], "losses": losses}
+        want_k1 = one[name]["k1"] * LONG_TIMED
+        if counts != {"k1": want_k1, "k2": layers * LONG_TIMED, "mask": 0}:
+            raise AssertionError(f"S=500 {name} steps launched {counts} in "
+                                 f"{LONG_TIMED} steps")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"non-finite S=500 loss: {losses}")
+        del state, step
+        torch.cuda.empty_cache()
+    out["remat_vs_plain"].update(
+        step_ms_ratio=out["remat"]["step_ms"] / out["plain"]["step_ms"],
+        peak_mem_ratio=out["remat"]["peak_mem_gb"]
+        / out["plain"]["peak_mem_gb"])
+    log("long_step_path", json.dumps(out))
+    del params
+    return out
+
+
+def master_step(cfg, bert_cfg, params, bare):
+    """(b) Phase 9's step (flagship, B=32, S=128, bf16, dropout live) with
+    ``--params_bf16``: as phase 9, 15 untimed and 30 timed steps (the
+    heads' warmup lifts the loss until ~35 steps); finite losses, the last
+    5 below the first, live == bf16(master) after the last step; the
+    kernel launches and device time per step beside phase 9's fp32-param
+    step, profiled here."""
+    from mtvaf_tpu_torch.train.optim import tree_items
+    from mtvaf_tpu_torch.train.steps import MasterState, create_train_state
+
+    cfg16 = cfg.replace(params_bf16=True)
+    optimizer, state32, _, step, batch = train_setup(cfg16, bert_cfg,
+                                                     params, DEVICE)
+    state = create_train_state(params, optimizer, device=DEVICE,
+                               params_dtype=torch.bfloat16)
+    launches = {}
+    for name, st in (("fp32_params", state32), ("params_bf16", state)):
+        holder = {"s": st}
+
+        def one_step():
+            holder["s"], _ = step(holder["s"], batch, SEED)
+
+        launches[name] = profiled_calls(one_step, iters=3)
+    del state32, holder
+    torch.cuda.empty_cache()
+    state = create_train_state(params, optimizer, device=DEVICE,
+                               params_dtype=torch.bfloat16)
+    losses = []
+    for _ in range(WARMUP_STEPS):
+        state, metrics = step(state, batch, SEED)
+        losses.append(metrics["loss"].item())
+    reset_counts()
+    state, timed, step_ms, wall_ms, peak = timed_steps(step, state, batch,
+                                                       TIMED_STEPS)
+    counts = read_counts()
+    losses += timed
+    if not isinstance(state.opt_state, MasterState):
+        raise AssertionError("params_bf16 state holds no master")
+    cast_ok = all(
+        p.dtype == torch.bfloat16 and m.dtype == torch.float32
+        and torch.equal(p, m.to(torch.bfloat16))
+        for (_, p), (_, m) in zip(tree_items(state.params),
+                                  tree_items(state.opt_state.master)))
+    layers = bert_cfg.num_hidden_layers
+    out = {"batch": TRAIN_B, "seq": TRAIN_S, "steps": TIMED_STEPS,
+           "step_ms": step_ms, "wall_step_ms": wall_ms,
+           "examples_per_s": TRAIN_B / (step_ms / 1e3),
+           "peak_mem_gb": peak / 1e9, "k1_launches": counts["k1"],
+           "k2_launches": counts["k2"], "mask_launches": counts["mask"],
+           "live_is_bf16_master": cast_ok,
+           "profiled": {k: {"device_ms_per_step": v[0],
+                            "kernel_launches_per_step": v[1]}
+                        for k, v in launches.items()},
+           "phase9_step_ms": bare["step_ms"], "losses": losses}
+    log("master_step_path", json.dumps(out))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite params_bf16 loss: {losses}")
+    if not sum(losses[-5:]) / 5 < losses[0]:
+        raise AssertionError(f"params_bf16 loss did not fall: {losses}")
+    if not cast_ok:
+        raise AssertionError("live params are not bf16(master)")
+    if counts != {"k1": layers * TIMED_STEPS, "k2": layers * TIMED_STEPS,
+                  "mask": 0}:
+        raise AssertionError(f"params_bf16 steps launched {counts}")
+    del state, step, optimizer
+    torch.cuda.empty_cache()
+    return out
+
+
+def long_trainer(bert_cfg):
+    """(c) The CLI → ``SpanTrainer`` with ``--use_align --remat
+    --params_bf16 --profile_dir`` for 2 epochs on a synthetic twitter15
+    tree with AGN files (320/96/96 sentences, S=500): 24 K1 + 12 K2 per
+    train step and 12 K1 per eval batch, the profiler's trace naming K1
+    and K2, an fp32 ``best_model.npz``; then ``load_predictor`` on the run
+    → ``BatchingServer`` → ``SpanPredictor`` at S=500, 64 requests from 16
+    threads, each equal to ``predict_many``'s."""
+    from mtvaf_tpu_torch.data.synthetic import make_agn_file
+    from mtvaf_tpu_torch.infer import SpanPredictor, load_predictor
+    from mtvaf_tpu_torch.serve import BatchingServer
+
+    layers = bert_cfg.num_hidden_layers
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root, bert_dir = span_tree(tmp)
+        agn = os.path.join(root, "AGN_data", "twitter2015")
+        os.makedirs(agn)
+        for k, mode in enumerate(("train", "dev", "test")):
+            make_agn_file(os.path.join(agn, f"aux_{mode}.txt"), AGN_IDS,
+                          seed=SEED + k)
+        save, prof = os.path.join(tmp, "run"), os.path.join(tmp, "prof")
+        argv = ["--dataset_name", "twitter15", "--bert_name", bert_dir,
+                "--logit_threshold", "0", "--data_root", root,
+                "--save_path", save, "--bf16", "--use_align",
+                "--max_seq_agn", str(LONG_S), "--remat", "--params_bf16",
+                "--profile_dir", prof, "--profile_steps", "2",
+                "--train_batch_size", str(TRAIN_B),
+                "--eval_batch_size", str(TRAINER_EVAL_BATCH),
+                "--num_epochs", str(TRAINER_EPOCHS), "--eval_begin_epoch",
+                "1", "--seed", str(SEED), "--do_train"]
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics, tr = run_cli(argv, bert_cfg, span=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        steps = sum(h["steps"] for h in tr.history)
+        eval_batches = TRAINER_EPOCHS * -(-len(tr.dev_dataset)
+                                          // TRAINER_EVAL_BATCH) \
+            + -(-len(tr.test_dataset) // TRAINER_EVAL_BATCH)
+        losses = [h["train_loss"] for h in tr.history]
+        if tr.train_dataset.arrays["input_ids"].shape[1] != LONG_S:
+            raise AssertionError("the --use_align run is not at S=500")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"non-finite --use_align loss: {losses}")
+        if counts != {"k1": 2 * layers * steps + layers * eval_batches,
+                      "k2": layers * steps, "mask": 0}:
+            raise AssertionError(
+                f"--use_align trainer: {counts} for {steps} steps and "
+                f"{eval_batches} eval batches: not {2 * layers} K1 + "
+                f"{layers} K2 a step and {layers} K1 an eval batch")
+        traces = os.listdir(prof)
+        if traces != ["trace_steps_3-4.json"]:
+            raise AssertionError(f"profile_dir holds {traces}")
+        trace = os.path.join(prof, traces[0])
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = sum(e.get("cat") == "kernel" for e in events)
+        named = {k: sum(any(n in e.get("name", "") for n in names)
+                        for e in events)
+                 for k, names in KERNEL_NAMES.items()}
+        # 2 steps: 48 K1 records (24 a step) and 48 of K2's two passes
+        if not (named["k1"] and named["k2"]):
+            raise AssertionError(f"the trace of 2 steps names K1 and K2 "
+                                 f"{named} times")
+        with np.load(os.path.join(save, "best_model.npz")) as best:
+            dtypes = sorted({str(best[k].dtype) for k in best.files})
+        if dtypes != ["float32"]:
+            raise AssertionError(f"best_model.npz holds {dtypes}")
+        out["trainer"] = {
+            "epochs": tr.history, "wall_s": wall, "metrics": metrics,
+            "train_steps": steps, "eval_batches": eval_batches,
+            "k1_launches": counts["k1"], "k2_launches": counts["k2"],
+            "mask_launches": counts["mask"],
+            "profiler_mean_step_ms": tr.profiler.mean_step_ms,
+            "trace_bytes": os.path.getsize(trace),
+            "trace_kernel_records": kernels, "trace_named": named}
+        log("long_trainer_path", json.dumps(out["trainer"]))
+        del tr
+        torch.cuda.empty_cache()
+
+        pred = load_predictor(save, device=DEVICE)
+        if not isinstance(pred, SpanPredictor) \
+                or pred.cfg.effective_max_seq != LONG_S:
+            raise AssertionError(f"load_predictor built {type(pred)} at "
+                                 f"S={pred.cfg.effective_max_seq}")
+        sents = span_requests(N_REQUESTS, seed=SEED + 14)
+        with BatchingServer(pred, max_batch=16, max_wait_ms=5.0,
+                            pipeline_depth=4) as server:
+            server.warmup()
+            torch.cuda.synchronize()
+            reset_counts()
+            results, serve_wall = serve_threaded(
+                server, [(s,) for s in sents])
+            k1 = read_counts()["k1"]
+            stats = server.stats()
+        many = pred.predict_many(sents, batch_size=16)
+        if results != many:
+            bad = [i for i, (r, m) in enumerate(zip(results, many)) if r != m]
+            raise AssertionError(f"S=500 served span results differ from "
+                                 f"predict_many at requests {bad[:8]}")
+        if stats["served"] != len(sents) or k1 != layers * stats["batches"]:
+            raise AssertionError(f"S=500 serving: served {stats['served']}, "
+                                 f"K1 ran {k1} times for {stats['batches']} "
+                                 "batches")
+        out["serve"] = {"requests": len(sents), "seq": LONG_S,
+                        "batches": stats["batches"],
+                        "mean_batch": stats["mean_batch"],
+                        "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
+                        "wall_s": serve_wall,
+                        "sentences_per_s": len(sents) / serve_wall,
+                        "k1_launches": k1,
+                        "spans": sum(len(r) for r in results)}
+        log("long_serve_path", json.dumps(out["serve"]))
+        del pred
+        torch.cuda.empty_cache()
+    return out
+
+
+def parallel_decode(cfg, bert_cfg, params, resnet, tok, tmp):
+    """(d) CRF serving with ``crf_decode_impl="parallel"``: phase 7's
+    requests through ``BatchingServer`` → a parallel-decode
+    ``CrfPredictor`` (12 K1 per batch), each served batch held to the scan
+    predictor on the same batch (a tie that breaks otherwise is printed
+    with both path scores, which must be equal); device ms and launches
+    of fc + Viterbi at the served batch of 16 for both decodes; one text
+    decode program of each exported for cuda: node count and seconds."""
+    from mtvaf_tpu_torch.export import export_predictor
+    from mtvaf_tpu_torch.infer import CrfPredictor
+    from mtvaf_tpu_torch.nn.bert import bert_model
+    from mtvaf_tpu_torch.nn.crf import (crf_decode, crf_decode_parallel,
+                                        crf_sequence_score)
+    from mtvaf_tpu_torch.nn.layers import dense
+    from mtvaf_tpu_torch.serve import BatchingServer
+
+    layers = bert_cfg.num_hidden_layers
+    cfg_par = cfg.replace(crf_decode_impl="parallel")
+    scan = CrfPredictor(cfg, bert_cfg, params, tok, resnet_params=resnet,
+                        device=DEVICE)
+    par = CrfPredictor(cfg_par, bert_cfg, params, tok, resnet_params=resnet,
+                       device=DEVICE)
+    reqs = requests(N_REQUESTS, seed=SEED)
+    rec = Recorded(par)
+    with BatchingServer(rec, max_batch=16, max_wait_ms=5.0,
+                        pipeline_depth=4) as server:
+        server.warmup()
+        torch.cuda.synchronize()
+        rec.batches.clear()
+        reset_counts()
+        _, wall = serve_threaded(server, reqs)
+        k1 = read_counts()["k1"]
+        stats = server.stats()
+    if stats["served"] != len(reqs) or k1 != layers * stats["batches"]:
+        raise AssertionError(f"parallel-decode serving: served "
+                             f"{stats['served']}, K1 ran {k1} times for "
+                             f"{stats['batches']} batches")
+    ties, rows = [], 0
+    crf = {k: v.float() for k, v in par.params["crf"].items()}
+    with torch.inference_mode():
+        for sentences, images, got in rec.batches:
+            host = par._make_host_batch(sentences)
+            a, b = par.forward(host, images), scan.forward(host, images)
+            mask = torch.from_numpy(host["input_mask"]).to(DEVICE)
+            rows += len(sentences)
+            if scan.collect((list(sentences), host["label_ids"],
+                             host["input_mask"], b["pred_tags"])) == got:
+                continue
+            differ = (a["pred_tags"] != b["pred_tags"]).any(dim=1)
+            for i in differ.nonzero()[:, 0].tolist():
+                s_par = crf_sequence_score(crf, a["emissions"][i:i + 1],
+                                           a["pred_tags"][i:i + 1],
+                                           mask[i:i + 1]).item()
+                s_scan = crf_sequence_score(crf, a["emissions"][i:i + 1],
+                                            b["pred_tags"][i:i + 1],
+                                            mask[i:i + 1]).item()
+                ties.append({"sentence": sentences[i], "parallel": s_par,
+                             "scan": s_scan})
+                log("parallel decode tie", json.dumps(ties[-1]))
+                if abs(s_par - s_scan) > 1e-5 * max(1.0, abs(s_scan)):
+                    raise AssertionError(
+                        f"the parallel decode's path scores {s_par}, the "
+                        f"scan's {s_scan}, for {sentences[i]!r}")
+    out = {"serve": {"requests": len(reqs), "batches": stats["batches"],
+                     "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
+                     "wall_s": wall, "sentences_per_s": len(reqs) / wall,
+                     "k1_launches": k1, "rows_checked": rows,
+                     "ties": ties}}
+
+    # fc + Viterbi at the served batch of 16, both decodes
+    host = scan._make_host_batch([s for s, _ in requests(16, seed=7)])
+    with torch.inference_mode():
+        batch = {k: torch.from_numpy(host[k]).to(DEVICE)
+                 for k in ("input_ids", "input_mask", "segment_ids")}
+        seq, _ = bert_model(scan.params["bert"], bert_cfg,
+                            batch["input_ids"], batch["input_mask"],
+                            token_type_ids=batch["segment_ids"],
+                            dtype=scan.dtype)
+        decode_stage = {}
+        for name, fn in (("scan", crf_decode),
+                         ("parallel", crf_decode_parallel)):
+            def call(fn=fn):
+                return fn(scan.params["crf"],
+                          dense(scan.params["fc"], seq).float(),
+                          batch["input_mask"])
+            ms, launches = profiled_calls(call, iters=10)
+            decode_stage[name] = {"device_ms": ms, "launches": launches,
+                                  "event_ms": cuda_ms(call, iters=20,
+                                                      warmup=3)}
+    out["fc_and_viterbi_b16"] = decode_stage
+
+    # one text decode program of each, exported for cuda
+    exports = {}
+    for name, c in (("scan", cfg), ("parallel", cfg_par)):
+        text_only = CrfPredictor(c, bert_cfg, params, tok, device=DEVICE)
+        bundle = os.path.join(tmp, f"decode_{name}")
+        manifest = export_predictor(text_only, bundle, batch_sizes=(16,),
+                                    platforms=(DEVICE,))
+        t0 = time.perf_counter()
+        program = torch.export.load(os.path.join(
+            bundle, manifest["programs"][0]["file"]))
+        exports[name] = {"export_s": manifest["programs"][0]["seconds"],
+                         "load_s": time.perf_counter() - t0,
+                         "nodes": len(program.graph.nodes),
+                         "bytes": manifest["programs"][0]["bytes"]}
+        del text_only, program
+    out["export_b16"] = exports
+    log("parallel_decode_path", json.dumps(out))
+    del scan, par
+    torch.cuda.empty_cache()
+    return out
+
+
+def options_phase(cfg, bert_cfg, params, resnet, tok, bare):
+    """Phase 14: (a) the S=500 span step without and with remat; (b)
+    phase 9's step with ``--params_bf16``; (c) the CLI → ``SpanTrainer``
+    with ``--use_align --remat --params_bf16 --profile_dir`` and serving
+    its run at S=500; (d) CRF serving and export with the parallel
+    decode."""
+    from mtvaf_tpu_torch.nn.bert import BertConfig
+
+    t_phase = time.perf_counter()
+    span_bert = BertConfig.base()
+    out = {"long_step": long_step(span_bert),
+           "master_step": master_step(cfg, bert_cfg, params, bare),
+           **long_trainer(span_bert)}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["parallel"] = parallel_decode(cfg, bert_cfg, params, resnet, tok,
+                                          tmp)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"options phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def _kernel_name(mangled):
     """(name, template arguments) of a mangled ``..._kernel<...>`` symbol:
     the identifier ending in "kernel" whose length prefix matches."""
@@ -2832,7 +3371,6 @@ def main() -> int:
     train_path = train(cfg, bert_cfg, params)
     if "--profile" in sys.argv[1:]:
         profile_train(cfg, bert_cfg, params)
-    del params, resnet
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as keep:
         trainer_path = trainer_phase(train_path, keep)
@@ -2841,6 +3379,9 @@ def main() -> int:
         tier_path = serving_tier_phase(
             {"dir": keep, "crf": trainer_path.pop("kept"),
              "span": aux_path.pop("kept")}, serve_path)
+    options_path = options_phase(cfg, bert_cfg, params, resnet, tok,
+                                 train_path)
+    del params, resnet
 
     serve_row = next(r for r in k1_rows if r["shape"] == "serve_bf16")
     k2_row = next(r for r in k2_rows
@@ -2862,6 +3403,20 @@ def main() -> int:
 
     span_launches, aux_launches = path_launches(span_path), \
         path_launches(aux_path)
+    long_step_path = options_path["long_step"]
+    # phase 14's paths, each counted from 0 just before it
+    long_launches = {
+        name: {"step_s500": long_step_path["plain"][f"{name}_launches"],
+               "remat_step_s500": long_step_path["remat"][f"{name}_launches"],
+               "trainer_s500": options_path["trainer"][f"{name}_launches"],
+               "params_bf16_step":
+                   options_path["master_step"][f"{name}_launches"],
+               "serve_s500": options_path["serve"]["k1_launches"]
+               if name == "k1" else 0,
+               "crf_parallel_serve":
+                   options_path["parallel"]["serve"]["k1_launches"]
+                   if name == "k1" else 0}
+        for name in ("k1", "k2", "mask")}
     log("profiler_misses", json.dumps(profiler_misses))
     log(card)
     log(json.dumps({"kernels": [{
@@ -2882,6 +3437,7 @@ def main() -> int:
         "span": {"launches": span_launches["k1"],
                  "shapes": span_rows(k1_rows, "max_abs_err_o")},
         "aux": {"launches": aux_launches["k1"]},
+        "long": {"launches": long_launches["k1"]},
         "bundle": {"launches": {"crf": tier_path["crf"]["serve"]["k1_launches"],
                                 "span": tier_path["span"]["k1_launches"]}},
         "http": {"launches": tier_path["http"]["k1_launches"]},
@@ -2900,6 +3456,7 @@ def main() -> int:
         "span": {"launches": span_launches["k2"],
                  "shapes": span_rows(k2_rows, "max_abs_err")},
         "aux": {"launches": aux_launches["k2"]},
+        "long": {"launches": long_launches["k2"]},
     }, {
         "name": "prefix_attention_keep_mask",
         "route": "cuda", "design": "cuda-cores",
@@ -2910,6 +3467,7 @@ def main() -> int:
         "trainer": {"launches": trainer_path["mask_launches"]},
         "span": {"launches": span_launches["mask"]},
         "aux": {"launches": aux_launches["mask"]},
+        "long": {"launches": long_launches["mask"]},
         "max_abs_err": float(mask_row["mismatches"]),
         **{k: mask_row[k] for k in keys[:4]},
         "library_ms": None,

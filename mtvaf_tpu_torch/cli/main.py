@@ -8,8 +8,9 @@ ResNet and BERT weights, ``run_config.json`` at train start, the datasets,
 (a best model, or a torch file to transplant with ``--use_pretrained``),
 ``--do_train`` / ``--only_test`` and ``final_metrics.json``.  The flags are
 the reference's over the port's config fields
-(``core.config.config_from_args``); what is not ported raises
-(``core.config.check_ported``).
+(``core.config.config_from_args``); ``--remat`` and ``--selective_remat``
+reach the encoder's ``BertConfig``; multi-host training (``--nodes``) is
+not ported and raises (``core.config.check_ported``).
 
     python -m mtvaf_tpu_torch.cli.main --dataset_name twitter2015 \\
         --do_train --bert_name BERT_DIR --data_root DATA --save_path OUT
@@ -132,6 +133,9 @@ def main(argv=None, bert_cfg_override: Optional[BertConfig] = None,
     tokenizer = build_tokenizer(cfg.bert_name, cfg.do_lower_case)
     bert_cfg = bert_cfg_override or BertConfig.from_hf_dir(cfg.bert_name,
                                                            cfg.is_roberta)
+    if cfg.remat or not cfg.selective_remat:
+        bert_cfg = dataclasses.replace(
+            bert_cfg, remat=cfg.remat, selective_remat=cfg.selective_remat)
     bert_params = load_backbone_params(cfg, bert_cfg)
     resnet_params = load_resnet(cfg) if cfg.use_prefix else None
 

@@ -8,8 +8,9 @@ Counterpart of ``mtvaf_tpu/core/checkpoint.py``:
   either package loads the other's file;
 * :func:`save_checkpoint` / :func:`load_checkpoint` keep the full train
   state (params, the optimizer's count and moments with their dtypes, the
-  step) as one ``torch.save`` file ``step_{n}`` per checkpoint, where the
-  JAX package uses orbax.  The write is synchronous;
+  fp32 master under ``--params_bf16``, the step) as one ``torch.save``
+  file ``step_{n}`` per checkpoint, where the JAX package uses orbax.
+  The write is synchronous;
 * :func:`load_torch_file` reads ``.pth``/``.pt`` state dicts and
   :func:`transplant` is the NER→ABSA warm start by name.
 
@@ -74,15 +75,18 @@ def load_best(path: str, template_params):
 
 def save_checkpoint(ckpt_dir: str, state, step: int) -> str:
     """Write the full train state to ``ckpt_dir/step_{step}``; returns the
-    file's path."""
+    file's path.  Under ``--params_bf16`` the state also holds the fp32
+    master (``train.steps.MasterState``), and the params keep their bf16
+    dtype."""
+    from ..train.steps import MasterState
     os.makedirs(ckpt_dir, exist_ok=True)
     opt = state.opt_state
-    payload = {
-        "params": _flat(state.params),
-        "opt_state": {"count": opt.count, "mu": list(opt.mu),
-                      "nu": list(opt.nu)},
-        "step": state.step,
-    }
+    payload = {"params": _flat(state.params), "step": state.step}
+    if isinstance(opt, MasterState):
+        payload["master"] = _flat(opt.master)
+        opt = opt.inner
+    payload["opt_state"] = {"count": opt.count, "mu": list(opt.mu),
+                            "nu": list(opt.nu)}
     path = os.path.join(ckpt_dir, f"step_{step}")
     torch.save(payload, path + ".tmp")
     os.replace(path + ".tmp", path)
@@ -92,9 +96,9 @@ def save_checkpoint(ckpt_dir: str, state, step: int) -> str:
 def load_checkpoint(ckpt_dir: str, template_state, step: int):
     """The train state saved under ``ckpt_dir/step_{step}``, on the
     template's device, with the saved dtypes (the bf16 first moment
-    stays bf16)."""
+    stays bf16; bf16 live params stay bf16 beside their fp32 master)."""
     from ..train.optim import AdamWState
-    from ..train.steps import TrainState
+    from ..train.steps import MasterState, TrainState
 
     flat_template = _flat(template_state.params)
     device = next(iter(flat_template.values())).device
@@ -108,9 +112,12 @@ def load_checkpoint(ckpt_dir: str, template_state, step: int):
         template_state.params,
         {k: v.detach().requires_grad_(True) for k, v in saved.items()})
     opt = payload["opt_state"]
-    return TrainState(params=params,
-                      opt_state=AdamWState(count=opt["count"], mu=opt["mu"],
-                                           nu=opt["nu"]),
+    opt_state = AdamWState(count=opt["count"], mu=opt["mu"], nu=opt["nu"])
+    if "master" in payload:
+        opt_state = MasterState(
+            master=_unflatten_into(template_state.params, payload["master"]),
+            inner=opt_state)
+    return TrainState(params=params, opt_state=opt_state,
                       step=payload["step"])
 
 

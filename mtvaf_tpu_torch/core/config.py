@@ -7,7 +7,8 @@ the full config; :meth:`Config.from_dict` keeps the ones listed here.  The
 port's own ``run_config.json`` holds only these, all of which the JAX
 package's ``Config`` accepts.  :func:`config_from_args` parses the CLI's
 ``--flag`` / ``--no_flag`` surface over these fields, and
-:func:`check_ported` names what a config asks for that the port lacks.
+:func:`check_ported` names what a config asks for that the port lacks
+(multi-host training, ``nodes > 1``).
 """
 
 from __future__ import annotations
@@ -120,12 +121,19 @@ class Config:
     # optimisation
     gradient_accumulation_steps: int = 1
     optimizer_mu_bf16: bool = True   # AdamW first moment stored in bf16
-    params_bf16: bool = False        # bf16 live params + fp32 master (not
-                                     # ported: build_optimizer raises)
+    params_bf16: bool = False        # bf16 live params, AdamW on an fp32
+                                     # master in the optimizer state
     groups_mode: str = "all"         # 'reference' leaves the projectors and
                                      # ANP heads out of the optimizer
     log_grad_norm: bool = False
-    remat: bool = False              # per-layer checkpointing (not ported)
+    remat: bool = False              # per-layer checkpointing: the
+                                     # backward replays each layer, K1
+                                     # and its dropout masks included
+    selective_remat: bool = True     # parsed for the JAX flag surface; no
+                                     # value changes: K1 saves only the
+                                     # lse, never the probabilities, so
+                                     # there is no attention core to
+                                     # checkpoint
     deterministic: bool = False      # no train-time dropout
     nodes: int = 1                   # hosts (multi-host is not ported)
 
@@ -134,7 +142,8 @@ class Config:
                                      # (LRU; evicted entries spill to disk)
     guide_cache_device_items: int = 8192  # rows of the device-resident bf16
                                      # guide table (bf16 runs); 0 disables
-    profile_dir: Optional[str] = None  # trace directory (not ported)
+    profile_dir: Optional[str] = None  # torch.profiler trace directory
+    profile_steps: int = 5           # trace window length (train steps)
     save_checkpoints: bool = False   # full train state after each epoch
     checkpoint_every: int = 1        # ... every N epochs
     resume: bool = False             # resume from the latest checkpoint
@@ -238,21 +247,11 @@ class Config:
 
 def check_ported(cfg: Config) -> None:
     """Raise, naming the missing piece, when ``cfg`` asks the trainer or
-    the CLI for something the port does not have yet."""
-    missing = []
+    the CLI for something the port does not have yet: multi-host
+    training."""
     if cfg.nodes > 1:
-        missing.append("nodes > 1: multi-host training is not ported "
-                       "(ROADMAP A.5)")
-    if cfg.profile_dir:
-        missing.append("profile_dir: the step profiler is not ported "
-                       "(ROADMAP A.6)")
-    if cfg.remat:
-        missing.append("remat: per-layer checkpointing is not ported")
-    if cfg.params_bf16:
-        missing.append("params_bf16: bf16 live params with an fp32 master "
-                       "are not ported")
-    if missing:
-        raise NotImplementedError("; ".join(missing))
+        raise NotImplementedError("nodes > 1: multi-host training is not "
+                                  "ported (ROADMAP A.5)")
 
 
 def config_from_args(argv=None) -> Config:

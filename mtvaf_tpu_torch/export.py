@@ -15,7 +15,9 @@ pickled.
     >>> served.predict(["the pizza was great"])      # == predictor.predict
     [[('pizza', 'POS')]]
 
-* CRF pipeline: the decode program (encoder → fc → Viterbi) per rung;
+* CRF pipeline: the decode program (encoder → fc → Viterbi, the run's
+  ``crf_decode_impl``: the sequential loop traced unrolled, or the
+  parallel decode's short graph) per rung;
   prefix (multimodal) runs also export a decode-with-images variant whose
   batch carries the raw image rows in the predictor's ``image_dtype``
   (fp32; fp16; or uint8, re-normalised inside the program) and runs the

@@ -6,9 +6,10 @@ Counterpart of ``CrfPredictor``, ``SpanPredictor`` and ``load_predictor`` in
 the device through pinned memory.  ``CrfPredictor`` runs one forward: the
 frozen-ResNet guides (image-bearing batches), the visual prefix, the
 encoder (whose attention core is the hand-written CUDA kernel on a GPU),
-``fc`` and Viterbi.  ``SpanPredictor`` runs the extraction forward (guides,
-prefix, encoder, start/end logits), copies the logits back, picks the
-candidate spans on the host (top-k pairs, filters, NMS:
+``fc`` and Viterbi (the run's ``crf_decode_impl``: the sequential loop or
+the parallel decode).  ``SpanPredictor`` runs the extraction forward
+(guides, prefix, encoder, start/end logits), copies the logits back, picks
+the candidate spans on the host (top-k pairs, filters, NMS:
 ``eval.span_decode``) and classifies them in a second, small forward.  The
 JAX package's single packed upload buffer and its fetch thread pool
 answered a high-latency host link; here each host array is its own pinned,
@@ -170,9 +171,6 @@ class CrfPredictor(_PredictorBase):
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
-        if self.cfg.crf_decode_impl != "scan":
-            raise NotImplementedError(
-                "crf_decode_impl='parallel' is not ported yet")
         self.label_map = {label: i
                           for i, label in enumerate(CRF_LABEL_LIST, 1)}
         self.inv_label_map = {i: lab for lab, i in self.label_map.items()}

@@ -12,8 +12,10 @@ Training: a host ``torch.Generator`` turns dropout on (embeddings,
 attention probabilities inside the kernel, attention output, MLP output),
 split per layer as the JAX package splits its key; the pad rows of the
 embedding tables get no gradient.  The kernel's backward recomputes the
-attention probabilities, so there is nothing for ``selective_remat`` to do;
-per-layer checkpointing (``remat``) is not ported and raises.
+attention probabilities, so there is nothing for ``selective_remat`` to do.
+``remat`` checkpoints each layer (``torch.utils.checkpoint``): the backward
+runs the layer's forward again, K1 included, from its input, and every
+dropout draw of the replay repeats the forward's (:func:`_remat_layer`).
 """
 
 from __future__ import annotations
@@ -42,7 +44,8 @@ class BertConfig:
     initializer_range: float = 0.02
     is_roberta: bool = False
     pad_token_id: int = 0
-    remat: bool = False              # per-layer checkpointing: not ported
+    remat: bool = False              # checkpoint each layer: the backward
+                                     # replays it (long context, S=500)
     selective_remat: bool = True     # nothing to do: the kernel recomputes
 
     @property
@@ -177,6 +180,33 @@ def _layer(layers, i):
             for blk in ("attn", "mlp")}
 
 
+def _remat_layer(lp, hidden, bias, cfg: BertConfig, prefix_kv=None,
+                 generator=None):
+    """:func:`bert_layer` under a per-layer checkpoint: only the layer's
+    inputs are kept, and the backward runs the layer again.
+
+    The replay must draw the forward's dropout masks.  Every draw of a
+    layer descends from its host generator (the three splits of
+    :func:`bert_layer`, K1's Philox seed, ``layers.dropout``'s device
+    seed), so each run of the layer starts from a fresh generator set to
+    that generator's state before the layer.  ``preserve_rng_state`` is off:
+    the port draws from explicit generators only, never from the global
+    ones, so their stash would copy the device's RNG state per layer and
+    protect nothing."""
+    from torch.utils.checkpoint import checkpoint
+    state = None if generator is None else generator.get_state()
+
+    def run(h, pkv):
+        gen = None
+        if state is not None:
+            gen = torch.Generator()
+            gen.set_state(state)
+        return bert_layer(lp, h, bias, cfg, prefix_kv=pkv, generator=gen)
+
+    return checkpoint(run, hidden, prefix_kv, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 def bert_encoder(params, cfg: BertConfig, embedding_output, attention_mask,
                  prefix_kvs=None, generator=None, capture_layer=None):
     """The encoder stack.
@@ -188,10 +218,6 @@ def bert_encoder(params, cfg: BertConfig, embedding_output, attention_mask,
     probe.
     Returns (last hidden state (B, S, hidden), captured state or None).
     """
-    if cfg.remat:
-        raise NotImplementedError(
-            "BertConfig.remat (per-layer checkpointing) is not ported: the "
-            "replay would have to redraw every dropout mask exactly")
     bias = mask_to_bias(attention_mask)
     # Weights already in the activation dtype (a predictor casts them once)
     # make this cast a no-op.
@@ -203,10 +229,13 @@ def bert_encoder(params, cfg: BertConfig, embedding_output, attention_mask,
     if capture_layer is not None:      # zeros past the last layer, as in JAX
         captured = embedding_output if capture_layer == 0 \
             else torch.zeros_like(embedding_output)
+    # without a gradient there is nothing to replay (eval, serving, export)
+    layer_fn = _remat_layer if cfg.remat and torch.is_grad_enabled() \
+        else bert_layer
     for i in range(cfg.num_hidden_layers):
-        hidden = bert_layer(_layer(layers, i), hidden, bias, cfg,
-                            prefix_kv=None if prefix_kvs is None
-                            else prefix_kvs[i], generator=layer_rngs[i])
+        hidden = layer_fn(_layer(layers, i), hidden, bias, cfg,
+                          prefix_kv=None if prefix_kvs is None
+                          else prefix_kvs[i], generator=layer_rngs[i])
         if capture_layer == i + 1:
             captured = hidden
     return hidden, captured

@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from ..data.images import IMAGENET_MEAN, IMAGENET_STD
 from .bert import (BertConfig, bert_embeddings, bert_encoder, bert_model,
                    bert_pooler)
-from .crf import crf_decode, crf_loss
+from .crf import crf_decode, crf_decode_parallel, crf_loss
 from ..core.rng import split
 from .gcn import (compress_valid_ids, digcn_forward, dualgcn_forward,
                   init_digcn_params, init_dualgcn_params)
@@ -338,12 +338,11 @@ def crf_model_forward(params, cfg, bert_cfg: BertConfig, batch: Dict,
         result["img_tag_loss"] = cfg.alpha * img_tag_loss
         result["loss"] = loss + cfg.alpha * img_tag_loss
     if with_decode:
-        if cfg.crf_decode_impl != "scan":
-            raise NotImplementedError(
-                "crf_decode_impl='parallel' is not ported")
+        decode = crf_decode_parallel if cfg.crf_decode_impl == "parallel" \
+            else crf_decode
         with torch.no_grad():
-            tags, lengths = crf_decode(params["crf"], emissions.detach(),
-                                       batch["input_mask"])
+            tags, lengths = decode(params["crf"], emissions.detach(),
+                                   batch["input_mask"])
         result["pred_tags"] = tags
         result["lengths"] = lengths
     return result

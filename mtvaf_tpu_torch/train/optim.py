@@ -18,7 +18,8 @@ to μ's dtype, as XLA evaluates optax's update), the step is
 computed from the uncast bias-corrected μ̂ and ν̂ as μ̂/(√ν̂ + 1e-8), 1e-2·p
 is added, the sum is scaled by −lr(count) and by the group factor, and only
 then is μ stored (in bf16 under ``optimizer_mu_bf16``).  The parameters and
-moments are updated in place.
+moments are updated in place.  Under ``--params_bf16`` the optimizer walks
+the fp32 master (``train.steps.MasterState``), never the bf16 live params.
 """
 
 from __future__ import annotations
@@ -131,10 +132,6 @@ def build_optimizer(params, cfg, *, total_steps: int, pipeline: str = "span"):
     warmup schedule; returns (optimizer, schedule).  Without the visual
     prefix (``cfg.use_prefix`` off) every leaf is one group at the base lr,
     as the reference's text-only path."""
-    if getattr(cfg, "params_bf16", False):
-        raise NotImplementedError(
-            "params_bf16 (bf16 live params with an fp32 master) is not "
-            "ported")
     sched = linear_warmup_schedule(cfg.lr, cfg.warmup_ratio * total_steps,
                                    total_steps)
     factor_of = {"base": 1.0, "head_fast": 5e-2 / cfg.lr, "frozen": 0.0}

@@ -17,6 +17,12 @@ A step's randomness is the host generator ``fold_in(seed, state.step)``
 (``core.rng``), the counterpart of the JAX package's per-step
 ``fold_in(rng, step)``: a step is reproducible from the run's seed and the
 step number.  ``seed=None`` runs without dropout.
+
+``--params_bf16`` (``create_train_state(..., params_dtype=torch.bfloat16)``)
+keeps the live params in bf16 and an fp32 master copy in the optimizer
+state (:class:`MasterState`): the gradients of the bf16 leaves are upcast
+once, AdamW steps the master, and the live params become the master's
+exact bf16 cast again.
 """
 
 from __future__ import annotations
@@ -43,6 +49,16 @@ class TrainState:
     step: int
 
 
+@dataclass
+class MasterState:
+    """The optimizer state under ``--params_bf16``: the fp32 master copy of
+    the params (a tree like ``TrainState.params``) and the AdamW state that
+    walks it.  It sits in ``TrainState.opt_state``, so checkpoints and
+    ``--resume`` keep it like any other moment."""
+    master: Any
+    inner: Any
+
+
 def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
@@ -51,31 +67,56 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def create_train_state(params, optimizer, device=None) -> TrainState:
+def create_train_state(params, optimizer, device=None, *,
+                       params_dtype=None) -> TrainState:
     """A train state on ``device`` (``cuda`` unless the caller names
     another; raises without a GPU).  The parameters are copied there as
-    fp32 leaves that require grad, so the caller's tensors never move."""
+    fp32 leaves that require grad, so the caller's tensors never move.
+    ``params_dtype=torch.bfloat16`` makes the live leaves bf16 and keeps
+    the fp32 copy as the master in a :class:`MasterState`."""
     device = resolve_device(device)
     params = _map(params, lambda p: torch.as_tensor(p).detach().to(
-        device, torch.float32, copy=True).requires_grad_(True))
-    return TrainState(params=params, opt_state=optimizer.init(params), step=0)
+        device, torch.float32, copy=True))
+    if params_dtype is None:
+        params = _map(params, lambda p: p.requires_grad_(True))
+        return TrainState(params=params, opt_state=optimizer.init(params),
+                          step=0)
+    live = _map(params, lambda m: m.to(params_dtype).requires_grad_(True))
+    return TrainState(params=live,
+                      opt_state=MasterState(master=params,
+                                            inner=optimizer.init(params)),
+                      step=0)
 
 
 def export_params(state: TrainState):
-    """The model params of a train state (the template for best-model
-    saves, transplant and torch interop)."""
+    """The model params in full precision: the fp32 master under
+    ``--params_bf16``, the live params otherwise (the template for
+    best-model saves, transplant and torch interop)."""
+    if isinstance(state.opt_state, MasterState):
+        return state.opt_state.master
     return state.params
 
 
 @torch.no_grad()
 def replace_params(state: TrainState, new_params) -> TrainState:
     """Copy ``new_params`` (a tree of the same structure, on any device)
-    into the live params in place (best-model reload, transplant); the
-    optimizer state is kept."""
+    into the params in place (best-model reload, transplant); the
+    optimizer state is kept.  Under ``--params_bf16`` the master takes the
+    new values exactly and the live params their bf16 cast, so the next
+    step starts from the new weights."""
     new = dict(tree_items(new_params))
-    for path, p in tree_items(state.params):
+    master = export_params(state)
+    for path, p in tree_items(master):
         p.copy_(torch.as_tensor(new[path]))
+    if master is not state.params:
+        _cast_into(state.params, master)
     return state
+
+
+def _cast_into(live, master) -> None:
+    """Each live leaf set to its master leaf, cast to the live dtype."""
+    for (_, p), (_, m) in zip(tree_items(live), tree_items(master)):
+        p.copy_(m)
 
 
 def _split_guides(batch: Dict):
@@ -167,8 +208,19 @@ def make_train_step(loss_fn: Callable, optimizer, *, accum_steps: int = 1,
                  for p, g in zip(leaves, grads)]
         return grads, {k: v.detach() for k, v in metrics.items()}
 
+    @torch.no_grad()
+    def apply(state, grads):
+        opt = state.opt_state
+        if not isinstance(opt, MasterState):
+            return optimizer.apply(state.params, grads, opt)
+        # bf16 live params: AdamW on the fp32 master (it upcasts each
+        # gradient once), then the live leaves become the master's cast
+        inner = optimizer.apply(opt.master, grads, opt.inner)
+        _cast_into(state.params, opt.master)
+        return MasterState(master=opt.master, inner=inner)
+
     def finish(state, grads, metrics):
-        opt_state = optimizer.apply(state.params, grads, state.opt_state)
+        opt_state = apply(state, grads)
         if with_grad_norm:
             metrics["grad_norm"] = torch.stack(
                 [g.float().square().sum() for g in grads]).sum().sqrt()

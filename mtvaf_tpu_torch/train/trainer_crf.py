@@ -12,8 +12,12 @@ Host syncs: each step's loss and tags stay on the device until the epoch
 ends, then come back in one stacked copy each; eval batches are all
 dispatched before their results are read.  Guides, pixels and the host →
 device copies are made in ``prefetch``'s thread, on the default stream the
-steps run on.  Meshes, multi-host batching and cross-host metrics are not
-ported (``core.config.check_ported`` raises for them).
+steps run on.  ``--params_bf16`` trains bf16 live params on an fp32
+master (``best_model.npz`` holds the master; a reload sets both), and
+``--profile_dir`` traces a window of train steps
+(``train.profiling.StepProfiler``).  Meshes, multi-host batching and
+cross-host metrics are not ported (``core.config.check_ported`` raises for
+them).
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from ..eval.tagging import (classification_report, entity_counts,
 from ..nn.bert import BertConfig
 from .ingest import GuideCache
 from .optim import build_optimizer
+from .profiling import StepProfiler
 from .resume import (install_preemption_handler, load_latest_checkpoint,
                      save_epoch_checkpoint, stop_requested,
                      uninstall_preemption_handler)
@@ -87,8 +92,9 @@ class CrfTrainer:
         self.optimizer, self.schedule = build_optimizer(
             params, cfg, total_steps=max(steps_per_epoch * cfg.num_epochs, 1),
             pipeline="crf")
-        self.state = create_train_state(params, self.optimizer,
-                                        device=self.device)
+        self.state = create_train_state(
+            params, self.optimizer, device=self.device,
+            params_dtype=torch.bfloat16 if cfg.params_bf16 else None)
         self.train_step = make_train_step(
             make_crf_loss_fn(cfg, bert_cfg, with_decode=True),
             self.optimizer, accum_steps=cfg.gradient_accumulation_steps,
@@ -161,6 +167,9 @@ class CrfTrainer:
         checkpointing = bool(cfg.save_checkpoints and cfg.save_path)
         preempt_prev = install_preemption_handler() if checkpointing \
             else None
+        # the step profiler of this train() (a trace with profile_dir)
+        self.profiler = StepProfiler(cfg.profile_dir,
+                                     num_steps=cfg.profile_steps)
         start_epoch = 1
         if cfg.resume and cfg.save_path:
             state, start_epoch, meta = load_latest_checkpoint(
@@ -191,6 +200,7 @@ class CrfTrainer:
                     logger.info("preemption: stopping after epoch %d", epoch)
                     break
         finally:
+            self.profiler.close()
             if checkpointing:
                 uninstall_preemption_handler(preempt_prev)
         return self.best_dev_metric
@@ -211,7 +221,9 @@ class CrfTrainer:
         losses, grad_norms, records = [], [], []
         n_examples = 0
         for batch, valid, dev_batch in prefetch(host_to_device()):
+            self.profiler.step_begin()
             self.state, metrics = self.train_step(self.state, dev_batch, seed)
+            self.profiler.step_end()
             losses.append(metrics["loss"])
             if "grad_norm" in metrics:
                 grad_norms.append(metrics["grad_norm"])

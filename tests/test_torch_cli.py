@@ -122,16 +122,27 @@ def test_the_port_run_loads_in_both_predictors(trained):
 
 
 def test_span_datasets_and_unported_flags_raise(data_tree, tmp_path):
-    root, bert, _ = data_tree
+    root, bert, vocab_size = data_tree
     for extra, match in ((("--dataset_name", "twitter15", "--nodes", "2"),
                           "multi-host"),
-                         (("--nodes", "2"), "multi-host"),
-                         (("--remat",), "remat"),
-                         (("--params_bf16",), "params_bf16"),
-                         (("--profile_dir", str(tmp_path)), "profiler")):
+                         (("--nodes", "2"), "multi-host")):
         with pytest.raises(NotImplementedError, match=match):
             main(_argv(root, bert, tmp_path / "x", "--do_train", *extra),
                  device="cpu")
+    # --remat, --params_bf16 and --profile_dir are ported: they train
+    prof = tmp_path / "prof"
+    metrics = main(_argv(root, bert, tmp_path / "y", "--do_train",
+                         "--num_epochs", "1", "--eval_begin_epoch", "1",
+                         "--remat", "--no_selective_remat", "--params_bf16",
+                         "--profile_dir", str(prof), "--profile_steps", "1",
+                         "--crf_decode_impl", "parallel"),
+                   bert_cfg_override=BertConfig.tiny(vocab_size=vocab_size),
+                   device="cpu")
+    assert set(metrics) == {"best_dev_f1", "test_f1"}
+    assert [p.name for p in prof.iterdir()] == ["trace_steps_3-3.json"]
+    run = json.loads((tmp_path / "y" / "run_config.json").read_text())
+    assert run["bert_config"]["remat"] is True
+    assert run["bert_config"]["selective_remat"] is False
 
 
 def test_data_paths_follow_the_reference_layout():

@@ -366,3 +366,79 @@ def test_an_exported_program_launches_k1(cuda, tmp_path):
     assert prefix_attention.launches.value == before \
         + bert_cfg.num_hidden_layers
     assert got == want
+
+
+def _remat_step(cuda, remat):
+    """One bf16 CRF train step with dropout on the card at a width whose
+    head dim (64) the kernels take; returns (loss, grads by path, K1 and
+    K2 launches)."""
+    import dataclasses
+
+    from mtvaf_tpu_torch.core.config import Config
+    from mtvaf_tpu_torch.core.convert import params_from_jax
+    from mtvaf_tpu_torch.core.rng import fold_in
+    from mtvaf_tpu_torch.data.synthetic import crf_batch
+    from mtvaf_tpu_torch.nn.bert import BertConfig
+    from mtvaf_tpu_torch.nn.models import init_crf_model_params
+    from mtvaf_tpu_torch.train.optim import build_optimizer, tree_items
+    from mtvaf_tpu_torch.train.steps import (create_train_state,
+                                             make_crf_loss_fn)
+
+    cfg = Config(dataset_name="twitter2015", bf16=True)
+    bert_cfg = dataclasses.replace(
+        BertConfig.tiny(hidden_size=128, num_attention_heads=2,
+                        intermediate_size=256), remat=remat)
+    params = params_from_jax(init_crf_model_params(cfg, bert_cfg, seed=0))
+    opt, _ = build_optimizer(params, cfg, total_steps=10, pipeline="crf")
+    state = create_train_state(params, opt, device=cuda)
+    batch = {k: v.to(cuda) for k, v in crf_batch(cfg, bert_cfg, 4, 24,
+                                                 seed=1).items()}
+    k1, k2 = prefix_attention.launches.value, \
+        prefix_attention_bwd_cuda.launches.value
+    loss, _ = make_crf_loss_fn(cfg, bert_cfg)(state.params, batch,
+                                              fold_in(7, 0))
+    leaves = dict(tree_items(state.params))
+    grads = torch.autograd.grad(loss, list(leaves.values()),
+                                allow_unused=True)
+    torch.cuda.synchronize()
+    return (loss, dict(zip(leaves, grads)),
+            prefix_attention.launches.value - k1,
+            prefix_attention_bwd_cuda.launches.value - k2)
+
+
+@pytest.mark.cuda
+def test_remat_replays_k1_with_the_same_masks(cuda):
+    """Remat against no remat from one generator, dropout live: the loss
+    bit for bit, every gradient leaf within rtol 1e-4 / atol 1e-5 (the
+    replay runs the same kernels on the same inputs; the tolerance admits
+    a library that picks its summation order anew per call; read bitwise
+    on every leaf at BERT-base width, S=500), and K1 launched twice per
+    layer (the replay), K2 once."""
+    loss0, g0, k1_0, k2_0 = _remat_step(cuda, False)
+    loss1, g1, k1_1, k2_1 = _remat_step(cuda, True)
+    assert (k1_0, k2_0) == (4, 4) and (k1_1, k2_1) == (8, 4)
+    assert torch.equal(loss0, loss1)
+    for path, a in g0.items():
+        b = g1[path]
+        assert (a is None) == (b is None), path
+        if a is not None:
+            torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-5,
+                                       msg=path)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 2, 17, 128])
+def test_parallel_decode_matches_the_scan_on_the_card(cuda, s):
+    from mtvaf_tpu_torch.nn.crf import crf_decode, crf_decode_parallel
+
+    g = torch.Generator(device=cuda).manual_seed(s)
+    for _ in range(8):
+        params = {k: torch.randn(shape, device=cuda, generator=g)
+                  for k, shape in (("start", (11,)), ("end", (11,)),
+                                   ("transitions", (11, 11)))}
+        emissions = torch.randn(16, s, 11, device=cuda, generator=g)
+        lengths = torch.randint(1, s + 1, (16,), device=cuda, generator=g)
+        mask = (torch.arange(s, device=cuda)[None] < lengths[:, None]).long()
+        tags, lens = crf_decode_parallel(params, emissions, mask)
+        want, want_lens = crf_decode(params, emissions, mask)
+        assert torch.equal(tags, want) and torch.equal(lens, want_lens)

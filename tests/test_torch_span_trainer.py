@@ -245,9 +245,21 @@ def test_span_trainer_refuses_what_it_does_not_run(tree, tmp_path):
     bert_cfg = BertConfig.tiny(vocab_size=len(tok.vocab))
     for kw, error, match in (
             (dict(dataset_name="twitter2015"), ValueError, "CrfTrainer"),
-            (dict(nodes=2), NotImplementedError, "multi-host"),
-            (dict(remat=True), NotImplementedError, "remat"),
-            (dict(profile_dir="prof"), NotImplementedError, "profiler")):
+            (dict(nodes=2), NotImplementedError, "multi-host")):
         with pytest.raises(error, match=match):
             SpanTrainer(Config(**{**BASE, **kw}), bert_cfg, {},
                         device="cpu")
+    # remat and the step profiler are ported: a run with both trains and
+    # writes the window's trace
+    cfg = Config(**{**BASE, "remat": True, "deterministic": False,
+                    "profile_dir": str(tmp_path / "prof"),
+                    "profile_steps": 1})
+    ds = SpanDataset.load(cfg, tok, str(tree / "train.txt"))
+    t = SpanTrainer(cfg, dataclasses.replace(bert_cfg, remat=True),
+                    params_from_jax(port_init(cfg, bert_cfg, seed=0)),
+                    train_dataset=ds, dev_dataset=ds, test_dataset=ds,
+                    device="cpu")
+    t.train()
+    assert t.state.step == 3
+    assert t.profiler.trace_path == str(tmp_path / "prof"
+                                        / "trace_steps_3-3.json")

@@ -210,18 +210,22 @@ def test_dropout_step_is_reproducible_from_seed_and_step():
 def test_what_is_not_ported_raises():
     _, _, jparams, cfg, bert_cfg = _models()
     params = params_from_jax(jparams)
-    with pytest.raises(NotImplementedError, match="params_bf16"):
-        build_optimizer(params, cfg.replace(params_bf16=True),
-                        total_steps=10, pipeline="crf")
+    # params_bf16 and remat are ported: a bf16-param step with remat runs
+    opt16, _ = build_optimizer(params, cfg.replace(params_bf16=True),
+                               total_steps=10, pipeline="crf")
+    state = create_train_state(params, opt16, device="cpu",
+                               params_dtype=torch.bfloat16)
+    state, m = make_train_step(make_crf_loss_fn(
+        cfg, dataclasses.replace(bert_cfg, remat=True)), opt16)(
+            state, crf_batch(cfg, bert_cfg, B, S), 3)
+    assert np.isfinite(m["loss"].item()) and state.step == 1
+    assert state.params["fc"]["kernel"].dtype == torch.bfloat16
     opt, _ = build_optimizer(params, cfg, total_steps=10, pipeline="crf")
     with pytest.raises(ValueError, match="seed"):     # augment draws cuts
         make_train_step(make_crf_loss_fn(cfg, bert_cfg), opt,
                         augment_fn=lambda *a: a)(
             create_train_state(params, opt, device="cpu"),
             crf_batch(cfg, bert_cfg, B, S), None)
-    loss_fn = make_crf_loss_fn(cfg, dataclasses.replace(bert_cfg, remat=True))
-    with pytest.raises(NotImplementedError, match="remat"):
-        loss_fn(params, crf_batch(cfg, bert_cfg, B, S), None)
     with pytest.raises(ValueError, match="divisible"):
         Config(dataset_name="twitter2015", train_batch_size=6,
                gradient_accumulation_steps=4)

@@ -354,7 +354,7 @@ def test_resume_without_checkpoints_starts_afresh(tree, tmp_path):
 
 
 @pytest.mark.parametrize("field,value,match", [
-    ("nodes", 2, "multi-host"), ("profile_dir", "/x", "profiler"),
+    ("nodes", 2, "multi-host"),
     ("dataset_name", "twitter15", "span pipeline")])
 def test_what_is_not_ported_raises(tree, tmp_path, field, value, match):
     # a span dataset is ported, but runs in SpanTrainer, not here
