@@ -129,7 +129,26 @@ Phases, each of which fails the run by raising:
    batch held to the scan predictor's (a tie that breaks otherwise is
    printed with both path scores, which must be equal), fc + Viterbi's
    device ms and launches for both decodes at the batch of 16, and one
-   text decode program of each exported for ``cuda`` (nodes, seconds).
+   text decode program of each exported for ``cuda`` (nodes, seconds);
+15. data parallelism, one epoch per run at the flagship width on phase
+   10's tree (and phase 11's span tree with DualGCN side files), each
+   process a child of this one (``--dp-child``) counting its own kernel
+   launches from 0 just before its run: (a) the CLI under
+   ``python -m torch.distributed.run --standalone --nproc_per_node 1``
+   (NCCL, world size 1) against the same flags in one process, both under
+   deterministic algorithms: loss, F1 and ``best_model.npz`` bit for bit,
+   K1/K2 launches equal, both runs' examples/s; (b) two ranks in a gloo
+   group sharing the card, fp32 with images, against one process on the
+   same flags and global batch: the loss to 1e-4 relative, F1 equal, each
+   ``best_model.npz`` element to the larger of 1e-4 of its leaf's
+   magnitude and 2% of the leaf's movement in one process, or, where the
+   one-process run measured its gradient at rounding level, to 2·lr over
+   the run (``dp_leaf_diff``), 16 rows a step and the K1/K2
+   launches of each rank; (c) the span CLI with DualGCN and
+   ``--span_ac_loss_mode masked`` the same way; (d) bf16 on two gloo
+   ranks: each rank's device guide table holds exactly the images of its
+   rows, the two sets differ, the loss within 5% of (a)'s one process,
+   K1 and K2 launched in each rank; prints the phase's seconds.
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times: the
 kernels' summed durations under ``torch.profiler``.  ``event_ms`` is the
@@ -1073,11 +1092,12 @@ def seed_pixel_cache(img_dir, pix_dir, ids, rng):
             rng.integers(0, 256, (224, 224, 3), np.uint8)))
 
 
-def run_cli(argv, bert_cfg, on_epoch_log=None, span=False):
+def run_cli(argv, bert_cfg, on_epoch_log=None, span=False, on_trainer=None):
     """``cli.main.main(argv)`` with the trainer it built kept (and its
     params at the end of ``train()``, before the CLI reloads the best
-    model); ``on_epoch_log`` is called with each trainer log message.
-    ``span``: the run trains the span model (``SpanTrainer``)."""
+    model); ``on_epoch_log`` is called with each trainer log message and
+    ``on_trainer`` with the trainer once it is built.  ``span``: the run
+    trains the span model (``SpanTrainer``)."""
     import logging
     import mtvaf_tpu_torch.train.trainer_crf as trainer_crf
     import mtvaf_tpu_torch.train.trainer_span as trainer_span
@@ -1093,6 +1113,8 @@ def run_cli(argv, bert_cfg, on_epoch_log=None, span=False):
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             made.append(self)
+            if on_trainer:
+                on_trainer(self)
 
         def train(self):
             out = super().train()
@@ -3284,6 +3306,511 @@ def _kernel_name(mangled):
     return mangled, ""
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: data parallelism (one process per rank) at the flagship width.
+
+DP_TIMEOUT = 600
+
+
+def dp_own_images(tr):
+    """The image ids of the rows rank ``tr.rank`` was handed in a one-epoch
+    run: its slice of every train batch and its eval batches."""
+    from mtvaf_tpu_torch.data.datasets import iterate_batches
+    cfg, ids = tr.cfg, set()
+    for b in iterate_batches(tr.train_dataset.arrays, cfg.train_batch_size,
+                             shuffle=True, seed=cfg.seed, epoch=1,
+                             process_index=tr.rank, process_count=tr.world):
+        ids |= {tr.train_dataset.features[i].img_id
+                for i in b["example_index"]}
+    for ds in (tr.dev_dataset, tr.test_dataset):
+        for bi, b in enumerate(iterate_batches(ds.arrays,
+                                               cfg.eval_batch_size)):
+            if bi % tr.world == tr.rank:
+                ids |= {ds.features[i].img_id for i in b["example_index"]}
+    return ids
+
+
+# leaves this small also keep each step's gradient (to print an element's)
+STEP_GRAD_LEAF = 4096
+
+
+def record_grads(optimizer):
+    """What ``optimizer`` is handed over the run, kept on the card as the
+    steps go: ``max/LEAF``, each element's largest |gradient|; ``sum/LEAF``
+    the sum of its gradients; and, for a leaf of at most
+    ``STEP_GRAD_LEAF`` elements, ``step/LEAF``, each step's gradient."""
+    from mtvaf_tpu_torch.train.optim import tree_items
+    apply, out = optimizer.apply, {}
+
+    def recording(params, grads, state):
+        for (k, _), g in zip(tree_items(params), grads):
+            g = g.detach().float()
+            m = out.get(f"max/{k}")
+            out[f"max/{k}"] = g.abs() if m is None \
+                else torch.maximum(m, g.abs())
+            out[f"sum/{k}"] = g.clone() if m is None else out[f"sum/{k}"] + g
+            if g.numel() <= STEP_GRAD_LEAF:
+                out.setdefault(f"step/{k}", []).append(g)
+        return apply(params, grads, state)
+
+    optimizer.apply = recording
+    return out
+
+
+def dp_child(spec):
+    """One process of phase 15 (``--dp-child SPEC``): the CLI through
+    ``run_cli`` on ``spec["argv"]``, in a gloo group of its own making
+    (``spec["gloo"]``), in the group the launcher's environment names, or
+    alone; prints one ``dp_child`` JSON line with its rank, history,
+    metrics, kernel launches (counted from 0 just before the run), rows per
+    train step and, with ``spec["table"]``, its guide table's images
+    beside the images of its rows."""
+    import datetime
+    import torch.distributed as dist
+    from mtvaf_tpu_torch.nn.bert import BertConfig
+
+    # fp32 runs are compared across processes: no TF32 in convs or matmuls
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if spec.get("deterministic_algorithms"):
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    gloo = spec.get("gloo")
+    if gloo:
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://127.0.0.1:{gloo['port']}",
+            rank=gloo["rank"], world_size=gloo["world"],
+            timeout=datetime.timedelta(seconds=DP_TIMEOUT))
+    seen = {}
+
+    def on_trainer(tr):
+        seen.update(rank=tr.rank, world=tr.world, rows=set())
+        if spec.get("save_init"):
+            from mtvaf_tpu_torch.core.checkpoint import save_best
+            from mtvaf_tpu_torch.train.steps import export_params
+            save_best(spec["save_init"], export_params(tr.state))
+        if spec.get("grads"):
+            seen["grads"] = record_grads(tr.optimizer)
+        step = tr.train_step
+
+        def counted(state, batch, seed):
+            seen["rows"].add(int(batch["input_ids"].shape[0]))
+            return step(state, batch, seed)
+
+        tr.train_step = counted
+
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics, tr = run_cli(spec["argv"], BertConfig.base(), span=spec["span"],
+                          on_trainer=on_trainer)
+    torch.cuda.synchronize()
+    # this rank's eval batches in one epoch: dev, then test (the CRF CLI
+    # tests after the epoch and again on the best model at the end)
+    mine = [len(range(seen["rank"], -(-len(d) // tr.cfg.eval_batch_size),
+                      seen["world"]))
+            for d in (tr.dev_dataset, tr.test_dataset)]
+    out = {"rank": seen["rank"], "world": seen["world"],
+           "wall_s": time.perf_counter() - t0, "metrics": metrics,
+           "history": tr.history, "counts": read_counts(),
+           "rows_per_step": sorted(seen["rows"]),
+           "leaf_lr": {k: tr.cfg.lr * f
+                       for k, f in tr.optimizer.factors.items()},
+           "eval_batches": mine[0] + mine[1] * (1 if spec["span"] else 2)}
+    if spec.get("grads"):
+        np.savez(spec["grads"], **{
+            k: (torch.stack(v) if isinstance(v, list) else v).cpu().numpy()
+            for k, v in seen["grads"].items()})
+    if spec.get("table"):
+        gc = tr.guide_cache
+        out["table"] = {"keys": sorted({k[1] for k in gc._dev_rows}),
+                        "own": sorted(dp_own_images(tr)),
+                        "on_card": gc._dev_main is not None
+                        and gc._dev_main.is_cuda}
+    log("dp_child " + json.dumps(out))
+    if gloo:
+        dist.destroy_process_group()
+
+
+def dp_start(tmp, name, spec, launcher=False, env=None):
+    """Start one phase-15 child (under ``torch.distributed.run`` with
+    ``launcher``); returns (name, process, log path)."""
+    path = os.path.join(tmp, f"{name}.log")
+    cmd = [sys.executable, os.path.abspath(__file__), "--dp-child",
+           json.dumps(spec)]
+    if launcher:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "1", *cmd[1:]]
+    with open(path, "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                env={**os.environ, **(env or {})},
+                                cwd=os.path.dirname(os.path.abspath(
+                                    __file__)))
+    return name, proc, path
+
+
+def dp_wait(children, timeout=DP_TIMEOUT):
+    """Each child's ``dp_child`` result by name; a child that fails or
+    outlives ``timeout`` stops the others and raises with its output."""
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for _, p, _ in children):
+            if time.monotonic() > deadline or any(
+                    p.returncode not in (None, 0) for _, p, _ in children):
+                break
+            time.sleep(0.2)
+    finally:
+        for _, p, _ in children:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    out = {}
+    for name, p, path in children:
+        with open(path) as f:
+            text = f.read()
+        lines = [ln for ln in text.splitlines()
+                 if ln.startswith("dp_child ")]
+        if p.returncode != 0 or not lines:
+            raise AssertionError(f"phase 15 child {name} exited "
+                                 f"{p.returncode}:\n{text[-6000:]}")
+        out[name] = json.loads(lines[-1].split(" ", 1)[1])
+    return out
+
+
+# An element whose largest |gradient| over the run stayed within this share
+# of the run's largest gradient element is at rounding level: a bias that
+# shifts every score of a softmax alike (the key third of attn/qkv/bias,
+# the GCN heads' affine and attn_k biases) has a gradient that is zero in
+# exact arithmetic, and AdamW moves such an element by up to lr a step in
+# a direction that rounding sets, in each run its own.
+ROUNDING = 1e-7
+# An element whose two runs' gradient sums part by more than this share of
+# steps × its largest |gradient| took another gradient in some step than
+# summation order explains: a ReLU unit at its edge for some token, which
+# one run passes and the other does not.  The share of such elements is
+# held to PARTED_SHARE of the model's.
+PARTED, PARTED_SHARE = 1e-3, 1e-4
+
+
+def dp_leaf_diff(a_path, b_path, init_path=None, grads_path=None,
+                 leaf_lr=None, a_grads_path=None, steps=None):
+    """Two ``best_model.npz`` files compared leaf by leaf: whether all are
+    bitwise equal; and, given the initial model ``init_path``, what the
+    runs ``b`` and ``a`` kept of their gradients (``grads_path``,
+    ``a_grads_path``: :func:`record_grads`), each leaf's lr and the
+    number of steps, the rule of phase 15(b)/(c):
+
+    * every element within 2·lr of ``b`` over the run;
+    * over each leaf's elements whose gradient was not at rounding level
+      (``ROUNDING``) and whose two runs' gradients did not part
+      (``PARTED``), the difference's L2 norm within the larger of 2% of
+      the norm of how far ``b`` moved them (the repo's trainer-test rule
+      as a norm) and 1e-4 of their norm;
+    * at most ``PARTED_SHARE`` of the elements parted.
+
+    Also the largest share of the magnitude read, the rounding-level
+    elements per leaf (with a gradient that was not exactly 0
+    throughout), the parted elements per leaf, each leaf's norm ratio
+    nearest its limit, and the elements nearest their 2·lr, each with its
+    largest gradient and, from a leaf small enough, both runs' gradient at
+    every step."""
+    out = {"bitwise": True, "magnitude": (0.0, None), "rounding": {},
+           "parted": {}, "norms": [], "nearest": [], "failed": []}
+    held = init_path is not None
+    init = np.load(init_path) if held else None
+    grads = dict(np.load(grads_path)) if held else {}
+    a_grads = dict(np.load(a_grads_path)) if held else {}
+    top = max((float(v.max()) for k, v in grads.items()
+               if k.startswith("max/")), default=0.0)
+    norms, nearest, n_parted, n_real = [], [], 0, 0
+    with np.load(a_path) as a, np.load(b_path) as b:
+        if set(a.files) != set(b.files):
+            raise AssertionError(f"{a_path} and {b_path} hold other leaves")
+        for k in b.files:
+            x, y = a[k], b[k]
+            out["bitwise"] &= x.dtype == y.dtype and np.array_equal(x, y)
+            if not held:
+                continue
+            diff = np.abs(x.astype(np.float64) - y)
+            zero = np.zeros(y.shape, np.float32)
+            g = grads.get(f"max/{k}", zero)
+            flat = g <= ROUNDING * top
+            parted = ~flat & (np.abs(
+                a_grads.get(f"sum/{k}", zero).astype(np.float64)
+                - grads.get(f"sum/{k}", zero)) > PARTED * steps * g)
+            out["magnitude"] = max(out["magnitude"], (
+                float(diff.max()) / max(float(np.abs(y).max()), 1e-30), k),
+                key=lambda w: w[0])
+            if (flat & (g > 0)).any():
+                out["rounding"][k] = {
+                    "elements": int((flat & (g > 0)).sum()),
+                    "of": int(g.size),
+                    "max_abs_diff": float(diff[flat].max()),
+                    "max_grad": float(g[flat].max())}
+            if parted.any():
+                out["parted"][k] = {"elements": int(parted.sum()),
+                                    "of": int(g.size),
+                                    "max_abs_diff": float(diff[parted].max())}
+            n_parted += int(parted.sum())
+            n_real += int((~flat).sum())
+            cap = 2 * leaf_lr.get(k, 0.0)
+            share = diff / max(cap, 1e-30)
+            i = int(share.argmax())
+            near = {"leaf": k, "index": i, "abs_diff": float(diff.flat[i]),
+                    "bound": cap, "max_grad": float(g.flat[i]),
+                    "rounding_level": bool(flat.flat[i]),
+                    "parted": bool(parted.flat[i])}
+            for run, kept in (("steps_b", grads), ("steps_a", a_grads)):
+                if f"step/{k}" in kept:
+                    near[run] = kept[f"step/{k}"].reshape(
+                        len(kept[f"step/{k}"]), -1)[:, i].tolist()
+            nearest.append((float(share.flat[i]), near))
+            if share.max() > 1:
+                out["failed"].append(("element past 2·lr", k,
+                                      int((share > 1).sum()),
+                                      float(share.max())))
+            held_norm = ~flat & ~parted
+            if not held_norm.any():
+                continue
+            d = float(np.linalg.norm(diff[held_norm]))
+            limit = max(2e-2 * float(np.linalg.norm(
+                y[held_norm].astype(np.float64) - init[k][held_norm])),
+                1e-4 * float(np.linalg.norm(y[held_norm])))
+            norms.append((d / max(limit, 1e-30), k, d, limit))
+            if d > limit:
+                out["failed"].append(("leaf norm", k, d, limit))
+    if held:
+        init.close()
+        out["top_grad"] = top
+        out["parted_share"] = n_parted / max(n_real, 1)
+        if out["parted_share"] > PARTED_SHARE:
+            out["failed"].append(("parted", n_parted, n_real))
+        out["norms"] = sorted(norms, reverse=True)[:3]
+        out["nearest"] = [n for _, n in sorted(
+            nearest, key=lambda w: -w[0])[:3]]
+    return out
+
+
+def dp_compare(name, ref, ranks, ref_save, dp_save, layers):
+    """Phase 15(b)/(c): each rank against the one-process run on the same
+    flags and global batch."""
+    want_loss = ref["history"][0]["train_loss"]
+    rel_loss = max(abs(r["history"][0]["train_loss"] - want_loss)
+                   / abs(want_loss) for r in ranks)
+    steps = ref["history"][0]["steps"]
+    leaves = dp_leaf_diff(os.path.join(dp_save, "best_model.npz"),
+                          os.path.join(ref_save, "best_model.npz"),
+                          os.path.join(ref_save, "init_model.npz"),
+                          os.path.join(ref_save, "grads.npz"),
+                          ref["leaf_lr"],
+                          os.path.join(dp_save, "grads.npz"), steps)
+    out = {"train_loss": [want_loss] + [r["history"][0]["train_loss"]
+                                        for r in ranks],
+           "loss_rel_diff": rel_loss,
+           "leaf_diff_over_magnitude": leaves["magnitude"],
+           "top_grad": leaves["top_grad"],
+           "rounding_level_elements": leaves["rounding"],
+           "parted_elements": leaves["parted"],
+           "parted_share": leaves["parted_share"],
+           "leaf_norms_nearest_limit": leaves["norms"],
+           "elements_nearest_2lr": leaves["nearest"],
+           "metrics": [ref["metrics"]]
+           + [r["metrics"] for r in ranks],
+           "launches": dp_launches(ranks), "ref_launches": ref["counts"],
+           "rows_per_step": [r["rows_per_step"] for r in ranks]}
+    log(f"dp_{name}", json.dumps(out))
+    for r in ranks:
+        if r["metrics"] != ref["metrics"]:
+            raise AssertionError(f"15 {name}: rank {r['rank']}'s F1 "
+                                 f"{r['metrics']} is not {ref['metrics']}")
+        if r["rows_per_step"] != [ref["rows_per_step"][0] // len(ranks)]:
+            raise AssertionError(f"15 {name}: rank {r['rank']} took "
+                                 f"{r['rows_per_step']} rows a step")
+        c = r["counts"]
+        if c["k2"] != layers * steps or c["mask"] or \
+                c["k1"] != layers * (steps + r["eval_batches"]):
+            raise AssertionError(
+                f"15 {name}: rank {r['rank']} launched {c} for {steps} "
+                f"steps and {r['eval_batches']} eval batches")
+    if rel_loss > 1e-4 or leaves["failed"]:
+        raise AssertionError(
+            f"15 {name}: the ranks' loss differs by {rel_loss} (limit 1e-4 "
+            f"relative); past their limits: {leaves['failed']}; nearest: "
+            f"{leaves['norms']}, {leaves['nearest']}")
+    return out
+
+
+def dp_launches(ranks):
+    return {f"rank{r['rank']}": {"k1": r["counts"]["k1"],
+                                 "k2": r["counts"]["k2"],
+                                 "mask": r["counts"]["mask"]}
+            for r in ranks}
+
+
+def dp_kernel_launches(dp_path, name):
+    """Phase 15's launches of one kernel, per run and rank (each counted
+    from 0 just before its run, in its own process)."""
+    a = dp_path["a"]["launches"]
+    return {"nccl_world1": a["nccl_world1"][name],
+            "single": a["single"][name],
+            **{f"{p}_{rank}": n[name]
+               for p, key in (("gloo_fp32", "b"), ("gloo_span", "c"),
+                              ("gloo_bf16", "d"))
+               for rank, n in dp_path[key]["launches"].items()}}
+
+
+def dp_phase():
+    """Phase 15: data parallelism at the flagship width, one epoch per run
+    on phase 10's synthetic Twitter-2015 tree (and phase 11's span tree):
+    (a) NCCL at world size 1 through ``torch.distributed.run``, bitwise
+    against the same flags in one process (both under deterministic
+    algorithms); (b) two gloo ranks sharing the card, fp32 with images,
+    against one process; (c) the span CLI with DualGCN and the masked span
+    CE on two gloo ranks against one process; (d) bf16 on two gloo ranks,
+    each rank's device guide table holding its own rows' images, against
+    (a)'s one-process run."""
+    from mtvaf_tpu_torch.core.config import Config
+    from mtvaf_tpu_torch.data.datasets import SpanDataset
+    from mtvaf_tpu_torch.data.tokenization import build_tokenizer
+    from mtvaf_tpu_torch.nn.bert import BertConfig
+
+    layers = BertConfig.base().num_hidden_layers
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root, bert_dir, cache, _ = trainer_tree(tmp)
+        span_root, span_bert = span_tree(tmp)
+        cfg = Config(dataset_name="twitter15", max_seq=TRAIN_S)
+        tok = build_tokenizer(span_bert, cfg.do_lower_case)
+        for k, (mode, fname) in enumerate((("train", "train.txt"),
+                                           ("dev", "valid.txt"),
+                                           ("test", "test.txt"))):
+            path = os.path.join(span_root, "twitter2015", fname)
+            write_gcn_side_file(
+                os.path.join(span_root, "twitter2015",
+                             f"twitter15_{mode}.json"),
+                SpanDataset.load(cfg, tok, path), seed=SEED + 40 + k)
+
+        def crf_argv(save, *extra):
+            argv = _trainer_argv(root, bert_dir, cache,
+                                 os.path.join(tmp, save), "--do_train",
+                                 "--num_epochs", "1", *extra)
+            if "--no_bf16" in extra:
+                argv.remove("--bf16")
+            return argv
+
+        def span_argv(save):
+            return ["--dataset_name", "twitter15", "--bert_name", span_bert,
+                    "--data_root", span_root, "--save_path",
+                    os.path.join(tmp, save), "--max_seq", str(TRAIN_S),
+                    "--train_batch_size", str(TRAIN_B), "--eval_batch_size",
+                    str(TRAINER_EVAL_BATCH), "--num_epochs", "1",
+                    "--eval_begin_epoch", "1", "--seed", str(SEED),
+                    "--logit_threshold", "0", "--num_layers", "2",
+                    "--span_ac_loss_mode", "masked", "--no_bf16",
+                    "--deterministic", "--do_train"]
+
+        def spec(argv, span=False, gloo=None, **kw):
+            return {"argv": argv, "span": span, "gloo": gloo, **kw}
+
+        # (a) NCCL at world size 1 through the launcher, and one process;
+        # one after the other, so that each one's examples/s is its own
+        det = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+        single = dp_wait([dp_start(tmp, "a_single", spec(
+            crf_argv("a_single"), deterministic_algorithms=True), env=det)])
+        nccl = dp_wait([dp_start(tmp, "a_nccl", spec(
+            crf_argv("a_nccl"), deterministic_algorithms=True),
+            launcher=True, env=det)])
+        single, nccl = single["a_single"], nccl["a_nccl"]
+        bitwise = dp_leaf_diff(
+            os.path.join(tmp, "a_nccl", "best_model.npz"),
+            os.path.join(tmp, "a_single", "best_model.npz"))["bitwise"]
+        a = {"world": nccl["world"],
+             "train_loss": [single["history"][0]["train_loss"],
+                            nccl["history"][0]["train_loss"]],
+             "metrics": [single["metrics"], nccl["metrics"]],
+             "best_model_bitwise": bitwise,
+             "examples_per_s": {
+                 "single": single["history"][0]["examples_per_s"],
+                 "nccl_world1": nccl["history"][0]["examples_per_s"]},
+             "launches": {"single": single["counts"],
+                          "nccl_world1": nccl["counts"]}}
+        log("dp_nccl_world1", json.dumps(a))
+        if nccl["world"] != 1 or not bitwise \
+                or a["train_loss"][0] != a["train_loss"][1] \
+                or single["metrics"] != nccl["metrics"] \
+                or single["counts"] != nccl["counts"]:
+            raise AssertionError(f"15(a): NCCL at world size 1 is not the "
+                                 f"one-process run bit for bit: {a}")
+        out["a"] = a
+
+        # (b), (c) and (d) side by side (eight processes): gloo ranks share
+        # the card
+        def ranks(name, argv, world=2, rank0=None, **kw):
+            port = free_port()
+            return [dp_start(tmp, f"{name}_rank{r}", spec(
+                argv, gloo={"rank": r, "world": world, "port": port},
+                **kw, **(rank0 if r == 0 and rank0 else {})))
+                for r in range(world)]
+
+        def grads(save):
+            return {"grads": os.path.join(tmp, save, "grads.npz")}
+
+        def kept(save):
+            return {"save_init": os.path.join(tmp, save, "init_model.npz"),
+                    **grads(save)}
+
+        fp32 = ("--no_bf16", "--deterministic")
+        wave = dp_wait([dp_start(tmp, "b_single",
+                                 spec(crf_argv("b_single", *fp32),
+                                      **kept("b_single"))),
+                        dp_start(tmp, "c_single",
+                                 spec(span_argv("c_single"), span=True,
+                                      **kept("c_single")))]
+                       + ranks("b", crf_argv("b_dp", *fp32),
+                               rank0=grads("b_dp"))
+                       + ranks("c", span_argv("c_dp"), span=True,
+                               rank0=grads("c_dp"))
+                       + ranks("d", crf_argv("d_dp"), table=True))
+        out["b"] = dp_compare(
+            "b", wave["b_single"], [wave["b_rank0"], wave["b_rank1"]],
+            os.path.join(tmp, "b_single"), os.path.join(tmp, "b_dp"),
+            layers)
+
+        d_ranks = [wave["d_rank0"], wave["d_rank1"]]
+        want = single["history"][0]["train_loss"]
+        d = {"train_loss": [want] + [r["history"][0]["train_loss"]
+                                     for r in d_ranks],
+             "launches": dp_launches(d_ranks),
+             "table_images": [len(r["table"]["keys"]) for r in d_ranks],
+             "own_images": [len(r["table"]["own"]) for r in d_ranks],
+             "examples_per_s": d_ranks[0]["history"][0]["examples_per_s"]}
+        log("dp_bf16_table", json.dumps(d))
+        for r in d_ranks:
+            t, loss = r["table"], r["history"][0]["train_loss"]
+            if t["keys"] != t["own"] or not t["on_card"]:
+                raise AssertionError(
+                    f"15(d): rank {r['rank']}'s guide table holds "
+                    f"{len(t['keys'])} images, its rows "
+                    f"{len(t['own'])}, and they differ")
+            if not math.isfinite(loss) or abs(loss - want) > 0.05 * abs(want):
+                raise AssertionError(f"15(d): rank {r['rank']}'s loss "
+                                     f"{loss} is not within 5% of {want}")
+            if r["counts"]["k1"] == 0 or r["counts"]["k2"] == 0:
+                raise AssertionError(f"15(d): rank {r['rank']} launched "
+                                     f"{r['counts']}")
+        if set(d_ranks[0]["table"]["keys"]) == set(d_ranks[1]["table"]
+                                                   ["keys"]):
+            raise AssertionError("15(d): both ranks' tables hold the same "
+                                 "images")
+        out["d"] = d
+        out["c"] = dp_compare(
+            "c", wave["c_single"], [wave["c_rank0"], wave["c_rank1"]],
+            os.path.join(tmp, "c_single"), os.path.join(tmp, "c_dp"),
+            layers)
+    out["seconds"] = time.perf_counter() - t_phase
+    log("dp_phase_seconds", out["seconds"])
+    return out
+
+
 def ptxas_report(logs):
     """Registers, static shared memory and spills of every kernel instance,
     from ``nvcc -Xptxas -v``; fails on any spill.  The bf16 kernels take
@@ -3341,6 +3868,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--resume-check"]:       # phase 10's child
         check_resume(*sys.argv[2:6])
         return 0
+    if sys.argv[1:2] == ["--dp-child"]:           # phase 15's children
+        dp_child(json.loads(sys.argv[2]))
+        return 0
     from mtvaf_tpu_torch.data.tokenization import FullTokenizer
     from mtvaf_tpu_torch.kernels import build
 
@@ -3382,6 +3912,8 @@ def main() -> int:
     options_path = options_phase(cfg, bert_cfg, params, resnet, tok,
                                  train_path)
     del params, resnet
+    torch.cuda.empty_cache()
+    dp_path = dp_phase()
 
     serve_row = next(r for r in k1_rows if r["shape"] == "serve_bf16")
     k2_row = next(r for r in k2_rows
@@ -3442,6 +3974,7 @@ def main() -> int:
                                 "span": tier_path["span"]["k1_launches"]}},
         "http": {"launches": tier_path["http"]["k1_launches"]},
         "host_ms_per_call": tier_path["k1_host"],
+        "dp": dp_kernel_launches(dp_path, "k1"),
     }, {
         "name": "prefix_attention_bwd",
         "route": "cuda", "design": {"bfloat16": DESIGN[torch.bfloat16],
@@ -3457,6 +3990,7 @@ def main() -> int:
                  "shapes": span_rows(k2_rows, "max_abs_err")},
         "aux": {"launches": aux_launches["k2"]},
         "long": {"launches": long_launches["k2"]},
+        "dp": dp_kernel_launches(dp_path, "k2"),
     }, {
         "name": "prefix_attention_keep_mask",
         "route": "cuda", "design": "cuda-cores",
@@ -3468,6 +4002,7 @@ def main() -> int:
         "span": {"launches": span_launches["mask"]},
         "aux": {"launches": aux_launches["mask"]},
         "long": {"launches": long_launches["mask"]},
+        "dp": dp_kernel_launches(dp_path, "mask"),
         "max_abs_err": float(mask_row["mismatches"]),
         **{k: mask_row[k] for k in keys[:4]},
         "library_ms": None,

@@ -9,13 +9,23 @@ ResNet and BERT weights, ``run_config.json`` at train start, the datasets,
 ``--do_train`` / ``--only_test`` and ``final_metrics.json``.  The flags are
 the reference's over the port's config fields
 (``core.config.config_from_args``); ``--remat`` and ``--selective_remat``
-reach the encoder's ``BertConfig``; multi-host training (``--nodes``) is
-not ported and raises (``core.config.check_ported``).
+reach the encoder's ``BertConfig``; tensor parallelism (``--mesh_model``
+> 1) is not ported and raises (``core.config.check_ported``).
 
     python -m mtvaf_tpu_torch.cli.main --dataset_name twitter2015 \\
         --do_train --bert_name BERT_DIR --data_root DATA --save_path OUT
 
 The run is on ``cuda``; ``main(argv, device="cpu")`` runs it on the CPU.
+Data-parallel training runs one process per GPU:
+
+    torchrun --nproc_per_node N -m mtvaf_tpu_torch.cli.main ...
+
+The process group is started from the launcher's environment (NCCL) before
+any CUDA work, or adopted when the caller started one (gloo ranks on the
+CPU call ``main(argv, device="cpu")``); each rank trains on its rows of
+every global batch, and rank 0 alone writes ``run_config.json``,
+``final_metrics.json``, the TensorBoard log and the trainer's files.  A
+group this function started is destroyed when it returns.
 """
 
 from __future__ import annotations
@@ -114,13 +124,22 @@ def main(argv=None, bert_cfg_override: Optional[BertConfig] = None,
 
     cfg = config_from_args(argv)
     check_ported(cfg)
+    from ..core import mesh
+    _, _, device = mesh.init_distributed(cfg, device)
+    try:
+        return _run(cfg, data_root, bert_cfg_override, device)
+    finally:
+        mesh.shutdown_distributed()
+
+
+def _run(cfg: Config, data_root: str, bert_cfg_override, device) -> dict:
+    from ..core import mesh
     set_seed(cfg.seed)
     logger.info("config: %s", cfg)
 
     from ..core.checkpoint import load_best
     from ..core.convert import load_probe_checkpoint, load_resnet, \
         params_from_jax
-    from ..core.platform import resolve_device
     from ..data.datasets import CrfDataset, SpanDataset
     from ..data.tokenization import build_tokenizer
     from ..nn.models import init_crf_model_params, init_span_model_params
@@ -128,7 +147,7 @@ def main(argv=None, bert_cfg_override: Optional[BertConfig] = None,
     from ..train.trainer_crf import CrfTrainer
     from ..train.trainer_span import SpanTrainer
 
-    device = resolve_device(device)
+    primary = mesh.is_primary()
     paths = data_paths(cfg, data_root)
     tokenizer = build_tokenizer(cfg.bert_name, cfg.do_lower_case)
     bert_cfg = bert_cfg_override or BertConfig.from_hf_dir(cfg.bert_name,
@@ -142,7 +161,7 @@ def main(argv=None, bert_cfg_override: Optional[BertConfig] = None,
     # the run's config beside the model, so that inference can be rebuilt
     # from the directory alone (train runs only: an --only_test run with
     # other flags must not overwrite the config of best_model.npz)
-    if cfg.do_train and cfg.save_path:
+    if cfg.do_train and cfg.save_path and primary:
         os.makedirs(cfg.save_path, exist_ok=True)
         with open(os.path.join(cfg.save_path, "run_config.json"), "w") as f:
             json.dump({"config": dataclasses.asdict(cfg),
@@ -155,8 +174,10 @@ def main(argv=None, bert_cfg_override: Optional[BertConfig] = None,
     except ImportError:
         pass
     else:
-        writer = SummaryWriter(logdir=f"logs/{cfg.dataset_name}_"
-                               f"{cfg.train_batch_size}_{cfg.lr}{cfg.notes}")
+        if primary:
+            writer = SummaryWriter(
+                logdir=f"logs/{cfg.dataset_name}_{cfg.train_batch_size}_"
+                f"{cfg.lr}{cfg.notes}")
 
     def span_ds(mode):
         # a GCN head's side file is read where it exists; a split without
@@ -216,7 +237,7 @@ def main(argv=None, bert_cfg_override: Optional[BertConfig] = None,
         metrics["test_f1"] = test()
     if cfg.only_test:
         metrics["test_f1"] = test()
-    if metrics and cfg.save_path:
+    if metrics and cfg.save_path and primary:
         with open(os.path.join(cfg.save_path, "final_metrics.json"),
                   "w") as f:
             json.dump(metrics, f, indent=1)

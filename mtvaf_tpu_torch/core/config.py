@@ -8,7 +8,7 @@ port's own ``run_config.json`` holds only these, all of which the JAX
 package's ``Config`` accepts.  :func:`config_from_args` parses the CLI's
 ``--flag`` / ``--no_flag`` surface over these fields, and
 :func:`check_ported` names what a config asks for that the port lacks
-(multi-host training, ``nodes > 1``).
+(tensor parallelism, ``mesh_model > 1``).
 """
 
 from __future__ import annotations
@@ -135,7 +135,16 @@ class Config:
                                      # there is no attention core to
                                      # checkpoint
     deterministic: bool = False      # no train-time dropout
-    nodes: int = 1                   # hosts (multi-host is not ported)
+
+    # data parallelism: one process per GPU (``core.mesh``)
+    n_gpu: int = 1                   # parsed for the reference's flag
+    gpus: int = 1                    # surface; the world size is the
+                                     # process group's
+    nodes: int = 1                   # hosts; > 1 needs a process group
+    local_rank: int = -1             # the GPU of this process when the
+                                     # launcher sets no LOCAL_RANK
+    mesh_data: int = 0               # data axis; 0 = the world size
+    mesh_model: int = 1              # tensor-parallel axis (not ported)
 
     # ingest and checkpoints
     guide_cache_size: int = 8192     # images whose guides stay in host RAM
@@ -247,11 +256,11 @@ class Config:
 
 def check_ported(cfg: Config) -> None:
     """Raise, naming the missing piece, when ``cfg`` asks the trainer or
-    the CLI for something the port does not have yet: multi-host
-    training."""
-    if cfg.nodes > 1:
-        raise NotImplementedError("nodes > 1: multi-host training is not "
-                                  "ported (ROADMAP A.5)")
+    the CLI for something the port does not have yet: tensor
+    parallelism."""
+    if cfg.mesh_model > 1:
+        raise NotImplementedError("mesh_model > 1: tensor parallelism is "
+                                  "not ported (ROADMAP A.5b)")
 
 
 def config_from_args(argv=None) -> Config:

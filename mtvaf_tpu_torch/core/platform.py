@@ -9,13 +9,19 @@ import torch
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller names
-    another.  With no device given and no GPU present this raises rather
-    than running on the CPU; pass ``device="cpu"`` to ask for the CPU."""
+    another; in a process of a data-parallel group, the rank's GPU
+    (``core.mesh.local_device``).  With no device given and no GPU present
+    this raises rather than running on the CPU; pass ``device="cpu"`` to
+    ask for the CPU."""
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run on the CPU")
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        from .mesh import local_device
+        return local_device()
     return torch.device("cuda")
 
 

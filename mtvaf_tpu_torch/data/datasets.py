@@ -4,8 +4,8 @@ Counterpart of ``SpanDataset``, ``CrfDataset``, ``iterate_batches`` and
 ``prefetch`` in ``mtvaf_tpu/data/datasets.py``: text features are converted once into
 padded numpy arrays; pixels (or cached ResNet guides) are attached at batch
 time; batches have a fixed size, the tail padded by repeating the last row
-with ``batch_valid`` marking the real rows.  Multi-process batching is not
-ported (``process_count > 1`` raises).
+with ``batch_valid`` marking the real rows.  Under data parallelism each
+rank takes its contiguous slice of every global batch.
 """
 
 from __future__ import annotations
@@ -166,16 +166,24 @@ def load_gcn_arrays(gcn_file: str, features, max_seq: int
 
 def iterate_batches(arrays: Dict[str, np.ndarray], batch_size: int, *,
                     shuffle: bool = False, seed: int = 0, epoch: int = 0,
+                    drop_last: bool = False, pad_to_full: bool = True,
                     process_index: int = 0, process_count: int = 1
                     ) -> Iterator[Dict[str, np.ndarray]]:
     """Yield fixed-size batches in the order of a ``RandomState(seed +
     epoch)`` permutation (with ``shuffle``), the tail batch padded by
-    repeating its last row, and ``batch_valid`` marking the real rows.
-    Batching across processes is not ported."""
-    if process_count != 1 or process_index != 0:
-        raise NotImplementedError(
-            "multi-process batching (process_count > 1) is not ported; it "
-            "waits for the multi-GPU slice")
+    repeating its last row (``pad_to_full``; dropped with ``drop_last``),
+    and ``batch_valid`` marking the real rows.
+
+    ``batch_size`` is the global batch: with ``process_count > 1`` every
+    rank walks the same permutation and takes its contiguous
+    ``batch_size / process_count`` rows of each global batch, with its
+    slice of ``batch_valid`` (the JAX package's process sharding, the
+    counterpart of the reference's ``DistributedSampler``).  A rank may
+    get only padded rows of the tail batch."""
+    if batch_size % process_count != 0:
+        raise ValueError(f"global batch {batch_size} not divisible by "
+                         f"{process_count} processes")
+    local = batch_size // process_count
     n = len(next(iter(arrays.values())))
     idx = np.arange(n)
     if shuffle:
@@ -184,10 +192,16 @@ def iterate_batches(arrays: Dict[str, np.ndarray], batch_size: int, *,
         take = idx[start:start + batch_size]
         valid = len(take)
         if valid < batch_size:
-            take = np.concatenate(
-                [take, np.repeat(take[-1:], batch_size - valid)])
+            if drop_last:
+                return
+            if pad_to_full:
+                take = np.concatenate(
+                    [take, np.repeat(take[-1:], batch_size - valid)])
+        valid_mask = (np.arange(len(take)) < valid).astype(np.int32)
+        lo = process_index * local
+        take, valid_mask = take[lo:lo + local], valid_mask[lo:lo + local]
         batch = {k: v[take] for k, v in arrays.items()}
-        batch["batch_valid"] = (np.arange(len(take)) < valid).astype(np.int32)
+        batch["batch_valid"] = valid_mask
         yield batch
 
 

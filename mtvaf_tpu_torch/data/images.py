@@ -133,7 +133,12 @@ class ImageStore:
         except OSError:    # a missing or undecodable file (not a missing PIL)
             img = self._placeholder_image()
         if cache is not None:
-            np.save(cache, img)
+            # data-parallel ranks share the cache: a reader sees a whole
+            # file or none
+            tmp = f"{cache}.{os.getpid()}.tmp"
+            with open(tmp, "wb") as f:
+                np.save(f, img)
+            os.replace(tmp, cache)
         return img
 
     def main_image(self, image_id: str) -> np.ndarray:

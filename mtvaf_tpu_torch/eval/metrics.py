@@ -26,14 +26,18 @@ def metric_max_over_ground_truths(metric_fn, term, polarity, gold_terms,
 
 
 def eval_absa(all_examples, all_features,
-              all_results: Sequence[RawFinalResult], do_lower_case: bool
-              ) -> Tuple[Dict, Dict]:
+              all_results: Sequence[RawFinalResult], do_lower_case: bool,
+              *, allow_missing: bool = False) -> Tuple[Dict, Dict]:
     """Exact-match micro P/R/F1 over (term, polarity) pairs, and the
-    per-example JSON of predicted and gold terms, keyed by example id."""
+    per-example JSON of predicted and gold terms, keyed by example id.
+    ``allow_missing`` scores only the features that have a result (a
+    data-parallel rank's share of the train rows)."""
     unique_id_to_result = {r.unique_id: r for r in all_results}
     all_nbest_json = collections.OrderedDict()
     common, relevant, retrieved = 0.0, 0.0, 0.0
     for feature in all_features:
+        if allow_missing and feature.unique_id not in unique_id_to_result:
+            continue
         example = all_examples[feature.example_index]
         result = unique_id_to_result[feature.unique_id]
         pred_terms, pred_polarities = [], []

@@ -30,6 +30,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from ..core.mesh import batch_frobenius, batch_rows
 from ..core.rng import draw_seed, split
 from .layers import (dense, dense_init, dropout, layer_norm,
                      layer_norm_init)
@@ -202,6 +203,9 @@ def dualgcn_forward(params: Dict, cfg, sequence_output, pooled_output, adj,
     identity = eye.expand_as(adj_ag)
     ortho = torch.einsum("bst,but->bsu", adj_ag, adj_ag)
     ortho = ortho - ortho * identity + identity
-    penal1 = torch.linalg.vector_norm(ortho - identity) / b
-    penal2 = b / torch.linalg.vector_norm(adj_ag - adj).clamp_min(1e-9)
+    # Frobenius norms over the whole batch, and its row count: the global
+    # batch's inside a data-parallel step (core.mesh)
+    rows = batch_rows(b)
+    penal1 = batch_frobenius(ortho - identity) / rows
+    penal2 = rows / batch_frobenius(adj_ag - adj).clamp_min(1e-9)
     return logits, cfg.alpha * penal1 + cfg.beta * penal2

@@ -33,6 +33,7 @@ from ..data.images import IMAGENET_MEAN, IMAGENET_STD
 from .bert import (BertConfig, bert_embeddings, bert_encoder, bert_model,
                    bert_pooler)
 from .crf import crf_decode, crf_decode_parallel, crf_loss
+from ..core.mesh import batch_sum
 from ..core.rng import split
 from .gcn import (compress_valid_ids, digcn_forward, dualgcn_forward,
                   init_digcn_params, init_dualgcn_params)
@@ -239,7 +240,8 @@ def span_model_tail(params, cfg, bert_cfg: BertConfig, batch: Dict, seq,
     mean-reduced before its mask, so sum(mask·ce)/sum(mask) cancels to the
     unmasked mean; the cancelled factor msum/msum stays, so a batch with no
     candidate at all gives NaN, as the reference's 0/0 does.  'masked'
-    averages over the masked candidates."""
+    averages over the masked candidates.  Inside a data-parallel train
+    step both count the candidates of the global batch."""
     cls_rng, gcn_rng = generators
     if cfg.gcn_layer_number > 0 and "adjacency_matrix" in batch:
         if "valid_ids" in batch:
@@ -256,10 +258,13 @@ def span_model_tail(params, cfg, bert_cfg: BertConfig, batch: Dict, seq,
     labels = batch["span_labels"].reshape(-1).long()
     ce = -log_probs.gather(1, labels[:, None])[:, 0]
     m = batch["span_masks"].reshape(-1).float()
+    # the candidate count (and the masked CE's sum) is the global batch's
+    # under data parallelism (core.mesh.batch_sum)
     if cfg.span_ac_loss_mode == "masked":
-        ac_loss = (ce * m).sum() / m.sum().clamp_min(1.0)
+        ac_loss = batch_sum((ce * m).sum()) \
+            / batch_sum(m.sum()).clamp_min(1.0)
     else:
-        msum = m.sum()
+        msum = batch_sum(m.sum())
         ac_loss = ce.mean() * (msum / msum)
 
     tot_loss = ae_loss + ac_loss

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from ..core.mesh import batch_rows, batch_sum
+
 
 def probe_depths(params, hidden):
     """(B, S, H) → per-token depth ‖B·h‖² (B, S), in fp32."""
@@ -53,6 +55,9 @@ def probe_loss(params, hidden):
 
 
 def combine_loss(loss, p_loss, beta: float, epoch_const: int):
-    """loss + probe_loss·β·2^(−epoch) when probe_loss > 0.1, else loss."""
+    """loss + probe_loss·β·2^(−epoch) when probe_loss > 0.1, else loss.
+    Inside a data-parallel train step the gate reads the global batch's
+    probe loss (the mean of the ranks')."""
     factor = beta * (2.0 ** (-epoch_const))
-    return torch.where(p_loss > 0.1, loss + p_loss * factor, loss)
+    gate = batch_sum(p_loss.detach()) / batch_rows(1)
+    return torch.where(gate > 0.1, loss + p_loss * factor, loss)

@@ -5,7 +5,9 @@ ResNet's stage guides are per-image constants: they are computed once on
 the trainer's device, kept in a host LRU (spilling to ``.npz`` files on
 eviction), and on bf16 runs also held in a device-resident bf16 table from
 which batches are gathered on the card, so after the one-time row insert no
-guide bytes cross to the device again.
+guide bytes cross to the device again.  Under data parallelism each rank
+keeps its own cache and table, for the images of its own rows (the JAX
+package's per-host table on its host-local submesh).
 
 Every device operation here (the ResNet, the row inserts, the gathers) is
 enqueued on the device's default stream by whichever thread calls
@@ -88,7 +90,12 @@ class GuideCache:
             old_key, old_val = self._cache.popitem(last=False)
             path = self._disk_path(old_key)
             if spill and path and not os.path.exists(path):
-                np.savez(path, main=old_val[0], aux=old_val[1])
+                # data-parallel ranks share the directory: a reader sees a
+                # whole file or none
+                tmp = f"{path}.{os.getpid()}.tmp"
+                with open(tmp, "wb") as f:
+                    np.savez(f, main=old_val[0], aux=old_val[1])
+                os.replace(tmp, path)
 
     def _get(self, key: tuple):
         if key in self._cache:

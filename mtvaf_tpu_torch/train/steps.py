@@ -13,10 +13,20 @@ gradient is ``torch.autograd.grad`` over the parameter leaves (a leaf the
 loss does not reach gets zeros, as ``jax.grad`` gives), and the update is
 :class:`..train.optim.AdamW`, in place.
 
-A step's randomness is the host generator ``fold_in(seed, state.step)``
-(``core.rng``), the counterpart of the JAX package's per-step
-``fold_in(rng, step)``: a step is reproducible from the run's seed and the
-step number.  ``seed=None`` runs without dropout.
+A step's randomness is the host generator ``fold_in(seed, state.step,
+rank)`` (``core.rng``), the counterpart of the JAX package's per-step
+``fold_in(rng, step)``: a step is reproducible from the run's seed, the
+step number and the rank.  ``seed=None`` runs without dropout.
+
+Under data parallelism (a process group of more than one rank,
+``core.mesh``) each rank's step takes its rows of the global batch: the
+loss runs inside ``core.mesh.data_parallel_step``, so that its
+batch-global statistics are the global batch's; after the backward the
+gradients are averaged over the ranks (one flat all-reduce per dtype),
+before the gradient norm and the update; the scalar metrics are averaged
+too, and the per-example ones stay the rank's own.  In a single process
+(or a group of one) none of this runs, and the step is the
+single-process one bit for bit.
 
 ``--params_bf16`` (``create_train_state(..., params_dtype=torch.bfloat16)``)
 keeps the live params in bf16 and an fp32 master copy in the optimizer
@@ -32,9 +42,10 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from ..core import mesh
 from ..core.platform import resolve_device
-from ..nn.bert import BertConfig
 from ..core.rng import fold_in, split
+from ..nn.bert import BertConfig
 from ..nn.gcn import compress_valid_ids, digcn_forward
 from ..nn.models import (crf_model_forward, span_classification,
                          span_extraction, span_model_loss, span_model_tail,
@@ -111,6 +122,29 @@ def replace_params(state: TrainState, new_params) -> TrainState:
     if master is not state.params:
         _cast_into(state.params, master)
     return state
+
+
+def broadcast_state(state: TrainState) -> TrainState:
+    """Rank 0's params (the fp32 master and its bf16 cast under
+    ``--params_bf16``) on every data-parallel rank, in place, so that the
+    ranks start from identical weights; nothing on one rank."""
+    if mesh.world_size() == 1:
+        return state
+    master = export_params(state)
+    mesh.broadcast_([p for _, p in tree_items(master)])
+    if master is not state.params:
+        with torch.no_grad():
+            _cast_into(state.params, master)
+    return state
+
+
+def check_ranks_agree(state: TrainState) -> None:
+    """Raise when the data-parallel ranks hold different params (every
+    rank must call it)."""
+    bad = mesh.disagreeing_leaf(export_params(state))
+    if bad is not None:
+        raise RuntimeError(f"the data-parallel ranks hold different values "
+                           f"of {bad}")
 
 
 def _cast_into(live, master) -> None:
@@ -200,10 +234,13 @@ def make_train_step(loss_fn: Callable, optimizer, *, accum_steps: int = 1,
         loss, metrics = loss_fn(params, batch, base_rng)
         return augment_fn(params, batch, aug_rng, loss, metrics)
 
+    rank, world = mesh.rank(), mesh.world_size()
+
     def grads_of(params, batch, generator):
         leaves = [p for _, p in tree_items(params)]
-        loss, metrics = compute(params, batch, generator)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with mesh.data_parallel_step(world):
+            loss, metrics = compute(params, batch, generator)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
         return grads, {k: v.detach() for k, v in metrics.items()}
@@ -220,6 +257,12 @@ def make_train_step(loss_fn: Callable, optimizer, *, accum_steps: int = 1,
         return MasterState(master=opt.master, inner=inner)
 
     def finish(state, grads, metrics):
+        if world > 1:
+            grads = mesh.all_reduce_mean(grads)
+            scalars = [k for k, v in metrics.items() if v.dim() == 0]
+            for k, v in zip(scalars, mesh.all_reduce_mean(
+                    [metrics[k] for k in scalars])):
+                metrics[k] = v
         opt_state = apply(state, grads)
         if with_grad_norm:
             metrics["grad_norm"] = torch.stack(
@@ -228,14 +271,14 @@ def make_train_step(loss_fn: Callable, optimizer, *, accum_steps: int = 1,
 
     def single_step(state: TrainState, batch: Dict, seed: Optional[int]
                     ) -> Tuple[TrainState, Dict]:
-        gen = None if seed is None else fold_in(seed, state.step)
+        gen = None if seed is None else fold_in(seed, state.step, rank)
         grads, metrics = grads_of(state.params, batch, gen)
         return finish(state, grads, metrics)
 
     def accum_step(state: TrainState, batch: Dict, seed: Optional[int]
                    ) -> Tuple[TrainState, Dict]:
         gens = [None] * accum_steps if seed is None \
-            else split(fold_in(seed, state.step), accum_steps)
+            else split(fold_in(seed, state.step, rank), accum_steps)
         total, stacked = None, []
         for i in range(accum_steps):
             micro = {k: v[i] for k, v in batch.items()}

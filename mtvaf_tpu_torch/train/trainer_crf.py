@@ -1,5 +1,5 @@
 """The CRF-pipeline trainer (reference SATrainer2, modules/train.py:541-987),
-on one device.
+on one device or data-parallel over ranks.
 
 Counterpart of ``mtvaf_tpu/train/trainer_crf.py``: epochs of shuffled,
 tail-padded batches through the train step, whose forward also decodes the
@@ -15,9 +15,17 @@ device copies are made in ``prefetch``'s thread, on the default stream the
 steps run on.  ``--params_bf16`` trains bf16 live params on an fp32
 master (``best_model.npz`` holds the master; a reload sets both), and
 ``--profile_dir`` traces a window of train steps
-(``train.profiling.StepProfiler``).  Meshes, multi-host batching and
-cross-host metrics are not ported (``core.config.check_ported`` raises for
-them).
+(``train.profiling.StepProfiler``).
+
+Data parallelism (a process group of several ranks, ``core.mesh``): each
+rank trains on its contiguous rows of every global batch
+(``iterate_batches(process_index=rank)``) from rank 0's initial weights,
+and the step averages the gradients; the train entity counts and the
+SIGTERM stop flag are summed over the ranks; eval is sharded, batch ``bi``
+to rank ``bi % world``, and the rows are gathered back in batch order, so
+every rank ends with the same predictions and F1.  Rank 0 writes the files
+(the other ranks wait at a barrier where a file is read back later) and,
+alone, traces with ``--profile_dir``.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..core import mesh
 from ..core.checkpoint import load_best, load_torch_file, save_best, \
     transplant
 from ..core.config import CRF_LABEL_LIST, Config, check_ported
@@ -45,10 +54,11 @@ from .ingest import GuideCache
 from .optim import build_optimizer
 from .profiling import StepProfiler
 from .resume import (install_preemption_handler, load_latest_checkpoint,
-                     save_epoch_checkpoint, stop_requested,
-                     uninstall_preemption_handler)
-from .steps import (create_train_state, export_params, make_crf_decode_step,
-                    make_crf_loss_fn, make_train_step, replace_params)
+                     save_epoch_checkpoint, stop_agreed,
+                     stop_requested, uninstall_preemption_handler)
+from .steps import (broadcast_state, check_ranks_agree, create_train_state,
+                    export_params, make_crf_decode_step, make_crf_loss_fn,
+                    make_train_step, replace_params)
 
 logger = logging.getLogger(__name__)
 
@@ -58,7 +68,8 @@ _HOST_ONLY = ("batch_valid", "auxlabel_ids", "example_index")
 
 class CrfTrainer:
     """Train, evaluate and test the CRF model on one device (``cuda``
-    unless ``device`` names another; raises without a GPU)."""
+    unless ``device`` names another; raises without a GPU), or on this
+    rank's device as one of a data-parallel group."""
 
     def __init__(self, cfg: Config, bert_cfg: BertConfig, params, *,
                  train_dataset=None, dev_dataset=None, test_dataset=None,
@@ -68,6 +79,8 @@ class CrfTrainer:
             raise ValueError(f"dataset {cfg.dataset_name!r} runs the span "
                              "pipeline: use SpanTrainer")
         self.device = resolve_device(device)
+        self.rank, self.world = mesh.rank(), mesh.world_size()
+        mesh.data_axis(cfg, self.world)
         self.cfg = cfg
         self.bert_cfg = bert_cfg
         self.train_dataset = train_dataset
@@ -95,6 +108,7 @@ class CrfTrainer:
         self.state = create_train_state(
             params, self.optimizer, device=self.device,
             params_dtype=torch.bfloat16 if cfg.params_bf16 else None)
+        broadcast_state(self.state)
         self.train_step = make_train_step(
             make_crf_loss_fn(cfg, bert_cfg, with_decode=True),
             self.optimizer, accum_steps=cfg.gradient_accumulation_steps,
@@ -168,8 +182,9 @@ class CrfTrainer:
         preempt_prev = install_preemption_handler() if checkpointing \
             else None
         # the step profiler of this train() (a trace with profile_dir)
-        self.profiler = StepProfiler(cfg.profile_dir,
-                                     num_steps=cfg.profile_steps)
+        self.profiler = StepProfiler(
+            cfg.profile_dir if mesh.is_primary() else None,
+            num_steps=cfg.profile_steps)
         start_epoch = 1
         if cfg.resume and cfg.save_path:
             state, start_epoch, meta = load_latest_checkpoint(
@@ -182,13 +197,14 @@ class CrfTrainer:
                 # in the state: resuming is bit-identical
                 self.seed = meta.get("seed", self.seed)
                 logger.info("resumed from epoch %d", start_epoch - 1)
+        check_ranks_agree(self.state)
         try:
             for epoch in range(start_epoch, cfg.num_epochs + 1):
                 self._train_epoch(ds, epoch, accum)
                 if epoch >= cfg.eval_begin_epoch:
                     self.evaluate(epoch)
                     self.test(epoch)
-                stopping = stop_requested()
+                stopping = stop_agreed(stop_requested())
                 if checkpointing and (epoch % cfg.checkpoint_every == 0
                                       or stopping):
                     save_epoch_checkpoint(
@@ -212,7 +228,8 @@ class CrfTrainer:
         def host_to_device():
             for b in iterate_batches(ds.arrays, cfg.train_batch_size,
                                      shuffle=True, seed=cfg.seed,
-                                     epoch=epoch):
+                                     epoch=epoch, process_index=self.rank,
+                                     process_count=self.world):
                 b = self._attach_guides(b, ds, accum=accum)
                 valid = b.pop("batch_valid")
                 yield b, valid, self._device_batch(b, accum)
@@ -231,19 +248,21 @@ class CrfTrainer:
             records.append((batch["label_ids"], batch["input_mask"], valid,
                             metrics["pred_tags"]))
 
-        # one copy back each for the epoch's losses and tags
+        # one copy back each for the epoch's losses (the global batches'
+        # means) and this rank's tags
         n_steps = len(losses)
-        epoch_loss = float(torch.stack(losses).sum()) if losses else 0.0
+        epoch_loss = mesh.epoch_scalar_sum(losses)
         y_true, y_pred = [], []
-        if records:
-            tags_np = torch.stack([r[3] for r in records]).cpu().numpy()
-            for (label_ids, mask, valid, _), tags in zip(records, tags_np):
-                yt, yp = labels_to_tags(label_ids, mask, self.inv_label_map,
-                                        tags)
-                for j in range(len(yt)):
-                    if valid[j]:
-                        y_true.append(yt[j])
-                        y_pred.append(yp[j])
+        tags_np = mesh.fetch_rows_stacked([r[3] for r in records])
+        for (label_ids, mask, valid, _), tags in zip(records, tags_np):
+            yt, yp = labels_to_tags(label_ids, mask, self.inv_label_map,
+                                    tags)
+            for j in range(len(yt)):
+                if valid[j]:
+                    y_true.append(yt[j])
+                    y_pred.append(yp[j])
+        counts, n_examples = self._global_counts(
+            entity_counts(y_true, y_pred), n_examples)
         dt = time.perf_counter() - t0
         self.last_throughput = n_examples / dt if dt > 0 else 0.0
         mean_loss = epoch_loss / max(n_steps, 1)
@@ -255,7 +274,6 @@ class CrfTrainer:
             self.writer.add_scalar(
                 "grad_norm", float(torch.stack(grad_norms).sum()) / n_steps,
                 epoch)
-        counts = entity_counts(y_true, y_pred)
         if any(any(c.values()) for c in counts.values()):
             f1 = scores_from_counts(counts)["micro"]["f1"]
             self.last_train_f1 = f1
@@ -269,15 +287,35 @@ class CrfTrainer:
         if self.writer:
             self.writer.add_scalar("train_loss", mean_loss, epoch)
 
+    def _global_counts(self, counts, n_examples: int):
+        """Entity counts and the example count summed over the ranks (a
+        fixed type inventory from the label list, so that every rank sums
+        the same vector)."""
+        if self.world == 1:
+            return counts, n_examples
+        types = sorted({lab[2:] for lab in CRF_LABEL_LIST
+                        if lab[:2] in ("B-", "I-")})
+        vec = np.asarray([[counts[t][k] for k in ("correct", "pred", "gold")]
+                          for t in types] + [[n_examples, 0, 0]], np.int64)
+        vec = mesh.cross_host_sum(vec)
+        return ({t: {"correct": int(row[0]), "pred": int(row[1]),
+                     "gold": int(row[2])} for t, row in zip(types, vec)},
+                int(vec[-1, 0]))
+
     # ------------------------------------------------------------------
     def _predict(self, dataset):
         """(y_true, y_pred, mean of the per-batch losses) over ``dataset``;
         the tail batch is cut to its real rows before the forward, so its
-        loss is over those rows only."""
+        loss is over those rows only.  Data-parallel ranks each run the
+        batches ``bi`` with ``bi % world == rank`` (a rank may get none)
+        and gather every rank's rows back in batch order."""
         cfg = self.cfg
 
         def host_batches():
-            for b in iterate_batches(dataset.arrays, cfg.eval_batch_size):
+            for bi, b in enumerate(iterate_batches(dataset.arrays,
+                                                   cfg.eval_batch_size)):
+                if bi % self.world != self.rank:
+                    continue
                 b = self._attach_guides(b, dataset)
                 valid = b.pop("batch_valid")
                 n = int(valid.sum())
@@ -285,26 +323,32 @@ class CrfTrainer:
                 if n < len(valid):
                     dev = {k: v[:n] for k, v in dev.items()}
                     b = {k: v[:n] for k, v in b.items()}
-                yield b, dev
+                yield bi, b, dev
 
         records = []
-        for batch, dev_batch in prefetch(host_batches()):
+        for bi, batch, dev_batch in prefetch(host_batches()):
             out = self.decode_step(self.state.params, dev_batch)
-            records.append((batch, out["loss"], out["pred_tags"]))
-        if not records:
+            records.append((bi, batch, out["loss"], out["pred_tags"]))
+        rows = []               # (batch index, y_true, y_pred, loss)
+        if records:
+            losses = torch.stack([r[2] for r in records]).cpu().tolist()
+            tags = torch.cat([r[3] for r in records]).cpu().numpy()
+            row = 0
+            for (bi, batch, _, t), loss in zip(records, losses):
+                n = len(t)
+                yt, yp = labels_to_tags(batch["label_ids"],
+                                        batch["input_mask"],
+                                        self.inv_label_map, tags[row:row + n])
+                row += n
+                rows.append((bi, yt, yp, loss))
+        if self.world > 1:
+            rows = sorted((r for part in mesh.cross_host_gather(rows)
+                           for r in part), key=lambda r: r[0])
+        if not rows:
             return [], [], 0.0
-        losses = torch.stack([r[1] for r in records]).cpu().tolist()
-        tags = torch.cat([r[2] for r in records]).cpu().numpy()
-        y_true, y_pred = [], []
-        row = 0
-        for batch, _, t in records:
-            n = len(t)
-            yt, yp = labels_to_tags(batch["label_ids"], batch["input_mask"],
-                                    self.inv_label_map, tags[row:row + n])
-            row += n
-            y_true.extend(yt)
-            y_pred.extend(yp)
-        return y_true, y_pred, sum(losses) / len(losses)
+        y_true = [t for _, yt, _, _ in rows for t in yt]
+        y_pred = [p for _, _, yp, _ in rows for p in yp]
+        return y_true, y_pred, sum(r[3] for r in rows) / len(rows)
 
     def evaluate(self, epoch: int) -> float:
         cfg = self.cfg
@@ -320,8 +364,9 @@ class CrfTrainer:
             self.best_dev_metric = f1
             self.best_dev_epoch = epoch
             if cfg.save_path:
-                save_best(os.path.join(cfg.save_path, "best_model.npz"),
-                          export_params(self.state))
+                mesh.primary_write(
+                    save_best, os.path.join(cfg.save_path, "best_model.npz"),
+                    export_params(self.state))
                 nbest, errors = eval_json(self.dev_dataset.examples, y_true,
                                           y_pred)
                 self._write_json(nbest, "dev_predictions.json")
@@ -352,6 +397,9 @@ class CrfTrainer:
         return f1
 
     def _write_json(self, obj, name: str):
+        """``save_path/name``, written by rank 0 alone."""
+        if not mesh.is_primary():
+            return
         os.makedirs(self.cfg.save_path, exist_ok=True)
         with open(os.path.join(self.cfg.save_path, name), "w") as f:
             f.write(json.dumps(obj, indent=4) + "\n")

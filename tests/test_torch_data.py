@@ -166,9 +166,12 @@ def test_iterate_batches_order_and_tail_match_jax(n, bsz, seed, epoch):
 
 
 def test_iterate_batches_refuses_several_processes():
+    # several processes shard each global batch (tests/test_torch_mesh.py
+    # holds that against the JAX package); a batch they do not divide is
+    # refused, as there
     arrays = {"x": np.zeros((4, 1))}
-    with pytest.raises(NotImplementedError, match="multi-process"):
-        next(datasets.iterate_batches(arrays, 2, process_count=2))
+    with pytest.raises(ValueError, match="not divisible by 2 processes"):
+        next(datasets.iterate_batches(arrays, 3, process_count=2))
 
 
 def test_prefetch_yields_in_order_and_raises_the_producer_error():

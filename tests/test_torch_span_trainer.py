@@ -245,7 +245,8 @@ def test_span_trainer_refuses_what_it_does_not_run(tree, tmp_path):
     bert_cfg = BertConfig.tiny(vocab_size=len(tok.vocab))
     for kw, error, match in (
             (dict(dataset_name="twitter2015"), ValueError, "CrfTrainer"),
-            (dict(nodes=2), NotImplementedError, "multi-host")):
+            (dict(nodes=2), RuntimeError, "multi-host"),
+            (dict(mesh_model=2), NotImplementedError, "A.5b")):
         with pytest.raises(error, match=match):
             SpanTrainer(Config(**{**BASE, **kw}), bert_cfg, {},
                         device="cpu")
