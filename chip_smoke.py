@@ -91,8 +91,11 @@ Phases, each of which fails the run by raising:
    image-bearing requests equal to ``predict_many``.  Phases 2 and 4 also
    hold K1 and K2 at ``span_s128_cut``: the span shape with the span
    cutoff's holes inside the bias row;
-13. the serving tier: (a) phase 10's run through the export CLI
-   (``cli.export_main``) for ``cuda`` at rungs 1 and 16 with shared
+13. the serving tier, run after phase 16: its two exports run in child
+   processes beside phases 15 and 16, which check agreement (15(a)'s
+   examples/s are read with the exports running); (a) phase 10's run
+   through the export CLI (``cli.export_main``) for ``cuda`` at rungs 1
+   and 16 with shared
    weights (six ``torch.export`` programs: text, images, images without
    aux crops), the bundle loaded (``load_exported_predictor``), its
    emissions against the live forward's, phase 7's 64 requests through
@@ -148,7 +151,26 @@ Phases, each of which fails the run by raising:
    ``--span_ac_loss_mode masked`` the same way; (d) bf16 on two gloo
    ranks: each rank's device guide table holds exactly the images of its
    rows, the two sets differ, the loss within 5% of (a)'s one process,
-   K1 and K2 launched in each rank; prints the phase's seconds.
+   K1 and K2 launched in each rank; prints the phase's seconds;
+16. tensor parallelism (``--mesh_model``), on phase 15's trees and in its
+   children: (k), run right after phase 4, K1 and K2 at the train shape
+   with H = 6 heads keyed from head 6 (``head_offset``, a TP rank's half
+   of BERT-base), with dropout 0.1 and without, against their plain
+   versions and bit for bit against heads 6-11 of the 12-head call, and
+   the mask entry point with ``head_offset`` 6 bit-identical to heads 6-11
+   of the full mask, timed beside the bound and SDPA; (a) the CRF CLI,
+   fp32 with images and dropout on, on two gloo ranks sharing the card
+   with ``--mesh_model 2`` against one process: the
+   loss to 1e-4 relative, F1 equal, ``best_model.npz`` by phase 15's leaf
+   rule, every rank's K1/K2 launches; (b) the span CLI with RoBERTa-base
+   and DualGCN the same way; (c) bf16 CRF at ``--mesh_data 2 --mesh_model
+   2`` on four gloo ranks against phase 15(d)'s two ranks at
+   ``--mesh_data 2`` (the same dropout draws): the loss to 1e-2 relative,
+   F1 within 0.02, each ``best_model.npz`` leaf's difference within a
+   quarter of how far 15(d) moved it (L2 norms); prints the phase's
+   seconds.  The card is
+   one: the ranks share it over gloo, so the phase proves agreement and
+   launches, not TP's speed.
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times: the
 kernels' summed durations under ``torch.profiler``.  ``event_ms`` is the
@@ -580,7 +602,10 @@ def sdpa_backward_ms(q, k, v, bias, do, rate):
     def fwd_bwd():
         torch.autograd.grad(fwd(), leaves, do)
 
-    return device_ms(fwd_bwd) - device_ms(fwd)
+    both = device_profile(fwd_bwd), device_profile(fwd)
+    if any("event_timer" in t for t in both):     # one clock for both
+        return cuda_ms(fwd_bwd) - cuda_ms(fwd)
+    return sum(both[0].values()) - sum(both[1].values())
 
 
 # ---------------------------------------------------------------------------
@@ -2374,19 +2399,45 @@ def serve_bundle(name, bundle, live, reqs):
     return results, out
 
 
-def export_run(run, bert, out, rungs):
-    """The run through the export CLI for cuda, in this process:
-    (manifest, wall s); logs each program's seconds and bytes."""
-    from mtvaf_tpu_torch.cli.export_main import main as export_main
-    t0 = time.perf_counter()
-    manifest = export_main(["--save_path", run, "--out", out,
-                            "--batch_sizes", ",".join(map(str, rungs)),
-                            "--platforms", "cuda", "--bert_name", bert])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+def start_exports(runs):
+    """Phase 13's two exports through the export CLI for cuda, each in a
+    child process (``Child``), started before phases 15 and 16 so that
+    they run beside them: phase 10's CRF run at rungs 1 and 16, phase
+    12(c)'s span run at rung 16.  :func:`finish_export` collects each."""
+    tmp = runs["dir"]
+    out = {}
+    for key, rungs in (("crf", "1,16"), ("span", "16")):
+        run, bert = runs[key]
+        bundle = os.path.join(tmp, f"{key}_bundle")
+        out[key] = (Child(tmp, f"export_{key}",
+                          "mtvaf_tpu_torch.cli.export_main",
+                          ["--save_path", run, "--out", bundle,
+                           "--batch_sizes", rungs, "--platforms", "cuda",
+                           "--bert_name", bert]), time.time(), bundle)
+    return out
+
+
+def finish_export(export, timeout=900):
+    """Wait for one of :func:`start_exports`' children: (manifest, wall s
+    from its start to its manifest's write); logs each program's seconds
+    and bytes."""
+    child, t0, bundle = export
+    try:
+        child.proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        child.stop()
+        raise AssertionError(f"export to {bundle} ran past {timeout} s")
+    if child.proc.returncode != 0:
+        raise AssertionError(f"export to {bundle} exited "
+                             f"{child.proc.returncode}:\n"
+                             f"{child.text()[-6000:]}")
+    path = os.path.join(bundle, "manifest.json")
+    with open(path) as f:
+        manifest = json.load(f)
+    wall = os.path.getmtime(path) - t0
     programs = {p["name"]: {"seconds": p["seconds"], "bytes": p["bytes"]}
                 for p in manifest["programs"]}
-    log(f"export {os.path.basename(out)}: {len(programs)} programs in "
+    log(f"export {os.path.basename(bundle)}: {len(programs)} programs in "
         f"{wall:.1f} s", json.dumps(programs))
     return manifest, wall
 
@@ -2650,7 +2701,7 @@ def k1_host_ms():
     return {f"{name}_event_ms": sum(t) / len(t) for name, t in times.items()}
 
 
-def serving_tier_phase(runs, serve_path):
+def serving_tier_phase(runs, serve_path, exports):
     """Phase 13: (a) phase 10's flagship CRF run exported for cuda at rungs
     1 and 16 (shared weights), loaded, held against the live predictor
     (emissions; phase 7's 64 requests through ``BatchingServer``); (b)
@@ -2658,9 +2709,10 @@ def serving_tier_phase(runs, serve_path):
     64 image-bearing requests; (c) ``cli.serve_main --bundle`` over (a) in
     a child process, 64 text POSTs from 16 threads, then ``build_app`` in
     this process with images and with ``max_queue=1``; (d) K1's host time
-    per call through the operator.  The HTTP child loads its bundle while
-    this process exports the span bundle and loads its own; every timed
-    serving run starts after the child is up and idle."""
+    per call through the operator.  The exports ran in children during
+    phases 15 and 16 (``exports``: :func:`start_exports`); the HTTP child
+    loads its bundle while this process loads and serves its own; every
+    timed serving run starts after the child is up and idle."""
     from mtvaf_tpu_torch.export import load_exported_predictor
     from mtvaf_tpu_torch.infer import load_predictor
 
@@ -2669,14 +2721,13 @@ def serving_tier_phase(runs, serve_path):
     tmp = runs["dir"]
     crf_run, crf_bert = runs["crf"]
     span_run, span_bert = runs["span"]
-    bundle_dir = os.path.join(tmp, "crf_bundle")
-    span_dir = os.path.join(tmp, "span_bundle")
+    bundle_dir, span_dir = exports["crf"][2], exports["span"][2]
     port = free_port()
     base = f"http://127.0.0.1:{port}"
     children = []
     try:
-        manifest, export_s = export_run(crf_run, crf_bert, bundle_dir,
-                                        (1, 16))
+        manifest, export_s = finish_export(exports["crf"])
+        span_manifest, span_export_s = finish_export(exports["span"])
         names = sorted(p["name"] for p in manifest["programs"])
         if names != sorted(f"crf_decode{v}_b{r}" for r in (1, 16)
                            for v in ("", "_images", "_images_noaux")):
@@ -2687,8 +2738,6 @@ def serving_tier_phase(runs, serve_path):
                               crf_bert, "--port", str(port), "--max_batch",
                               "16", "--max_wait_ms", "5"])
         children.append(server_child)
-        span_manifest, span_export_s = export_run(span_run, span_bert,
-                                                  span_dir, (16,))
 
         # (a) the CRF bundle
         live = load_predictor(crf_run, bert_name=crf_bert, device="cuda")
@@ -3358,13 +3407,16 @@ def record_grads(optimizer):
 
 
 def dp_child(spec):
-    """One process of phase 15 (``--dp-child SPEC``): the CLI through
-    ``run_cli`` on ``spec["argv"]``, in a gloo group of its own making
-    (``spec["gloo"]``), in the group the launcher's environment names, or
-    alone; prints one ``dp_child`` JSON line with its rank, history,
-    metrics, kernel launches (counted from 0 just before the run), rows per
-    train step and, with ``spec["table"]``, its guide table's images
-    beside the images of its rows."""
+    """One process of phase 15 or 16 (``--dp-child SPEC``): the CLI through
+    ``run_cli`` on ``spec["argv"]`` (RoBERTa-base with ``spec["roberta"]``),
+    in a gloo group of its own making (``spec["gloo"]``), in the group the
+    launcher's environment names, or alone; prints one ``dp_child`` JSON
+    line with its data rank, model rank, history, metrics, kernel launches
+    (counted from 0 just before the run), rows per train step and, with
+    ``spec["table"]``, its guide table's images beside the images of its
+    rows.  Under tensor parallelism the gradients it keeps
+    (``spec["grads"]``) are gathered whole from the TP group, and global
+    rank 0 writes them."""
     import datetime
     import torch.distributed as dist
     from mtvaf_tpu_torch.nn.bert import BertConfig
@@ -3377,7 +3429,7 @@ def dp_child(spec):
     gloo = spec.get("gloo")
     if gloo:
         dist.init_process_group(
-            "gloo", init_method=f"tcp://127.0.0.1:{gloo['port']}",
+            "gloo", init_method="file://" + gloo["store"],
             rank=gloo["rank"], world_size=gloo["world"],
             timeout=datetime.timedelta(seconds=DP_TIMEOUT))
     seen = {}
@@ -3400,22 +3452,34 @@ def dp_child(spec):
 
     reset_counts()
     t0 = time.perf_counter()
-    metrics, tr = run_cli(spec["argv"], BertConfig.base(), span=spec["span"],
-                          on_trainer=on_trainer)
+    metrics, tr = run_cli(spec["argv"],
+                          BertConfig.base(is_roberta=spec.get("roberta",
+                                                              False)),
+                          span=spec["span"], on_trainer=on_trainer)
     torch.cuda.synchronize()
+    counts = read_counts()
+    model_rank, writer = 0, True
+    if tr.state.layout:
+        from mtvaf_tpu_torch.core import mesh
+        # the CLI forgot its grid on return; the group is this process's
+        mesh.setup_grid(tr.cfg.mesh_model)
+        model_rank, writer = mesh.model_rank(), mesh.rank() == 0
+        if spec.get("grads"):
+            seen["grads"] = tp_gather_grads(seen["grads"], tr.state.layout)
     # this rank's eval batches in one epoch: dev, then test (the CRF CLI
     # tests after the epoch and again on the best model at the end)
     mine = [len(range(seen["rank"], -(-len(d) // tr.cfg.eval_batch_size),
                       seen["world"]))
             for d in (tr.dev_dataset, tr.test_dataset)]
     out = {"rank": seen["rank"], "world": seen["world"],
+           "model_rank": model_rank,
            "wall_s": time.perf_counter() - t0, "metrics": metrics,
-           "history": tr.history, "counts": read_counts(),
+           "history": tr.history, "counts": counts,
            "rows_per_step": sorted(seen["rows"]),
            "leaf_lr": {k: tr.cfg.lr * f
                        for k, f in tr.optimizer.factors.items()},
            "eval_batches": mine[0] + mine[1] * (1 if spec["span"] else 2)}
-    if spec.get("grads"):
+    if spec.get("grads") and writer:
         np.savez(spec["grads"], **{
             k: (torch.stack(v) if isinstance(v, list) else v).cpu().numpy()
             for k, v in seen["grads"].items()})
@@ -3428,6 +3492,25 @@ def dp_child(spec):
     log("dp_child " + json.dumps(out))
     if gloo:
         dist.destroy_process_group()
+
+
+def tp_gather_grads(kept, layout):
+    """:func:`record_grads`' records of a TP rank (its shards) whole,
+    gathered from the TP group (every rank of it calls this)."""
+    from mtvaf_tpu_torch.core import mesh
+    out = {}
+    for kind in ("max", "sum"):
+        part = {k.split("/", 1)[1]: v for k, v in kept.items()
+                if k.startswith(kind + "/")}
+        out.update({f"{kind}/{k}": v for k, v in
+                    mesh.gather_tree(part, layout).items()})
+    steps = {k.split("/", 1)[1]: v for k, v in kept.items()
+             if k.startswith("step/")}
+    for i in range(len(next(iter(steps.values()), []))):
+        whole = mesh.gather_tree({k: v[i] for k, v in steps.items()}, layout)
+        for k, v in whole.items():
+            out.setdefault(f"step/{k}", []).append(v)
+    return out
 
 
 def dp_start(tmp, name, spec, launcher=False, env=None):
@@ -3469,7 +3552,7 @@ def dp_wait(children, timeout=DP_TIMEOUT):
         lines = [ln for ln in text.splitlines()
                  if ln.startswith("dp_child ")]
         if p.returncode != 0 or not lines:
-            raise AssertionError(f"phase 15 child {name} exited "
+            raise AssertionError(f"child {name} exited "
                                  f"{p.returncode}:\n{text[-6000:]}")
         out[name] = json.loads(lines[-1].split(" ", 1)[1])
     return out
@@ -3589,9 +3672,12 @@ def dp_leaf_diff(a_path, b_path, init_path=None, grads_path=None,
     return out
 
 
-def dp_compare(name, ref, ranks, ref_save, dp_save, layers):
-    """Phase 15(b)/(c): each rank against the one-process run on the same
-    flags and global batch."""
+def dp_compare(name, ref, ranks, ref_save, dp_save, layers, phase="15",
+               data=None):
+    """Phase 15(b)/(c) (and 16(a)/(b)): each rank against the one-process
+    run on the same flags and global batch, the ranks on a data axis of
+    ``data`` (all of them by default)."""
+    data = data or len(ranks)
     want_loss = ref["history"][0]["train_loss"]
     rel_loss = max(abs(r["history"][0]["train_loss"] - want_loss)
                    / abs(want_loss) for r in ranks)
@@ -3616,32 +3702,34 @@ def dp_compare(name, ref, ranks, ref_save, dp_save, layers):
            + [r["metrics"] for r in ranks],
            "launches": dp_launches(ranks), "ref_launches": ref["counts"],
            "rows_per_step": [r["rows_per_step"] for r in ranks]}
-    log(f"dp_{name}", json.dumps(out))
+    log(f"{'dp' if phase == '15' else 'tp'}_{name}", json.dumps(out))
     for r in ranks:
         if r["metrics"] != ref["metrics"]:
-            raise AssertionError(f"15 {name}: rank {r['rank']}'s F1 "
+            raise AssertionError(f"{phase} {name}: rank {r['rank']}'s F1 "
                                  f"{r['metrics']} is not {ref['metrics']}")
-        if r["rows_per_step"] != [ref["rows_per_step"][0] // len(ranks)]:
-            raise AssertionError(f"15 {name}: rank {r['rank']} took "
+        if r["rows_per_step"] != [ref["rows_per_step"][0] // data]:
+            raise AssertionError(f"{phase} {name}: rank {r['rank']} took "
                                  f"{r['rows_per_step']} rows a step")
         c = r["counts"]
         if c["k2"] != layers * steps or c["mask"] or \
                 c["k1"] != layers * (steps + r["eval_batches"]):
             raise AssertionError(
-                f"15 {name}: rank {r['rank']} launched {c} for {steps} "
+                f"{phase} {name}: rank {r['rank']} launched {c} for {steps} "
                 f"steps and {r['eval_batches']} eval batches")
     if rel_loss > 1e-4 or leaves["failed"]:
         raise AssertionError(
-            f"15 {name}: the ranks' loss differs by {rel_loss} (limit 1e-4 "
-            f"relative); past their limits: {leaves['failed']}; nearest: "
+            f"{phase} {name}: the ranks' loss differs by {rel_loss} (limit "
+            f"1e-4 relative); past their limits: {leaves['failed']}; nearest: "
             f"{leaves['norms']}, {leaves['nearest']}")
     return out
 
 
 def dp_launches(ranks):
-    return {f"rank{r['rank']}": {"k1": r["counts"]["k1"],
-                                 "k2": r["counts"]["k2"],
-                                 "mask": r["counts"]["mask"]}
+    return {f"rank{r['rank']}" + (f"_model{r['model_rank']}"
+                                  if len({x.get("model_rank", 0)
+                                          for x in ranks}) > 1 else ""):
+            {"k1": r["counts"]["k1"], "k2": r["counts"]["k2"],
+             "mask": r["counts"]["mask"]}
             for r in ranks}
 
 
@@ -3657,7 +3745,20 @@ def dp_kernel_launches(dp_path, name):
                for rank, n in dp_path[key]["launches"].items()}}
 
 
-def dp_phase():
+def tp_kernel_launches(tp_path, rows, name):
+    """Phase 16's launches of one kernel, per run and rank (each counted
+    from 0 just before its run, in its own process), and its 16(k) rows."""
+    launches = {f"{key}_{rank}": n[name]
+                for key in ("a", "b", "c")
+                for rank, n in tp_path[key]["launches"].items()}
+    launches.update({f"{key}_single": tp_path[key]["ref_launches"][name]
+                     for key in ("a", "b")})
+    return {"launches": launches,
+            "head_offset_rows": [r for k, r in rows.items()
+                                 if k.split("_")[0] == name]}
+
+
+def dp_phase(tmp):
     """Phase 15: data parallelism at the flagship width, one epoch per run
     on phase 10's synthetic Twitter-2015 tree (and phase 11's span tree):
     (a) NCCL at world size 1 through ``torch.distributed.run``, bitwise
@@ -3666,7 +3767,8 @@ def dp_phase():
     against one process; (c) the span CLI with DualGCN and the masked span
     CE on two gloo ranks against one process; (d) bf16 on two gloo ranks,
     each rank's device guide table holding its own rows' images, against
-    (a)'s one-process run."""
+    (a)'s one-process run.  Returns (its numbers, what phase 16 reuses:
+    the trees and (d)'s two ranks under ``tmp``)."""
     from mtvaf_tpu_torch.core.config import Config
     from mtvaf_tpu_torch.data.datasets import SpanDataset
     from mtvaf_tpu_torch.data.tokenization import build_tokenizer
@@ -3675,139 +3777,417 @@ def dp_phase():
     layers = BertConfig.base().num_hidden_layers
     t_phase = time.perf_counter()
     out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        root, bert_dir, cache, _ = trainer_tree(tmp)
-        span_root, span_bert = span_tree(tmp)
-        cfg = Config(dataset_name="twitter15", max_seq=TRAIN_S)
-        tok = build_tokenizer(span_bert, cfg.do_lower_case)
-        for k, (mode, fname) in enumerate((("train", "train.txt"),
-                                           ("dev", "valid.txt"),
-                                           ("test", "test.txt"))):
-            path = os.path.join(span_root, "twitter2015", fname)
-            write_gcn_side_file(
-                os.path.join(span_root, "twitter2015",
-                             f"twitter15_{mode}.json"),
-                SpanDataset.load(cfg, tok, path), seed=SEED + 40 + k)
+    root, bert_dir, cache, _ = trainer_tree(tmp)
+    span_root, span_bert = span_tree(tmp)
+    cfg = Config(dataset_name="twitter15", max_seq=TRAIN_S)
+    tok = build_tokenizer(span_bert, cfg.do_lower_case)
+    for k, (mode, fname) in enumerate((("train", "train.txt"),
+                                       ("dev", "valid.txt"),
+                                       ("test", "test.txt"))):
+        path = os.path.join(span_root, "twitter2015", fname)
+        write_gcn_side_file(
+            os.path.join(span_root, "twitter2015",
+                         f"twitter15_{mode}.json"),
+            SpanDataset.load(cfg, tok, path), seed=SEED + 40 + k)
 
-        def crf_argv(save, *extra):
-            argv = _trainer_argv(root, bert_dir, cache,
-                                 os.path.join(tmp, save), "--do_train",
-                                 "--num_epochs", "1", *extra)
-            if "--no_bf16" in extra:
-                argv.remove("--bf16")
-            return argv
+    def crf_argv(save, *extra):
+        argv = _trainer_argv(root, bert_dir, cache,
+                             os.path.join(tmp, save), "--do_train",
+                             "--num_epochs", "1", *extra)
+        if "--no_bf16" in extra:
+            argv.remove("--bf16")
+        return argv
 
-        def span_argv(save):
-            return ["--dataset_name", "twitter15", "--bert_name", span_bert,
-                    "--data_root", span_root, "--save_path",
-                    os.path.join(tmp, save), "--max_seq", str(TRAIN_S),
-                    "--train_batch_size", str(TRAIN_B), "--eval_batch_size",
-                    str(TRAINER_EVAL_BATCH), "--num_epochs", "1",
-                    "--eval_begin_epoch", "1", "--seed", str(SEED),
-                    "--logit_threshold", "0", "--num_layers", "2",
-                    "--span_ac_loss_mode", "masked", "--no_bf16",
-                    "--deterministic", "--do_train"]
+    def span_argv(save):
+        return ["--dataset_name", "twitter15", "--bert_name", span_bert,
+                "--data_root", span_root, "--save_path",
+                os.path.join(tmp, save), "--max_seq", str(TRAIN_S),
+                "--train_batch_size", str(TRAIN_B), "--eval_batch_size",
+                str(TRAINER_EVAL_BATCH), "--num_epochs", "1",
+                "--eval_begin_epoch", "1", "--seed", str(SEED),
+                "--logit_threshold", "0", "--num_layers", "2",
+                "--span_ac_loss_mode", "masked", "--no_bf16",
+                "--deterministic", "--do_train"]
 
-        def spec(argv, span=False, gloo=None, **kw):
-            return {"argv": argv, "span": span, "gloo": gloo, **kw}
+    def spec(argv, span=False, gloo=None, **kw):
+        return {"argv": argv, "span": span, "gloo": gloo, **kw}
 
-        # (a) NCCL at world size 1 through the launcher, and one process;
-        # one after the other, so that each one's examples/s is its own
-        det = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
-        single = dp_wait([dp_start(tmp, "a_single", spec(
-            crf_argv("a_single"), deterministic_algorithms=True), env=det)])
-        nccl = dp_wait([dp_start(tmp, "a_nccl", spec(
-            crf_argv("a_nccl"), deterministic_algorithms=True),
-            launcher=True, env=det)])
-        single, nccl = single["a_single"], nccl["a_nccl"]
-        bitwise = dp_leaf_diff(
-            os.path.join(tmp, "a_nccl", "best_model.npz"),
-            os.path.join(tmp, "a_single", "best_model.npz"))["bitwise"]
-        a = {"world": nccl["world"],
-             "train_loss": [single["history"][0]["train_loss"],
-                            nccl["history"][0]["train_loss"]],
-             "metrics": [single["metrics"], nccl["metrics"]],
-             "best_model_bitwise": bitwise,
-             "examples_per_s": {
-                 "single": single["history"][0]["examples_per_s"],
-                 "nccl_world1": nccl["history"][0]["examples_per_s"]},
-             "launches": {"single": single["counts"],
-                          "nccl_world1": nccl["counts"]}}
-        log("dp_nccl_world1", json.dumps(a))
-        if nccl["world"] != 1 or not bitwise \
-                or a["train_loss"][0] != a["train_loss"][1] \
-                or single["metrics"] != nccl["metrics"] \
-                or single["counts"] != nccl["counts"]:
-            raise AssertionError(f"15(a): NCCL at world size 1 is not the "
-                                 f"one-process run bit for bit: {a}")
-        out["a"] = a
+    # (a) NCCL at world size 1 through the launcher, and one process;
+    # one after the other, so that each one's examples/s is its own
+    det = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    single = dp_wait([dp_start(tmp, "a_single", spec(
+        crf_argv("a_single"), deterministic_algorithms=True), env=det)])
+    nccl = dp_wait([dp_start(tmp, "a_nccl", spec(
+        crf_argv("a_nccl"), deterministic_algorithms=True),
+        launcher=True, env=det)])
+    single, nccl = single["a_single"], nccl["a_nccl"]
+    bitwise = dp_leaf_diff(
+        os.path.join(tmp, "a_nccl", "best_model.npz"),
+        os.path.join(tmp, "a_single", "best_model.npz"))["bitwise"]
+    a = {"world": nccl["world"],
+         "train_loss": [single["history"][0]["train_loss"],
+                        nccl["history"][0]["train_loss"]],
+         "metrics": [single["metrics"], nccl["metrics"]],
+         "best_model_bitwise": bitwise,
+         "examples_per_s": {
+             "single": single["history"][0]["examples_per_s"],
+             "nccl_world1": nccl["history"][0]["examples_per_s"]},
+         "launches": {"single": single["counts"],
+                      "nccl_world1": nccl["counts"]}}
+    log("dp_nccl_world1", json.dumps(a))
+    if nccl["world"] != 1 or not bitwise \
+            or a["train_loss"][0] != a["train_loss"][1] \
+            or single["metrics"] != nccl["metrics"] \
+            or single["counts"] != nccl["counts"]:
+        raise AssertionError(f"15(a): NCCL at world size 1 is not the "
+                             f"one-process run bit for bit: {a}")
+    out["a"] = a
 
-        # (b), (c) and (d) side by side (eight processes): gloo ranks share
-        # the card
-        def ranks(name, argv, world=2, rank0=None, **kw):
-            port = free_port()
-            return [dp_start(tmp, f"{name}_rank{r}", spec(
-                argv, gloo={"rank": r, "world": world, "port": port},
-                **kw, **(rank0 if r == 0 and rank0 else {})))
-                for r in range(world)]
+    # (b), (c) and (d) side by side (eight processes): gloo ranks share
+    # the card
+    def ranks(name, argv, world=2, rank0=None, **kw):
+        store = os.path.join(tmp, f"{name}.pg_store")
+        return [dp_start(tmp, f"{name}_rank{r}", spec(
+            argv, gloo={"rank": r, "world": world, "store": store},
+            **kw, **(rank0 if r == 0 and rank0 else {})))
+            for r in range(world)]
 
-        def grads(save):
-            return {"grads": os.path.join(tmp, save, "grads.npz")}
+    def grads(save):
+        return {"grads": os.path.join(tmp, save, "grads.npz")}
 
-        def kept(save):
-            return {"save_init": os.path.join(tmp, save, "init_model.npz"),
-                    **grads(save)}
+    def kept(save):
+        return {"save_init": os.path.join(tmp, save, "init_model.npz"),
+                **grads(save)}
 
-        fp32 = ("--no_bf16", "--deterministic")
-        wave = dp_wait([dp_start(tmp, "b_single",
-                                 spec(crf_argv("b_single", *fp32),
-                                      **kept("b_single"))),
-                        dp_start(tmp, "c_single",
-                                 spec(span_argv("c_single"), span=True,
-                                      **kept("c_single")))]
-                       + ranks("b", crf_argv("b_dp", *fp32),
-                               rank0=grads("b_dp"))
-                       + ranks("c", span_argv("c_dp"), span=True,
-                               rank0=grads("c_dp"))
-                       + ranks("d", crf_argv("d_dp"), table=True))
-        out["b"] = dp_compare(
-            "b", wave["b_single"], [wave["b_rank0"], wave["b_rank1"]],
-            os.path.join(tmp, "b_single"), os.path.join(tmp, "b_dp"),
-            layers)
+    fp32 = ("--no_bf16", "--deterministic")
+    wave = dp_wait([dp_start(tmp, "b_single",
+                             spec(crf_argv("b_single", *fp32),
+                                  **kept("b_single"))),
+                    dp_start(tmp, "c_single",
+                             spec(span_argv("c_single"), span=True,
+                                  **kept("c_single")))]
+                   + ranks("b", crf_argv("b_dp", *fp32),
+                           rank0=grads("b_dp"))
+                   + ranks("c", span_argv("c_dp"), span=True,
+                           rank0=grads("c_dp"))
+                   + ranks("d", crf_argv("d_dp"), table=True, rank0={
+                       "save_init": os.path.join(tmp, "d_dp",
+                                                 "init_model.npz")}))
+    out["b"] = dp_compare(
+        "b", wave["b_single"], [wave["b_rank0"], wave["b_rank1"]],
+        os.path.join(tmp, "b_single"), os.path.join(tmp, "b_dp"),
+        layers)
 
-        d_ranks = [wave["d_rank0"], wave["d_rank1"]]
-        want = single["history"][0]["train_loss"]
-        d = {"train_loss": [want] + [r["history"][0]["train_loss"]
-                                     for r in d_ranks],
-             "launches": dp_launches(d_ranks),
-             "table_images": [len(r["table"]["keys"]) for r in d_ranks],
-             "own_images": [len(r["table"]["own"]) for r in d_ranks],
-             "examples_per_s": d_ranks[0]["history"][0]["examples_per_s"]}
-        log("dp_bf16_table", json.dumps(d))
-        for r in d_ranks:
-            t, loss = r["table"], r["history"][0]["train_loss"]
-            if t["keys"] != t["own"] or not t["on_card"]:
-                raise AssertionError(
-                    f"15(d): rank {r['rank']}'s guide table holds "
-                    f"{len(t['keys'])} images, its rows "
-                    f"{len(t['own'])}, and they differ")
-            if not math.isfinite(loss) or abs(loss - want) > 0.05 * abs(want):
-                raise AssertionError(f"15(d): rank {r['rank']}'s loss "
-                                     f"{loss} is not within 5% of {want}")
-            if r["counts"]["k1"] == 0 or r["counts"]["k2"] == 0:
-                raise AssertionError(f"15(d): rank {r['rank']} launched "
-                                     f"{r['counts']}")
-        if set(d_ranks[0]["table"]["keys"]) == set(d_ranks[1]["table"]
-                                                   ["keys"]):
-            raise AssertionError("15(d): both ranks' tables hold the same "
-                                 "images")
-        out["d"] = d
-        out["c"] = dp_compare(
-            "c", wave["c_single"], [wave["c_rank0"], wave["c_rank1"]],
-            os.path.join(tmp, "c_single"), os.path.join(tmp, "c_dp"),
-            layers)
+    d_ranks = [wave["d_rank0"], wave["d_rank1"]]
+    want = single["history"][0]["train_loss"]
+    d = {"train_loss": [want] + [r["history"][0]["train_loss"]
+                                 for r in d_ranks],
+         "launches": dp_launches(d_ranks),
+         "table_images": [len(r["table"]["keys"]) for r in d_ranks],
+         "own_images": [len(r["table"]["own"]) for r in d_ranks],
+         "examples_per_s": d_ranks[0]["history"][0]["examples_per_s"]}
+    log("dp_bf16_table", json.dumps(d))
+    for r in d_ranks:
+        t, loss = r["table"], r["history"][0]["train_loss"]
+        if t["keys"] != t["own"] or not t["on_card"]:
+            raise AssertionError(
+                f"15(d): rank {r['rank']}'s guide table holds "
+                f"{len(t['keys'])} images, its rows "
+                f"{len(t['own'])}, and they differ")
+        if not math.isfinite(loss) or abs(loss - want) > 0.05 * abs(want):
+            raise AssertionError(f"15(d): rank {r['rank']}'s loss "
+                                 f"{loss} is not within 5% of {want}")
+        if r["counts"]["k1"] == 0 or r["counts"]["k2"] == 0:
+            raise AssertionError(f"15(d): rank {r['rank']} launched "
+                                 f"{r['counts']}")
+    if set(d_ranks[0]["table"]["keys"]) == set(d_ranks[1]["table"]
+                                               ["keys"]):
+        raise AssertionError("15(d): both ranks' tables hold the same "
+                             "images")
+    out["d"] = d
+    out["c"] = dp_compare(
+        "c", wave["c_single"], [wave["c_rank0"], wave["c_rank1"]],
+        os.path.join(tmp, "c_single"), os.path.join(tmp, "c_dp"),
+        layers)
     out["seconds"] = time.perf_counter() - t_phase
     log("dp_phase_seconds", out["seconds"])
+    return out, {"crf": (root, bert_dir, cache), "span": span_root,
+                 "d_ranks": d_ranks}
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: tensor parallelism.
+
+# A TP rank's heads of BERT-base on a model axis of 2: heads 6-11.
+TP_HEADS, TP_OFFSET = 6, 6
+TP_TIMEOUT = 600
+
+
+def check_head_offset(rate=0.1):
+    """Phase 16(k): K1, K2 and the mask entry point keyed from head
+    ``TP_OFFSET`` at the train shape with ``TP_HEADS`` heads: against their
+    plain versions given the same (offset) masks, bit for bit against heads
+    6-11 of a 12-head call on the same inputs, and timed beside the bound
+    and SDPA.  Returns the rows."""
+    from mtvaf_tpu_torch.kernels.prefix_attention import (
+        keep_factors, keep_mask_cuda, keep_mask_reference,
+        prefix_attention_bwd_cuda, prefix_attention_bwd_reference,
+        prefix_attention_cuda, prefix_attention_reference)
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    b, h, s, t, d, dtype = TRAIN_B, TP_HEADS, TRAIN_S, TRAIN_S + 16, 64, \
+        torch.bfloat16
+    full_h, lo = TP_OFFSET + TP_HEADS, TP_OFFSET
+    g = torch.Generator(device=dev).manual_seed(SEED + 16)
+    q, k, v, bias = attention_inputs(g, b, full_h, s, t, d, dtype)
+    do = torch.randn(b, full_h, s, d, device=dev, generator=g).to(dtype)
+    part = [x[:, lo:].contiguous() for x in (q, k, v, do)]
+    rows = {}
+
+    # the mask entry point
+    shape = (b, h, s, t)
+    got = keep_mask_cuda(DROPOUT_SEED, rate, shape, dev, head_offset=lo)
+    whole = keep_mask_cuda(DROPOUT_SEED, rate, (b, full_h, s, t), dev)
+    plain = keep_mask_reference(DROPOUT_SEED, rate, shape, dev,
+                                head_offset=lo)
+    torch.cuda.synchronize()
+    mask_bytes = b * h * s * t * 4
+    rows["mask"] = {
+        "shape": "train_h6_offset6", "rate": rate,
+        "mismatches_vs_full_heads_6_11": int((got != whole[:, lo:]).sum()),
+        "mismatches_vs_plain": int((got != plain).sum()),
+        "ms": device_ms(lambda: keep_mask_cuda(DROPOUT_SEED, rate, shape, dev,
+                                               head_offset=lo)),
+        "plain_ms": device_ms(lambda: keep_mask_reference(
+            DROPOUT_SEED, rate, shape, dev, head_offset=lo)),
+        "bound_ms": mask_bytes / HBM_BPS * 1e3, "bound_by": "bytes",
+        "library_ms": None}
+    del whole, plain
+    log("tp_keep_mask", json.dumps(rows["mask"]))
+    if rows["mask"]["mismatches_vs_full_heads_6_11"] \
+            or rows["mask"]["mismatches_vs_plain"]:
+        raise AssertionError(f"16(k): the offset mask is not heads 6-11 of "
+                             f"the full one: {rows['mask']}")
+
+    for r in (0.0, rate):
+        keep = keep_factors(DROPOUT_SEED, r, shape, dev, head_offset=lo) \
+            if r else None
+        o, lse = prefix_attention_cuda(*part[:3], bias, seed=DROPOUT_SEED,
+                                       rate=r, head_offset=lo)
+        o12, lse12 = prefix_attention_cuda(q, k, v, bias, seed=DROPOUT_SEED,
+                                           rate=r)
+        grads = prefix_attention_bwd_cuda(*part[:3], bias, o, lse, part[3],
+                                          seed=DROPOUT_SEED, rate=r,
+                                          head_offset=lo)
+        grads12 = prefix_attention_bwd_cuda(q, k, v, bias, o12, lse12, do,
+                                            seed=DROPOUT_SEED, rate=r)
+        torch.cuda.synchronize()
+        ro, _ = prefix_attention_reference(*part[:3], bias, keep)
+        _, rlse = prefix_attention_reference(*part[:3], bias)
+        rgrads = prefix_attention_bwd_reference(*part[:3], bias, o, lse,
+                                                part[3], keep)
+        bitwise_fwd = bool(torch.equal(o, o12[:, lo:])
+                           and torch.equal(lse, lse12[:, lo:]))
+        bitwise_bwd = all(torch.equal(a, w[:, lo:])
+                          for a, w in zip(grads, grads12))
+        err_o = (o.float() - ro.float()).abs().max().item()
+        err_lse = (lse - rlse).abs().max().item()
+        err_g = max((a.float() - p.float()).abs().max().item()
+                    for a, p in zip(grads, rgrads))
+        del o12, lse12, grads12, rgrads
+        for name, err, atol, bitwise, fn, plain_fn, lib_fn, bound in (
+                ("k1", max(err_o, err_lse), K1_ATOL[dtype], bitwise_fwd,
+                 lambda: prefix_attention_cuda(
+                     *part[:3], bias, seed=DROPOUT_SEED, rate=r,
+                     head_offset=lo),
+                 lambda: prefix_attention_reference(*part[:3], bias, keep),
+                 lambda: F.scaled_dot_product_attention(
+                     *part[:3], attn_mask=bias.to(dtype), dropout_p=r),
+                 k1_bound(b, h, s, t, d, dtype)),
+                ("k2", err_g, K2_ATOL[dtype], bitwise_bwd,
+                 lambda: prefix_attention_bwd_cuda(
+                     *part[:3], bias, o, lse, part[3], seed=DROPOUT_SEED,
+                     rate=r, head_offset=lo),
+                 lambda: prefix_attention_bwd_reference(
+                     *part[:3], bias, o, lse, part[3], keep),
+                 None, k2_bound(b, h, s, t, d, dtype))):
+            ms = device_ms(fn)
+            lib_ms = device_ms(lib_fn) if lib_fn else \
+                sdpa_backward_ms(*part[:3], bias, part[3], r)
+            row = {"shape": "train_h6_offset6", "B": b, "H": h, "S": s,
+                   "T": t, "D": d, "rate": r, "head_offset": lo,
+                   "max_abs_err": err, "atol": atol,
+                   "bitwise_vs_full_heads_6_11": bitwise, "ms": ms,
+                   "plain_ms": device_ms(plain_fn), "library_ms": lib_ms,
+                   "bound_ms": bound[0], "bound_by": bound[1],
+                   **shares(dtype, ms, bound[0], lib_ms)}
+            log(f"tp_{name}", json.dumps(row))
+            rows[f"{name}_{'dropout' if r else 'plain'}"] = row
+            if not (math.isfinite(err) and err <= atol and bitwise):
+                raise AssertionError(f"16(k): {name} with head_offset "
+                                     f"{lo} at rate {r}: {row}")
+        del keep
+    torch.cuda.empty_cache()
+    return rows
+
+
+def tp_phase(tmp, trees):
+    """Phase 16: tensor parallelism at the flagship width on phase 15's
+    trees, each run one epoch in children of this process (``--dp-child``),
+    the ranks sharing the card over gloo: (a) the CRF CLI, fp32 with
+    images and dropout on, at ``--mesh_model 2`` on two ranks against one
+    process; (b) the span CLI with RoBERTa-base and DualGCN the same way;
+    (c) bf16 CRF at ``--mesh_data 2 --mesh_model 2`` on four ranks against
+    phase 15(d)'s two ranks at ``--mesh_data 2``."""
+    from mtvaf_tpu_torch.core.config import Config
+    from mtvaf_tpu_torch.data.datasets import SpanDataset
+    from mtvaf_tpu_torch.data.synthetic import make_roberta_vocab
+    from mtvaf_tpu_torch.data.tokenization import build_tokenizer
+    from mtvaf_tpu_torch.nn.bert import BertConfig
+    import shutil
+
+    layers = BertConfig.base().num_hidden_layers
+    t_phase = time.perf_counter()
+    root, bert_dir, cache = trees["crf"]
+    # RoBERTa's span tree: phase 15's sentences, side files over RoBERTa's
+    # tokens
+    rob_root = os.path.join(tmp, "roberta_data")
+    rob_bert = os.path.join(tmp, "roberta-base")
+    make_roberta_vocab(rob_bert)
+    os.makedirs(os.path.join(rob_root, "twitter2015"))
+    cfg = Config(dataset_name="twitter15", max_seq=TRAIN_S,
+                 bert_name=rob_bert)
+    tok = build_tokenizer(rob_bert, cfg.do_lower_case)
+    for k, (mode, fname) in enumerate((("train", "train.txt"),
+                                       ("dev", "valid.txt"),
+                                       ("test", "test.txt"))):
+        path = shutil.copy(os.path.join(trees["span"], "twitter2015", fname),
+                           os.path.join(rob_root, "twitter2015", fname))
+        write_gcn_side_file(
+            os.path.join(rob_root, "twitter2015", f"twitter15_{mode}.json"),
+            SpanDataset.load(cfg, tok, path), seed=SEED + 60 + k)
+
+    def crf_argv(save, *extra):
+        argv = _trainer_argv(root, bert_dir, cache, os.path.join(tmp, save),
+                             "--do_train", "--num_epochs", "1", *extra)
+        if "--no_bf16" in extra:
+            argv.remove("--bf16")
+        return argv
+
+    def span_argv(save, *extra):
+        return ["--dataset_name", "twitter15", "--bert_name", rob_bert,
+                "--data_root", rob_root, "--save_path",
+                os.path.join(tmp, save), "--max_seq", str(TRAIN_S),
+                "--train_batch_size", str(TRAIN_B), "--eval_batch_size",
+                str(TRAINER_EVAL_BATCH), "--num_epochs", "1",
+                "--eval_begin_epoch", "1", "--seed", str(SEED),
+                "--logit_threshold", "0", "--num_layers", "2",
+                "--span_ac_loss_mode", "masked", "--no_bf16",
+                "--deterministic", "--do_train", *extra]
+
+    def ranks(name, argv, world, span=False, **kw):
+        store = os.path.join(tmp, f"{name}.pg_store")
+        return [dp_start(tmp, f"{name}_rank{r}", {
+            "argv": argv, "span": span, "gloo": {"rank": r, "world": world,
+                                                 "store": store}, **kw})
+            for r in range(world)]
+
+    def kept(save):
+        return {"save_init": os.path.join(tmp, save, "init_model.npz"),
+                "grads": os.path.join(tmp, save, "grads.npz")}
+
+    tp2 = ("--mesh_model", "2")
+    wave = dp_wait(
+        [dp_start(tmp, "tp_a_single", {
+            "argv": crf_argv("tp_a_single", "--no_bf16"), "span": False,
+            **kept("tp_a_single")}),
+         dp_start(tmp, "tp_b_single", {
+             "argv": span_argv("tp_b_single"), "span": True,
+             "roberta": True, **kept("tp_b_single")})]
+        + ranks("tp_a", crf_argv("tp_a", "--no_bf16", *tp2), 2,
+                grads=os.path.join(tmp, "tp_a", "grads.npz"))
+        + ranks("tp_b", span_argv("tp_b", *tp2), 2, span=True, roberta=True,
+                grads=os.path.join(tmp, "tp_b", "grads.npz"))
+        + ranks("tp_c", crf_argv("tp_c", "--mesh_data", "2", *tp2), 4),
+        timeout=TP_TIMEOUT)
+    out = {}
+    for key, name in (("a", "tp_a"), ("b", "tp_b")):
+        out[key] = dp_compare(
+            key, wave[f"{name}_single"],
+            [wave[f"{name}_rank{r}"] for r in range(2)],
+            os.path.join(tmp, f"{name}_single"), os.path.join(tmp, name),
+            layers, phase="16", data=1)
+    out["c"] = tp_against_dp(
+        [wave[f"tp_c_rank{r}"] for r in range(4)], trees["d_ranks"],
+        os.path.join(tmp, "tp_c", "best_model.npz"),
+        os.path.join(tmp, "d_dp", "best_model.npz"),
+        os.path.join(tmp, "d_dp", "init_model.npz"), layers)
+    out["seconds"] = time.perf_counter() - t_phase
+    log("tp_phase_seconds", out["seconds"])
+    return out
+
+
+# Phase 16(c)'s leaf rule: each ``best_model.npz`` leaf of the 2×2 run
+# within this share of how far the 2×1 run moved it from the initial model
+# (L2 norms).  bf16 rounding in another summation order moves a leaf's
+# AdamW steps by a few percent; a DP or TP group wired to the wrong ranks
+# averages another shard's or another batch's gradient into a leaf and
+# moves it by about as much as the leaf moved at all.
+TP_C_SHARE = 0.25
+
+
+def tp_against_dp(tp_ranks, dp_ranks, tp_best, dp_best, init, layers):
+    """Phase 16(c): bf16 DP×TP (2×2) against phase 15(d)'s DP (2×1) on the
+    same flags, whose data ranks draw the same dropout: the loss to 1e-2
+    relative, dev and test F1 within 0.02, each ``best_model.npz`` leaf's
+    difference within ``TP_C_SHARE`` of how far the 2×1 run moved it from
+    ``init`` (or 1e-4 of its norm), K1/K2 launches per rank."""
+    want = dp_ranks[0]["history"][0]
+    steps = want["steps"]
+    norms, failed = [], []
+    with np.load(tp_best) as a, np.load(dp_best) as b, np.load(init) as i:
+        if set(a.files) != set(b.files):
+            raise AssertionError(f"16(c): {tp_best} and {dp_best} hold "
+                                 f"other leaves")
+        for k in b.files:
+            y = b[k].astype(np.float64)
+            d = float(np.linalg.norm(a[k] - y))
+            moved = float(np.linalg.norm(y - i[k]))
+            limit = max(TP_C_SHARE * moved, 1e-4 * float(np.linalg.norm(y)))
+            norms.append((d / max(moved, 1e-30), k, d, moved))
+            if d > limit:
+                failed.append((k, d, limit))
+    norms.sort(reverse=True)
+    rel = max(abs(r["history"][0]["train_loss"] - want["train_loss"])
+              / abs(want["train_loss"]) for r in tp_ranks)
+    f1 = max(abs(r["metrics"][k] - dp_ranks[0]["metrics"][k])
+             for r in tp_ranks for k in dp_ranks[0]["metrics"])
+    out = {"train_loss": [want["train_loss"]]
+           + [r["history"][0]["train_loss"] for r in tp_ranks],
+           "loss_rel_diff": rel, "f1_max_abs_diff": f1,
+           "metrics": [dp_ranks[0]["metrics"]]
+           + [r["metrics"] for r in tp_ranks],
+           # (|2×2 − 2×1| / |2×1 − init|, leaf, |2×2 − 2×1|, |2×1 − init|)
+           "leaf_diff_over_movement": norms[:5],
+           "leaves_past_limit": failed,
+           "launches": dp_launches(tp_ranks),
+           "dp_launches": dp_launches(dp_ranks),
+           "rows_per_step": [r["rows_per_step"] for r in tp_ranks],
+           "examples_per_s": [r["history"][0]["examples_per_s"]
+                              for r in tp_ranks]}
+    log("tp_c", json.dumps(out))
+    for r in tp_ranks:
+        c = r["counts"]
+        if c["k2"] != layers * steps or c["mask"] or \
+                c["k1"] != layers * (steps + r["eval_batches"]) or \
+                r["rows_per_step"] != dp_ranks[0]["rows_per_step"]:
+            raise AssertionError(f"16(c): rank {r['rank']}/"
+                                 f"{r['model_rank']} launched {c} over "
+                                 f"{r['rows_per_step']} rows a step")
+    if rel > 1e-2 or f1 > 0.02 or failed:
+        raise AssertionError(f"16(c): DP×TP is not DP to summation order: "
+                             f"{out}")
     return out
 
 
@@ -3886,6 +4266,7 @@ def main() -> int:
     k1_rows = check_prefix_attention()
     mask_row, k1_train = check_dropout()
     k2_rows = check_backward()
+    tp_kernels = check_head_offset()
 
     cfg, bert_cfg, params, resnet = flagship()
     with tempfile.TemporaryDirectory() as tmp:
@@ -3906,14 +4287,23 @@ def main() -> int:
         trainer_path = trainer_phase(train_path, keep)
         span_path = span_phase(train_path)
         aux_path = aux_phase(span_path, keep)
-        tier_path = serving_tier_phase(
-            {"dir": keep, "crf": trainer_path.pop("kept"),
-             "span": aux_path.pop("kept")}, serve_path)
-    options_path = options_phase(cfg, bert_cfg, params, resnet, tok,
-                                 train_path)
-    del params, resnet
-    torch.cuda.empty_cache()
-    dp_path = dp_phase()
+        runs = {"dir": keep, "crf": trainer_path.pop("kept"),
+                "span": aux_path.pop("kept")}
+        options_path = options_phase(cfg, bert_cfg, params, resnet, tok,
+                                     train_path)
+        del params, resnet
+        torch.cuda.empty_cache()
+        # phase 13's exports run beside phases 15 and 16, which check
+        # agreement, and phase 13 serves their bundles after them
+        exports = start_exports(runs)
+        try:
+            with tempfile.TemporaryDirectory() as dp_tmp:
+                dp_path, trees = dp_phase(dp_tmp)
+                tp_path = tp_phase(dp_tmp, trees)
+            tier_path = serving_tier_phase(runs, serve_path, exports)
+        finally:
+            for child, _, _ in exports.values():
+                child.stop()
 
     serve_row = next(r for r in k1_rows if r["shape"] == "serve_bf16")
     k2_row = next(r for r in k2_rows
@@ -3975,6 +4365,7 @@ def main() -> int:
         "http": {"launches": tier_path["http"]["k1_launches"]},
         "host_ms_per_call": tier_path["k1_host"],
         "dp": dp_kernel_launches(dp_path, "k1"),
+        "tp": tp_kernel_launches(tp_path, tp_kernels, "k1"),
     }, {
         "name": "prefix_attention_bwd",
         "route": "cuda", "design": {"bfloat16": DESIGN[torch.bfloat16],
@@ -3991,6 +4382,7 @@ def main() -> int:
         "aux": {"launches": aux_launches["k2"]},
         "long": {"launches": long_launches["k2"]},
         "dp": dp_kernel_launches(dp_path, "k2"),
+        "tp": tp_kernel_launches(tp_path, tp_kernels, "k2"),
     }, {
         "name": "prefix_attention_keep_mask",
         "route": "cuda", "design": "cuda-cores",
@@ -4003,6 +4395,7 @@ def main() -> int:
         "aux": {"launches": aux_launches["mask"]},
         "long": {"launches": long_launches["mask"]},
         "dp": dp_kernel_launches(dp_path, "mask"),
+        "tp": tp_kernel_launches(tp_path, tp_kernels, "mask"),
         "max_abs_err": float(mask_row["mismatches"]),
         **{k: mask_row[k] for k in keys[:4]},
         "library_ms": None,

@@ -9,22 +9,25 @@ ResNet and BERT weights, ``run_config.json`` at train start, the datasets,
 ``--do_train`` / ``--only_test`` and ``final_metrics.json``.  The flags are
 the reference's over the port's config fields
 (``core.config.config_from_args``); ``--remat`` and ``--selective_remat``
-reach the encoder's ``BertConfig``; tensor parallelism (``--mesh_model``
-> 1) is not ported and raises (``core.config.check_ported``).
+reach the encoder's ``BertConfig``.
 
     python -m mtvaf_tpu_torch.cli.main --dataset_name twitter2015 \\
         --do_train --bert_name BERT_DIR --data_root DATA --save_path OUT
 
 The run is on ``cuda``; ``main(argv, device="cpu")`` runs it on the CPU.
-Data-parallel training runs one process per GPU:
+Data- and tensor-parallel training runs one process per GPU, D·M of them
+for ``--mesh_model M`` (the data axis D is the rest):
 
-    torchrun --nproc_per_node N -m mtvaf_tpu_torch.cli.main ...
+    torchrun --nproc_per_node D·M -m mtvaf_tpu_torch.cli.main ... \
+        --mesh_model M
 
 The process group is started from the launcher's environment (NCCL) before
 any CUDA work, or adopted when the caller started one (gloo ranks on the
-CPU call ``main(argv, device="cpu")``); each rank trains on its rows of
-every global batch, and rank 0 alone writes ``run_config.json``,
-``final_metrics.json``, the TensorBoard log and the trainer's files.  A
+CPU call ``main(argv, device="cpu")``), and laid out as (data, model)
+(``core.mesh.setup_grid``); each TP group of M ranks holds one model in
+shards and trains on its data index's rows of every global batch, and
+rank 0 alone writes ``run_config.json``, ``final_metrics.json``, the
+TensorBoard log and the trainer's files (a whole model, gathered).  A
 group this function started is destroyed when it returns.
 """
 
@@ -40,7 +43,7 @@ from typing import Optional
 
 import numpy as np
 
-from ..core.config import Config, check_ported, config_from_args
+from ..core.config import Config, config_from_args
 from ..nn.bert import BertConfig
 
 logger = logging.getLogger(__name__)
@@ -123,7 +126,6 @@ def main(argv=None, bert_cfg_override: Optional[BertConfig] = None,
         del argv[i:i + 2]
 
     cfg = config_from_args(argv)
-    check_ported(cfg)
     from ..core import mesh
     _, _, device = mesh.init_distributed(cfg, device)
     try:

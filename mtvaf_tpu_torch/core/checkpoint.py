@@ -8,8 +8,9 @@ Counterpart of ``mtvaf_tpu/core/checkpoint.py``:
   either package loads the other's file;
 * :func:`save_checkpoint` / :func:`load_checkpoint` keep the full train
   state (params, the optimizer's count and moments with their dtypes, the
-  fp32 master under ``--params_bf16``, the step) as one ``torch.save``
-  file ``step_{n}`` per checkpoint, where the JAX package uses orbax.
+  fp32 master under ``--params_bf16``, the step; the whole model under
+  tensor parallelism) as one ``torch.save`` file ``step_{n}`` per
+  checkpoint, where the JAX package uses orbax.
   The write is synchronous;
 * :func:`load_torch_file` reads ``.pth``/``.pt`` state dicts and
   :func:`transplant` is the NER→ABSA warm start by name.
@@ -96,9 +97,11 @@ def save_checkpoint(ckpt_dir: str, state, step: int) -> str:
 def load_checkpoint(ckpt_dir: str, template_state, step: int):
     """The train state saved under ``ckpt_dir/step_{step}``, on the
     template's device, with the saved dtypes (the bf16 first moment
-    stays bf16; bf16 live params stay bf16 beside their fp32 master)."""
+    stays bf16; bf16 live params stay bf16 beside their fp32 master).
+    A checkpoint holds the whole model; under tensor parallelism this
+    rank's shard of it is kept (the template's layout)."""
     from ..train.optim import AdamWState
-    from ..train.steps import MasterState, TrainState
+    from ..train.steps import MasterState, TrainState, shard_state
 
     flat_template = _flat(template_state.params)
     device = next(iter(flat_template.values())).device
@@ -117,8 +120,9 @@ def load_checkpoint(ckpt_dir: str, template_state, step: int):
         opt_state = MasterState(
             master=_unflatten_into(template_state.params, payload["master"]),
             inner=opt_state)
-    return TrainState(params=params, opt_state=opt_state,
-                      step=payload["step"])
+    return shard_state(TrainState(params=params, opt_state=opt_state,
+                                  step=payload["step"]),
+                       template_state.layout)
 
 
 def latest_checkpoint_step(ckpt_dir: str) -> Optional[int]:

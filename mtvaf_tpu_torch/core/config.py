@@ -6,9 +6,7 @@ defaults, checks and derived properties.  A JAX run's ``run_config.json`` holds 
 the full config; :meth:`Config.from_dict` keeps the ones listed here.  The
 port's own ``run_config.json`` holds only these, all of which the JAX
 package's ``Config`` accepts.  :func:`config_from_args` parses the CLI's
-``--flag`` / ``--no_flag`` surface over these fields, and
-:func:`check_ported` names what a config asks for that the port lacks
-(tensor parallelism, ``mesh_model > 1``).
+``--flag`` / ``--no_flag`` surface over these fields.
 """
 
 from __future__ import annotations
@@ -252,15 +250,6 @@ class Config:
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
-
-
-def check_ported(cfg: Config) -> None:
-    """Raise, naming the missing piece, when ``cfg`` asks the trainer or
-    the CLI for something the port does not have yet: tensor
-    parallelism."""
-    if cfg.mesh_model > 1:
-        raise NotImplementedError("mesh_model > 1: tensor parallelism is "
-                                  "not ported (ROADMAP A.5b)")
 
 
 def config_from_args(argv=None) -> Config:

@@ -11,6 +11,12 @@ layout change is the ResNet's conv kernels, HWIO → OIHW for
 ``best_model.npz`` (list entries are numbered keys).  Reading uses numpy
 only.
 
+Tensor parallelism: :func:`tp_spec` is the port's copy of the JAX
+package's partition rules (``_param_spec_for_path`` with
+``param_sharding``'s fallback), :func:`tp_layout` applies them to a tree,
+and :func:`shard_params` / :func:`gather_params` cut a tree into the model
+axis' shards and put them back together.
+
 Torch interop, as ``mtvaf_tpu/core/convert.py`` has it: HF ``BertModel``
 state dicts (:func:`bert_params_from_torch`), torchvision ResNets, the
 reference's psdProbe checkpoints (:func:`load_probe_checkpoint`), and the
@@ -20,10 +26,12 @@ NER→ABSA transplant by name (:func:`transplant_named`).
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+
+from ..train.optim import tree_items
 
 
 def _is_conv(path, leaf) -> bool:
@@ -59,6 +67,119 @@ def _map(tree, fn, path=()):
     if isinstance(tree, (list, tuple)):
         return [_map(v, fn, path + (str(i),)) for i, v in enumerate(tree)]
     return fn(path, tree)
+
+
+def map_with_paths(tree, fn):
+    """``tree`` with each leaf x at path p (``a/b/0/c``) replaced by
+    ``fn(p, x)``."""
+    return _map(tree, lambda path, x: fn("/".join(path), x))
+
+
+# --- tensor parallelism: the partition rules --------------------------------
+
+# Megatron's layout, as the JAX package's rules: column-parallel kernels
+# split their output features, row-parallel kernels their input features,
+# the embedding tables their features.
+_COLUMN = ("attn/qkv", "mlp/in")
+_ROW = ("attn/out", "mlp/out")
+_EMBEDDINGS = ("word", "position", "token_type")
+
+
+class Split(NamedTuple):
+    """How a leaf is cut over the model axis: along ``dim``, in ``groups``
+    equal blocks, each cut into M contiguous parts (rank r holds part r of
+    every block).  ``groups`` is 3 for ``attn/qkv``, whose Q, K and V
+    blocks are cut alike so that a rank holds whole heads."""
+    dim: int
+    groups: int = 1
+
+
+def tp_spec(path: str, shape: Sequence[int], m: int) -> Optional[int]:
+    """The dimension of the leaf at ``path`` (full ``shape``) that a model
+    axis of ``m`` splits, or None where the leaf is replicated.
+
+    The JAX package's ``_param_spec_for_path`` over the port's paths: the
+    ``attn/qkv`` and ``mlp/in`` kernels by column, the ``attn/out`` and
+    ``mlp/out`` kernels by row (behind the stacked layers' leading L
+    axis), the ``word``, ``position`` and ``token_type`` tables by
+    feature, everything else replicated; and ``param_sharding``'s
+    fallback, replication where the dimension does not divide by ``m``.
+    One addition: the ``attn/qkv`` and ``mlp/in`` biases split with their
+    kernels (the JAX package keeps them whole and GSPMD slices them where
+    they are added; here each rank adds its own columns' bias)."""
+    if m <= 1:
+        return None
+    lead = 1 if "/layers/" in path or path.startswith("layers/") else 0
+    dim = None
+    if path.endswith("kernel"):
+        if any(s in path for s in _COLUMN):
+            dim = lead + 1
+        elif any(s in path for s in _ROW):
+            dim = lead
+    elif path.endswith("bias") and any(s in path for s in _COLUMN):
+        dim = lead
+    if path.endswith(_EMBEDDINGS):
+        dim = 1
+    if dim is None or dim >= len(shape) or shape[dim] % m:
+        return None
+    return dim
+
+
+def tp_layout(tree, m: int) -> Dict[str, Split]:
+    """``{path: Split}`` of every leaf of the full tree ``tree`` that a
+    model axis of ``m`` splits (:func:`tp_spec`).
+
+    ``attn/qkv`` is split head-aligned where its Q, K and V blocks each
+    divide by ``m``: rank r holds the Q, K and V columns (and bias) of
+    heads [r·H/m, (r+1)·H/m) when H divides by ``m``.  Its shards have the
+    size of the JAX package's contiguous split of the 3·hidden axis, with
+    other columns.  Where only 3·hidden divides by ``m``, the split is the
+    JAX package's contiguous one."""
+    out = {}
+    for path, leaf in tree_items(tree):
+        dim = tp_spec(path, tuple(leaf.shape), m)
+        if dim is None:
+            continue
+        thirds = "attn/qkv" in path and leaf.shape[dim] % (3 * m) == 0
+        out[path] = Split(dim, 3 if thirds else 1)
+    return out
+
+
+def shard_leaf(x, split: Split, r: int, m: int) -> torch.Tensor:
+    """Rank ``r``'s part of the full leaf ``x`` under ``split``."""
+    x = torch.as_tensor(x)
+    blocks = x.chunk(split.groups, dim=split.dim)
+    return torch.cat([b.chunk(m, dim=split.dim)[r] for b in blocks],
+                     dim=split.dim).contiguous()
+
+
+def gather_leaf(parts, split: Split) -> torch.Tensor:
+    """The full leaf from its ``m`` parts, in rank order."""
+    cut = [torch.as_tensor(p).chunk(split.groups, dim=split.dim)
+           for p in parts]
+    return torch.cat([cut[r][g] for g in range(split.groups)
+                      for r in range(len(parts))], dim=split.dim)
+
+
+def shard_params(tree, model_rank: int, m: int,
+                 layout: Optional[Dict[str, Split]] = None):
+    """Rank ``model_rank``'s shard of the full tree ``tree`` on a model axis
+    of ``m``: each leaf of ``layout`` (default :func:`tp_layout`) cut, the
+    others the tree's own (replicated)."""
+    layout = tp_layout(tree, m) if layout is None else layout
+    return map_with_paths(tree, lambda p, x: shard_leaf(
+        x, layout[p], model_rank, m) if p in layout else x)
+
+
+def gather_params(shards, layout: Dict[str, Split]):
+    """The full tree, in the JAX package's layout, from the shards of every
+    rank of the model axis in rank order (the inverse of
+    :func:`shard_params`).  ``layout`` is the full tree's
+    :func:`tp_layout`: a shard's shapes alone cannot tell a split leaf from
+    a replicated one."""
+    flat = [dict(tree_items(s)) for s in shards]
+    return map_with_paths(shards[0], lambda p, x: gather_leaf(
+        [f[p] for f in flat], layout[p]) if p in layout else x)
 
 
 def params_from_jax(tree) -> Dict:

@@ -4,7 +4,8 @@
 // 3", SC 2011): ten rounds over a 128-bit counter under a 64-bit key.  The
 // attention-probability keep mask of element (b, h, row, col) is word
 // (col & 3) of philox(counter = (col >> 2, row, h, b), key = (seed_lo,
-// seed_hi)); the element is kept when that word is >= threshold =
+// seed_hi)), h the head's global index (a tensor-parallel rank's local head
+// plus its head offset); the element is kept when that word is >= threshold =
 // uint32(rate * 2^32).  The forward, the backward (in bf16 its dq pass,
 // which hands the bits to its dk/dv pass; in fp32 both passes) and the mask
 // entry point call these functions, so they agree bit for bit whatever their

@@ -121,9 +121,12 @@ __device__ __forceinline__ float pair_sum(float x) {
   return x + __shfl_xor_sync(FULL, x, 1);
 }
 
+// head_offset: the global index of head 0 of this call (the Philox
+// counter's head word is h + head_offset).
 struct Dropout {
   unsigned seed_lo, seed_hi, threshold;
   float keep_scale;
+  int head_offset;
 };
 
 template <typename T, bool DROPOUT>
@@ -183,8 +186,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j4 = 0; j4 < n; j4 += 4) {
       uint4 bits = make_uint4(0u, 0u, 0u, 0u);
       if (DROPOUT)
-        bits = mtvaf::keep_bits4(b, h, row, (t0 + j4) >> 2, dr.seed_lo,
-                                 dr.seed_hi);
+        bits = mtvaf::keep_bits4(b, h + dr.head_offset, row, (t0 + j4) >> 2,
+                                 dr.seed_lo, dr.seed_hi);
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         const int j = j4 + jj;
@@ -288,7 +291,8 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           ? exp2f(fmaf(sdot, qscale, bval * LOG2E) - lses[i]) : 0.f;
       float keep = 1.f;
       if (DROPOUT)
-        keep = mtvaf::keep_bits(b, h, row, col, dr.seed_lo, dr.seed_hi)
+        keep = mtvaf::keep_bits(b, h + dr.head_offset, row, col, dr.seed_lo,
+                                dr.seed_hi)
             >= dr.threshold ? dr.keep_scale : 0.f;
       const float y = p * keep;
       const float ds = p * (dp * keep - deltas[i]);
@@ -496,8 +500,8 @@ dq_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
     const int t0 = j * hp::TILE;
     uint32_t keep = 0xffffffffu;
     if (DROPOUT) {   // drawn here once, read back by the dk/dv pass
-      keep = hp::keep_mask_query_rows(b, h, row0, row1, t0, dr.seed_lo,
-                                      dr.seed_hi, dr.threshold);
+      keep = hp::keep_mask_query_rows(b, h + dr.head_offset, row0, row1, t0,
+                                      dr.seed_lo, dr.seed_hi, dr.threshold);
       bits[(((size_t)plane * gridDim.x + blockIdx.x) * nt + j) * 128 + tid] =
           keep;
     }
@@ -804,9 +808,10 @@ extern "C" int mtvaf_prefix_attention_bwd(
     const void* o, const float* lse, const void* dout, void* dq, void* dk,
     void* dv, float* delta, int B, int H, int S, int Tk, int D,
     int bias_rows, float scale, int dtype, unsigned seed_lo,
-    unsigned seed_hi, unsigned threshold, float keep_scale, void* stream) {
+    unsigned seed_hi, unsigned threshold, float keep_scale, int head_offset,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dropout dr{seed_lo, seed_hi, threshold, keep_scale};
+  const Dropout dr{seed_lo, seed_hi, threshold, keep_scale, head_offset};
   if (D != 2 * HALF) return -1;
   if (dtype == 1)
     return threshold

@@ -15,6 +15,9 @@
 // the accumulator are fp32 whatever the input type.  keep is 1/(1-rate) or 0,
 // from the counter-based Philox bits of philox.cuh keyed on (seed, b, h, s, t);
 // the backward kernel (prefix_attention_bwd.cu) regenerates the same bits.
+// h is the global head, h + head_offset, where a tensor-parallel rank holds
+// heads [head_offset, head_offset + H) of the model: its masks are then those
+// heads' masks in a call over every head.
 // The TPU kernel draws its masks from the TPU's hardware generator, whose bits
 // cannot be reproduced here: the distribution (Bernoulli(1-rate), inverted
 // scaling, dropout on the normalised probabilities) is the same.
@@ -87,7 +90,8 @@ prefix_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             T* __restrict__ o, float* __restrict__ lse,
                             int H, int S, int Tk, int bias_rows, float scale,
                             unsigned seed_lo, unsigned seed_hi,
-                            unsigned threshold, float keep_scale) {
+                            unsigned threshold, float keep_scale,
+                            int head_offset) {
   __shared__ float ks[KT][D];
   __shared__ float vs[KT][D];
 
@@ -150,8 +154,9 @@ prefix_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (DROPOUT) {   // after l: the lse stays the dropout-free statistic
 #pragma unroll
         for (int j = 0; j < KG; j += 4) {
-          const uint4 r = mtvaf::keep_bits4(b, h, row, (t0 + g + j) >> 2,
-                                            seed_lo, seed_hi);
+          const uint4 r = mtvaf::keep_bits4(b, h + head_offset, row,
+                                            (t0 + g + j) >> 2, seed_lo,
+                                            seed_hi);
           s[j] *= r.x >= threshold ? keep_scale : 0.f;
           s[j + 1] *= r.y >= threshold ? keep_scale : 0.f;
           s[j + 2] *= r.z >= threshold ? keep_scale : 0.f;
@@ -181,14 +186,15 @@ void launch_fp32(const void* q, const void* k, const void* v,
                  const float* bias, void* o, float* lse, int B, int H, int S,
                  int Tk, int bias_rows, float scale, unsigned seed_lo,
                  unsigned seed_hi, unsigned threshold, float keep_scale,
-                 cudaStream_t stream) {
+                 int head_offset, cudaStream_t stream) {
   dim3 grid((S + BQ - 1) / BQ, H, B);
   auto kernel = threshold ? prefix_attention_fwd_kernel<float, 64, true>
                           : prefix_attention_fwd_kernel<float, 64, false>;
   kernel<<<grid, BQ, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), bias, static_cast<float*>(o), lse, H, S,
-      Tk, bias_rows, scale, seed_lo, seed_hi, threshold, keep_scale);
+      Tk, bias_rows, scale, seed_lo, seed_hi, threshold, keep_scale,
+      head_offset);
 }
 
 // ---------------------------------------------------------------------------
@@ -216,7 +222,7 @@ fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
                 const float* __restrict__ bias, __nv_bfloat16* __restrict__ o,
                 float* __restrict__ lse, int H, int S, int Tk, int bias_rows,
                 float scale, unsigned seed_lo, unsigned seed_hi,
-                unsigned threshold, float keep_scale) {
+                unsigned threshold, float keep_scale, int head_offset) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = hp::align1024(smem_raw);
   unsigned char* qs = sm;
@@ -319,7 +325,7 @@ fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
     m1 = mn1;
     if (DROPOUT) {   // after l: the lse stays the dropout-free statistic
       const uint32_t keep = hp::keep_mask_query_rows(
-          b, h, row0, row1, t0, seed_lo, seed_hi, threshold);
+          b, h + head_offset, row0, row1, t0, seed_lo, seed_hi, threshold);
 #pragma unroll
       for (int i = 0; i < 32; ++i)
         sc[i] *= (keep >> i) & 1 ? keep_scale : 0.f;
@@ -373,7 +379,7 @@ int launch_bf16(const void* q, const void* k, const void* v,
                 const float* bias, void* o, float* lse, int B, int H, int S,
                 int Tk, int bias_rows, float scale, unsigned seed_lo,
                 unsigned seed_hi, unsigned threshold, float keep_scale,
-                cudaStream_t stream) {
+                int head_offset, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   if (!hp::make_tile_map(&qm, q, S, B * H) ||
       !hp::make_tile_map(&km, k, Tk, B * H) ||
@@ -383,14 +389,15 @@ int launch_bf16(const void* q, const void* k, const void* v,
   auto kernel = threshold ? fwd_bf16_kernel<true> : fwd_bf16_kernel<false>;
   kernel<<<grid, 128, FWD_SMEM, stream>>>(
       qm, km, vm, bias, static_cast<__nv_bfloat16*>(o), lse, H, S, Tk,
-      bias_rows, scale, seed_lo, seed_hi, threshold, keep_scale);
+      bias_rows, scale, seed_lo, seed_hi, threshold, keep_scale, head_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The 0/1 keep mask of every (b, h, row, col), one thread per four columns.
 __global__ void keep_mask_kernel(float* __restrict__ out, int H, int S,
                                  int Tk, long long n4, unsigned seed_lo,
-                                 unsigned seed_hi, unsigned threshold) {
+                                 unsigned seed_hi, unsigned threshold,
+                                 int head_offset) {
   const int tg = (Tk + 3) / 4;
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n4;
        i += (long long)gridDim.x * blockDim.x) {
@@ -399,7 +406,8 @@ __global__ void keep_mask_kernel(float* __restrict__ out, int H, int S,
     const int row = (int)(bhs % S);
     const int h = (int)((bhs / S) % H);
     const int b = (int)(bhs / ((long long)S * H));
-    const uint4 r = mtvaf::keep_bits4(b, h, row, col4, seed_lo, seed_hi);
+    const uint4 r =
+        mtvaf::keep_bits4(b, h + head_offset, row, col4, seed_lo, seed_hi);
     float* dst = out + bhs * Tk;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -413,22 +421,24 @@ __global__ void keep_mask_kernel(float* __restrict__ out, int H, int S,
 
 // Plain C entry points, loaded with ctypes.  dtype: 0 = float32 (CUDA-core
 // kernel), 1 = bfloat16 (wgmma kernel; q, k, v 16-byte aligned).
-// threshold 0 turns dropout off.  Each returns cudaGetLastError() after the
+// threshold 0 turns dropout off; head_offset is the global index of head 0.
+// Each returns cudaGetLastError() after the
 // launch (0 on success, -1 for a head dimension or type this kernel was not
 // compiled for, -2 when the driver refuses a tensor map).
 extern "C" int mtvaf_prefix_attention_fwd(
     const void* q, const void* k, const void* v, const float* bias, void* o,
     float* lse, int B, int H, int S, int Tk, int D, int bias_rows,
     float scale, int dtype, unsigned seed_lo, unsigned seed_hi,
-    unsigned threshold, float keep_scale, void* stream) {
+    unsigned threshold, float keep_scale, int head_offset, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D != 64) return -1;
   if (dtype == 1)
     return launch_bf16(q, k, v, bias, o, lse, B, H, S, Tk, bias_rows, scale,
-                       seed_lo, seed_hi, threshold, keep_scale, st);
+                       seed_lo, seed_hi, threshold, keep_scale, head_offset,
+                       st);
   if (dtype != 0) return -1;
   launch_fp32(q, k, v, bias, o, lse, B, H, S, Tk, bias_rows, scale, seed_lo,
-              seed_hi, threshold, keep_scale, st);
+              seed_hi, threshold, keep_scale, head_offset, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -438,12 +448,12 @@ extern "C" int mtvaf_prefix_attention_fwd_smem() { return FWD_SMEM; }
 // out (B, H, S, T) fp32: 1 where the forward and backward keep the element.
 extern "C" int mtvaf_prefix_attention_keep_mask(
     float* out, int B, int H, int S, int Tk, unsigned seed_lo,
-    unsigned seed_hi, unsigned threshold, void* stream) {
+    unsigned seed_hi, unsigned threshold, int head_offset, void* stream) {
   const long long n4 = (long long)B * H * S * ((Tk + 3) / 4);
   const int threads = 256;
   const long long blocks = (n4 + threads - 1) / threads;
   keep_mask_kernel<<<(unsigned)(blocks < 65535 * 32 ? blocks : 65535 * 32),
                      threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      out, H, S, Tk, n4, seed_lo, seed_hi, threshold);
+      out, H, S, Tk, n4, seed_lo, seed_hi, threshold, head_offset);
   return static_cast<int>(cudaGetLastError());
 }

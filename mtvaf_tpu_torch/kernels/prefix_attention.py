@@ -14,7 +14,10 @@ Attention-probability dropout is counter-based: the keep bit of element
 (b, h, row, col) is a Philox4x32-10 word keyed on a per-call 64-bit seed
 (``csrc/philox.cuh``; :func:`keep_mask_reference` here), so the forward
 kernel, the backward kernel, the mask entry point and the plain version all
-draw the same mask without storing it.
+draw the same mask without storing it.  h is the head's global index: a
+call given heads [h0, h0 + H) of a larger model (a tensor-parallel rank's,
+``head_offset=h0``) draws those heads' masks of a call over every head, as
+the Pallas kernel seeds each head's stream by its global index.
 
 :func:`prefix_attention` is the attention core of every encoder layer.  It
 calls the operator ``mtvaf::prefix_attention_fwd`` (``torch.library``),
@@ -84,26 +87,27 @@ def _threshold(rate: float) -> int:
     return min(int(rate * 2 ** 32), 2 ** 32 - 1)
 
 
-def keep_mask_reference(seed: int, rate: float, shape, device=None):
+def keep_mask_reference(seed: int, rate: float, shape, device=None,
+                        head_offset: int = 0):
     """The bool keep mask (B, H, S, T) of dropout ``rate`` under ``seed``:
-    word (col & 3) of philox(counter (col >> 2, row, h, b), key (seed low,
-    seed high 32 bits)) >= uint32(rate · 2^32)."""
+    word (col & 3) of philox(counter (col >> 2, row, h + head_offset, b),
+    key (seed low, seed high 32 bits)) >= uint32(rate · 2^32)."""
     b, h, s, t = shape
     tg = (t + 3) // 4
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)  # noqa
     c0 = ar(tg).view(1, 1, 1, tg).expand(b, h, s, tg)
     c1 = ar(s).view(1, 1, s, 1).expand(b, h, s, tg)
-    c2 = ar(h).view(1, h, 1, 1).expand(b, h, s, tg)
+    c2 = (ar(h) + head_offset).view(1, h, 1, 1).expand(b, h, s, tg)
     c3 = ar(b).view(b, 1, 1, 1).expand(b, h, s, tg)
     words = philox4x32_10(c0, c1, c2, c3, seed & _U32, (seed >> 32) & _U32)
     bits = torch.stack(words, dim=-1).reshape(b, h, s, tg * 4)[..., :t]
     return bits >= _threshold(rate)
 
 
-def keep_factors(seed: int, rate: float, shape, device):
+def keep_factors(seed: int, rate: float, shape, device, head_offset: int = 0):
     """fp32 keep factors: 1/(1-rate) where kept, else 0."""
-    return keep_mask_reference(seed, rate, shape, device).float() \
-        * (1.0 / (1.0 - rate))
+    return keep_mask_reference(seed, rate, shape, device,
+                               head_offset).float() * (1.0 / (1.0 - rate))
 
 
 def prefix_attention_reference(q, k, v, bias, keep=None):
@@ -166,11 +170,11 @@ class _LaunchCount:
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _SIGNATURES = {
     ("prefix_attention_fwd", "mtvaf_prefix_attention_fwd"):
-        [_P] * 6 + [_I] * 6 + [_F, _I, _U, _U, _U, _F, _P],
+        [_P] * 6 + [_I] * 6 + [_F, _I, _U, _U, _U, _F, _I, _P],
     ("prefix_attention_fwd", "mtvaf_prefix_attention_keep_mask"):
-        [_P] + [_I] * 4 + [_U] * 3 + [_P],
+        [_P] + [_I] * 4 + [_U] * 3 + [_I, _P],
     ("prefix_attention_bwd", "mtvaf_prefix_attention_bwd"):
-        [_P] * 11 + [_I] * 6 + [_F, _I, _U, _U, _U, _F, _P],
+        [_P] * 11 + [_I] * 6 + [_F, _I, _U, _U, _U, _F, _I, _P],
     ("prefix_attention_fwd", "mtvaf_prefix_attention_fwd_smem"): [],
     ("prefix_attention_bwd", "mtvaf_prefix_attention_bwd_smem"): [_I],
 }
@@ -241,8 +245,9 @@ def _check_rows(**tensors):
 
 
 def prefix_attention_cuda(q, k, v, bias, *, seed: int = 0,
-                          rate: float = 0.0):
-    """Launch the forward kernel on the current stream; returns (o, lse)."""
+                          rate: float = 0.0, head_offset: int = 0):
+    """Launch the forward kernel on the current stream; returns (o, lse).
+    ``head_offset``: the global index of q's head 0 (the masks' key)."""
     _check(q, k, v, bias)
     b, h, s, d = q.shape
     t = k.shape[2]
@@ -255,7 +260,7 @@ def prefix_attention_cuda(q, k, v, bias, *, seed: int = 0,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             o.data_ptr(), lse.data_ptr(), b, h, s, t, d, bias.shape[2],
             1.0 / math.sqrt(d), _DTYPE_CODES[q.dtype],
-            *_dropout_args(seed, rate), stream)
+            *_dropout_args(seed, rate), head_offset, stream)
     _raise_on(err, "prefix_attention_fwd")
     prefix_attention.launches.add()
     return o, lse
@@ -274,7 +279,7 @@ def _bwd_scratch(q, t: int, rate: float):
 
 
 def prefix_attention_bwd_cuda(q, k, v, bias, o, lse, do, *, seed: int = 0,
-                              rate: float = 0.0):
+                              rate: float = 0.0, head_offset: int = 0):
     """Launch the backward kernel (its two passes) on the current stream;
     returns (dq, dk, dv).  One backward call counts one launch."""
     do = do.contiguous()
@@ -302,13 +307,14 @@ def prefix_attention_bwd_cuda(q, k, v, bias, o, lse, do, *, seed: int = 0,
             o.data_ptr(), lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), b, h, s, t, d,
             bias.shape[2], 1.0 / math.sqrt(d), _DTYPE_CODES[q.dtype],
-            *_dropout_args(seed, rate), stream)
+            *_dropout_args(seed, rate), head_offset, stream)
     _raise_on(err, "prefix_attention_bwd")
     prefix_attention_bwd_cuda.launches.add()
     return dq, dk, dv
 
 
-def keep_mask_cuda(seed: int, rate: float, shape, device):
+def keep_mask_cuda(seed: int, rate: float, shape, device,
+                   head_offset: int = 0):
     """The keep mask (B, H, S, T) as the kernels draw it, written by the
     mask entry point of ``csrc/prefix_attention_fwd.cu``; bool."""
     device = torch.device(device)
@@ -320,7 +326,7 @@ def keep_mask_cuda(seed: int, rate: float, shape, device):
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         err = _fn("prefix_attention_fwd", "mtvaf_prefix_attention_keep_mask")(
-            out.data_ptr(), b, h, s, t, lo, hi, thr, stream)
+            out.data_ptr(), b, h, s, t, lo, hi, thr, head_offset, stream)
     _raise_on(err, "prefix_attention keep_mask")
     keep_mask_cuda.launches.add()
     return out > 0.5
@@ -337,23 +343,26 @@ def keep_mask_cuda(seed: int, rate: float, shape, device):
                          device_types="cpu")
 def prefix_attention_fwd_op(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, bias: torch.Tensor, seed: int,
-                            rate: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(o, lse) of the forward, dropout ``rate`` under ``seed``."""
+                            rate: float, head_offset: int = 0
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse) of the forward, dropout ``rate`` under ``seed``, q's head 0
+    being the model's head ``head_offset``."""
     keep = None
     if rate > 0.0:
         keep = keep_factors(seed, rate, q.shape[:3] + (k.shape[2],),
-                            q.device)
+                            q.device, head_offset)
     o, lse = prefix_attention_reference(q, k, v, bias, keep)
     return o.contiguous(), lse.contiguous()
 
 
 @prefix_attention_fwd_op.register_kernel("cuda")
-def _fwd_cuda(q, k, v, bias, seed, rate):
-    return prefix_attention_cuda(q, k, v, bias, seed=seed, rate=rate)
+def _fwd_cuda(q, k, v, bias, seed, rate, head_offset=0):
+    return prefix_attention_cuda(q, k, v, bias, seed=seed, rate=rate,
+                                 head_offset=head_offset)
 
 
 @prefix_attention_fwd_op.register_fake
-def _fwd_fake(q, k, v, bias, seed, rate):
+def _fwd_fake(q, k, v, bias, seed, rate, head_offset=0):
     return (torch.empty_like(q, memory_format=torch.contiguous_format),
             q.new_empty(q.shape[:3] + (1,), dtype=torch.float32))
 
@@ -363,52 +372,54 @@ def _fwd_fake(q, k, v, bias, seed, rate):
 def prefix_attention_bwd_op(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, bias: torch.Tensor,
                             o: torch.Tensor, lse: torch.Tensor,
-                            do: torch.Tensor, seed: int, rate: float
+                            do: torch.Tensor, seed: int, rate: float,
+                            head_offset: int = 0
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """(dq, dk, dv) of the backward, regenerating the forward's masks."""
     keep = None
     if rate > 0.0:
         keep = keep_factors(seed, rate, q.shape[:3] + (k.shape[2],),
-                            q.device)
+                            q.device, head_offset)
     return tuple(g.contiguous() for g in prefix_attention_bwd_reference(
         q, k, v, bias, o, lse, do, keep))
 
 
 @prefix_attention_bwd_op.register_kernel("cuda")
-def _bwd_cuda(q, k, v, bias, o, lse, do, seed, rate):
+def _bwd_cuda(q, k, v, bias, o, lse, do, seed, rate, head_offset=0):
     return prefix_attention_bwd_cuda(q, k, v, bias, o, lse, do, seed=seed,
-                                     rate=rate)
+                                     rate=rate, head_offset=head_offset)
 
 
 @prefix_attention_bwd_op.register_fake
-def _bwd_fake(q, k, v, bias, o, lse, do, seed, rate):
+def _bwd_fake(q, k, v, bias, o, lse, do, seed, rate, head_offset=0):
     return tuple(torch.empty_like(x, memory_format=torch.contiguous_format)
                  for x in (q, k, v))
 
 
 def _setup_context(ctx, inputs, output):
-    q, k, v, bias, seed, rate = inputs
+    q, k, v, bias, seed, rate, head_offset = inputs
     o, lse = output
     ctx.save_for_backward(q, k, v, bias, o, lse)
-    ctx.seed, ctx.rate = seed, rate
+    ctx.seed, ctx.rate, ctx.head_offset = seed, rate, head_offset
     ctx.mark_non_differentiable(lse)
 
 
 def _backward(ctx, do, _dlse):
     q, k, v, bias, o, lse = ctx.saved_tensors
     dq, dk, dv = prefix_attention_bwd_op(q, k, v, bias, o, lse, do, ctx.seed,
-                                         ctx.rate)
-    return dq, dk, dv, None, None, None
+                                         ctx.rate, ctx.head_offset)
+    return dq, dk, dv, None, None, None, None
 
 
-# No gradient for the bias (a constant mask), the seed or the rate; lse is
-# not differentiable.
+# No gradient for the bias (a constant mask), the seed, the rate or the head
+# offset; lse is not differentiable.
 prefix_attention_fwd_op.register_autograd(_backward,
                                           setup_context=_setup_context)
 
 
-def prefix_attention(q, k, v, bias, *, dropout_rate: float = 0.0, rng=None):
+def prefix_attention(q, k, v, bias, *, dropout_rate: float = 0.0, rng=None,
+                     head_offset: int = 0):
     """Attention core of the encoder: (o, lse), through the operator
     ``mtvaf::prefix_attention_fwd`` (its gradient through
     ``mtvaf::prefix_attention_bwd``).
@@ -416,11 +427,14 @@ def prefix_attention(q, k, v, bias, *, dropout_rate: float = 0.0, rng=None):
     ``rng`` (a host ``torch.Generator``) with a nonzero ``dropout_rate``
     turns attention-probability dropout on: one 63-bit seed is drawn from
     it per call, and the backward regenerates the same mask from that seed.
-    CUDA tensors go to the kernels, CPU tensors to the plain versions.
+    ``head_offset`` is the model's index of q's head 0 (a tensor-parallel
+    rank's first head), which keys the masks.  CUDA tensors go to the
+    kernels, CPU tensors to the plain versions.
     """
     rate = float(dropout_rate) if rng is not None else 0.0
     seed = draw_seed(rng) if rate > 0.0 else 0
-    return prefix_attention_fwd_op(q, k, v, bias, seed, rate)
+    return prefix_attention_fwd_op(q, k, v, bias, seed, rate,
+                                   int(head_offset))
 
 
 prefix_attention.launches = _LaunchCount()

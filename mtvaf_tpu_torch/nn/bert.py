@@ -16,6 +16,22 @@ attention probabilities, so there is nothing for ``selective_remat`` to do.
 ``remat`` checkpoints each layer (``torch.utils.checkpoint``): the backward
 runs the layer's forward again, K1 included, from its input, and every
 dropout draw of the replay repeats the forward's (:func:`_remat_layer`).
+
+Tensor parallelism (``core.mesh``, M = ``mesh_model`` > 1): the params are
+this rank's shards (``core.convert.tp_layout``), and each function reads
+from a leaf's shape whether it is split.  The embedding tables hold Hd/M
+feature columns each: a rank sums its columns, and ``gather_from_tp``
+joins them before the LayerNorm.  A layer is Megatron's: ``copy_to_tp``,
+the column-parallel QKV (this rank's H/M heads), K1/K2 on those heads
+keyed on their global index (``head_offset``), the row-parallel
+``attn/out`` whose partial sums ``reduce_from_tp`` adds before its bias,
+dropout and the LayerNorm; then the same for the MLP.  The prefix K/V
+reaches each rank whole and ``scatter_to_tp`` hands it its heads.  A leaf
+the rules leave whole (a width that M does not divide) runs unsplit on
+every rank; a QKV split where H is not (M divides 3·hidden only) is
+gathered back before the attention.  The activations between the blocks
+are replicated: every rank of a TP group holds them, with the same
+dropout masks (one generator per data rank).
 """
 
 from __future__ import annotations
@@ -24,6 +40,9 @@ from dataclasses import dataclass
 
 import torch
 
+import torch.nn.functional as F
+
+from ..core import mesh
 from ..kernels.prefix_attention import prefix_attention
 from ..core.rng import split
 from .layers import dense, dropout, gelu, layer_norm, mask_to_bias
@@ -110,28 +129,80 @@ def _merge_heads(x):
     return x.transpose(1, 2).reshape(b, s, nh * dh)
 
 
+def heads_split(layers, cfg: BertConfig) -> bool:
+    """Whether the (stacked or one layer's) params hold this rank's heads
+    only: QKV split head-aligned, H divisible by the model axis."""
+    return (layers["attn"]["qkv"]["kernel"].shape[-1]
+            != 3 * cfg.hidden_size
+            and cfg.num_attention_heads % mesh.model_size() == 0)
+
+
+def _gather_qkv(qkv, hidden_size: int):
+    """A QKV split over the model axis but not by head, whole again: the
+    JAX package's contiguous split, or the head-aligned one (each of Q, K
+    and V cut into M parts) where only the heads do not divide."""
+    m = mesh.model_size()
+    full = mesh.gather_from_tp(qkv)
+    if hidden_size % m == 0:       # [q0 k0 v0 | q1 k1 v1 | ...] → [q k v]
+        full = full.unflatten(-1, (m, 3, -1)).transpose(-3, -2).flatten(-3)
+    return full
+
+
+def _row_dense(params, x, in_features: int, local: bool):
+    """``x @ kernel + bias`` for a row-parallel kernel: with the kernel
+    split (its rows are this rank's ``in_features / M``), this rank's
+    input features (``x`` itself when ``local``, else its slice of a
+    replicated ``x``) make a partial sum that ``reduce_from_tp`` adds
+    over the TP group, and the bias is added once, after it.  A whole
+    kernel takes a whole ``x`` (a split input, ``local``, comes from a
+    split of the same width, so its kernel is split too)."""
+    kernel = params["kernel"]
+    if kernel.shape[0] == in_features:
+        return dense(params, x)
+    if not local:
+        x = mesh.scatter_to_tp(x)
+    y = mesh.reduce_from_tp(F.linear(x, kernel.to(x.dtype).t()))
+    return y + params["bias"].to(y.dtype)
+
+
 def bert_layer(lp, hidden, bias, cfg: BertConfig, prefix_kv=None,
                generator=None):
     """One post-LN transformer layer.  ``prefix_kv``: optional
-    (2, B, H, P, Dh) (key, value) prepended to this layer's keys/values;
-    ``generator`` turns dropout on."""
+    (2, B, H, P, Dh) (key, value) prepended to this layer's keys/values
+    (this rank's heads under tensor parallelism); ``generator`` turns
+    dropout on."""
     rngs = [None] * 3 if generator is None else split(generator, 3)
-    qkv = dense(lp["attn"]["qkv"], hidden)
-    q, k, v = qkv.split(cfg.hidden_size, dim=-1)
-    q = _split_heads(q, cfg.num_attention_heads).contiguous()
-    k = _split_heads(k, cfg.num_attention_heads)
-    v = _split_heads(v, cfg.num_attention_heads)
+    h = cfg.hidden_size
+    qkv_split = lp["attn"]["qkv"]["kernel"].shape[-1] != 3 * h
+    by_head = heads_split(lp, cfg)
+    qkv = dense(lp["attn"]["qkv"],
+                mesh.copy_to_tp(hidden) if qkv_split else hidden)
+    if qkv_split and not by_head:
+        qkv = _gather_qkv(qkv, h)
+    width = qkv.shape[-1] // 3
+    num_heads = width // cfg.head_dim
+    q, k, v = qkv.split(width, dim=-1)
+    q = _split_heads(q, num_heads).contiguous()
+    k = _split_heads(k, num_heads)
+    v = _split_heads(v, num_heads)
     if prefix_kv is not None:
         k = torch.cat([prefix_kv[0].to(k.dtype), k], dim=2)
         v = torch.cat([prefix_kv[1].to(v.dtype), v], dim=2)
     ctx, _ = prefix_attention(q, k.contiguous(), v.contiguous(), bias,
                               dropout_rate=cfg.attention_probs_dropout_prob,
-                              rng=rngs[0])
-    attn_out = dense(lp["attn"]["out"], _merge_heads(ctx))
+                              rng=rngs[0],
+                              head_offset=mesh.model_rank() * num_heads
+                              if by_head else 0)
+    attn_out = _row_dense(lp["attn"]["out"], _merge_heads(ctx), h,
+                          local=by_head)
     attn_out = dropout(attn_out, cfg.hidden_dropout_prob, rngs[1])
     hidden = layer_norm(lp["attn"]["ln"], hidden + attn_out,
                         eps=cfg.layer_norm_eps)
-    mlp = dense(lp["mlp"]["out"], gelu(dense(lp["mlp"]["in"], hidden)))
+    mlp_split = lp["mlp"]["in"]["kernel"].shape[-1] != cfg.intermediate_size
+    inner = gelu(dense(lp["mlp"]["in"],
+                       mesh.copy_to_tp(hidden) if mlp_split else hidden))
+    mlp = _row_dense(lp["mlp"]["out"], inner, cfg.intermediate_size,
+                     local=mlp_split)
     mlp = dropout(mlp, cfg.hidden_dropout_prob, rngs[2])
     return layer_norm(lp["mlp"]["ln"], hidden + mlp, eps=cfg.layer_norm_eps)
 
@@ -140,7 +211,8 @@ def bert_embeddings(params, cfg: BertConfig, input_ids, token_type_ids=None,
                     dtype=torch.float32, generator=None):
     """Embedding sum + LN + dropout.  Position ids never account for the
     prefix.  Pad positions pass no gradient to the word table (nor to the
-    RoBERTa position table), as torch's ``padding_idx`` rows."""
+    RoBERTa position table), as torch's ``padding_idx`` rows.  Tables
+    split by feature sum this rank's columns, gathered before the LN."""
     emb = params["embeddings"]
     b, s = input_ids.shape
     if cfg.is_roberta:
@@ -156,6 +228,8 @@ def bert_embeddings(params, cfg: BertConfig, input_ids, token_type_ids=None,
     if cfg.is_roberta:
         pos = torch.where(pad, pos.detach(), pos)
     x = word + pos + emb["token_type"][token_type_ids].to(dtype)
+    if emb["word"].shape[1] != cfg.hidden_size:
+        x = mesh.gather_from_tp(x)
     x = layer_norm(emb["ln"], x, eps=cfg.layer_norm_eps)
     return dropout(x, cfg.hidden_dropout_prob, generator)
 
@@ -212,7 +286,8 @@ def bert_encoder(params, cfg: BertConfig, embedding_output, attention_mask,
     """The encoder stack.
 
     attention_mask: (B, P+S) when prefix_kvs is given, else (B, S).
-    prefix_kvs: optional (L, 2, B, H, P, Dh).
+    prefix_kvs: optional (L, 2, B, H, P, Dh), every head (a rank that
+    holds some heads takes theirs here).
     capture_layer: optionally the index k of one hidden state to return as
     well (0 = the embeddings, k >= 1 = the output of layer k), for the
     probe.
@@ -222,6 +297,8 @@ def bert_encoder(params, cfg: BertConfig, embedding_output, attention_mask,
     # Weights already in the activation dtype (a predictor casts them once)
     # make this cast a no-op.
     layers = cast_layers(params["layers"], embedding_output.dtype)
+    if prefix_kvs is not None and heads_split(layers, cfg):
+        prefix_kvs = mesh.scatter_to_tp(prefix_kvs, dim=3)
     layer_rngs = [None] * cfg.num_hidden_layers if generator is None \
         else split(generator, cfg.num_hidden_layers)
     hidden = embedding_output

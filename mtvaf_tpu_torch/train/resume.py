@@ -10,11 +10,15 @@ checkpoint whatever ``checkpoint_every`` says, and returns.  Epoch
 boundaries keep ``--resume`` bit-identical: the data order is a function of
 seed and epoch alone.
 
-Under data parallelism rank 0 writes the checkpoint and its meta while the
-other ranks wait at a barrier, and every rank loads it.  A checkpoint holds
-no rank's own state, but the ranks' dropout draws depend on the world size
-(``core.rng.fold_in``), so the meta records the world size and a resume on
-another one is refused.
+Under data and tensor parallelism rank 0 writes the checkpoint and its
+meta while the other ranks wait at a barrier, and every rank loads it.  A
+checkpoint holds no rank's own state: the params, master and moments are
+gathered from the TP group first (the whole model), and a load cuts this
+rank's shard again, so ``mesh_model`` may change between runs.  The
+dropout draws depend on the data axis (``core.rng.fold_in`` of the data
+rank), so the meta records the data axis (``mesh_data``; with
+``mesh_model`` and the world size) and a resume on another data axis is
+refused.
 """
 
 from __future__ import annotations
@@ -67,13 +71,11 @@ def stop_requested() -> bool:
 
 def stop_agreed(flag: bool) -> bool:
     """The preemption decision from this process's ``flag``, the same on
-    every data-parallel rank: SIGTERM reaches one process, so the flag is
-    summed over the ranks (any rank signalled → all stop after this
-    epoch), or the signalled rank would enter a checkpoint barrier that
-    the others never reach.  Every rank must call it."""
-    if mesh.world_size() > 1:
-        flag = int(mesh.cross_host_sum([int(flag)])[0]) > 0
-    return flag
+    every rank: SIGTERM reaches one process, so the flag is taken over the
+    world (any rank signalled → all stop after this epoch), or the
+    signalled rank would enter a checkpoint barrier that the others never
+    reach.  Every rank must call it."""
+    return mesh.any_rank(flag)
 
 
 def clear_stop() -> None:
@@ -90,23 +92,27 @@ def _write_epoch_checkpoint(save_path: str, state, epoch: int,
     save_checkpoint(ckpt, state, step=epoch)
     path = os.path.join(ckpt, f"meta_{epoch}.json")
     with open(path + ".tmp", "w") as f:
-        json.dump({"epoch": epoch, "world_size": mesh.world_size(), **meta},
-                  f)
+        json.dump({"epoch": epoch, "world_size": mesh.world_size(),
+                   "mesh_data": mesh.data_size(),
+                   "mesh_model": mesh.model_size(), **meta}, f)
     os.replace(path + ".tmp", path)
 
 
 def save_epoch_checkpoint(save_path: str, state, epoch: int,
                           meta: dict) -> None:
-    """``ckpt/step_{epoch}`` and ``ckpt/meta_{epoch}.json``, written by
-    rank 0; every rank calls it and returns once the files are whole."""
-    mesh.primary_write(_write_epoch_checkpoint, save_path, state, epoch,
-                       meta)
+    """``ckpt/step_{epoch}`` and ``ckpt/meta_{epoch}.json`` of the whole
+    state, written by rank 0; every rank calls it and returns once the
+    files are whole."""
+    from .steps import gather_state
+    mesh.primary_write(_write_epoch_checkpoint, save_path,
+                       gather_state(state), epoch, meta)
 
 
 def load_latest_checkpoint(save_path: str, template_state
                            ) -> Tuple[Optional[object], int, dict]:
-    """(state or None, the epoch to start from, meta).  Raises when the
-    checkpoint was written by a run on another world size."""
+    """(state or None, the epoch to start from, meta): this rank's shard of
+    the saved state, cut by ``template_state``'s layout.  Raises when the
+    checkpoint was written by a run on another data axis."""
     ckpt = _ckpt_dir(save_path)
     epoch = latest_checkpoint_step(ckpt)
     if epoch is None:
@@ -116,12 +122,12 @@ def load_latest_checkpoint(save_path: str, template_state
     if os.path.exists(meta_path):
         with open(meta_path) as f:
             meta = json.load(f)
-    saved_world = meta.get("world_size", 1)
-    if saved_world != mesh.world_size():
+    saved_data = meta.get("mesh_data", meta.get("world_size", 1))
+    if saved_data != mesh.data_size():
         raise ValueError(
-            f"the checkpoint of epoch {epoch} was written on "
-            f"{saved_world} processes and this run has "
-            f"{mesh.world_size()}: the ranks' dropout draws depend on the "
-            "world size, so --resume needs the same one")
+            f"the checkpoint of epoch {epoch} was written on a data axis "
+            f"of {saved_data} and this run's is {mesh.data_size()}: the "
+            "ranks' dropout draws depend on the data axis, so --resume "
+            "needs the same one")
     state = load_checkpoint(ckpt, template_state, epoch)
     return state, epoch + 1, meta

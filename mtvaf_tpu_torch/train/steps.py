@@ -14,19 +14,29 @@ loss does not reach gets zeros, as ``jax.grad`` gives), and the update is
 :class:`..train.optim.AdamW`, in place.
 
 A step's randomness is the host generator ``fold_in(seed, state.step,
-rank)`` (``core.rng``), the counterpart of the JAX package's per-step
+data_rank)`` (``core.rng``), the counterpart of the JAX package's per-step
 ``fold_in(rng, step)``: a step is reproducible from the run's seed, the
-step number and the rank.  ``seed=None`` runs without dropout.
+step number and the data rank.  ``seed=None`` runs without dropout.
 
-Under data parallelism (a process group of more than one rank,
-``core.mesh``) each rank's step takes its rows of the global batch: the
-loss runs inside ``core.mesh.data_parallel_step``, so that its
-batch-global statistics are the global batch's; after the backward the
-gradients are averaged over the ranks (one flat all-reduce per dtype),
-before the gradient norm and the update; the scalar metrics are averaged
-too, and the per-example ones stay the rank's own.  In a single process
-(or a group of one) none of this runs, and the step is the
-single-process one bit for bit.
+Under data parallelism (a data axis of more than one, ``core.mesh``) each
+rank's step takes its data index's rows of the global batch: the loss
+runs inside ``core.mesh.data_parallel_step``, so that its batch-global
+statistics are the global batch's; after the backward the gradients are
+averaged over the DP group (one flat all-reduce per dtype), before the
+gradient norm and the update; the scalar metrics are averaged too, and
+the per-example ones stay the rank's own.  In a single process (or a
+group of one) none of this runs, and the step is the single-process one
+bit for bit.
+
+Under tensor parallelism (``mesh_model`` M > 1) the state holds this
+rank's shard of every parameter and of its AdamW moments
+(``TrainState.layout``, ``core.convert.tp_layout``): the ranks of a TP
+group draw from the same generator (the data rank's), so their
+replicated activations, dropout masks and K1 seeds agree, and the
+replicated leaves' gradients with them; AdamW is elementwise, so each
+rank steps its own shards.  :func:`export_params` and checkpoints gather
+the full model; :func:`replace_params` takes a full model and keeps this
+rank's shard.
 
 ``--params_bf16`` (``create_train_state(..., params_dtype=torch.bfloat16)``)
 keeps the live params in bf16 and an fp32 master copy in the optimizer
@@ -37,12 +47,13 @@ exact bf16 cast again.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from ..core import mesh
+from ..core.convert import shard_params, tp_layout
 from ..core.platform import resolve_device
 from ..core.rng import fold_in, split
 from ..nn.bert import BertConfig
@@ -58,6 +69,8 @@ class TrainState:
     params: Any           # nested dict of leaf tensors that require grad
     opt_state: Any
     step: int
+    # the leaves split over the model axis ({path: Split}; empty at M = 1)
+    layout: Dict = field(default_factory=dict)
 
 
 @dataclass
@@ -81,42 +94,57 @@ def _map(tree, fn):
 def create_train_state(params, optimizer, device=None, *,
                        params_dtype=None) -> TrainState:
     """A train state on ``device`` (``cuda`` unless the caller names
-    another; raises without a GPU).  The parameters are copied there as
-    fp32 leaves that require grad, so the caller's tensors never move.
+    another; raises without a GPU) from the full model ``params``.  The
+    parameters are copied there as fp32 leaves that require grad, so the
+    caller's tensors never move; under tensor parallelism only this rank's
+    shards are kept (``core.mesh.model_rank``).
     ``params_dtype=torch.bfloat16`` makes the live leaves bf16 and keeps
     the fp32 copy as the master in a :class:`MasterState`."""
     device = resolve_device(device)
+    layout = tp_layout(params, mesh.model_size())
+    if layout:
+        params = shard_params(params, mesh.model_rank(), mesh.model_size(),
+                              layout)
     params = _map(params, lambda p: torch.as_tensor(p).detach().to(
         device, torch.float32, copy=True))
     if params_dtype is None:
         params = _map(params, lambda p: p.requires_grad_(True))
         return TrainState(params=params, opt_state=optimizer.init(params),
-                          step=0)
+                          step=0, layout=layout)
     live = _map(params, lambda m: m.to(params_dtype).requires_grad_(True))
     return TrainState(params=live,
                       opt_state=MasterState(master=params,
                                             inner=optimizer.init(params)),
-                      step=0)
+                      step=0, layout=layout)
 
 
-def export_params(state: TrainState):
-    """The model params in full precision: the fp32 master under
-    ``--params_bf16``, the live params otherwise (the template for
-    best-model saves, transplant and torch interop)."""
+def _master(state: TrainState):
+    """This rank's params in full precision: the fp32 master under
+    ``--params_bf16``, the live params otherwise."""
     if isinstance(state.opt_state, MasterState):
         return state.opt_state.master
     return state.params
 
 
+def export_params(state: TrainState):
+    """The whole model's params in full precision: the fp32 master under
+    ``--params_bf16``, the live params otherwise, gathered from the TP
+    group under tensor parallelism (every rank of the group must call it
+    then) (the template for best-model saves, transplant and torch
+    interop)."""
+    return mesh.gather_tree(_master(state), state.layout)
+
+
 @torch.no_grad()
 def replace_params(state: TrainState, new_params) -> TrainState:
-    """Copy ``new_params`` (a tree of the same structure, on any device)
-    into the params in place (best-model reload, transplant); the
-    optimizer state is kept.  Under ``--params_bf16`` the master takes the
-    new values exactly and the live params their bf16 cast, so the next
-    step starts from the new weights."""
-    new = dict(tree_items(new_params))
-    master = export_params(state)
+    """Copy ``new_params`` (a whole model of the same structure, on any
+    device) into the params in place (best-model reload, transplant),
+    this rank's shard of it under tensor parallelism; the optimizer state
+    is kept.  Under ``--params_bf16`` the master takes the new values
+    exactly and the live params their bf16 cast, so the next step starts
+    from the new weights."""
+    new = dict(tree_items(mesh.shard_tree(new_params, state.layout)))
+    master = _master(state)
     for path, p in tree_items(master):
         p.copy_(torch.as_tensor(new[path]))
     if master is not state.params:
@@ -124,13 +152,63 @@ def replace_params(state: TrainState, new_params) -> TrainState:
     return state
 
 
-def broadcast_state(state: TrainState) -> TrainState:
-    """Rank 0's params (the fp32 master and its bf16 cast under
-    ``--params_bf16``) on every data-parallel rank, in place, so that the
-    ranks start from identical weights; nothing on one rank."""
-    if mesh.world_size() == 1:
+def gather_state(state: TrainState) -> TrainState:
+    """The whole train state (params, master and AdamW moments gathered
+    from the TP group, detached; ``layout`` empty): what a checkpoint
+    holds.  Every rank of the group must call it; ``state`` itself at
+    M = 1."""
+    from .optim import AdamWState
+    if not state.layout:
         return state
-    master = export_params(state)
+    paths = [k for k, _ in tree_items(state.params)]
+
+    def moments(xs):
+        full = mesh.gather_tree(dict(zip(paths, xs)), state.layout)
+        return [full[k] for k in paths]
+
+    opt = state.opt_state
+    inner = opt.inner if isinstance(opt, MasterState) else opt
+    inner = AdamWState(count=inner.count, mu=moments(inner.mu),
+                       nu=moments(inner.nu))
+    if isinstance(opt, MasterState):
+        inner = MasterState(master=mesh.gather_tree(opt.master, state.layout),
+                            inner=inner)
+    return TrainState(params=mesh.gather_tree(state.params, state.layout),
+                      opt_state=inner, step=state.step)
+
+
+def shard_state(full: TrainState, layout) -> TrainState:
+    """This rank's shard of a whole train state (:func:`gather_state`'s
+    inverse): params that require grad, master and moments cut alike."""
+    from .optim import AdamWState
+    if not layout:
+        return full
+    paths = [k for k, _ in tree_items(full.params)]
+
+    def moments(xs):
+        part = mesh.shard_tree(dict(zip(paths, xs)), layout)
+        return [part[k] for k in paths]
+
+    opt = full.opt_state
+    inner = opt.inner if isinstance(opt, MasterState) else opt
+    inner = AdamWState(count=inner.count, mu=moments(inner.mu),
+                       nu=moments(inner.nu))
+    if isinstance(opt, MasterState):
+        inner = MasterState(master=mesh.shard_tree(opt.master, layout),
+                            inner=inner)
+    params = _map(mesh.shard_tree(full.params, layout),
+                  lambda p: p.detach().requires_grad_(True))
+    return TrainState(params=params, opt_state=inner, step=full.step,
+                      layout=layout)
+
+
+def broadcast_state(state: TrainState) -> TrainState:
+    """Data rank 0's params (the fp32 master and its bf16 cast under
+    ``--params_bf16``) on every rank of the DP group, in place, so that
+    the data indices start from identical weights; nothing on one."""
+    if mesh.data_size() == 1:
+        return state
+    master = _master(state)
     mesh.broadcast_([p for _, p in tree_items(master)])
     if master is not state.params:
         with torch.no_grad():
@@ -139,9 +217,9 @@ def broadcast_state(state: TrainState) -> TrainState:
 
 
 def check_ranks_agree(state: TrainState) -> None:
-    """Raise when the data-parallel ranks hold different params (every
+    """Raise when the ranks of a DP group hold different params (every
     rank must call it)."""
-    bad = mesh.disagreeing_leaf(export_params(state))
+    bad = mesh.disagreeing_leaf(_master(state))
     if bad is not None:
         raise RuntimeError(f"the data-parallel ranks hold different values "
                            f"of {bad}")
@@ -234,7 +312,7 @@ def make_train_step(loss_fn: Callable, optimizer, *, accum_steps: int = 1,
         loss, metrics = loss_fn(params, batch, base_rng)
         return augment_fn(params, batch, aug_rng, loss, metrics)
 
-    rank, world = mesh.rank(), mesh.world_size()
+    rank, world = mesh.data_rank(), mesh.data_size()
 
     def grads_of(params, batch, generator):
         leaves = [p for _, p in tree_items(params)]
@@ -265,9 +343,9 @@ def make_train_step(loss_fn: Callable, optimizer, *, accum_steps: int = 1,
                 metrics[k] = v
         opt_state = apply(state, grads)
         if with_grad_norm:
-            metrics["grad_norm"] = torch.stack(
-                [g.float().square().sum() for g in grads]).sum().sqrt()
-        return TrainState(state.params, opt_state, state.step + 1), metrics
+            metrics["grad_norm"] = _grad_norm(state, grads)
+        return TrainState(state.params, opt_state, state.step + 1,
+                          state.layout), metrics
 
     def single_step(state: TrainState, batch: Dict, seed: Optional[int]
                     ) -> Tuple[TrainState, Dict]:
@@ -295,6 +373,22 @@ def make_train_step(loss_fn: Callable, optimizer, *, accum_steps: int = 1,
         return finish(state, grads, metrics)
 
     return accum_step if accum_steps > 1 else single_step
+
+
+def _grad_norm(state: TrainState, grads) -> torch.Tensor:
+    """The global fp32 gradient norm: the squares of the split leaves
+    summed over the TP group, each replicated leaf counted once."""
+    if not state.layout:
+        return torch.stack([g.float().square().sum()
+                            for g in grads]).sum().sqrt()
+    split, whole = [], []
+    for (path, _), g in zip(tree_items(state.params), grads):
+        (split if path in state.layout else whole).append(
+            g.float().square().sum())
+    total = torch.stack(whole).sum() if whole else 0.0
+    if split:
+        total = total + mesh.reduce_from_tp(torch.stack(split).sum())
+    return torch.as_tensor(total).sqrt()
 
 
 def make_crf_decode_step(cfg, bert_cfg: BertConfig) -> Callable:

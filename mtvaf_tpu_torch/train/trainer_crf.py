@@ -42,7 +42,7 @@ import torch
 from ..core import mesh
 from ..core.checkpoint import load_best, load_torch_file, save_best, \
     transplant
-from ..core.config import CRF_LABEL_LIST, Config, check_ported
+from ..core.config import CRF_LABEL_LIST, Config
 from ..core.platform import resolve_device, upload
 from ..data.datasets import iterate_batches, prefetch
 from ..eval.metrics import eval_json
@@ -74,13 +74,15 @@ class CrfTrainer:
     def __init__(self, cfg: Config, bert_cfg: BertConfig, params, *,
                  train_dataset=None, dev_dataset=None, test_dataset=None,
                  resnet_params=None, writer=None, device=None):
-        check_ported(cfg)
         if cfg.is_span_pipeline:
             raise ValueError(f"dataset {cfg.dataset_name!r} runs the span "
                              "pipeline: use SpanTrainer")
         self.device = resolve_device(device)
-        self.rank, self.world = mesh.rank(), mesh.world_size()
-        mesh.data_axis(cfg, self.world)
+        mesh.data_axis(cfg, mesh.world_size())
+        mesh.require_grid(cfg.mesh_model)
+        # batches, eval shards and metric sums go by the data axis: the
+        # ranks of a TP group take the same rows
+        self.rank, self.world = mesh.data_rank(), mesh.data_size()
         self.cfg = cfg
         self.bert_cfg = bert_cfg
         self.train_dataset = train_dataset

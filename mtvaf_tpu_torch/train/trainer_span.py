@@ -49,7 +49,7 @@ import torch
 from ..core import mesh
 from ..core.checkpoint import load_best, load_torch_file, save_best, \
     transplant
-from ..core.config import Config, check_ported
+from ..core.config import Config
 from ..core.platform import resolve_device, to_host_async, upload
 from ..data.datasets import iterate_batches, prefetch
 from ..eval.metrics import eval_absa
@@ -90,13 +90,15 @@ class SpanTrainer:
     def __init__(self, cfg: Config, bert_cfg: BertConfig, params, *,
                  train_dataset=None, dev_dataset=None, test_dataset=None,
                  resnet_params=None, writer=None, device=None):
-        check_ported(cfg)
         if not cfg.is_span_pipeline:
             raise ValueError(f"dataset {cfg.dataset_name!r} runs the CRF "
                              "pipeline: use CrfTrainer")
         self.device = resolve_device(device)
-        self.rank, self.world = mesh.rank(), mesh.world_size()
-        mesh.data_axis(cfg, self.world)
+        mesh.data_axis(cfg, mesh.world_size())
+        mesh.require_grid(cfg.mesh_model)
+        # batches, eval shards and metric sums go by the data axis: the
+        # ranks of a TP group take the same rows
+        self.rank, self.world = mesh.data_rank(), mesh.data_size()
         self.cfg = cfg
         self.bert_cfg = bert_cfg
         self.train_dataset = train_dataset

@@ -4,10 +4,12 @@ the CPU, in one gloo group.
     spawn(module, function, world, workdir) -> [rank 0's result, ...]
 
 (or ``start(...)``, which returns at once, and ``.results()`` later)
-starts ``python tests/_torch_dp.py MODULE FUNCTION RANK WORLD PORT WORKDIR``
-for every rank at once.  Each child puts ``tests/`` and the repository root
-on its path, runs one intra-op thread, starts the group (a collective that
-waits longer than ``COLLECTIVE_TIMEOUT`` fails), calls
+starts ``python tests/_torch_dp.py MODULE FUNCTION RANK WORLD WORKDIR`` for
+every rank at once.  Each child puts ``tests/`` and the repository root on
+its path, runs one intra-op thread, starts the group through a file store
+in ``WORKDIR`` (no port: each spawn has its own directory, so concurrent
+spawns cannot take each other's rendezvous), where a collective that waits
+longer than ``COLLECTIVE_TIMEOUT`` fails, calls
 ``MODULE.FUNCTION(rank, world, workdir)`` and pickles what it returns to
 ``WORKDIR/rank{RANK}.pkl``.  The parent waits at most ``timeout`` seconds
 for all of them, kills the others as soon as one fails, and raises with the
@@ -28,9 +30,12 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 COLLECTIVE_TIMEOUT = datetime.timedelta(seconds=120)
+STORE = "pg_store"
 
 
 def free_port() -> int:
+    """A port that was free a moment ago (for a one-rank ``env://`` group;
+    the spawned ranks meet through a file instead)."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
@@ -44,7 +49,9 @@ class Ranks:
         self.workdir = str(workdir)
         self.timeout = timeout
         os.makedirs(self.workdir, exist_ok=True)
-        port = free_port()
+        store = self._path(STORE)
+        if os.path.exists(store):       # a finished spawn's, in this dir
+            os.remove(store)
         env = {k: v for k, v in os.environ.items()
                if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK",
                             "MASTER_ADDR", "MASTER_PORT")}
@@ -56,7 +63,7 @@ class Ranks:
             self.logs.append(log)
             self.procs.append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), module, function,
-                 str(rank), str(world), str(port), self.workdir],
+                 str(rank), str(world), self.workdir],
                 stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT))
 
     def _path(self, name):
@@ -106,15 +113,15 @@ def spawn(module: str, function: str, world: int, workdir,
     return start(module, function, world, workdir, timeout).results()
 
 
-def _child(module, function, rank, world, port, workdir):
+def _child(module, function, rank, world, workdir):
     sys.path[:0] = [ROOT, HERE]
     import torch
     import torch.distributed as dist
 
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            rank=rank, world_size=world,
-                            timeout=COLLECTIVE_TIMEOUT)
+    dist.init_process_group(
+        "gloo", init_method="file://" + os.path.join(workdir, STORE),
+        rank=rank, world_size=world, timeout=COLLECTIVE_TIMEOUT)
     try:
         result = getattr(importlib.import_module(module), function)(
             rank, world, workdir)
@@ -127,5 +134,5 @@ def _child(module, function, rank, world, port, workdir):
 
 
 if __name__ == "__main__":
-    m, fn, r, w, p, d = sys.argv[1:7]
-    _child(m, fn, int(r), int(w), int(p), d)
+    m, fn, r, w, d = sys.argv[1:6]
+    _child(m, fn, int(r), int(w), d)

@@ -123,13 +123,14 @@ def test_the_port_run_loads_in_both_predictors(trained):
 
 def test_span_datasets_and_unported_flags_raise(data_tree, tmp_path):
     root, bert, vocab_size = data_tree
-    # tensor parallelism is not ported; several hosts need a process group
-    # (tests/test_torch_dp_trainer.py trains on one) and never fall back to
-    # one process
+    # tensor parallelism and several hosts need a process group
+    # (tests/test_torch_tp_trainer.py and test_torch_dp_trainer.py train
+    # on one) and never fall back to one process
     for extra, err, match in (
             (("--dataset_name", "twitter15", "--mesh_model", "2"),
-             NotImplementedError, "tensor parallelism"),
-            (("--mesh_model", "2"), NotImplementedError, "A.5b"),
+             ValueError, "tensor parallelism"),
+            (("--mesh_model", "2"), ValueError,
+             "mesh_model=2 does not divide the 1 process"),
             (("--nodes", "2"), RuntimeError, "needs a process group")):
         with pytest.raises(err, match=match):
             main(_argv(root, bert, tmp_path / "x", "--do_train", *extra),

@@ -442,3 +442,47 @@ def test_parallel_decode_matches_the_scan_on_the_card(cuda, s):
         tags, lens = crf_decode_parallel(params, emissions, mask)
         want, want_lens = crf_decode(params, emissions, mask)
         assert torch.equal(tags, want) and torch.equal(lens, want_lens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_head_offset_is_the_full_calls_slice(cuda, dtype, rate):
+    """A tensor-parallel rank's call over heads [h0, H) keyed from h0 is,
+    bit for bit, heads h0.. of the call over every head: the mask entry
+    point, K1 (o and lse) and K2 (dq, dk, dv); and K1/K2 hold against
+    their plain versions given the offset masks."""
+    b, h, s, t, d, h0 = 2, 12, 70, 86, 64, 6
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v, do = (torch.randn(b, h, n, d, device=cuda, generator=g)
+                   .to(dtype) for n in (s, t, t, s))
+    bias = torch.zeros(b, 1, 1, t, device=cuda)
+    bias[1, ..., -9:] = -10000.0
+    part = [x[:, h0:].contiguous() for x in (q, k, v, do)]
+    seed = 0x0123456789ABCDEF
+    mask = keep_mask_cuda(seed, 0.1, (b, h - h0, s, t), cuda, head_offset=h0)
+    assert torch.equal(mask, keep_mask_cuda(seed, 0.1, (b, h, s, t),
+                                            cuda)[:, h0:])
+    assert torch.equal(mask, keep_mask_reference(
+        seed, 0.1, (b, h - h0, s, t), cuda, head_offset=h0))
+    o, lse = prefix_attention_cuda(*part[:3], bias, seed=seed, rate=rate,
+                                   head_offset=h0)
+    o12, lse12 = prefix_attention_cuda(q, k, v, bias, seed=seed, rate=rate)
+    grads = prefix_attention_bwd_cuda(*part[:3], bias, o, lse, part[3],
+                                      seed=seed, rate=rate, head_offset=h0)
+    grads12 = prefix_attention_bwd_cuda(q, k, v, bias, o12, lse12, do,
+                                        seed=seed, rate=rate)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o12[:, h0:]) and torch.equal(lse, lse12[:, h0:])
+    for got, whole in zip(grads, grads12):
+        assert torch.equal(got, whole[:, h0:])
+    keep = keep_factors(seed, rate, (b, h - h0, s, t), cuda,
+                        head_offset=h0) if rate else None
+    ro, _ = prefix_attention_reference(*part[:3], bias, keep)
+    atol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    assert (o.float() - ro.float()).abs().max().item() <= atol
+    plain = prefix_attention_bwd_reference(*part[:3], bias, o, lse, part[3],
+                                           keep)
+    atol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    for got, want in zip(grads, plain):
+        assert (got.float() - want.float()).abs().max().item() <= atol

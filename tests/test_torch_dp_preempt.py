@@ -107,6 +107,6 @@ def test_resume_is_bitwise_and_needs_the_same_world_size(runs):
                         resumed["opt_state"][name]):
             assert torch.equal(a, b), name
     assert straight["opt_state"]["count"] == resumed["opt_state"]["count"]
-    # this process is a world of one
-    with pytest.raises(ValueError, match="written on 2 processes"):
+    # this process is a world of one (a data axis of one)
+    with pytest.raises(ValueError, match="written on a data axis of 2"):
         load_latest_checkpoint(str(work / "preempted"), None)

@@ -273,6 +273,7 @@ def prepare(d, pipeline):
             dataset_name="twitter15", num_layers=2)
     else:
         crf_tree(d)
+        seed_pixel_cache(d)
         (d / "resnet").mkdir()
         torch.save(torchvision_state_dict(jax.tree.map(np.asarray, jax.jit(
             lambda key: init_resnet_params(key, 18))(jax.random.PRNGKey(2)))),
@@ -284,6 +285,22 @@ def prepare(d, pipeline):
     jparams = init(Config(**kw), bert_cfg(d), seed=4)
     jax_save_best(str(d / f"init_{pipeline}.npz"), jparams)
     return jbert, jparams
+
+
+def seed_pixel_cache(d):
+    """Fill the CRF tree's ``.npy`` pixel cache, which both CLIs read
+    under ``--cache_dir``, with the port's pixels before any run starts.
+    The JAX package decodes through its native resize where that is built,
+    whose pixels differ from PIL's in rounding; with the cache empty, the
+    process that wrote an image first would decide what every other one
+    reads, and the ranks of one TP group could read different pixels."""
+    from mtvaf_tpu_torch.data.images import ImageStore
+    from mtvaf_tpu_torch.data.readers import PLACEHOLDER
+    store = ImageStore(str(d / "data" / "twitter2015_images"),
+                       cache_dir=str(d / "cache" / "img"))
+    # rows whose image file is missing take the placeholder's id
+    for image_id in IMG_IDS + [PLACEHOLDER]:
+        store.main_image(image_id)
 
 
 def start_ranks(d, pipeline, world):

@@ -6,7 +6,8 @@ grid of device counts and batch sizes, ``align_local_rows`` for every
 (world, accum, rank), and ``iterate_batches``' per-rank shards for world
 2 and 4 over epochs, ``drop_last`` and ``pad_to_full`` on a length that
 leaves a partial tail.  The config surface parses the JAX CLI's
-data-parallel flags, and only ``mesh_model > 1`` raises.
+data- and tensor-parallel flags, and the data axis is the world over
+``mesh_model``.
 
 ``init_distributed`` starts a group from the launcher's environment,
 adopts it and destroys only its own.  The collectives on two ranks ride in
@@ -29,8 +30,7 @@ import pytest
 import torch
 
 from mtvaf_tpu_torch.core import mesh
-from mtvaf_tpu_torch.core.config import Config, check_ported, \
-    config_from_args
+from mtvaf_tpu_torch.core.config import Config, config_from_args
 from mtvaf_tpu_torch.data import datasets
 
 IDS = [f"{810000 + i}.jpg" for i in range(4)]
@@ -101,9 +101,20 @@ def test_config_surface_and_what_still_raises():
                             "2", "--local_rank", "1", "--n_gpu", "2"])
     assert (cfg.mesh_data, cfg.nodes, cfg.gpus, cfg.local_rank,
             cfg.n_gpu) == (2, 2, 2, 1, 2)
-    check_ported(cfg)                       # several hosts are ported
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.5b"):
-        check_ported(Config(mesh_model=2))
+    # nothing is refused any more: tensor parallelism is ported, and the
+    # data axis is the world over mesh_model
+    import mtvaf_tpu_torch.core.config as config_module
+    assert not hasattr(config_module, "check_ported")
+    cfg = config_from_args(["--mesh_data", "2", "--mesh_model", "2"])
+    assert (cfg.mesh_data, cfg.mesh_model) == (2, 2)
+    assert mesh.data_axis(Config(train_batch_size=8, eval_batch_size=4,
+                                 mesh_model=2, mesh_data=2), 4) == 2
+    with pytest.raises(ValueError, match="mesh_model=3 does not divide"):
+        mesh.data_axis(Config(mesh_model=3), 4)
+    with pytest.raises(ValueError, match=r"data axis 2 must divide .* "
+                       r"eval_batch_size \(3\)"):
+        mesh.data_axis(Config(train_batch_size=8, eval_batch_size=3,
+                              mesh_model=2), 4)
     assert mesh.data_axis(Config(train_batch_size=8, eval_batch_size=4),
                           4) == 4
     with pytest.raises(ValueError, match=r"micro-batch \(3\) and "
@@ -115,6 +126,12 @@ def test_config_surface_and_what_still_raises():
                               eval_batch_size=8), 4)
     # one process: no group, every collective is the identity
     assert mesh.world_size() == 1 and mesh.is_primary()
+    assert (mesh.data_size(), mesh.model_size(), mesh.data_rank(),
+            mesh.model_rank()) == (1, 1, 0, 0)
+    x = torch.ones(3, requires_grad=True)
+    for move in (mesh.copy_to_tp, mesh.reduce_from_tp, mesh.gather_from_tp,
+                 mesh.scatter_to_tp):
+        assert move(x) is x
     np.testing.assert_array_equal(mesh.cross_host_sum([1, 2]), [1, 2])
     assert mesh.cross_host_gather("x") == ["x"]
     t = [torch.ones(2)]

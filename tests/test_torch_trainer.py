@@ -359,9 +359,10 @@ def test_resume_without_checkpoints_starts_afresh(tree, tmp_path):
     ("mesh_model", 2, "tensor parallelism")])
 def test_what_is_not_ported_raises(tree, tmp_path, field, value, match):
     # a span dataset is ported, but runs in SpanTrainer, not here; several
-    # hosts need a process group with a rank on each (one process never
-    # trains in their place); tensor parallelism is not ported
+    # hosts need a process group with a rank on each, and tensor
+    # parallelism a rank per shard of the model (one process never trains
+    # in their place)
     error = {"dataset_name": ValueError, "nodes": RuntimeError,
-             "mesh_model": NotImplementedError}[field]
+             "mesh_model": ValueError}[field]
     with pytest.raises(error, match=match):
         _port_trainer(tree, tmp_path, **{field: value})
