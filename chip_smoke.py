@@ -170,7 +170,29 @@ Phases, each of which fails the run by raising:
    quarter of how far 15(d) moved it (L2 norms); prints the phase's
    seconds.  The card is
    one: the ranks share it over gloo, so the phase proves agreement and
-   launches, not TP's speed.
+   launches, not TP's speed;
+17. the C++ host runtime and the parity harness: (a), run right after
+   phase 1, ``native: <status>`` must read ``native`` (the library built
+   with g++ from ``mtvaf_tpu_torch/native``); the image op held against
+   its plain numpy version (``native/reference.py``) to 1e-5 on phase
+   10's first images (regenerated from its seed, equal to the rows its
+   pixel cache holds) and on a 300×400 and a 400×300 gradient image at
+   four crops (centre, rows past the image, columns past it, a 128
+   crop), its mirror exact; the accelerated tokenizer's tokens and ids
+   equal to the Python tokenizer's on every sentence of phases 10's and
+   11's trees; host ms per image (native against PIL) and per 1000
+   sentences (native against Python).  From here on, phases 7, 10, 12,
+   13, 15 and 16 take their pixels (the seeded caches and phase 7's
+   requests: random images through the image op) and their BERT tokens
+   through the library; (b) ``python -m mtvaf_tpu_torch.parity.harness
+   --dry_run --skip_reference`` on ``cuda`` in a child process started
+   after phase 14, beside phases 15 and 16: c1-c5, six rows, from the
+   harness's own 768-wide, 8-layer BERT and RoBERTa checkpoints and
+   ResNet-152 ``.pth``; each row's run exits 0 with finite metrics, loads
+   every checkpoint (no "random init" in its log) and launches K1 and K2;
+   the table and the seconds per row; (c) 16(c)'s gap printed again
+   beside its earlier readings with the same ``_row_dense``, which
+   reduces a row-parallel bf16 dot as JAX does.
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times: the
 kernels' summed durations under ``torch.profiler``.  ``event_ms`` is the
@@ -644,16 +666,31 @@ def flagship():
     return cfg, bert_cfg, params, resnet
 
 
+def raw_image(rng):
+    """A decoded uint8 RGB image of 240-400 rows and columns from ``rng``:
+    random 4×4-pixel blocks (16 times fewer draws than per-pixel noise)."""
+    h, w = (int(x) for x in rng.integers(240, 401, 2))
+    blocks = rng.integers(0, 256, (h // 4 + 1, w // 4 + 1, 3), np.uint8)
+    return np.ascontiguousarray(
+        blocks.repeat(4, axis=0).repeat(4, axis=1)[:h, :w])
+
+
+def native_pixels(rng):
+    """The eval transform's rows of :func:`raw_image`, through the C++
+    image op (phase 17 holds it against its plain version)."""
+    from mtvaf_tpu_torch.native.binding import native_preprocess
+    out = native_preprocess(raw_image(rng))
+    if out is None:
+        raise AssertionError("the native image op is not loaded")
+    return out
+
+
 def requests(n, seed):
-    from mtvaf_tpu_torch.data.images import _normalize
     rng = np.random.default_rng(seed)
     out = []
     for i in range(n):
         sent = " ".join(rng.choice(WORDS, size=int(rng.integers(4, 40))))
-        img = None
-        if i % 2 == 0:
-            img = _normalize(rng.integers(0, 256, (224, 224, 3), np.uint8))
-        out.append((sent, img))
+        out.append((sent, native_pixels(rng) if i % 2 == 0 else None))
     return out
 
 
@@ -1107,14 +1144,14 @@ def trainer_tree(tmp):
 
 
 def seed_pixel_cache(img_dir, pix_dir, ids, rng):
-    """One empty image file per id, with its normalized pixel rows (random
-    from ``rng``) in the ``.npy`` cache that ``ImageStore`` reads first, so
-    that nothing is decoded (the card's machine has no PIL)."""
-    from mtvaf_tpu_torch.data.images import _normalize
+    """One empty image file per id, with its normalized pixel rows in the
+    ``.npy`` cache that ``ImageStore`` reads first, so that nothing is
+    decoded: each a random :func:`raw_image` from ``rng`` through the
+    native image op (:func:`native_pixels`), as ``ImageStore`` would have
+    made them from a file."""
     for img in ids:
         open(os.path.join(img_dir, img), "wb").close()
-        np.save(os.path.join(pix_dir, img + ".npy"), _normalize(
-            rng.integers(0, 256, (224, 224, 3), np.uint8)))
+        np.save(os.path.join(pix_dir, img + ".npy"), native_pixels(rng))
 
 
 def run_cli(argv, bert_cfg, on_epoch_log=None, span=False, on_trainer=None):
@@ -2010,6 +2047,7 @@ def aux_tree(tmp):
     from mtvaf_tpu_torch.core.config import Config
     from mtvaf_tpu_torch.data.datasets import SpanDataset
     from mtvaf_tpu_torch.data.tokenization import build_tokenizer
+    from mtvaf_tpu_torch.native.binding import maybe_accelerate
 
     root, bert_dir = span_tree(tmp)
     base = os.path.join(root, "twitter2015")
@@ -2019,7 +2057,7 @@ def aux_tree(tmp):
     for d in (img_dir, pix_dir):
         os.makedirs(d, exist_ok=True)
     cfg = Config(dataset_name="twitter15", max_seq=TRAIN_S)
-    tok = build_tokenizer(bert_dir, cfg.do_lower_case)
+    tok = maybe_accelerate(build_tokenizer(bert_dir, cfg.do_lower_case))
     ids = []
     for k, (mode, fname) in enumerate((("train", "train.txt"),
                                        ("dev", "valid.txt"),
@@ -2444,17 +2482,18 @@ def finish_export(export, timeout=900):
 
 class Child:
     """A child process of this repository's code (``python -m module
-    args``), its output in a log file under ``tmp``; stopped by
-    :meth:`stop` (SIGINT, then a kill after 60 s)."""
+    args``, with ``env`` added to this process's environment), its output
+    in a log file under ``tmp``; stopped by :meth:`stop` (SIGINT, then a
+    kill after 60 s)."""
 
-    def __init__(self, tmp, name, module, args):
+    def __init__(self, tmp, name, module, args, env=None):
         self.log_path = os.path.join(tmp, f"{name}.log")
         self.t0 = time.perf_counter()
         with open(self.log_path, "w") as f:
             self.proc = subprocess.Popen(
                 [sys.executable, "-m", module, *args],
                 cwd=os.path.dirname(os.path.abspath(__file__)), stdout=f,
-                stderr=subprocess.STDOUT)
+                stderr=subprocess.STDOUT, env={**os.environ, **(env or {})})
 
     def text(self):
         with open(self.log_path) as f:
@@ -3772,6 +3811,7 @@ def dp_phase(tmp):
     from mtvaf_tpu_torch.core.config import Config
     from mtvaf_tpu_torch.data.datasets import SpanDataset
     from mtvaf_tpu_torch.data.tokenization import build_tokenizer
+    from mtvaf_tpu_torch.native.binding import maybe_accelerate
     from mtvaf_tpu_torch.nn.bert import BertConfig
 
     layers = BertConfig.base().num_hidden_layers
@@ -3780,7 +3820,7 @@ def dp_phase(tmp):
     root, bert_dir, cache, _ = trainer_tree(tmp)
     span_root, span_bert = span_tree(tmp)
     cfg = Config(dataset_name="twitter15", max_seq=TRAIN_S)
-    tok = build_tokenizer(span_bert, cfg.do_lower_case)
+    tok = maybe_accelerate(build_tokenizer(span_bert, cfg.do_lower_case))
     for k, (mode, fname) in enumerate((("train", "train.txt"),
                                        ("dev", "valid.txt"),
                                        ("test", "test.txt"))):
@@ -4191,6 +4231,219 @@ def tp_against_dp(tp_ranks, dp_ranks, tp_best, dp_best, init, layers):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the C++ host runtime (batch WordPiece and the image op) and the
+# parity harness's dry run.
+
+# The image op against its plain numpy version, in normalised units: the
+# same float32 formula on both sides (one rounding order), so they agree
+# to a few ulps of values below ~3.
+NATIVE_ATOL = 1e-5
+# Crops of the two gradient images (300×400 and 400×300): the centre, rows
+# and columns past the resized image (zero-padded), and a 128 crop.
+GRADIENT_CROPS = {"centre": {}, "rows_past": {"top": 100, "left": 0},
+                  "columns_past": {"top": 0, "left": 200},
+                  "crop128": {"top": 40, "left": 60, "crop": 128}}
+HOST_IMAGES = 32
+# The parity dry run: five configs, six rows (c5 on both datasets).
+PARITY_ROWS = 6
+PARITY_TIMEOUT = 900
+
+
+def gradient_image(h, w):
+    yy, xx = np.mgrid[0:h, 0:w]
+    return np.stack([yy * 255 / h, xx * 255 / w, (yy + xx) * 255 / (h + w)],
+                    axis=-1).astype(np.uint8)
+
+
+def host_ms(fn, items, repeats=3):
+    """Host ms of ``fn`` per item, over ``repeats`` passes."""
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        for item in items:
+            fn(item)
+    return (time.perf_counter() - t0) * 1e3 / (repeats * len(items))
+
+
+def host_runtime_phase(card):
+    """Phase 17(a): the C++ host runtime is loaded (``native:
+    native``); the image op against its plain numpy version on phase 10's
+    first images (regenerated from its seed, and equal to the rows its
+    pixel cache holds) and on two gradient images at four crops, its
+    mirror exact; the accelerated tokenizer's tokens and ids equal the
+    Python tokenizer's on every sentence of phases 10's and 11's trees,
+    whole and word by word (as feature conversion calls it); host ms per
+    image and per 1000 sentences, native against PIL and Python."""
+    from mtvaf_tpu_torch.data import images, readers
+    from mtvaf_tpu_torch.data.tokenization import build_tokenizer
+    from mtvaf_tpu_torch.native import binding, reference
+
+    t_phase = time.perf_counter()
+    status = binding.status()
+    log(f"native: {status}")
+    if status != "native":
+        raise AssertionError(f"17(a): the C++ host runtime is not loaded: "
+                             f"{status}")
+    out = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        root, bert_dir, cache, ids = trainer_tree(tmp)
+        out["phase10_tree_s"] = time.perf_counter() - t0
+        span_root, _ = span_tree(tmp)
+
+        # pixels: phase 10's first images, drawn again from its seed
+        rng = np.random.default_rng(SEED)
+        raws = [raw_image(rng) for _ in range(HOST_IMAGES)]
+        worst, cases = 0.0, 0
+        for raw, img in zip(raws, ids):
+            got = binding.native_preprocess(raw)
+            if not np.array_equal(got, np.load(os.path.join(
+                    cache, "img", img + ".npy"))):
+                raise AssertionError(f"17(a): the pixel cache's {img} is "
+                                     "not the library's rows")
+            worst = max(worst, float(np.abs(
+                got - reference.img_preprocess(raw)).max()))
+            if not np.array_equal(binding.native_preprocess(raw, hflip=True),
+                                  got[:, ::-1]):
+                raise AssertionError("17(a): hflip is not the mirrored crop")
+            cases += 1
+        for h, w in ((300, 400), (400, 300)):
+            raw = gradient_image(h, w)
+            for name, kw in GRADIENT_CROPS.items():
+                got = binding.native_preprocess(raw, **kw)
+                want = reference.img_preprocess(raw, **kw)
+                if got.shape != want.shape:
+                    raise AssertionError(f"17(a): {h}x{w} {name}: shape "
+                                         f"{got.shape} != {want.shape}")
+                worst = max(worst, float(np.abs(got - want).max()))
+                if not np.array_equal(
+                        binding.native_preprocess(raw, hflip=True, **kw),
+                        got[:, ::-1]):
+                    raise AssertionError(f"17(a): {h}x{w} {name}: hflip is "
+                                         "not the mirrored crop")
+                cases += 1
+        out["image_max_abs_diff"] = worst
+        out["image_cases"] = cases
+        log(f"17(a) image op against native/reference.py: {cases} cases, "
+            f"max |diff| {worst:.3e} (limit {NATIVE_ATOL})")
+        if worst > NATIVE_ATOL:
+            raise AssertionError(f"17(a): the image op is {worst} from its "
+                                 f"plain version")
+
+        # tokens: every sentence of phases 10's and 11's trees
+        sentences = []
+        for fname in ("train.txt", "valid.txt", "test.txt"):
+            data = readers.read_mmtsv(
+                os.path.join(root, "twitter2015", "twitter2015", fname),
+                os.path.join(root, "ANP_data", "image_output2015.json"))[0]
+            sentences += [words for words, _ in data]
+            sentences += readers.read_absa_data(
+                os.path.join(span_root, "twitter2015", fname))["words"]
+        python = build_tokenizer(bert_dir)
+        native = binding.maybe_accelerate(python)
+        if not isinstance(native, binding.AcceleratedTokenizer):
+            raise AssertionError("17(a): maybe_accelerate did not wrap the "
+                                 "WordPiece tokenizer")
+        for words in sentences:
+            text = " ".join(words)
+            want = python.tokenize(text)
+            if native.tokenize(text) != want or [
+                    native.tokenize(" " + w) for w in words] != [
+                    python.tokenize(" " + w) for w in words] or \
+                    native.convert_tokens_to_ids(want) != \
+                    python.convert_tokens_to_ids(want):
+                raise AssertionError(f"17(a): the tokenizers differ on "
+                                     f"{text!r}")
+        out["sentences"] = len(sentences)
+        texts = [" ".join(words) for words in sentences]
+        out["tokens_ms_per_1000"] = {
+            name: {"sentence": 1000 * host_ms(tok.tokenize, texts),
+                   "word_by_word": 1000 * host_ms(
+                       lambda words, tok=tok: [tok.tokenize(" " + w)
+                                               for w in words], sentences)}
+            for name, tok in (("native", native), ("python", python))}
+
+    out["image_ms"] = {"native": host_ms(binding.native_preprocess, raws)}
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        out["image_ms"]["pil"] = None
+        log("17(a): PIL is not installed: its time is not measured")
+    else:
+        out["image_ms"]["pil"] = host_ms(
+            lambda raw: images._process_raw(raw, use_native=False), raws)
+    out["seconds"] = time.perf_counter() - t_phase
+    log("host_runtime", json.dumps(out))
+    return out
+
+
+def start_parity(tmp):
+    """Phase 17(b): the parity harness's dry run on the card
+    (``python -m mtvaf_tpu_torch.parity.harness --dry_run
+    --skip_reference``), a child process started after phase 14 so that
+    it runs beside phases 15 and 16, its processes on two host threads
+    each (batches of 4: the card does their work), so as to take little
+    of the host from phase 15's ranks."""
+    out = os.path.join(tmp, "parity_out")
+    return Child(tmp, "parity", "mtvaf_tpu_torch.parity.harness",
+                 ["--dry_run", "--skip_reference", "--out", out],
+                 env={"OMP_NUM_THREADS": "2"}), out
+
+
+def finish_parity(parity, timeout=PARITY_TIMEOUT):
+    """Wait for :func:`start_parity`'s child and hold its six rows: each
+    "ours" run exited 0 with finite ``final_metrics.json``, loaded its
+    backbone and ResNet from the harness's checkpoints (no "random init"
+    in its log) and launched K1 and K2; prints the table and the seconds
+    per row."""
+    child, out = parity
+    t_wait = time.perf_counter()
+    try:
+        child.proc.wait(timeout=max(timeout - (time.perf_counter()
+                                               - child.t0), 1))
+    except subprocess.TimeoutExpired:
+        child.stop()
+        raise AssertionError(f"17(b): the parity dry run ran past "
+                             f"{timeout} s:\n{child.text()[-6000:]}")
+    wall = time.perf_counter() - child.t0
+    if child.proc.returncode != 0:
+        raise AssertionError(f"17(b): the parity dry run exited "
+                             f"{child.proc.returncode}:\n"
+                             f"{child.text()[-6000:]}")
+    with open(os.path.join(out, "parity.json")) as f:
+        rows = json.load(f)["rows"]
+    failed = []
+    for row in rows:
+        run = os.path.join(out, f"{row['config']}_{row['dataset']}")
+        with open(os.path.join(run, "ours.log")) as f:
+            text = f.read()
+        metrics = os.path.join(run, "our_save", "final_metrics.json")
+        values = []
+        if os.path.exists(metrics):
+            with open(metrics) as f:
+                values = list(json.load(f).values())
+        launches = row["our_launches"] or {}
+        if row["our_rc"] != 0 or not values or \
+                not all(math.isfinite(v) for v in values) or \
+                "random init" in text or not launches.get("k1") or \
+                not launches.get("k2"):
+            failed.append((row, text[-3000:]))
+    with open(os.path.join(out, "PARITY_RUN.md")) as f:
+        log(f.read().rstrip())
+    result = {"rows": len(rows), "wall_s": wall,
+              "waited_s": time.perf_counter() - t_wait,
+              "seconds": {f"{r['config']}_{r['dataset']}": r["our_seconds"]
+                          for r in rows},
+              "launches": {f"{r['config']}_{r['dataset']}": r["our_launches"]
+                           for r in rows},
+              "test_f1": {f"{r['config']}_{r['dataset']}": r["our_test_f1"]
+                          for r in rows}}
+    log("parity", json.dumps(result))
+    if len(rows) != PARITY_ROWS or failed:
+        raise AssertionError(f"17(b): {len(rows)} rows, failed: {failed}")
+    return result
+
+
 def ptxas_report(logs):
     """Registers, static shared memory and spills of every kernel instance,
     from ``nvcc -Xptxas -v``; fails on any spill.  The bf16 kernels take
@@ -4253,6 +4506,7 @@ def main() -> int:
         return 0
     from mtvaf_tpu_torch.data.tokenization import FullTokenizer
     from mtvaf_tpu_torch.kernels import build
+    from mtvaf_tpu_torch.native.binding import maybe_accelerate
 
     card = card_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
@@ -4262,6 +4516,7 @@ def main() -> int:
     built = build.build(build.all_kernels())
     log(f"build: {sorted(built)} in {time.perf_counter() - t0:.1f} s")
     ptxas = ptxas_report(built)
+    host_path = host_runtime_phase(card)
 
     k1_rows = check_prefix_attention()
     mask_row, k1_train = check_dropout()
@@ -4272,7 +4527,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         vocab = f"{tmp}/vocab.txt"
         write_vocab(vocab)
-        tok = FullTokenizer(vocab, do_lower_case=cfg.do_lower_case)
+        tok = maybe_accelerate(FullTokenizer(
+            vocab, do_lower_case=cfg.do_lower_case))
     check_forward_against_cpu(cfg, bert_cfg, params, resnet, tok)
     check_train_step_against_cpu(cfg, bert_cfg, params)
     pred, serve_path = serve(cfg, bert_cfg, params, resnet, tok)
@@ -4296,14 +4552,23 @@ def main() -> int:
         # phase 13's exports run beside phases 15 and 16, which check
         # agreement, and phase 13 serves their bundles after them
         exports = start_exports(runs)
+        parity = start_parity(keep)
         try:
             with tempfile.TemporaryDirectory() as dp_tmp:
                 dp_path, trees = dp_phase(dp_tmp)
                 tp_path = tp_phase(dp_tmp, trees)
+            tp_c = tp_path["c"]
+            log("17(c) bf16 2x2 against 2x1 (16(c)): loss "
+                f"{tp_c['loss_rel_diff']:.3e} apart (earlier reading: "
+                "3.0e-3), largest leaf ratio "
+                f"{tp_c['leaf_diff_over_movement'][0][0]:.4f} (earlier: "
+                "0.0137)")
             tier_path = serving_tier_phase(runs, serve_path, exports)
+            parity_path = finish_parity(parity)
         finally:
             for child, _, _ in exports.values():
                 child.stop()
+            parity[0].stop()
 
     serve_row = next(r for r in k1_rows if r["shape"] == "serve_bf16")
     k2_row = next(r for r in k2_rows
@@ -4340,6 +4605,14 @@ def main() -> int:
                    if name == "k1" else 0}
         for name in ("k1", "k2", "mask")}
     log("profiler_misses", json.dumps(profiler_misses))
+    log("host_runtime_summary", json.dumps({
+        "image_ms": host_path["image_ms"],
+        "tokens_ms_per_1000": host_path["tokens_ms_per_1000"],
+        "image_max_abs_diff": host_path["image_max_abs_diff"],
+        "parity_seconds": parity_path["seconds"],
+        "parity_wall_s": parity_path["wall_s"],
+        "parity_waited_s": parity_path["waited_s"],
+        "host_runtime_s": host_path["seconds"], "card": card}))
     log(card)
     log(json.dumps({"kernels": [{
         "name": "prefix_attention_fwd",
@@ -4364,6 +4637,8 @@ def main() -> int:
                                 "span": tier_path["span"]["k1_launches"]}},
         "http": {"launches": tier_path["http"]["k1_launches"]},
         "host_ms_per_call": tier_path["k1_host"],
+        "parity": {"launches": {k: v["k1"] for k, v in
+                                parity_path["launches"].items()}},
         "dp": dp_kernel_launches(dp_path, "k1"),
         "tp": tp_kernel_launches(tp_path, tp_kernels, "k1"),
     }, {
@@ -4381,6 +4656,8 @@ def main() -> int:
                  "shapes": span_rows(k2_rows, "max_abs_err")},
         "aux": {"launches": aux_launches["k2"]},
         "long": {"launches": long_launches["k2"]},
+        "parity": {"launches": {k: v["k2"] for k, v in
+                                parity_path["launches"].items()}},
         "dp": dp_kernel_launches(dp_path, "k2"),
         "tp": tp_kernel_launches(tp_path, tp_kernels, "k2"),
     }, {

@@ -144,6 +144,7 @@ def _run(cfg: Config, data_root: str, bert_cfg_override, device) -> dict:
         params_from_jax
     from ..data.datasets import CrfDataset, SpanDataset
     from ..data.tokenization import build_tokenizer
+    from ..native.binding import maybe_accelerate
     from ..nn.models import init_crf_model_params, init_span_model_params
     from ..train.steps import export_params, replace_params
     from ..train.trainer_crf import CrfTrainer
@@ -151,7 +152,8 @@ def _run(cfg: Config, data_root: str, bert_cfg_override, device) -> dict:
 
     primary = mesh.is_primary()
     paths = data_paths(cfg, data_root)
-    tokenizer = build_tokenizer(cfg.bert_name, cfg.do_lower_case)
+    tokenizer = maybe_accelerate(
+        build_tokenizer(cfg.bert_name, cfg.do_lower_case))
     bert_cfg = bert_cfg_override or BertConfig.from_hf_dir(cfg.bert_name,
                                                            cfg.is_roberta)
     if cfg.remat or not cfg.selective_remat:

@@ -142,7 +142,7 @@ class Config:
     local_rank: int = -1             # the GPU of this process when the
                                      # launcher sets no LOCAL_RANK
     mesh_data: int = 0               # data axis; 0 = the world size
-    mesh_model: int = 1              # tensor-parallel axis (not ported)
+    mesh_model: int = 1              # tensor-parallel axis (core.mesh)
 
     # ingest and checkpoints
     guide_cache_size: int = 8192     # images whose guides stay in host RAM

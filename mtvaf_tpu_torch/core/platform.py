@@ -12,9 +12,12 @@ def resolve_device(device=None) -> torch.device:
     another; in a process of a data-parallel group, the rank's GPU
     (``core.mesh.local_device``).  With no device given and no GPU present
     this raises rather than running on the CPU; pass ``device="cpu"`` to
-    ask for the CPU."""
+    ask for the CPU.  A CUDA device named where no GPU is present raises
+    the same way."""
     if device is not None:
-        return torch.device(device)
+        device = torch.device(device)
+        if device.type != "cuda" or torch.cuda.is_available():
+            return device
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run on the CPU")

@@ -1,13 +1,17 @@
 """Host-side image pipeline: files → normalized 224×224×3 fp32 rows.
 
-Counterpart of ``mtvaf_tpu/data/images.py`` through its PIL path (the C++
-``native/`` path is not ported): resize the short side to 256, crop the
-centre 224, normalize with the ImageNet statistics, NHWC.  (The JAX
-package's train-time random crop has no caller and is not ported.)  :class:`ImageStore` resolves image ids
-to rows through an on-disk ``.npy`` cache, aux crops through ``aux_map``,
-and a missing or undecodable file to the reference's placeholder image (or
-zeros when that is missing too).  PIL is imported where an image is
-decoded, never at module import; a missing PIL raises.
+Counterpart of ``mtvaf_tpu/data/images.py`` with the eval transform:
+resize the short side to 256, crop the centre 224, normalize with the
+ImageNet statistics, NHWC.  PIL decodes; the resize, crop and normalize
+run in the C++ host runtime (``native/image_ops.cc``, point-sampled
+bilinear) by default, as the JAX package's do, and in PIL (area-weighted
+bilinear) with ``use_native=False`` or where the library does not build
+(``native.binding.status()`` says which).  (The JAX package's train-time
+random crop has no caller and is not ported.)  :class:`ImageStore`
+resolves image ids to rows through an on-disk ``.npy`` cache, aux crops
+through ``aux_map``, and a missing or undecodable file to the reference's
+placeholder image (or zeros when that is missing too).  PIL is imported
+where an image is decoded, never at module import; a missing PIL raises.
 """
 
 from __future__ import annotations
@@ -35,7 +39,9 @@ def _normalize(img: np.ndarray) -> np.ndarray:
 def denormalize_to_u8(x: np.ndarray) -> np.ndarray:
     """Normalized fp32 rows → uint8 pixels (inverse of :func:`_normalize`).
 
-    Pixels that came from uint8 round-trip exactly; out-of-range values
+    Pixels that came from uint8 (the PIL path) round-trip exactly; the
+    native path's resize leaves each pixel a float, which quantizes by at
+    most 0.5/255 per channel before the normalize.  Out-of-range values
     clip.  The device re-normalizes with the same expression
     (``nn.models.image_rows_to_f32``)."""
     x = np.asarray(x, np.float32)
@@ -68,13 +74,15 @@ def _center_crop(img: np.ndarray) -> np.ndarray:
     return out
 
 
-def process_image(path: str) -> np.ndarray:
+def process_image(path: str, *, use_native: bool = True) -> np.ndarray:
     """path → (224, 224, 3) float32 normalized array (the eval transform:
-    bilinear short-side resize, centre crop)."""
-    return _process_raw(_decode_rgb(path))
+    bilinear short-side resize, centre crop), through the native op
+    unless ``use_native`` is False or the library is unavailable."""
+    return _process_raw(_decode_rgb(path), use_native)
 
 
-def process_image_bytes(data: bytes) -> np.ndarray:
+def process_image_bytes(data: bytes, *,
+                        use_native: bool = True) -> np.ndarray:
     """Encoded image bytes (JPEG, PNG, ...) → (224, 224, 3) float32, the
     same transform as :func:`process_image`: the serving path's entry,
     where images arrive over the wire."""
@@ -83,10 +91,15 @@ def process_image_bytes(data: bytes) -> np.ndarray:
     from PIL import Image
     with Image.open(io.BytesIO(data)) as im:
         raw = np.asarray(im.convert("RGB"), np.uint8)
-    return _process_raw(raw)
+    return _process_raw(raw, use_native)
 
 
-def _process_raw(raw: np.ndarray) -> np.ndarray:
+def _process_raw(raw: np.ndarray, use_native: bool) -> np.ndarray:
+    if use_native:
+        from ..native.binding import native_preprocess
+        out = native_preprocess(raw, crop=CROP, resize_short=RESIZE)
+        if out is not None:
+            return out
     from PIL import Image
     nh, nw = _resize_dims(raw.shape[0], raw.shape[1])
     img = np.asarray(Image.fromarray(raw).resize((nw, nh), Image.BILINEAR),

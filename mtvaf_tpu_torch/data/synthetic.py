@@ -13,15 +13,15 @@ the reference's formats.
   indicators with two terms per row, ``n_best_size`` candidates of random
   widths, random polarity labels and a 30% candidate mask.
 * :func:`make_span_file`, :func:`make_learnable_span_file`,
-  :func:`make_agn_file`, :func:`make_crf_files`,
+  :func:`make_agn_file`, :func:`make_merge_file`, :func:`make_crf_files`,
   :func:`make_learnable_crf_files`, :func:`make_vocab_file`,
   :func:`make_roberta_vocab` and :func:`make_images` are the ports of their
   namesakes in ``mtvaf_tpu/data/synthetic.py``: the same files from the
   same seed (the Twitter data is not redistributable).  Pipeline-A
   ``word=TAG`` lines (models/utils.py:697-705) and AGN aux text,
-  pipeline-B ``IMGID:`` TSV with an ANP JSON (modules/dataset.py:150-209),
-  small WordPiece and byte-level BPE vocabularies, and random images (PIL,
-  imported there).
+  pipeline-B ``IMGID:`` TSV with an ANP JSON (modules/dataset.py:150-209)
+  and merge text, small WordPiece and byte-level BPE vocabularies, and
+  random images (PIL, imported there).
 """
 
 from __future__ import annotations
@@ -173,6 +173,17 @@ def make_learnable_span_file(path: str, n: int, *, seed: int = 0) -> None:
                      f"____label=[1, 0]____imgid=['img_{i % 4}.jpg']")
     with open(path, "w", encoding="utf-8") as f:
         f.write("\n".join(lines) + "\n")
+
+
+def make_merge_file(path: str, image_ids: List[str], *,
+                    seed: int = 0) -> None:
+    """Pipeline-B merge (or caption) text: one line ``<imgid> [SEP] w w
+    ...`` of 3-8 words per id."""
+    rng = random.Random(seed)
+    with open(path, "w", encoding="utf-8") as f:
+        for img in image_ids:
+            ctx = " ".join(_sentence(rng, rng.randint(3, 8)))
+            f.write(f"{img} [SEP] {ctx}\n")
 
 
 def make_agn_file(path: str, image_ids: List[str], *, seed: int = 0) -> None:

@@ -456,6 +456,7 @@ def load_exported_predictor(out_dir: str, tokenizer=None, *,
     the manifest records (or the override)."""
     from .core.config import Config
     from .data.tokenization import build_tokenizer
+    from .native.binding import maybe_accelerate
     # registers the mtvaf:: operators that the programs call
     from .kernels import prefix_attention  # noqa: F401
     from .nn.bert import BertConfig
@@ -474,8 +475,8 @@ def load_exported_predictor(out_dir: str, tokenizer=None, *,
     cfg = Config.from_dict(manifest["config"])
     bert_cfg = BertConfig(**manifest["bert_config"])
     if tokenizer is None:
-        tokenizer = build_tokenizer(bert_name or cfg.bert_name,
-                                    cfg.do_lower_case)
+        tokenizer = maybe_accelerate(
+            build_tokenizer(bert_name or cfg.bert_name, cfg.do_lower_case))
 
     def load_rungs(prefix: str) -> _ExportedRungs:
         paths = {r: os.path.join(out_dir, f"{prefix}_b{r}.{platform}.pt2")

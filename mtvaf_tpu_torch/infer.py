@@ -423,18 +423,20 @@ def load_predictor(save_path: str, *, bert_name: str = None,
     :class:`SpanPredictor` or a :class:`CrfPredictor` by its dataset:
     ``run_config.json`` (``config`` and ``bert_config``), ``best_model.npz``
     as either package's ``save_best`` writes it, the tokenizer from the
-    run's ``bert_name`` directory (or the override), and for prefix runs
-    the frozen ResNet from ``resnet_root/resnet{depth}.pth``."""
+    run's ``bert_name`` directory (or the override; WordPiece through the
+    native batch tokenizer, ``native.binding.maybe_accelerate``), and for
+    prefix runs the frozen ResNet from ``resnet_root/resnet{depth}.pth``."""
     from .core.convert import load_resnet, params_from_jax
     from .data.tokenization import build_tokenizer
+    from .native.binding import maybe_accelerate
 
     device = resolve_device(device)
     with open(os.path.join(save_path, "run_config.json")) as f:
         meta = json.load(f)
     cfg = Config.from_dict(meta["config"])
     bert_cfg = BertConfig(**meta["bert_config"])
-    tokenizer = build_tokenizer(bert_name or cfg.bert_name,
-                                cfg.do_lower_case)
+    tokenizer = maybe_accelerate(
+        build_tokenizer(bert_name or cfg.bert_name, cfg.do_lower_case))
     with np.load(os.path.join(save_path, "best_model.npz")) as data:
         params = params_from_jax({k: data[k] for k in data.files})
     resnet_params = load_resnet(cfg) if cfg.use_prefix else None

@@ -2,11 +2,13 @@
 
 Readers, features and the stacked arrays are compared bitwise (both are the
 same integer and float32 host code); the synthetic file writers byte for
-byte; image rows bitwise (both decode and resize through PIL); the eval
-metrics as exact strings and dicts.
+byte; image rows bitwise (both decode through PIL and resize through the
+native op by default, or through PIL); the eval metrics as exact strings
+and dicts.
 """
 
 import builtins
+import functools
 import json
 import os
 
@@ -28,6 +30,7 @@ from mtvaf_tpu_torch.data import datasets, features, images, readers, \
     synthetic
 from mtvaf_tpu_torch.data.tokenization import FullTokenizer
 from mtvaf_tpu_torch.eval import metrics, tagging
+from test_torch_native import jax_native_library
 
 N = 10
 IMG_IDS = [f"{700000 + i}.jpg" for i in range(4)]
@@ -188,12 +191,22 @@ def test_prefetch_yields_in_order_and_raises_the_producer_error():
     assert out == [1]
 
 
-def test_image_store_rows_match_jax_process_image(files, tmp_path):
+@pytest.mark.parametrize("use_native", [True, False],
+                         ids=["native", "pil"])
+def test_image_store_rows_match_jax_process_image(files, tmp_path,
+                                                  monkeypatch, use_native):
+    # the store reads through process_image's default, the native path;
+    # the PIL case sends it through use_native=False
+    if use_native:
+        jax_native_library()
+    else:
+        monkeypatch.setattr(images, "process_image", functools.partial(
+            images.process_image, use_native=False))
     store = images.ImageStore(files["img_dir"],
                               cache_dir=str(tmp_path / "img"))
     for img in IMG_IDS[:3]:
         want = jimages.process_image(os.path.join(files["img_dir"], img),
-                                     use_native=False)
+                                     use_native=use_native)
         got = store.main_image(img)
         assert got.dtype == np.float32 and got.shape == (224, 224, 3)
         np.testing.assert_array_equal(got, want)
@@ -203,6 +216,7 @@ def test_image_store_rows_match_jax_process_image(files, tmp_path):
 
 
 def test_image_store_aux_crops_and_missing_files(files, tmp_path):
+    jax_native_library()
     aux_map = {IMG_IDS[0]: IMG_IDS[1:3], IMG_IDS[1]: ["gone.jpg"]}
     store = images.ImageStore(files["img_dir"], files["img_dir"],
                               aux_map=aux_map)
@@ -210,7 +224,7 @@ def test_image_store_aux_crops_and_missing_files(files, tmp_path):
     assert aux.shape == (3, 224, 224, 3)
     for i, crop in enumerate(IMG_IDS[1:3]):
         np.testing.assert_array_equal(aux[i], jimages.process_image(
-            os.path.join(files["img_dir"], crop), use_native=False))
+            os.path.join(files["img_dir"], crop)))
     np.testing.assert_array_equal(aux[2], 0.0)
     np.testing.assert_array_equal(store.aux_images(IMG_IDS[1]), 0.0)
     np.testing.assert_array_equal(store.aux_images(IMG_IDS[2]), 0.0)

@@ -289,11 +289,11 @@ def prepare(d, pipeline):
 
 def seed_pixel_cache(d):
     """Fill the CRF tree's ``.npy`` pixel cache, which both CLIs read
-    under ``--cache_dir``, with the port's pixels before any run starts.
-    The JAX package decodes through its native resize where that is built,
-    whose pixels differ from PIL's in rounding; with the cache empty, the
-    process that wrote an image first would decide what every other one
-    reads, and the ranks of one TP group could read different pixels."""
+    under ``--cache_dir``, before any run starts.  Both packages now write
+    the same pixels (each through its native image op, bit for bit equal,
+    ``tests/test_torch_native.py``); the cache is filled first all the
+    same, so that no process reads a file another is writing and no run
+    depends on which one decoded an image first."""
     from mtvaf_tpu_torch.data.images import ImageStore
     from mtvaf_tpu_torch.data.readers import PLACEHOLDER
     store = ImageStore(str(d / "data" / "twitter2015_images"),

@@ -1,5 +1,6 @@
-"""Package hygiene of the port: it imports neither JAX nor the JAX package,
-and its entry points never fall back to the CPU by themselves."""
+"""Package hygiene of the port: it imports neither JAX nor the JAX package
+(nor ``transformers``, which the card's machine lacks), and its entry
+points never fall back to the CPU by themselves."""
 
 import subprocess
 import sys
@@ -15,7 +16,8 @@ names = [m.name for m in pkgutil.walk_packages(mtvaf_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith(("jax.", "mtvaf_tpu.")))
+             if m in ("jax", "transformers")
+             or m.startswith(("jax.", "mtvaf_tpu.", "transformers.")))
 print(len(names), bad)
 """
 
@@ -24,7 +26,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     out = subprocess.run([sys.executable, "-c", IMPORT_ALL],
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split(maxsplit=1)
-    assert int(out[0]) >= 47                     # every module was imported
+    # every module was imported, native/ and parity/ included
+    assert int(out[0]) >= 57
     assert out[1].strip() == "[]"
 
 
@@ -80,5 +83,32 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
     with pytest.raises(RuntimeError, match="no CUDA device"):
         load_exported_predictor(str(tmp_path))
     assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    _parity_ours_default_to_cuda(monkeypatch, tmp_path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert resolve_device() == torch.device("cuda")
+
+
+def _parity_ours_default_to_cuda(monkeypatch, tmp_path):
+    """The parity harness's "ours" runs are on ``cuda`` unless
+    ``--our_device`` says otherwise, in its dry run too; its child process
+    runs the CLI there, which raises without a GPU."""
+    from mtvaf_tpu_torch.parity import harness, synth
+    seen = []
+    monkeypatch.setattr(harness, "run_config",
+                        lambda key, ns, out: seen.append(ns) or [])
+    monkeypatch.setattr(harness, "write_report", lambda *a: None)
+    for name in ("build_data_tree", "build_bert_dir", "build_resnet_pth"):
+        monkeypatch.setattr(synth, name, lambda path, **kw: path)
+    harness.main(["--dry_run", "--skip_reference", "--configs", "c1",
+                  "--out", str(tmp_path / "parity")])
+    harness.main(["--data_root", "d", "--bert_name", "b", "--skip_reference",
+                  "--configs", "c1", "--out", str(tmp_path / "parity")])
+    harness.main(["--dry_run", "--skip_reference", "--our_device", "cpu",
+                  "--configs", "c1", "--out", str(tmp_path / "parity")])
+    assert [ns.our_device for ns in seen] == ["cuda", "cuda", "cpu"]
+    log = tmp_path / "ours.log"
+    assert harness._run_ours(["--dataset_name", "twitter15", "--bert_name",
+                              str(tmp_path)], str(log), timeout=120) != 0
+    assert "no CUDA device" in log.read_text()

@@ -16,7 +16,8 @@ through one step of:
   (jit, "highest" matmul precision);
 * the port in one process,
 
-all from the same seeded numpy weights, in fp32.  Held, per rank:
+all from the same seeded numpy weights, in fp32 unless said.  Held, per
+rank:
 
 * dropout off, against JAX: the loss to 1e-5 relative; the gradient and
   every element after the step by ``tests/test_torch_dp_step.py``'s rule
@@ -31,6 +32,9 @@ all from the same seeded numpy weights, in fp32.  Held, per rank:
   bit against the same ranks without remat;
 * ``--params_bf16`` under TP: each live leaf is the bf16 cast of its
   master shard after the step;
+* bf16 compute on the 2 ranks, dropout off, against JAX's bf16 step on
+  ``make_mesh(1, 2)``, with the port's one-process bf16 step against
+  JAX's 1×1 as the yardstick (the rule is in the test's docstring);
 * the layers the heads do not divide, against one process of the port
   with dropout on, by the same rule: on 3 ranks (1×3; M = 3 splits only
   QKV, JAX's contiguous 3·hidden split, gathered back before the
@@ -40,6 +44,7 @@ all from the same seeded numpy weights, in fp32.  Held, per rank:
 """
 
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -61,14 +66,15 @@ CRF = dict(dataset_name="twitter2015", use_probe=True, probe_layer=2,
 BERT = dict(intermediate_size=40)
 DROPOUT_SEED = 7
 GRIDS = {"1x2": (1, 2), "2x2": (2, 2)}
+BF16_GRIDS = {"1x1": (1, 1), "1x2": (1, 2)}
 # widths whose heads a model axis does not divide: 4 heads on 3 ranks, and
 # 3 heads (hidden 24) on 2
 UNEVEN = {"1x3": dict(BERT), "heads3": dict(BERT, hidden_size=24,
                                             num_attention_heads=3)}
 
 
-def _setup(bert=BERT):
-    cfg = Config(**CRF)
+def _setup(bert=BERT, bf16=False):
+    cfg = Config(**dict(CRF, bf16=bf16))
     return cfg, BertConfig.tiny(**bert), crf_batch(cfg, BertConfig.tiny(
         **bert), B, S, seed=3)
 
@@ -85,13 +91,13 @@ def _numpy(tree):
 
 
 def _port_step(params, batch, seed=None, remat=False, params_bf16=False,
-               bert=BERT):
+               bert=BERT, bf16=False):
     """One port step on ``batch`` (this rank's rows): (loss, the gradient
     AdamW was handed, the params after the step), all of the whole model
     (gathered from the TP group), and what the rank's state shows."""
     from mtvaf_tpu_torch.core import mesh
     from mtvaf_tpu_torch.train.steps import export_params
-    cfg, bert_cfg, _ = _setup(bert)
+    cfg, bert_cfg, _ = _setup(bert, bf16)
     bert_cfg = dataclasses.replace(bert_cfg, remat=remat)
     opt = _Recording(build_optimizer(params, cfg, total_steps=10,
                                      pipeline="crf")[0])
@@ -145,17 +151,19 @@ def rank_steps(rank, world, workdir):
         out["remat"] = _port_step(params, rows, DROPOUT_SEED, remat=True)
         out["bf16"] = _port_step(params, rows, DROPOUT_SEED,
                                  params_bf16=True)
+        out["bf16_compute"] = _port_step(params, rows, bf16=True)
         out["heads3"] = _port_step(_params(UNEVEN["heads3"]),
                                    _setup(UNEVEN["heads3"])[2],
                                    DROPOUT_SEED, bert=UNEVEN["heads3"])
     return out
 
 
-def _jax_tp_step(jparams, batch, data, model):
+def _jax_tp_step(jparams, batch, data, model, bf16=False):
     """JAX's loss, gradient (read back from AdamW's first moment, as
     ``test_torch_dp_step._jax_step``) and params after one step with the
     state placed by ``shard_train_state`` on ``make_mesh(data, model)``
-    and the batch sharded over its data axis."""
+    and the batch sharded over its data axis, and the compiled step's
+    HLO text."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
@@ -165,7 +173,7 @@ def _jax_tp_step(jparams, batch, data, model):
     from mtvaf_tpu.train import steps as jsteps
     from mtvaf_tpu.train.optim import build_optimizer as jax_build_optimizer
 
-    cfg, bert_cfg, _ = _setup()
+    cfg, bert_cfg, _ = _setup(bf16=bf16)
     jcfg = JaxConfig(**{f.name: getattr(cfg, f.name)
                         for f in dataclasses.fields(cfg)
                         if f.name in JaxConfig.__dataclass_fields__})
@@ -184,13 +192,14 @@ def _jax_tp_step(jparams, batch, data, model):
         state = jsteps.shard_train_state(
             jsteps.create_train_state(jparams, jopt), mesh)
         with mesh:
-            state, metrics = step(state, jbatch, None)
+            compiled = step.lower(state, jbatch, None).compile()
+            state, metrics = compiled(state, jbatch, None)
     mu = dict(tree_items(jax.tree.map(np.asarray,
                                       _first_moment(state.opt_state))))
     grads = {k: v.astype(np.float64) / np.float32(0.1)
              for k, v in mu.items()}
     return float(metrics["loss"]), grads, dict(tree_items(
-        jax.tree.map(np.asarray, state.params)))
+        jax.tree.map(np.asarray, state.params))), compiled.as_text()
 
 
 @pytest.fixture(scope="module")
@@ -211,8 +220,12 @@ def runs(tmp_path_factory):
                   **{name: _port_step(_params(bert), _setup(bert)[2],
                                       DROPOUT_SEED, bert=bert)
                      for name, bert in UNEVEN.items()}}
+        single["bf16_compute"] = _port_step(params, batch, bf16=True)
         jax_out = {name: _jax_tp_step(jparams, batch, d, m)
                    for name, (d, m) in GRIDS.items()}
+        jax_out.update({f"bf16_{name}": _jax_tp_step(jparams, batch, d, m,
+                                                     bf16=True)
+                        for name, (d, m) in BF16_GRIDS.items()})
         return ({name: r.results() for name, r in ranks.items()}, single,
                 jax_out, cfg, params)
     finally:
@@ -230,7 +243,7 @@ def test_tp_step_matches_the_jax_mesh(runs, grid):
     data, model = GRIDS[grid]
     assert [r["grid"] for r in ranks[grid]] == [
         (d, m) for d in range(data) for m in range(model)]
-    want = jax_out[grid]
+    want = jax_out[grid][:3]
     lrs = _lrs(cfg, params)
     for rank, out in enumerate(ranks[grid]):
         got = out["nodrop"]
@@ -318,3 +331,54 @@ def test_layers_the_heads_do_not_divide_run_whole(runs, case):
         got = out[case]
         assert abs(got["loss"] - want["loss"]) <= 1e-6 * abs(want["loss"])
         assert _step_misses(_as_case(got), _as_case(want), lrs) == [], rank
+
+
+def _bf16_gaps(got, want):
+    """(|loss gap|, the largest leaf-gradient gap relative to the leaf's
+    largest |g| in JAX's gradient) of a port step against JAX's."""
+    grads = want[1]
+    rel = {k: float(np.abs(got["grads"][k].astype(np.float64) - g).max()
+                    / max(float(np.abs(g).max()), 1e-30))
+           for k, g in grads.items() if np.abs(g).max() > 0}
+    return abs(got["loss"] - want[0]), max(rel.values())
+
+
+def _bf16_ulp(x: float) -> float:
+    return 2.0 ** (np.floor(np.log2(abs(x))) - 7)
+
+
+def test_bf16_tp_step_is_as_close_to_the_jax_mesh_as_one_process(runs):
+    """bf16 compute (fp32 params, dropout off): the port's 1×2 step against
+    JAX's on ``make_mesh(1, 2)``, beside the port's 1×1 step against JAX's
+    1×1 step as the yardstick.  Each gap, the loss's and the largest
+    leaf-gradient gap (relative to the leaf's largest |g|), at 1×2 is at
+    most 2× its 1×1 gap plus one bf16 ulp (of the loss; 2^-7 for the
+    relative gradient gap).  Both packages reduce a row-parallel bf16 dot
+    the same way: the partial product rounded to bf16, summed over the TP
+    group in fp32, rounded to bf16 after the sum (JAX's CPU backend
+    promotes the bf16 all-reduce, held below on its compiled HLO; the
+    port's ``nn.bert._row_dense`` and ``core.mesh._tp_all_reduce``)."""
+    ranks, single, jax_out, _, _ = runs
+    one = _bf16_gaps(single["bf16_compute"], jax_out["bf16_1x1"])
+    loss = jax_out["bf16_1x2"][0]
+    for rank, out in enumerate(ranks["1x2"]):
+        two = _bf16_gaps(out["bf16_compute"], jax_out["bf16_1x2"])
+        print(f"bf16 TP against JAX (rank {rank}): loss gap 1x1 {one[0]:.3e}"
+              f" 1x2 {two[0]:.3e}; leaf-gradient gap 1x1 {one[1]:.3e}"
+              f" 1x2 {two[1]:.3e}")
+        assert two[0] <= 2 * one[0] + _bf16_ulp(loss), (rank, one, two)
+        assert two[1] <= 2 * one[1] + 2.0 ** -7, (rank, one, two)
+    # JAX's row-parallel reduction in its compiled 1x2 step: an fp32
+    # all-reduce of (B, S, hidden) partials, each the fp32 dot's result
+    # rounded to bf16 and widened (the fusion that feeds it)
+    hlo = jax_out["bf16_1x2"][3]
+    reduces = re.findall(r"= (\w+)\[8,8,32\]\{[\d,]+\} all-reduce\("
+                         r"%([\w.-]+)\)", hlo)
+    assert reduces and {dtype for dtype, _ in reduces} == {"f32"}
+    for _, operand in reduces:
+        fusion = re.search(rf"%{re.escape(operand)} = f32\[8,8,32\]"
+                           rf"\S* fusion\(%[\w.-]+\), kind=\w+, "
+                           rf"calls=%([\w.-]+)", hlo)
+        body = re.search(rf"\n%{re.escape(fusion.group(1))} .*?\n}}", hlo,
+                         re.S).group(0)
+        assert re.search(r"bf16\[64,32\]\S* convert\(", body), body
