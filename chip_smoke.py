@@ -12,17 +12,19 @@ Phases, each of which fails the run by raising:
    version on the card, at the shapes the serving path gives it and at the
    span pipeline's (``span_s128``: B=32, S=T=128; ``span_s500``: S=T=500,
    a length that is not a multiple of 64; no prefix, bias (B,1,1,S)) with
-   dropout 0.1 and without, and time kernel, plain version and the
-   one-call PyTorch yardstick (SDPA) beside the kernel's bound (each row
-   names its dtype's design: bf16 on wgmma fed by TMA, fp32 on the CUDA
-   cores; its share of the bound; its time over SDPA's);
+   dropout 0.1 and without, and in fp32 at the serving shape, the train
+   shape (B=32, S=128, T=144) and ``span_s500``, the last two with and
+   without dropout, and time kernel, plain version and the one-call
+   PyTorch yardstick (SDPA) beside the kernel's bound (each row names its
+   dtype's design: bf16 on wgmma fed by TMA, fp32 as split TF32 on the
+   same; its share of the bound; its time over SDPA's);
 3. at the train shape: the dropout-mask entry point's masks bit-identical
    to the plain Philox masks, the kept fraction within 1% of 1 - rate, and
    K1 with dropout against the plain forward given the same masks;
 4. hold the backward kernel (K2) against the plain backward in the same
    dtype and against fp32 autograd of the plain forward, at the train shape
-   (bf16 and fp32), at S=512 (bf16) and at the two span shapes (bf16),
-   with dropout off and on; time K2
+   (bf16 and fp32), at S=512 (bf16), at the span shapes (bf16) and at
+   ``span_s500`` in fp32, with dropout off and on; time K2
    (and each of its two passes), the plain backward and SDPA's backward
    beside K2's bound;
 5. check the whole decode forward on the card against the same forward on
@@ -42,7 +44,9 @@ Phases, each of which fails the run by raising:
    below the first, 12 K1 and 12 K2 launches per timed step, and none of
    the mask entry (the kernels draw their masks themselves); print
    step time, examples/s, MFU and the forward / backward / optimizer split
-   of one step;
+   of one step; then the same step with ``bf16=False`` (``--no_bf16``, the
+   kernels' fp32 route): 5 untimed and 10 timed steps, finite losses, 12
+   K1 and 12 K2 launches a step, K1's and K2's device ms in one step;
 10. trainer: the CLI (``cli.main.main``) → ``CrfTrainer.train()`` /
    ``.test()`` at the flagship configuration for 2 epochs on a synthetic
    Twitter-2015 tree in the reference layout (320/96/96 examples, the
@@ -203,6 +207,13 @@ Prints the card's name and power limit, then one JSON line with the
 kernels' numbers, then ``{"ok": true, "device": {...}}`` as the last line.
 Exits non-zero, printing no result, without a CUDA device.
 
+    python3 chip_smoke.py --kernel-rows [bf16|fp32]
+
+runs phases 2 and 4 alone (the rows of one dtype where given) and prints
+their rows (no result line): copied
+beside another tree's package and run there, it times that tree's kernels,
+so that two designs compare within one call.
+
     python3 chip_smoke.py --profile
 
 adds, after phase 9, three more train steps under ``torch.profiler``: the
@@ -224,11 +235,15 @@ import numpy as np
 import torch
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16
-# tensor-core FLOP/s, fp32 (non-tensor) FLOP/s.
+# tensor-core FLOP/s, and for fp32 the TF32 tensor-core rate over three:
+# the kernels do fp32 products as split TF32 (three TF32 products each, to
+# fp32 accuracy), so fp32-accurate work costs three TF32 operations, the
+# least any fp32-accurate tensor-core kernel pays (the 67 TFLOP/s of the
+# CUDA cores is slower still).
 # The device the CLI runs (``run_cli``) and phase 14's paths are given.
 DEVICE = "cuda"
 HBM_BPS = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 494.7e12 / 3}
 # Kernel tolerances (max abs over o and lse).  Against the plain version in
 # the inputs' dtype: in bf16 that version rounds the normalised
 # probabilities to bf16 where the kernel rounds the unnormalised ones, so
@@ -265,6 +280,13 @@ SPAN_SHAPES = {"span_s128": (TRAIN_B, 12, 128, 128, 64, torch.bfloat16),
                "span_s500": (TRAIN_B, 12, 500, 500, 64, torch.bfloat16),
                "span_s128_cut": (TRAIN_B, 12, 128, 128, 64, torch.bfloat16)}
 CUT_RATIO = 0.1
+# The fp32 route's shapes (``--no_bf16``: the parity rows, phases 5, 6, 11(b),
+# 12(b), 15 and 16): the flagship train shape (K1 here; K2's "train_fp32"
+# row is phase 4's) and the span step at S=500, each without and with
+# dropout 0.1.
+FP32_SHAPES = {"train_fp32": (TRAIN_B, 12, TRAIN_S, TRAIN_S + 16, 64,
+                              torch.float32),
+               "span_s500_fp32": (TRAIN_B, 12, 500, 500, 64, torch.float32)}
 
 
 def log(*a):
@@ -355,9 +377,9 @@ def k1_bound(b, h, s, t, d, dtype):
             nbytes, flops)
 
 
-# Each dtype's design in the kernels: bf16 on the tensor cores (wgmma fed by
-# TMA), fp32 on the CUDA cores (wgmma has no fp32 operand).
-DESIGN = {torch.bfloat16: "wgmma+TMA", torch.float32: "cuda-cores"}
+# Each dtype's design in the kernels, both on the tensor cores (wgmma fed by
+# TMA): bf16 as bf16, fp32 as split TF32 (hi + lo, three TF32 products).
+DESIGN = {torch.bfloat16: "wgmma+TMA", torch.float32: "wgmma-3xtf32+TMA"}
 
 
 def shares(dtype, ms, bound_ms, lib_ms):
@@ -386,7 +408,7 @@ def attention_inputs(g, b, h, s, t, d, dtype, cut=False):
     return q, k, v, ((1.0 - mask.float()) * -10000.0)[:, None, None, :]
 
 
-def check_prefix_attention():
+def check_prefix_attention(dtypes=(torch.bfloat16, torch.float32)):
     import torch.nn.functional as F
 
     from mtvaf_tpu_torch.kernels.prefix_attention import (
@@ -400,7 +422,11 @@ def check_prefix_attention():
             ("serve_fp32", (16, 12, 128, 144, 64, torch.float32), 0.0),
             ("s512_bf16", (16, 12, 512, 528, 64, torch.bfloat16), 0.0),
             *((span, shape, r) for span, shape in SPAN_SHAPES.items()
+              for r in (0.0, 0.1)),
+            *((name, shape, r) for name, shape in FP32_SHAPES.items()
               for r in (0.0, 0.1))):
+        if dtype not in dtypes:
+            continue
         q, k, v, bias = attention_inputs(g, b, h, s, t, d, dtype,
                                          cut=name.endswith("_cut"))
         keep = keep_factors(DROPOUT_SEED, rate, (b, h, s, t), dev) \
@@ -543,7 +569,7 @@ def k2_bound(b, h, s, t, d, dtype):
             nbytes, flops)
 
 
-def check_backward():
+def check_backward(dtypes=(torch.bfloat16, torch.float32)):
     from mtvaf_tpu_torch.kernels.prefix_attention import (
         keep_factors, prefix_attention_bwd_cuda,
         prefix_attention_bwd_reference, prefix_attention_cuda,
@@ -558,7 +584,10 @@ def check_backward():
             "train_fp32": (TRAIN_B, 12, TRAIN_S, TRAIN_S + 16, 64,
                            torch.float32),
             "s512_bf16": (16, 12, 512, 528, 64, torch.bfloat16),
-            **SPAN_SHAPES}.items():
+            **SPAN_SHAPES,
+            "span_s500_fp32": FP32_SHAPES["span_s500_fp32"]}.items():
+        if dtype not in dtypes:
+            continue
         q, k, v, bias = attention_inputs(g, b, h, s, t, d, dtype,
                                          cut=name.endswith("_cut"))
         do = torch.randn(b, h, s, d, device=dev, generator=g).to(dtype)
@@ -1058,6 +1087,80 @@ def train(cfg, bert_cfg, params, device="cuda"):
         raise AssertionError(f"the mask entry ran {mask_launches} times in "
                              "the train steps")
     return main
+
+
+FP32_WARMUP, FP32_TIMED = 5, 10
+
+
+def train_fp32(cfg, bert_cfg, params, bare):
+    """Phase 9's step with ``bf16=False`` (``--no_bf16``: fp32 activations,
+    K1 and K2 on their split-TF32 route): 5 untimed and 10 timed steps;
+    finite losses, 12 K1 and 12 K2 launches per timed step, none of the
+    mask entry; step time beside phase 9's bf16 step, and the device ms of
+    K1 and K2 in one step (profiled)."""
+    optimizer, state, _, step, batch = train_setup(
+        cfg.replace(bf16=False), bert_cfg, params, DEVICE)
+    losses = []
+    for _ in range(FP32_WARMUP):
+        state, metrics = step(state, batch, SEED)
+        losses.append(metrics["loss"].item())
+    reset_counts()
+    state, timed, step_ms, wall_ms, peak = timed_steps(step, state, batch,
+                                                       FP32_TIMED)
+    counts = read_counts()
+    losses += timed
+    holder = {"s": state}
+
+    def one_step():
+        holder["s"], _ = step(holder["s"], batch, SEED)
+
+    by_kernel = device_profile(one_step, iters=3, warmup=1)
+    names = {"k1": ("fwd_tf32x3_kernel",),
+             "k2": ("dq_tf32x3_kernel", "dkdv_tf32x3_kernel")}
+    kernel_ms = None if "event_timer" in by_kernel else {
+        k: sum(by_kernel.get(n, 0.0) for n in ns) for k, ns in names.items()}
+    layers = bert_cfg.num_hidden_layers
+    out = {"batch": TRAIN_B, "seq": TRAIN_S, "steps": FP32_TIMED,
+           "step_ms": step_ms, "wall_step_ms": wall_ms,
+           "examples_per_s": TRAIN_B / (step_ms / 1e3),
+           "peak_mem_gb": peak / 1e9, "k1_launches": counts["k1"],
+           "k2_launches": counts["k2"], "mask_launches": counts["mask"],
+           "kernel_device_ms_per_step": kernel_ms,
+           "device_ms_per_step": sum(by_kernel.values()),
+           "phase9_bf16_step_ms": bare["step_ms"], "losses": losses}
+    log("train_fp32_path", json.dumps(out))
+    del holder, state, step, optimizer
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite fp32 train loss: {losses}")
+    if counts != {"k1": layers * FP32_TIMED, "k2": layers * FP32_TIMED,
+                  "mask": 0}:
+        raise AssertionError(f"fp32 steps launched {counts}")
+    if kernel_ms is not None and not (kernel_ms["k1"] and kernel_ms["k2"]):
+        raise AssertionError(f"no split-TF32 kernel in the profiled fp32 "
+                             f"step: {sorted(by_kernel)}")
+    return out
+
+
+def kernel_rows(only=None):
+    """Phases 2 and 4 alone (``--kernel-rows [bf16|fp32]``, the rows of one
+    dtype where given): build the kernels, hold every row to its plain
+    version and print the rows as one JSON line, no result line.  Run from
+    the root of a tree, a copy of this script beside its package, it times
+    that tree's kernels: two designs compared within one call."""
+    from mtvaf_tpu_torch.kernels import build
+    card = card_line()
+    t0 = time.perf_counter()
+    built = build.build(build.all_kernels())
+    log(f"build in {time.perf_counter() - t0:.1f} s")
+    for name, text in built.items():      # ptxas: registers, spills
+        log(f"{name}:\n{text}")
+    dtypes = {"bf16": (torch.bfloat16,), "fp32": (torch.float32,),
+              None: (torch.bfloat16, torch.float32)}[only]
+    rows = {"k1": check_prefix_attention(dtypes),
+            "k2": check_backward(dtypes)}
+    log("kernel_rows", json.dumps({"card": card, **rows}))
+    return 0
 
 
 def profile_train(cfg, bert_cfg, params, steps=3):
@@ -4446,9 +4549,9 @@ def finish_parity(parity, timeout=PARITY_TIMEOUT):
 
 def ptxas_report(logs):
     """Registers, static shared memory and spills of every kernel instance,
-    from ``nvcc -Xptxas -v``; fails on any spill.  The bf16 kernels take
-    their tiles in dynamic shared memory, which ptxas does not see: each
-    library reports its block's bytes (``dynamic_smem``)."""
+    from ``nvcc -Xptxas -v``; fails on any spill.  The attention kernels
+    take their tiles in dynamic shared memory, which ptxas does not see:
+    each library reports its block's bytes (``dynamic_smem``)."""
     import re
     from mtvaf_tpu_torch.kernels.prefix_attention import _fn
     rows = []
@@ -4458,13 +4561,16 @@ def ptxas_report(logs):
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
                 kernel, args = _kernel_name(m.group(1))
+                dtype = 1 if "bf16" in kernel else \
+                    0 if "tf32x3" in kernel else None
                 row = {"lib": lib, "kernel": kernel, "template": args,
-                       "route": "wgmma+TMA" if "bf16" in kernel
-                       else "cuda-cores"}
-                if "bf16" in kernel:   # the backward's size is per pass
+                       "route": "cuda-cores" if dtype is None
+                       else DESIGN[(torch.float32, torch.bfloat16)[dtype]]}
+                if dtype is not None:   # the backward's size is per pass
                     args = (int(kernel.startswith("dkdv")),) \
                         if lib == "prefix_attention_bwd" else ()
-                    row["dynamic_smem"] = _fn(lib, f"mtvaf_{lib}_smem")(*args)
+                    row["dynamic_smem"] = _fn(lib, f"mtvaf_{lib}_smem")(
+                        *args, dtype)
                 rows.append(row)
             elif row is not None:
                 m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
@@ -4504,6 +4610,8 @@ def main() -> int:
     if sys.argv[1:2] == ["--dp-child"]:           # phase 15's children
         dp_child(json.loads(sys.argv[2]))
         return 0
+    if sys.argv[1:2] == ["--kernel-rows"]:        # phases 2 and 4 alone
+        return kernel_rows(*sys.argv[2:3])
     from mtvaf_tpu_torch.data.tokenization import FullTokenizer
     from mtvaf_tpu_torch.kernels import build
     from mtvaf_tpu_torch.native.binding import maybe_accelerate
@@ -4536,6 +4644,7 @@ def main() -> int:
     del pred
     torch.cuda.empty_cache()
     train_path = train(cfg, bert_cfg, params)
+    train_path["fp32"] = train_fp32(cfg, bert_cfg, params, train_path)
     if "--profile" in sys.argv[1:]:
         profile_train(cfg, bert_cfg, params)
     torch.cuda.empty_cache()
@@ -4580,6 +4689,19 @@ def main() -> int:
                  "T": r["T"], "max_abs_err": r[err],
                  **{k: r[k] for k in keys}}
                 for r in rows if r["shape"] in SPAN_SHAPES]
+
+    def fp32_rows(rows, err, kernel):
+        """The fp32 route's rows, with its launches and device ms in phase
+        9's fp32 step."""
+        step = train_path["fp32"]
+        ms = step["kernel_device_ms_per_step"]
+        return {"launches": {"train_step_fp32": step[f"{kernel}_launches"]},
+                "device_ms_per_step": ms[kernel] if ms else None,
+                "shapes": [{"shape": r["shape"], "rate": r["rate"],
+                            "B": r["B"], "S": r["S"], "T": r["T"],
+                            "max_abs_err": r[err],
+                            **{k: r[k] for k in keys}}
+                           for r in rows if r["dtype"] == "float32"]}
 
     def path_launches(path):
         return {name: {"train_step": path["train_step"][f"{name}_launches"],
@@ -4637,6 +4759,7 @@ def main() -> int:
                                 "span": tier_path["span"]["k1_launches"]}},
         "http": {"launches": tier_path["http"]["k1_launches"]},
         "host_ms_per_call": tier_path["k1_host"],
+        "fp32": fp32_rows(k1_rows, "max_abs_err_o", "k1"),
         "parity": {"launches": {k: v["k1"] for k, v in
                                 parity_path["launches"].items()}},
         "dp": dp_kernel_launches(dp_path, "k1"),
@@ -4654,6 +4777,7 @@ def main() -> int:
         "trainer": {"launches": trainer_path["k2_launches"]},
         "span": {"launches": span_launches["k2"],
                  "shapes": span_rows(k2_rows, "max_abs_err")},
+        "fp32": fp32_rows(k2_rows, "max_abs_err", "k2"),
         "aux": {"launches": aux_launches["k2"]},
         "long": {"launches": long_launches["k2"]},
         "parity": {"launches": {k: v["k2"] for k, v in

@@ -1,8 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the bf16 prefix-attention
-// kernels: TMA tensor maps and loads, mbarriers, wgmma shared-memory
-// descriptors and the m64n64k16 bf16 products, and the Philox keep masks in
-// the wgmma accumulator's layout.  Raw PTX, no CUTLASS, so a build takes
-// seconds.
+// Hopper (sm_90a) building blocks shared by the prefix-attention kernels:
+// TMA tensor maps and loads, mbarriers, wgmma shared-memory descriptors, the
+// m64n64k16 bf16 products, the m64n64k8 TF32 products split three ways for
+// fp32 accuracy, and the Philox keep masks in the wgmma accumulator's
+// layout.  Raw PTX, no CUTLASS, so a build takes seconds.
 //
 // Tiles.  Every operand tile is 64 rows of 64 bf16 (128 bytes), written by
 // TMA into shared memory with the 128-byte swizzle, 8 KB, 1024-byte aligned.
@@ -17,6 +17,13 @@
 // one 16-column step kk) takes the same (row, col) places, so a probability
 // tile in the accumulator becomes the A operand of the next product in place
 // (pack_a below).
+//
+// fp32 tiles (the split-TF32 route, at the end of this file) are 64 rows of
+// 64 fp32, 16 KB: two 8 KB halves of 32 columns (128 bytes a row), each
+// loaded by TMA as one box with the same 128-byte swizzle.  TF32 wgmma
+// reads its shared-memory operands K-major only (no transpose bit), so a
+// tile whose rows are the reduction index is written transposed by the
+// threads (split_tile).
 #pragma once
 
 #include <cuda.h>
@@ -64,24 +71,29 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 3-D map over a contiguous bf16 (planes, rows, 64) tensor, as (64, rows,
-// planes) innermost first, loaded in (64, 64, 1) boxes with the 128-byte
-// swizzle.  A box that runs past `rows` is zero-filled there and never
-// reaches into the next plane (the next head's rows).  Returns false when
-// the driver refuses (a pointer not 16-byte aligned, for one).
+// A 3-D map over a contiguous (planes, rows, 64) tensor of bf16
+// (elem_bytes 2) or fp32 (4), as (64, rows, planes) innermost first, loaded
+// in boxes of 128 bytes a row, 64 rows and one plane ((64, 64, 1) in bf16,
+// (32, 64, 1) in fp32) with the 128-byte swizzle.  A box that runs past
+// `rows` is zero-filled there and never reaches into the next plane (the
+// next head's rows).  Returns false when the driver refuses (a pointer not
+// 16-byte aligned, for one).
 inline bool make_tile_map(CUtensorMap* map, const void* base, int rows,
-                          int planes) {
+                          int planes, int elem_bytes = 2) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)TILE, (cuuint64_t)rows,
                               (cuuint64_t)planes};
-  const cuuint64_t strides[2] = {(cuuint64_t)TILE * 2,
-                                 (cuuint64_t)rows * TILE * 2};
-  const cuuint32_t box[3] = {TILE, TILE, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)TILE * elem_bytes,
+                                 (cuuint64_t)rows * TILE * elem_bytes};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / elem_bytes), TILE, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  return fn(map,
+            elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            3, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -136,16 +148,23 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
   }
 }
 
-// One (64, 64, 1) box at (col 0, row, plane) into `dst`; completes on `bar`.
+// One box at (col, row, plane) into `dst`; completes on `bar`.
 __device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map,
                                               uint64_t* bar, int row,
-                                              int plane) {
+                                              int plane, int col = 0) {
   asm volatile(
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(0),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(col),
       "r"(row), "r"(plane)
       : "memory");
+}
+
+// Orders this thread's earlier shared-memory stores before later reads of
+// the async proxy (wgmma operands, TMA): after a thread writes an operand
+// tile and before the barrier that precedes the product.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -224,6 +243,32 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
       "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MTVAF_D32
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : MTVAF_ACC32(d)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
+// d (+)= A B over one 8-deep TF32 step, A and B both K-major in shared
+// memory (fp32 words whose low 13 bits are zero: tf32_bits).
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " MTVAF_D32
+      ", %32, %33, p, 1, 1;\n}\n"
+      : MTVAF_ACC32(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d += A B over one 8-deep TF32 step, A from registers (four TF32 words:
+// rows r, r + 8 at columns c and c + 4, r = 16 warp + lane / 4, c = lane %
+// 4), B K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], uint32_t a0,
+                                              uint32_t a1, uint32_t a2,
+                                              uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " MTVAF_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
       : MTVAF_ACC32(d)
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
 }
@@ -327,6 +372,184 @@ __device__ __forceinline__ uint32_t keep_mask_query_rows(
     mask |= (unsigned)(w11 >= threshold) << (4 * n8 + 3);
   }
   return mask;
+}
+
+// ---------------------------------------------------------------------------
+// Device: fp32 products as split TF32 (3xTF32).
+//
+// A TF32 operand keeps 10 of fp32's 23 mantissa bits, so one TF32 product
+// misses fp32 accuracy by about 2^-11 relative.  Each fp32 operand x is
+// written as hi + lo, hi = tf32(x) and lo = tf32(x - hi) (x - hi is exact in
+// fp32), which carries x to about 2^-22; then a b ~= a_lo b_hi + a_hi b_lo
+// + a_hi b_hi (the dropped a_lo b_lo is below 2^-22 of a b), three TF32
+// wgmmas into one fp32 accumulator, the small terms first.
+
+constexpr int F32_TILE_BYTES = TILE * TILE * 4;   // 16 KB of fp32
+constexpr int F32_HALF_BYTES = F32_TILE_BYTES / 2;  // 32 columns, one TMA box
+
+// x rounded to TF32, to nearest with ties away from zero (as cvt.rna.tf32),
+// by bit operations on the fp32 word: the low 13 bits come out zero.  The
+// tests round the same way on the CPU.
+__device__ __forceinline__ uint32_t tf32_bits(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// Both halves of a 64 x 64 fp32 tile at row `row` (the map is
+// make_tile_map(..., 4)); 16 KB complete on `bar`.
+__device__ __forceinline__ void tma_load_f32_tile(unsigned char* dst,
+                                                  const CUtensorMap* map,
+                                                  uint64_t* bar, int row,
+                                                  int plane) {
+  tma_load_tile(dst, map, bar, row, plane, 0);
+  tma_load_tile(dst + F32_HALF_BYTES, map, bar, row, plane, 32);
+}
+
+// Byte offset of element (row, col) of an fp32 tile: half col / 32, then
+// the 128-byte swizzle (16-byte chunk (col % 32) / 4 XOR row % 8).
+__device__ __forceinline__ int f32_offset(int row, int col) {
+  return (col >> 5) * F32_HALF_BYTES + row * 128 +
+         ((((col & 31) >> 2) ^ (row & 7)) << 4) + (col & 3) * 4;
+}
+
+// The column of a transposed tile that holds source row `row` (a reduction
+// index: a key or a query).  An accumulator fragment holds columns 2c and
+// 2c + 1 of each 8-column group, where a TF32 A operand from registers
+// takes columns c and c + 4 (wgmma_tf32_rs): so within each group of 8,
+// rows 2i and 2i + 1 go to columns i and i + 4, and split_a hands the
+// fragment over unmoved.
+__device__ __forceinline__ int kperm(int row) {
+  return (row & ~7) | ((row & 1) << 2) | ((row >> 1) & 3);
+}
+
+// This thread's share of an fp32 tile: row t % 32 + 32 ((t / 32) % 2),
+// 16-byte chunks 8 (t / 64) .. + 7 (columns 32 (t / 64) + 4 i), so that a
+// warp reads and writes 32 rows at once, free of bank conflicts both ways.
+__device__ __forceinline__ int chunk_row() {
+  return (threadIdx.x & 31) + 32 * ((threadIdx.x >> 5) & 1);
+}
+__device__ __forceinline__ int chunk_col(int i) {
+  return 32 * (threadIdx.x >> 6) + 4 * i;
+}
+__device__ __forceinline__ void load_chunks(const unsigned char* raw,
+                                            float4 (&x)[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    x[i] = *reinterpret_cast<const float4*>(
+        raw + f32_offset(chunk_row(), chunk_col(i)));
+}
+
+// Writes this thread's chunks `x` split into TF32 hi and lo tiles: with
+// KMAJOR in the tile's own layout, with TRANS transposed (element (row,
+// col) at (col, kperm(row))), so that the rows become the reduction index
+// of a K-major operand.  The caller fences (fence_proxy_async) and
+// synchronises before a product reads the tiles.
+template <bool KMAJOR, bool TRANS>
+__device__ __forceinline__ void store_split(const float4 (&x)[8],
+                                            unsigned char* hi,
+                                            unsigned char* lo,
+                                            unsigned char* thi,
+                                            unsigned char* tlo) {
+  const int row = chunk_row();
+  const int k = kperm(row);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int col = chunk_col(i);
+    const float xs[4] = {x[i].x, x[i].y, x[i].z, x[i].w};
+    float h[4], l[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      h[e] = __uint_as_float(tf32_bits(xs[e]));
+      l[e] = __uint_as_float(tf32_bits(xs[e] - h[e]));
+    }
+    if (KMAJOR) {
+      const int off = f32_offset(row, col);
+      *reinterpret_cast<float4*>(hi + off) = make_float4(h[0], h[1], h[2], h[3]);
+      *reinterpret_cast<float4*>(lo + off) = make_float4(l[0], l[1], l[2], l[3]);
+    }
+    if (TRANS) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int toff = f32_offset(col + e, k);
+        *reinterpret_cast<float*>(thi + toff) = h[e];
+        *reinterpret_cast<float*>(tlo + toff) = l[e];
+      }
+    }
+  }
+}
+
+// Splits the fp32 tile `raw` (as TMA wrote it) by store_split; `hi` may be
+// `raw` (each thread rewrites only what it read).
+template <bool KMAJOR, bool TRANS>
+__device__ __forceinline__ void split_tile(const unsigned char* raw,
+                                           unsigned char* hi,
+                                           unsigned char* lo,
+                                           unsigned char* thi,
+                                           unsigned char* tlo) {
+  float4 x[8];
+  load_chunks(raw, x);
+  store_split<KMAJOR, TRANS>(x, hi, lo, thi, tlo);
+}
+
+// Step kk (8 columns of the reduction) of a K-major fp32 tile: 32 bytes
+// along the swizzled row, in half kk / 4.
+__device__ __forceinline__ uint64_t f32_step(uint64_t d, int kk) {
+  return d + (uint64_t)((kk >> 2) * (F32_HALF_BYTES >> 4) + 2 * (kk & 3));
+}
+
+// d = A B over a 64-deep reduction to fp32 accuracy, A and B K-major fp32
+// tiles split into hi and lo (24 wgmmas).
+__device__ __forceinline__ void gemm3_ss(float (&d)[32], uint64_t ahi,
+                                         uint64_t alo, uint64_t bhi,
+                                         uint64_t blo) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_tf32_ss(d, f32_step(alo, kk), f32_step(bhi, kk), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_tf32_ss(d, f32_step(ahi, kk), f32_step(blo, kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_tf32_ss(d, f32_step(ahi, kk), f32_step(bhi, kk), 1);
+}
+
+// A 64 x 64 tile in accumulator layout as the TF32 A operands of the eight
+// 8-deep steps, split into hi and lo (a[4 kk .. 4 kk + 3] for step kk).
+// Step kk's columns c and c + 4 are the fragment's columns 8 kk + 2c and
+// 8 kk + 2c + 1 (kperm), so x[4 kk + {0, 2, 1, 3}] go in as they are.
+__device__ __forceinline__ void split_a(uint32_t (&hi)[32], uint32_t (&lo)[32],
+                                        const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float v = x[4 * kk + ((e & 1) << 1) + (e >> 1)];
+      const uint32_t h = tf32_bits(v);
+      hi[4 * kk + e] = h;
+      lo[4 * kk + e] = tf32_bits(v - __uint_as_float(h));
+    }
+  }
+  fence_regs(hi);
+  fence_regs(lo);
+}
+
+// d += X B over a 64-deep reduction to fp32 accuracy: X split by split_a,
+// B a transposed fp32 tile (split_tile<., true>) split into hi and lo.
+__device__ __forceinline__ void gemm3_rs(float (&d)[32],
+                                         const uint32_t (&ahi)[32],
+                                         const uint32_t (&alo)[32],
+                                         uint64_t bhi, uint64_t blo) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_tf32_rs(d, alo[4 * kk], alo[4 * kk + 1], alo[4 * kk + 2],
+                  alo[4 * kk + 3], f32_step(bhi, kk));
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_tf32_rs(d, ahi[4 * kk], ahi[4 * kk + 1], ahi[4 * kk + 2],
+                  ahi[4 * kk + 3], f32_step(blo, kk));
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_tf32_rs(d, ahi[4 * kk], ahi[4 * kk + 1], ahi[4 * kk + 2],
+                  ahi[4 * kk + 3], f32_step(bhi, kk));
 }
 
 }  // namespace hopper

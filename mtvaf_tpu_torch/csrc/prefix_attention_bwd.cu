@@ -70,21 +70,30 @@
 // one bf16 ulp against the plain fp32 backward (0.0156 at |g| >= 2) past
 // its 1e-2 tolerance.
 //
-// fp32: wgmma has no fp32 operand (only TF32, which would miss the fp32
-// tolerances), so fp32 stays on the CUDA cores.  Each row of 64 head dims
-// belongs to a pair of neighbouring threads, 32 dims each (a thread per row
-// needed 255 registers and spilled); a dot product is two half sums joined
-// by one shuffle.
-//   (a) dq pass: one block per (64-query tile, h, b).  A pair keeps its q
-//       row and its fp32 dq in registers and its do row in shared memory,
-//       computes delta, and streams K and V through shared memory in KC-row
-//       chunks; dropout bits come four keys per Philox call.
-//   (b) dk/dv pass: one block per (64-key tile, h, b).  A pair keeps its k
-//       and v rows in shared memory and its fp32 dk and dv in registers,
-//       and streams q, do, lse and delta through shared memory in QC-row
-//       chunks; one Philox call per element.
-// Shared-memory rows are padded so that the two halves of a row sit one
-// bank apart.  The ragged edges are masked by bounds.
+// fp32 (dq_tf32x3_kernel, dkdv_tf32x3_kernel; the --no_bf16 route of the
+// parity runs): every product is split TF32 (3xTF32, hopper.cuh: each
+// operand as TF32 hi + lo, three wgmma.m64n64k8 TF32 products into the
+// fp32 accumulator), since one TF32 product misses the fp32 tolerances.  At
+// the train shape the function moves 107.17 MB in fp32 (32.0 us at 3.35
+// TB/s) against 4.53 GFLOP, 27.5 us at a third of the 494.7 TFLOP/s TF32
+// peak: bound by bytes, the split's tensor time just under it.  The passes,
+// the mask drawn once by the dq pass and the staged vectors are bf16's;
+// the tiles are fp32 (16 KB, two TMA boxes of 32 columns).  TF32 wgmma
+// reads shared-memory operands K-major only, so a product that reduces
+// over a tile's rows takes that tile transposed by the threads: K^T for dQ
+// = dS K, dO^T for dV = Y^T dO and Q^T for dK = dS^T Q; their rows are
+// permuted so that dS, Y^T and dS^T enter from the accumulators unmoved
+// (kperm).  Own tiles land once and are split in place (hi) and beside
+// (lo); the streamed pair lands in a one-tile landing pair, is split into
+// its operand tiles (K-major and, where needed, transposed), and the next
+// pair loads into the landing buffers while this pair's products run.
+// Shared memory bounds the block: 192 KB (dq pass) and 224 KB (dk/dv
+// pass), one block of 128 threads to an SM; the dk/dv pass finishes dV's
+// products before it splits dS^T, so that only one product's split operand
+// is live in registers.  Two warpgroups to a block, each taking half of a
+// tile's columns (eight warps to an SM), ran no faster on the H100: bound
+// to the block's barriers, they split and multiply in step, not beside
+// each other, and re-read the shared A operand once each.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -95,31 +104,8 @@
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// The fp32 route: CUDA cores.
-
-constexpr int BQ = 64;      // query rows per dq block (a thread pair each)
-constexpr int KC = 32;      // key/value rows per shared-memory chunk (dq pass)
-constexpr int BK = 64;      // key rows per dk/dv block (a thread pair each)
-constexpr int QC = 16;      // query rows per shared-memory chunk (dk/dv pass)
-constexpr int HALF = 32;    // head dims per thread (D = 64 in two halves)
-constexpr int ROW = 2 * (HALF + 1);   // padded shared-memory row
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void from_f32(float* p, float x) { *p = x; }
-
-// Element (r, c) of a chunk of 64-wide rows: the half c / 32 starts HALF + 1
-// floats after the other, one bank over.
-__device__ __forceinline__ int sidx(int r, int c) {
-  return r * ROW + (c / HALF) * (HALF + 1) + c % HALF;
-}
-
-// The pair's sum of a half dot product.
-__device__ __forceinline__ float pair_sum(float x) {
-  return x + __shfl_xor_sync(FULL, x, 1);
-}
 
 // head_offset: the global index of head 0 of this call (the Philox
 // counter's head word is h + head_offset).
@@ -128,223 +114,6 @@ struct Dropout {
   float keep_scale;
   int head_offset;
 };
-
-template <typename T, bool DROPOUT>
-__global__ void __launch_bounds__(2 * BQ)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, const float* __restrict__ bias,
-          const T* __restrict__ o, const float* __restrict__ lse,
-          const T* __restrict__ dout, T* __restrict__ dq,
-          float* __restrict__ delta_out, int H, int S, int Tk, int bias_rows,
-          float scale, Dropout dr) {
-  constexpr int D = 2 * HALF;
-  __shared__ float dos[BQ * ROW];
-  __shared__ float ks[KC * ROW];
-  __shared__ float vs[KC * ROW];
-
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int r = threadIdx.x / 2, half = threadIdx.x % 2;
-  const int row = blockIdx.x * BQ + r;
-  const bool active = row < S;
-  const size_t bh = (size_t)b * H + h;
-  const size_t qoff = (bh * S + (active ? row : 0)) * D + half * HALF;
-  const T* kp = k + bh * Tk * D;
-  const T* vp = v + bh * Tk * D;
-  const float* bp = bias + ((size_t)b * bias_rows
-                            + (bias_rows == 1 ? 0 : (active ? row : 0))) * Tk;
-  float* my_do = dos + r * ROW + half * (HALF + 1);
-
-  // Scores in base 2: s2 = (q.k * scale + bias) * log2(e).
-  const float qscale = scale * LOG2E;
-  float qr[HALF];
-  float acc[HALF];
-  float delta = 0.f;
-#pragma unroll
-  for (int d = 0; d < HALF; ++d) {
-    const float dd = active ? to_f32(dout[qoff + d]) : 0.f;
-    my_do[d] = dd;
-    delta = fmaf(dd, active ? to_f32(o[qoff + d]) : 0.f, delta);
-    qr[d] = active ? to_f32(q[qoff + d]) * qscale : 0.f;
-    acc[d] = 0.f;
-  }
-  delta = pair_sum(delta);
-  if (active && half == 0) delta_out[bh * S + row] = delta;
-  const float lse2 = active ? lse[bh * S + row] * LOG2E : 0.f;
-
-  for (int t0 = 0; t0 < Tk; t0 += KC) {
-    __syncthreads();   // the previous chunk is no longer read
-    for (int i = threadIdx.x; i < KC * D; i += 2 * BQ) {
-      const int rr = i / D, c = i % D;
-      const bool in = t0 + rr < Tk;
-      ks[sidx(rr, c)] = in ? to_f32(kp[(size_t)(t0 + rr) * D + c]) : 0.f;
-      vs[sidx(rr, c)] = in ? to_f32(vp[(size_t)(t0 + rr) * D + c]) : 0.f;
-    }
-    __syncthreads();
-
-    const int n = min(KC, Tk - t0);          // the same for the whole block
-    for (int j4 = 0; j4 < n; j4 += 4) {
-      uint4 bits = make_uint4(0u, 0u, 0u, 0u);
-      if (DROPOUT)
-        bits = mtvaf::keep_bits4(b, h + dr.head_offset, row, (t0 + j4) >> 2,
-                                 dr.seed_lo, dr.seed_hi);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int j = j4 + jj;
-        if (j >= n) break;
-        const float* kr = ks + j * ROW + half * (HALF + 1);
-        const float* vr = vs + j * ROW + half * (HALF + 1);
-        float sdot = 0.f, dp = 0.f;
-#pragma unroll
-        for (int d = 0; d < HALF; ++d) {
-          sdot = fmaf(qr[d], kr[d], sdot);
-          dp = fmaf(my_do[d], vr[d], dp);
-        }
-        sdot = pair_sum(sdot);
-        dp = pair_sum(dp);
-        const float p = exp2f(fmaf(bp[t0 + j], LOG2E, sdot) - lse2);
-        if (DROPOUT)
-          dp *= mtvaf::word(bits, jj) >= dr.threshold ? dr.keep_scale : 0.f;
-        const float ds = p * (dp - delta);
-#pragma unroll
-        for (int d = 0; d < HALF; ++d) acc[d] = fmaf(ds, kr[d], acc[d]);
-      }
-    }
-  }
-
-  if (!active) return;
-#pragma unroll
-  for (int d = 0; d < HALF; ++d) from_f32(dq + qoff + d, acc[d] * scale);
-}
-
-template <typename T, bool DROPOUT>
-__global__ void __launch_bounds__(2 * BK)
-dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, const float* __restrict__ bias,
-            const float* __restrict__ lse, const T* __restrict__ dout,
-            const float* __restrict__ delta_in, T* __restrict__ dk,
-            T* __restrict__ dv, int H, int S, int Tk, int bias_rows,
-            float scale, Dropout dr) {
-  constexpr int D = 2 * HALF;
-  __shared__ float kown[BK * ROW];
-  __shared__ float vown[BK * ROW];
-  __shared__ float qs[QC * ROW];
-  __shared__ float dos[QC * ROW];
-  __shared__ float lses[QC];
-  __shared__ float deltas[QC];
-
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int r = threadIdx.x / 2, half = threadIdx.x % 2;
-  const int col = blockIdx.x * BK + r;
-  const bool active = col < Tk;
-  const size_t bh = (size_t)b * H + h;
-  const size_t koff = (bh * Tk + (active ? col : 0)) * D + half * HALF;
-  const T* qp = q + bh * S * D;
-  const T* dop = dout + bh * S * D;
-  const float* bb = bias + (size_t)b * bias_rows * Tk;
-  float* mk = kown + r * ROW + half * (HALF + 1);
-  float* mv = vown + r * ROW + half * (HALF + 1);
-
-  const float qscale = scale * LOG2E;
-  float dka[HALF];
-  float dva[HALF];
-#pragma unroll
-  for (int d = 0; d < HALF; ++d) {     // each thread reads back only its own
-    mk[d] = active ? to_f32(k[koff + d]) : 0.f;
-    mv[d] = active ? to_f32(v[koff + d]) : 0.f;
-    dka[d] = 0.f;
-    dva[d] = 0.f;
-  }
-
-  for (int s0 = 0; s0 < S; s0 += QC) {
-    __syncthreads();   // the previous chunk is no longer read
-    for (int i = threadIdx.x; i < QC * D; i += 2 * BK) {
-      const int rr = i / D, c = i % D;
-      const bool in = s0 + rr < S;
-      qs[sidx(rr, c)] = in ? to_f32(qp[(size_t)(s0 + rr) * D + c]) : 0.f;
-      dos[sidx(rr, c)] = in ? to_f32(dop[(size_t)(s0 + rr) * D + c]) : 0.f;
-    }
-    if (threadIdx.x < QC) {
-      const bool in = s0 + threadIdx.x < S;
-      lses[threadIdx.x] = in ? lse[bh * S + s0 + threadIdx.x] * LOG2E : 0.f;
-      deltas[threadIdx.x] = in ? delta_in[bh * S + s0 + threadIdx.x] : 0.f;
-    }
-    __syncthreads();
-
-    const int n = min(QC, S - s0);
-    for (int i = 0; i < n; ++i) {
-      const int row = s0 + i;
-      const float* qr = qs + i * ROW + half * (HALF + 1);
-      const float* dr_ = dos + i * ROW + half * (HALF + 1);
-      float sdot = 0.f, dp = 0.f;
-#pragma unroll
-      for (int d = 0; d < HALF; ++d) {
-        sdot = fmaf(mk[d], qr[d], sdot);
-        dp = fmaf(mv[d], dr_[d], dp);
-      }
-      sdot = pair_sum(sdot);
-      dp = pair_sum(dp);
-      const float bval =
-          active ? bb[(size_t)(bias_rows == 1 ? 0 : row) * Tk + col] : 0.f;
-      const float p = active
-          ? exp2f(fmaf(sdot, qscale, bval * LOG2E) - lses[i]) : 0.f;
-      float keep = 1.f;
-      if (DROPOUT)
-        keep = mtvaf::keep_bits(b, h + dr.head_offset, row, col, dr.seed_lo,
-                                dr.seed_hi)
-            >= dr.threshold ? dr.keep_scale : 0.f;
-      const float y = p * keep;
-      const float ds = p * (dp * keep - deltas[i]);
-#pragma unroll
-      for (int d = 0; d < HALF; ++d) {
-        dva[d] = fmaf(y, dr_[d], dva[d]);
-        dka[d] = fmaf(ds, qr[d], dka[d]);
-      }
-    }
-  }
-
-  if (!active) return;
-#pragma unroll
-  for (int d = 0; d < HALF; ++d) {
-    from_f32(dk + koff + d, dka[d] * scale);
-    from_f32(dv + koff + d, dva[d]);
-  }
-}
-
-template <typename T, bool DROPOUT>
-int launch(const void* q, const void* k, const void* v, const float* bias,
-           const void* o, const float* lse, const void* dout, void* dq,
-           void* dk, void* dv, float* delta, int B, int H, int S, int Tk,
-           int bias_rows, float scale, Dropout dr, cudaStream_t stream) {
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* dot = static_cast<const T*>(dout);
-  dq_kernel<T, DROPOUT><<<dim3((S + BQ - 1) / BQ, H, B), 2 * BQ, 0,
-                          stream>>>(
-      qt, kt, vt, bias, static_cast<const T*>(o), lse, dot,
-      static_cast<T*>(dq), delta, H, S, Tk, bias_rows, scale, dr);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dkdv_kernel<T, DROPOUT><<<dim3((Tk + BK - 1) / BK, H, B), 2 * BK, 0,
-                            stream>>>(
-      qt, kt, vt, bias, lse, dot, delta, static_cast<T*>(dk),
-      static_cast<T*>(dv), H, S, Tk, bias_rows, scale, dr);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_any(const void* q, const void* k, const void* v, const float* bias,
-               const void* o, const float* lse, const void* dout, void* dq,
-               void* dk, void* dv, float* delta, int B, int H, int S, int Tk,
-               int bias_rows, float scale, Dropout dr, cudaStream_t stream) {
-  return dr.threshold
-      ? launch<T, true>(q, k, v, bias, o, lse, dout, dq, dk, dv, delta, B, H,
-                        S, Tk, bias_rows, scale, dr, stream)
-      : launch<T, false>(q, k, v, bias, o, lse, dout, dq, dk, dv, delta, B, H,
-                         S, Tk, bias_rows, scale, dr, stream);
-}
 
 // ---------------------------------------------------------------------------
 // The bf16 route: wgmma fed by TMA.
@@ -792,17 +561,423 @@ int launch_bf16(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The fp32 route: split-TF32 wgmma fed by TMA.
+
+constexpr int TB = hp::F32_TILE_BYTES;
+// A dq-pass block: Q and dO hi/lo (own); raw K and V as TMA lands them; K
+// hi/lo, K^T hi/lo, V hi/lo; barriers, delta and the bias row, alignment.
+constexpr int DQ32_SMEM = 12 * TB + 64 + 2 * 64 * 4 + 1024;
+// A dk/dv-pass block: K and V hi/lo (own); raw Q and dO; Q hi/lo, Q^T
+// hi/lo, dO hi/lo, dO^T hi/lo; barriers, lse, delta and the keep words of
+// one query tile, alignment (231,488 of the 232,448 bytes a block may use).
+constexpr int DKDV32_SMEM = 14 * TB + 64 + 2 * 64 * 4 + 128 * 4 + 1024;
+
+// Pass (a): dq, delta for pass (b), and the keep bits.  Own tiles: q, do;
+// streamed: k, v.
+template <bool DROPOUT>
+__global__ void __launch_bounds__(128, 1)
+dq_tf32x3_kernel(const __grid_constant__ CUtensorMap qmap,
+                 const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap,
+                 const __grid_constant__ CUtensorMap domap,
+                 const float* __restrict__ bias, const float* __restrict__ o,
+                 const float* __restrict__ dout,
+                 const float* __restrict__ lse, float* __restrict__ dq,
+                 float* __restrict__ delta_out, uint32_t* __restrict__ bits,
+                 int H, int S, int Tk, int bias_rows, float scale,
+                 Dropout dr) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = hp::align1024(smem_raw);
+  unsigned char* qh = sm;
+  unsigned char* ql = sm + TB;
+  unsigned char* doh = sm + 2 * TB;
+  unsigned char* dol = sm + 3 * TB;
+  unsigned char* kraw = sm + 4 * TB;
+  unsigned char* vraw = sm + 5 * TB;
+  unsigned char* kh = sm + 6 * TB;
+  unsigned char* kl = sm + 7 * TB;
+  unsigned char* kth = sm + 8 * TB;
+  unsigned char* ktl = sm + 9 * TB;
+  unsigned char* vh = sm + 10 * TB;
+  unsigned char* vl = sm + 11 * TB;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + 12 * TB);  // own; raw
+  float* delta_s = reinterpret_cast<float*>(bars + 8);
+  float* bias_s = delta_s + 64;   // bias * log2(e) of a key tile, bias_rows 1
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * hp::TILE;
+  const int plane = b * H + h;
+  const int tid = threadIdx.x, lane = tid & 31, c = lane & 3;
+  const int nt = (Tk + hp::TILE - 1) / hp::TILE;
+
+  if (tid == 0) {
+    hp::mbar_init(&bars[0], 1);
+    hp::mbar_init(&bars[1], 1);
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hp::mbar_expect_tx(&bars[0], 2 * TB);
+    hp::tma_load_f32_tile(qh, &qmap, &bars[0], q0, plane);
+    hp::tma_load_f32_tile(doh, &domap, &bars[0], q0, plane);
+    hp::mbar_expect_tx(&bars[1], 2 * TB);
+    hp::tma_load_f32_tile(kraw, &kmap, &bars[1], 0, plane);
+    hp::tma_load_f32_tile(vraw, &vmap, &bars[1], 0, plane);
+  }
+
+  const float* bb = bias + (size_t)b * bias_rows * Tk;
+  {  // delta = rowsum(do * o): a thread pair per row, 32 dims each
+    const int r = q0 + (tid >> 1);
+    float d = 0.f;
+    if (r < S) {
+      const size_t off = ((size_t)plane * S + r) * 64 + (tid & 1) * 32;
+      const float4* op = reinterpret_cast<const float4*>(o + off);
+      const float4* dp = reinterpret_cast<const float4*>(dout + off);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 ov = op[i], dv = dp[i];
+        d = fmaf(dv.x, ov.x, d);
+        d = fmaf(dv.y, ov.y, d);
+        d = fmaf(dv.z, ov.z, d);
+        d = fmaf(dv.w, ov.w, d);
+      }
+    }
+    d += __shfl_xor_sync(FULL, d, 1);
+    if ((tid & 1) == 0) {
+      delta_s[tid >> 1] = d;
+      if (r < S) delta_out[(size_t)plane * S + r] = d;
+    }
+  }
+  __syncthreads();
+
+  const int lr0 = 16 * (tid >> 5) + (lane >> 2);
+  const int row0 = q0 + lr0, row1 = row0 + 8;
+  const float delta0 = delta_s[lr0], delta1 = delta_s[lr0 + 8];
+  const float lse0 = row0 < S ? lse[(size_t)plane * S + row0] * LOG2E : 0.f;
+  const float lse1 = row1 < S ? lse[(size_t)plane * S + row1] * LOG2E : 0.f;
+  // this thread's rows of a per-row bias (bias_rows == S)
+  const float* bp0 = bias_rows == 1 ? bb : bb + (size_t)min(row0, S - 1) * Tk;
+  const float* bp1 = bias_rows == 1 ? bb : bb + (size_t)min(row1, S - 1) * Tk;
+  const float qscale = scale * LOG2E;
+  float acc[32], sc[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = sc[i] = dp[i] = 0.f;
+
+  hp::mbar_wait(&bars[0], 0);
+  hp::split_tile<true, false>(qh, qh, ql, nullptr, nullptr);
+  hp::split_tile<true, false>(doh, doh, dol, nullptr, nullptr);
+  const uint64_t qhd = hp::desc(qh), qld = hp::desc(ql);
+  const uint64_t dohd = hp::desc(doh), dold = hp::desc(dol);
+  const uint64_t khd = hp::desc(kh), kld = hp::desc(kl);
+  const uint64_t kthd = hp::desc(kth), ktld = hp::desc(ktl);
+  const uint64_t vhd = hp::desc(vh), vld = hp::desc(vl);
+  for (int j = 0; j < nt; ++j) {
+    const int t0 = j * hp::TILE;
+    // the key tile's bias row, -inf past T, read before the wait
+    const float bias_v = bias_rows == 1 && tid < 64
+        ? (t0 + tid < Tk ? bb[t0 + tid] * LOG2E : -CUDART_INF_F) : 0.f;
+    hp::mbar_wait(&bars[1], j & 1);
+    hp::split_tile<true, true>(kraw, kh, kl, kth, ktl);
+    hp::split_tile<true, false>(vraw, vh, vl, nullptr, nullptr);
+    if (bias_rows == 1 && tid < 64) bias_s[tid] = bias_v;
+    hp::fence_proxy_async();
+    __syncthreads();   // the raw tiles are read: load the next pair there
+    if (tid == 0 && j + 1 < nt) {
+      hp::mbar_expect_tx(&bars[1], 2 * TB);
+      hp::tma_load_f32_tile(kraw, &kmap, &bars[1], t0 + hp::TILE, plane);
+      hp::tma_load_f32_tile(vraw, &vmap, &bars[1], t0 + hp::TILE, plane);
+    }
+
+    hp::wgmma_fence();
+    hp::gemm3_ss(sc, qhd, qld, khd, kld);
+    hp::gemm3_ss(dp, dohd, dold, vhd, vld);
+    hp::wgmma_commit();
+    hp::wgmma_wait_all();
+    hp::fence_regs(sc);
+    hp::fence_regs(dp);
+
+    uint32_t keep = 0xffffffffu;
+    if (DROPOUT) {   // drawn here once, read back by the dk/dv pass
+      keep = hp::keep_mask_query_rows(b, h + dr.head_offset, row0, row1, t0,
+                                      dr.seed_lo, dr.seed_hi, dr.threshold);
+      bits[(((size_t)plane * gridDim.x + blockIdx.x) * nt + j) * 128 + tid] =
+          keep;
+    }
+    // scores in base 2; past T the key tile is zero-filled and the bias
+    // -inf, so p = 0 there
+    if (bias_rows == 1) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        sc[i] = fmaf(sc[i], qscale, bias_s[8 * (i >> 2) + 2 * c + (i & 1)]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = t0 + 8 * (i >> 2) + 2 * c + (i & 1);
+        const float* bp = (i >> 1) & 1 ? bp1 : bp0;
+        sc[i] = col < Tk ? fmaf(sc[i], qscale, bp[min(col, Tk - 1)] * LOG2E)
+                         : -CUDART_INF_F;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const bool second = (i >> 1) & 1;
+      const float p = hp::ex2(sc[i] - (second ? lse1 : lse0));
+      float g = dp[i];
+      if (DROPOUT) g *= (keep >> i) & 1 ? dr.keep_scale : 0.f;
+      sc[i] = p * (g - (second ? delta1 : delta0));   // ds
+    }
+
+    uint32_t dsh[32], dsl[32];
+    hp::split_a(dsh, dsl, sc);
+    hp::wgmma_fence();
+    hp::gemm3_rs(acc, dsh, dsl, kthd, ktld);
+    hp::wgmma_commit();
+    hp::wgmma_wait_all();
+    hp::fence_regs(acc);
+    __syncthreads();   // the split tiles are no longer read
+  }
+
+#pragma unroll
+  for (int n8 = 0; n8 < 8; ++n8) {
+    const int col = 8 * n8 + 2 * c;
+    if (row0 < S)
+      *reinterpret_cast<float2*>(dq + ((size_t)plane * S + row0) * 64 + col) =
+          make_float2(acc[4 * n8] * scale, acc[4 * n8 + 1] * scale);
+    if (row1 < S)
+      *reinterpret_cast<float2*>(dq + ((size_t)plane * S + row1) * 64 + col) =
+          make_float2(acc[4 * n8 + 2] * scale, acc[4 * n8 + 3] * scale);
+  }
+}
+
+// Pass (b): dk and dv.  Own tiles: k, v; streamed: q, do, each split K-major
+// (for S^T = K Q^T and dP^T = V dO^T) and transposed (for dK += dS^T Q and
+// dV += Y^T dO).  dV's products complete before dS^T is split, so that the
+// split operands of only one product are live (no spills at 255 registers).
+template <bool DROPOUT>
+__global__ void __launch_bounds__(128, 1)
+dkdv_tf32x3_kernel(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   const __grid_constant__ CUtensorMap domap,
+                   const float* __restrict__ bias,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta_in,
+                   const uint32_t* __restrict__ bits, float* __restrict__ dk,
+                   float* __restrict__ dv, int H, int S, int Tk,
+                   int bias_rows, float scale, Dropout dr) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = hp::align1024(smem_raw);
+  unsigned char* kh = sm;
+  unsigned char* kl = sm + TB;
+  unsigned char* vh = sm + 2 * TB;
+  unsigned char* vl = sm + 3 * TB;
+  unsigned char* qraw = sm + 4 * TB;
+  unsigned char* doraw = sm + 5 * TB;
+  unsigned char* qh = sm + 6 * TB;
+  unsigned char* ql = sm + 7 * TB;
+  unsigned char* qth = sm + 8 * TB;
+  unsigned char* qtl = sm + 9 * TB;
+  unsigned char* doh = sm + 10 * TB;
+  unsigned char* dol = sm + 11 * TB;
+  unsigned char* doth = sm + 12 * TB;
+  unsigned char* dotl = sm + 13 * TB;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + 14 * TB);  // own; raw
+  float* lse_s = reinterpret_cast<float*>(bars + 8);   // [64]
+  float* dl_s = lse_s + 64;                            // [64]
+  uint32_t* bits_s = reinterpret_cast<uint32_t*>(dl_s + 64);   // [128]
+
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * hp::TILE;
+  const int plane = b * H + h;
+  const int tid = threadIdx.x, lane = tid & 31, c = lane & 3;
+  const int nq = (S + hp::TILE - 1) / hp::TILE;
+  const int nk = gridDim.x;
+  const float* lsep = lse + (size_t)plane * S;
+  const float* dlp = delta_in + (size_t)plane * S;
+
+  if (tid == 0) {
+    hp::mbar_init(&bars[0], 1);
+    hp::mbar_init(&bars[1], 1);
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hp::mbar_expect_tx(&bars[0], 2 * TB);
+    hp::tma_load_f32_tile(kh, &kmap, &bars[0], k0, plane);
+    hp::tma_load_f32_tile(vh, &vmap, &bars[0], k0, plane);
+    hp::mbar_expect_tx(&bars[1], 2 * TB);
+    hp::tma_load_f32_tile(qraw, &qmap, &bars[1], 0, plane);
+    hp::tma_load_f32_tile(doraw, &domap, &bars[1], 0, plane);
+  }
+
+  // This thread's two key rows.
+  const int key0 = k0 + 16 * (tid >> 5) + (lane >> 2), key1 = key0 + 8;
+  const float* bb = bias + (size_t)b * bias_rows * Tk;
+  const float kb0 = bias_rows == 1 && key0 < Tk ? bb[key0] * LOG2E : 0.f;
+  const float kb1 = bias_rows == 1 && key1 < Tk ? bb[key1] * LOG2E : 0.f;
+  const float qscale = scale * LOG2E;
+  float dka[32], dva[32], st[32], dpt[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dka[i] = dva[i] = st[i] = dpt[i] = 0.f;
+
+  hp::mbar_wait(&bars[0], 0);
+  hp::split_tile<true, false>(kh, kh, kl, nullptr, nullptr);
+  hp::split_tile<true, false>(vh, vh, vl, nullptr, nullptr);
+  const uint64_t khd = hp::desc(kh), kld = hp::desc(kl);
+  const uint64_t vhd = hp::desc(vh), vld = hp::desc(vl);
+  const uint64_t qhd = hp::desc(qh), qld = hp::desc(ql);
+  const uint64_t qthd = hp::desc(qth), qtld = hp::desc(qtl);
+  const uint64_t dohd = hp::desc(doh), dold = hp::desc(dol);
+  const uint64_t dothd = hp::desc(doth), dotld = hp::desc(dotl);
+  for (int it = 0; it < nq; ++it) {
+    const int s0 = it * hp::TILE;
+    // the query tile's lse * log2(e) (+inf past S: p = 0 there) and delta,
+    // and the keep bits the dq pass drew for (query tile, this key tile),
+    // read before the wait
+    float lse_v = 0.f, dl_v = 0.f;
+    if (tid < 64) {
+      const int qc = s0 + tid;
+      lse_v = qc < S ? lsep[qc] * LOG2E : CUDART_INF_F;
+      dl_v = qc < S ? dlp[qc] : 0.f;
+    }
+    const uint32_t bits_v = DROPOUT
+        ? bits[(((size_t)plane * nq + it) * nk + blockIdx.x) * 128 + tid] : 0u;
+    hp::mbar_wait(&bars[1], it & 1);
+    hp::split_tile<true, true>(qraw, qh, ql, qth, qtl);
+    hp::split_tile<true, true>(doraw, doh, dol, doth, dotl);
+    if (tid < 64) {
+      lse_s[tid] = lse_v;
+      dl_s[tid] = dl_v;
+    }
+    if (DROPOUT) bits_s[tid] = bits_v;
+    hp::fence_proxy_async();
+    __syncthreads();   // the raw tiles are read: load the next pair there
+    if (tid == 0 && it + 1 < nq) {
+      hp::mbar_expect_tx(&bars[1], 2 * TB);
+      hp::tma_load_f32_tile(qraw, &qmap, &bars[1], s0 + hp::TILE, plane);
+      hp::tma_load_f32_tile(doraw, &domap, &bars[1], s0 + hp::TILE, plane);
+    }
+
+    hp::wgmma_fence();
+    hp::gemm3_ss(st, khd, kld, qhd, qld);
+    hp::gemm3_ss(dpt, vhd, vld, dohd, dold);
+    hp::wgmma_commit();
+    hp::wgmma_wait_all();
+    hp::fence_regs(st);
+    hp::fence_regs(dpt);
+
+    uint32_t keep = 0xffffffffu;
+    if (DROPOUT) keep = transposed_keep(bits_s);
+    if (bias_rows == 1) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        st[i] = fmaf(st[i], qscale, (i >> 1) & 1 ? kb1 : kb0);
+    } else {   // rows past T are computed but never stored
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int qc = min(s0 + 8 * (i >> 2) + 2 * c + (i & 1), S - 1);
+        const int key = min((i >> 1) & 1 ? key1 : key0, Tk - 1);
+        st[i] = fmaf(st[i], qscale, bb[(size_t)qc * Tk + key] * LOG2E);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int cc = 8 * (i >> 2) + 2 * c + (i & 1);
+      const float p = hp::ex2(st[i] - lse_s[cc]);   // 0 past S
+      float kf = 1.f;
+      if (DROPOUT) kf = (keep >> i) & 1 ? dr.keep_scale : 0.f;
+      st[i] = p * kf;                          // y
+      dpt[i] = p * (dpt[i] * kf - dl_s[cc]);   // ds
+    }
+
+    {
+      uint32_t yh[32], yl[32];
+      hp::split_a(yh, yl, st);
+      hp::wgmma_fence();
+      hp::gemm3_rs(dva, yh, yl, dothd, dotld);
+      hp::wgmma_commit();
+      hp::wgmma_wait_all();
+      hp::fence_regs(dva);
+    }
+    {
+      uint32_t dsh[32], dsl[32];
+      hp::split_a(dsh, dsl, dpt);
+      hp::wgmma_fence();
+      hp::gemm3_rs(dka, dsh, dsl, qthd, qtld);
+      hp::wgmma_commit();
+      hp::wgmma_wait_all();
+      hp::fence_regs(dka);
+    }
+    __syncthreads();   // the split tiles are no longer read
+  }
+
+#pragma unroll
+  for (int n8 = 0; n8 < 8; ++n8) {
+    const int col = 8 * n8 + 2 * c;
+    if (key0 < Tk) {
+      const size_t off = ((size_t)plane * Tk + key0) * 64 + col;
+      *reinterpret_cast<float2*>(dk + off) =
+          make_float2(dka[4 * n8] * scale, dka[4 * n8 + 1] * scale);
+      *reinterpret_cast<float2*>(dv + off) =
+          make_float2(dva[4 * n8], dva[4 * n8 + 1]);
+    }
+    if (key1 < Tk) {
+      const size_t off = ((size_t)plane * Tk + key1) * 64 + col;
+      *reinterpret_cast<float2*>(dk + off) =
+          make_float2(dka[4 * n8 + 2] * scale, dka[4 * n8 + 3] * scale);
+      *reinterpret_cast<float2*>(dv + off) =
+          make_float2(dva[4 * n8 + 2], dva[4 * n8 + 3]);
+    }
+  }
+}
+
+template <bool DROPOUT>
+int launch_fp32(const void* q, const void* k, const void* v,
+                const float* bias, const void* o, const float* lse,
+                const void* dout, void* dq, void* dk, void* dv, float* delta,
+                int B, int H, int S, int Tk, int bias_rows, float scale,
+                Dropout dr, cudaStream_t stream) {
+  // the keep bits follow delta in the scratch, 16-byte aligned
+  uint32_t* bits = reinterpret_cast<uint32_t*>(
+      delta + (((size_t)B * H * S + 3) & ~(size_t)3));
+  CUtensorMap qm, km, vm, dom;
+  if (!hp::make_tile_map(&qm, q, S, B * H, 4) ||
+      !hp::make_tile_map(&km, k, Tk, B * H, 4) ||
+      !hp::make_tile_map(&vm, v, Tk, B * H, 4) ||
+      !hp::make_tile_map(&dom, dout, S, B * H, 4))
+    return -2;
+  cudaError_t err = cudaFuncSetAttribute(
+      dq_tf32x3_kernel<DROPOUT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      DQ32_SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(dkdv_tf32x3_kernel<DROPOUT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               DKDV32_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dq_tf32x3_kernel<DROPOUT><<<dim3((S + hp::TILE - 1) / hp::TILE, H, B), 128,
+                              DQ32_SMEM, stream>>>(
+      qm, km, vm, dom, bias, static_cast<const float*>(o),
+      static_cast<const float*>(dout), lse, static_cast<float*>(dq), delta,
+      bits, H, S, Tk, bias_rows, scale, dr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dkdv_tf32x3_kernel<DROPOUT><<<dim3((Tk + hp::TILE - 1) / hp::TILE, H, B),
+                                128, DKDV32_SMEM, stream>>>(
+      qm, km, vm, dom, bias, lse, delta, bits, static_cast<float*>(dk),
+      static_cast<float*>(dv), H, S, Tk, bias_rows, scale, dr);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Plain C entry point, loaded with ctypes.  dtype: 0 = float32 (CUDA-core
-// kernels), 1 = bfloat16 (wgmma kernels; q, k, v, o, do 16-byte aligned);
-// threshold 0 turns dropout off.  delta is an fp32 scratch: delta (B, H, S),
-// then, for bf16 with dropout, from the next 16-byte boundary, the keep bits
-// the dq pass draws for the dk/dv pass, B*H*ceil(S/64)*ceil(T/64)*128 32-bit
-// words.  Two
-// launches on `stream` (dq pass, then dk/dv pass); returns the first non-zero
-// cudaGetLastError() (0 on success, -1 for a head dimension or type this
-// kernel was not compiled for, -2 when the driver refuses a tensor map).
+// Plain C entry point, loaded with ctypes.  dtype: 0 = float32 (split-TF32
+// wgmma kernels), 1 = bfloat16 (wgmma kernels); q, k, v, o, do 16-byte
+// aligned; threshold 0 turns dropout off.  delta is an fp32 scratch: delta
+// (B, H, S), then, with dropout, from the next 16-byte boundary, the keep
+// bits the dq pass draws for the dk/dv pass,
+// B*H*ceil(S/64)*ceil(T/64)*128 32-bit words.  Two launches on `stream`
+// (dq pass, then dk/dv pass); returns the first non-zero cudaGetLastError()
+// (0 on success, -1 for a head dimension or type this kernel was not
+// compiled for, -2 when the driver refuses a tensor map).
 extern "C" int mtvaf_prefix_attention_bwd(
     const void* q, const void* k, const void* v, const float* bias,
     const void* o, const float* lse, const void* dout, void* dq, void* dk,
@@ -812,7 +987,7 @@ extern "C" int mtvaf_prefix_attention_bwd(
     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Dropout dr{seed_lo, seed_hi, threshold, keep_scale, head_offset};
-  if (D != 2 * HALF) return -1;
+  if (D != hp::TILE) return -1;
   if (dtype == 1)
     return threshold
         ? launch_bf16<true>(q, k, v, bias, o, lse, dout, dq, dk, dv, delta, B,
@@ -820,13 +995,18 @@ extern "C" int mtvaf_prefix_attention_bwd(
         : launch_bf16<false>(q, k, v, bias, o, lse, dout, dq, dk, dv, delta,
                              B, H, S, Tk, bias_rows, scale, dr, st);
   if (dtype == 0)
-    return launch_any<float>(q, k, v, bias, o, lse, dout, dq, dk, dv, delta,
+    return threshold
+        ? launch_fp32<true>(q, k, v, bias, o, lse, dout, dq, dk, dv, delta, B,
+                            H, S, Tk, bias_rows, scale, dr, st)
+        : launch_fp32<false>(q, k, v, bias, o, lse, dout, dq, dk, dv, delta,
                              B, H, S, Tk, bias_rows, scale, dr, st);
   return -1;
 }
 
-// Dynamic shared memory of one bf16 block of the dq pass (pass 0) or the
-// dk/dv pass (pass 1), in bytes (ptxas does not see it).
-extern "C" int mtvaf_prefix_attention_bwd_smem(int pass) {
+// Dynamic shared memory of one block of the dq pass (pass 0) or the dk/dv
+// pass (pass 1) of the fp32 (dtype 0) or bf16 (dtype 1) kernels, in bytes
+// (ptxas does not see it).
+extern "C" int mtvaf_prefix_attention_bwd_smem(int pass, int dtype) {
+  if (dtype == 0) return pass == 0 ? DQ32_SMEM : DKDV32_SMEM;
   return pass == 0 ? DQ_SMEM : DKDV_SMEM;
 }

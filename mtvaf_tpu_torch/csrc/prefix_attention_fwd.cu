@@ -55,12 +55,29 @@
 // use, is read from global memory per element instead.  K and V are read
 // once per query tile, the second time from L2.
 //
-// fp32 (prefix_attention_fwd_kernel): wgmma has no fp32 operand, only TF32,
-// which would miss the fp32 tolerances (1e-4 and the fp32 train step held
-// against the CPU), so fp32 stays on the CUDA cores: one thread per query
-// row, its q row and fp32 accumulator in registers, K and V streamed
-// through shared memory in KT-row chunks, an online softmax over 16-key
-// groups, dropout four keys per Philox call.
+// fp32 (fwd_tf32x3_kernel; the --no_bf16 route of the parity runs): wgmma
+// has no fp32 operand, and one TF32 product (10 mantissa bits) misses the
+// fp32 tolerances (1e-4 here, 1e-5 in the card tests).  So every product is
+// split TF32 (3xTF32, hopper.cuh): q, k, v and p are each hi + lo TF32
+// parts, and a b ~= a_lo b_hi + a_hi b_lo + a_hi b_hi, three wgmma.m64n64k8
+// TF32 products into the fp32 accumulator, which carries the operands to
+// about 2^-22 relative.  At the serving shape the function moves 26.85 MB
+// in fp32 (8.0 us at 3.35 TB/s) against 0.906 GFLOP, which at a third of
+// the 494.7 TFLOP/s TF32 peak (the split's cost) is 5.5 us: bound by
+// bytes, as bf16 is.  The same block as bf16's (one warpgroup per 64-query
+// tile) with fp32 tiles of 16 KB in two TMA boxes of 32 columns.  Q lands
+// once and is split in place (hi) and beside (lo); each K/V tile pair lands
+// raw in K's hi tile and V^T's lo tile and is split there into K hi/lo
+// (K-major, for S = Q K^T) and V^T hi/lo (transposed by the threads, since
+// TF32 wgmma takes shared-memory operands K-major only).  P enters O += P V
+// from registers, split there; V^T's keys are permuted so that the
+// accumulator fragment is the A operand unmoved (kperm).  The lo parts are
+// made in shared memory once per tile (not once per product) and in
+// registers for P.  The split, the products and the softmax of one block
+// run in turn, so the design keeps a block to 96 KB of shared memory and
+// runs two blocks to an SM, one's products beside the other's element-wise
+// work: on the H100 1.44x faster at the train shape than a block that kept
+// a second landing pair for the next tiles (128 KB, one block to an SM).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -71,131 +88,7 @@
 
 namespace {
 
-constexpr int BQ = 64;      // query rows (= threads) per block (fp32 route)
-constexpr int KT = 64;      // key/value rows per shared-memory chunk (fp32)
-constexpr int KG = 16;      // keys per online-softmax group (fp32)
 constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void from_f32(float* p, float x) { *p = x; }
-
-// ---------------------------------------------------------------------------
-// The fp32 route: CUDA cores.
-
-template <typename T, int D, bool DROPOUT>
-__global__ void __launch_bounds__(BQ)
-prefix_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v,
-                            const float* __restrict__ bias,
-                            T* __restrict__ o, float* __restrict__ lse,
-                            int H, int S, int Tk, int bias_rows, float scale,
-                            unsigned seed_lo, unsigned seed_hi,
-                            unsigned threshold, float keep_scale,
-                            int head_offset) {
-  __shared__ float ks[KT][D];
-  __shared__ float vs[KT][D];
-
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int row = blockIdx.x * BQ + threadIdx.x;
-  const bool active = row < S;
-  const size_t bh = (size_t)b * H + h;
-
-  const T* qp = q + (bh * S + (active ? row : 0)) * D;
-  const T* kp = k + bh * Tk * D;
-  const T* vp = v + bh * Tk * D;
-  const float* bp = bias + ((size_t)b * bias_rows + (bias_rows == 1 ? 0 : (active ? row : 0))) * Tk;
-
-  // Scores are kept in base 2: s2 = (q.k * scale + bias) * log2(e).
-  const float qscale = scale * LOG2E;
-  float qr[D];
-  float acc[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qr[d] = active ? to_f32(qp[d]) * qscale : 0.f;
-    acc[d] = 0.f;
-  }
-  float m = -CUDART_INF_F;
-  float l = 0.f;
-
-  for (int t0 = 0; t0 < Tk; t0 += KT) {
-    __syncthreads();   // the previous chunk is no longer read
-    for (int i = threadIdx.x; i < KT * D; i += BQ) {
-      const int r = i / D, c = i % D;
-      const bool in = t0 + r < Tk;
-      ks[r][c] = in ? to_f32(kp[(size_t)(t0 + r) * D + c]) : 0.f;
-      vs[r][c] = in ? to_f32(vp[(size_t)(t0 + r) * D + c]) : 0.f;
-    }
-    __syncthreads();
-
-    const int n = min(KT, Tk - t0);
-    for (int g = 0; g < n; g += KG) {
-      float s[KG];
-      float gmax = -CUDART_INF_F;
-#pragma unroll
-      for (int j = 0; j < KG; ++j) {
-        float dot = 0.f;
-#pragma unroll
-        for (int d = 0; d < D; ++d) dot = fmaf(qr[d], ks[g + j][d], dot);
-        s[j] = -CUDART_INF_F;
-        if (g + j < n) s[j] = fmaf(bp[t0 + g + j], LOG2E, dot);
-        gmax = fmaxf(gmax, s[j]);
-      }
-      const float m_new = fmaxf(m, gmax);      // finite: key g is always valid
-      const float corr = exp2f(m - m_new);      // 0 on the first group
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < KG; ++j) {
-        s[j] = exp2f(s[j] - m_new);
-        psum += s[j];
-      }
-      l = l * corr + psum;
-      m = m_new;
-      if (DROPOUT) {   // after l: the lse stays the dropout-free statistic
-#pragma unroll
-        for (int j = 0; j < KG; j += 4) {
-          const uint4 r = mtvaf::keep_bits4(b, h + head_offset, row,
-                                            (t0 + g + j) >> 2, seed_lo,
-                                            seed_hi);
-          s[j] *= r.x >= threshold ? keep_scale : 0.f;
-          s[j + 1] *= r.y >= threshold ? keep_scale : 0.f;
-          s[j + 2] *= r.z >= threshold ? keep_scale : 0.f;
-          s[j + 3] *= r.w >= threshold ? keep_scale : 0.f;
-        }
-      }
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        float a = acc[d] * corr;
-#pragma unroll
-        for (int j = 0; j < KG; ++j) a = fmaf(s[j], vs[g + j][d], a);
-        acc[d] = a;
-      }
-    }
-  }
-
-  if (!active) return;
-  const float inv_l = 1.f / l;
-  T* op = o + (bh * S + row) * D;
-#pragma unroll
-  for (int d = 0; d < D; ++d) from_f32(op + d, acc[d] * inv_l);
-  // back to natural log: lse = (m + log2 l) / log2(e)
-  lse[bh * S + row] = (m + log2f(l)) / LOG2E;
-}
-
-void launch_fp32(const void* q, const void* k, const void* v,
-                 const float* bias, void* o, float* lse, int B, int H, int S,
-                 int Tk, int bias_rows, float scale, unsigned seed_lo,
-                 unsigned seed_hi, unsigned threshold, float keep_scale,
-                 int head_offset, cudaStream_t stream) {
-  dim3 grid((S + BQ - 1) / BQ, H, B);
-  auto kernel = threshold ? prefix_attention_fwd_kernel<float, 64, true>
-                          : prefix_attention_fwd_kernel<float, 64, false>;
-  kernel<<<grid, BQ, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), bias, static_cast<float*>(o), lse, H, S,
-      Tk, bias_rows, scale, seed_lo, seed_hi, threshold, keep_scale,
-      head_offset);
-}
 
 // ---------------------------------------------------------------------------
 // The bf16 route: wgmma fed by TMA.
@@ -393,6 +286,195 @@ int launch_bf16(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The fp32 route: split-TF32 wgmma fed by TMA.
+
+// Q, K and V^T hi and lo (K and V land raw in K hi and V^T lo); barriers,
+// the bias row, alignment: 99,648 bytes, two blocks to an SM.
+constexpr int FWD32_SMEM = 6 * hp::F32_TILE_BYTES + 64 + 64 * 4 + 1024;
+
+template <bool DROPOUT>
+__global__ void __launch_bounds__(128, 2)
+fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap qmap,
+                  const __grid_constant__ CUtensorMap kmap,
+                  const __grid_constant__ CUtensorMap vmap,
+                  const float* __restrict__ bias, float* __restrict__ o,
+                  float* __restrict__ lse, int H, int S, int Tk,
+                  int bias_rows, float scale, unsigned seed_lo,
+                  unsigned seed_hi, unsigned threshold, float keep_scale,
+                  int head_offset) {
+  constexpr int TB = hp::F32_TILE_BYTES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = hp::align1024(smem_raw);
+  unsigned char* qh = sm;
+  unsigned char* ql = sm + TB;
+  unsigned char* kh = sm + 2 * TB;
+  unsigned char* kl = sm + 3 * TB;
+  unsigned char* vth = sm + 4 * TB;
+  unsigned char* vtl = sm + 5 * TB;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + 6 * TB);  // q; k, v
+  float* bias_s = reinterpret_cast<float*>(bars + 8);          // [64]
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * hp::TILE;
+  const int plane = b * H + h;
+  const int tid = threadIdx.x, lane = tid & 31, c = lane & 3;
+  const int nt = (Tk + hp::TILE - 1) / hp::TILE;
+  const float* bb = bias + (size_t)b * bias_rows * Tk;
+
+  if (tid == 0) {
+    hp::mbar_init(&bars[0], 1);
+    hp::mbar_init(&bars[1], 1);
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hp::mbar_expect_tx(&bars[0], TB);
+    hp::tma_load_f32_tile(qh, &qmap, &bars[0], q0, plane);
+    hp::mbar_expect_tx(&bars[1], 2 * TB);
+    hp::tma_load_f32_tile(kh, &kmap, &bars[1], 0, plane);
+    hp::tma_load_f32_tile(vtl, &vmap, &bars[1], 0, plane);
+  }
+
+  // This thread's two rows (see hopper.cuh for the accumulator layout).
+  const int row0 = q0 + 16 * (tid >> 5) + (lane >> 2), row1 = row0 + 8;
+  // this thread's rows of a per-row bias (bias_rows == S)
+  const float* bp0 = bias_rows == 1 ? bb : bb + (size_t)min(row0, S - 1) * Tk;
+  const float* bp1 = bias_rows == 1 ? bb : bb + (size_t)min(row1, S - 1) * Tk;
+  const float qscale = scale * LOG2E;
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
+  float acc[32], sc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = sc[i] = 0.f;
+
+  hp::mbar_wait(&bars[0], 0);
+  hp::split_tile<true, false>(qh, qh, ql, nullptr, nullptr);
+  const uint64_t qhd = hp::desc(qh), qld = hp::desc(ql);
+  const uint64_t khd = hp::desc(kh), kld = hp::desc(kl);
+  const uint64_t vthd = hp::desc(vth), vtld = hp::desc(vtl);
+  for (int j = 0; j < nt; ++j) {
+    const int t0 = j * hp::TILE;
+    // the key tile's bias * log2(e), -inf past T (one row of bias serves
+    // every query), read before the wait
+    const float bias_v = bias_rows == 1 && tid < 64
+        ? (t0 + tid < Tk ? bb[t0 + tid] * LOG2E : -CUDART_INF_F) : 0.f;
+    hp::mbar_wait(&bars[1], j & 1);
+    hp::split_tile<true, false>(kh, kh, kl, nullptr, nullptr);
+    {   // V lands in V^T lo: every thread reads its share before any writes
+      float4 x[8];
+      hp::load_chunks(vtl, x);
+      __syncthreads();
+      hp::store_split<false, true>(x, nullptr, nullptr, vth, vtl);
+    }
+    if (bias_rows == 1 && tid < 64) bias_s[tid] = bias_v;
+    hp::fence_proxy_async();
+    __syncthreads();
+
+    hp::wgmma_fence();
+    hp::gemm3_ss(sc, qhd, qld, khd, kld);
+    hp::wgmma_commit();
+    hp::wgmma_wait_all();
+    hp::fence_regs(sc);
+
+    // scores in base 2, s2 = (q.k * scale + bias) * log2(e); t >= T -> -inf
+    if (bias_rows == 1) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        sc[i] = fmaf(sc[i], qscale, bias_s[8 * (i >> 2) + 2 * c + (i & 1)]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = t0 + 8 * (i >> 2) + 2 * c + (i & 1);
+        const float* bp = (i >> 1) & 1 ? bp1 : bp0;
+        sc[i] = col < Tk ? fmaf(sc[i], qscale, bp[min(col, Tk - 1)] * LOG2E)
+                         : -CUDART_INF_F;
+      }
+    }
+    float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if ((i >> 1) & 1) mx1 = fmaxf(mx1, sc[i]); else mx0 = fmaxf(mx0, sc[i]);
+    }
+    // finite: key t0 < T is always valid
+    const float mn0 = fmaxf(m0, quad_max(mx0));
+    const float mn1 = fmaxf(m1, quad_max(mx1));
+    const float corr0 = hp::ex2(m0 - mn0), corr1 = hp::ex2(m1 - mn1);
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const bool second = (i >> 1) & 1;
+      const float p = hp::ex2(sc[i] - (second ? mn1 : mn0));
+      sc[i] = p;
+      if (second) ps1 += p; else ps0 += p;
+    }
+    l0 = l0 * corr0 + ps0;      // per-thread partial sums, joined at the end
+    l1 = l1 * corr1 + ps1;
+    m0 = mn0;
+    m1 = mn1;
+    if (DROPOUT) {   // after l: the lse stays the dropout-free statistic
+      const uint32_t keep = hp::keep_mask_query_rows(
+          b, h + head_offset, row0, row1, t0, seed_lo, seed_hi, threshold);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        sc[i] *= (keep >> i) & 1 ? keep_scale : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] *= (i >> 1) & 1 ? corr1 : corr0;
+
+    uint32_t ph[32], pl[32];
+    hp::split_a(ph, pl, sc);
+    hp::wgmma_fence();
+    hp::gemm3_rs(acc, ph, pl, vthd, vtld);
+    hp::wgmma_commit();
+    hp::wgmma_wait_all();
+    hp::fence_regs(acc);
+    __syncthreads();   // K and V^T are no longer read: load the next pair
+    if (tid == 0 && j + 1 < nt) {
+      hp::mbar_expect_tx(&bars[1], 2 * TB);
+      hp::tma_load_f32_tile(kh, &kmap, &bars[1], t0 + hp::TILE, plane);
+      hp::tma_load_f32_tile(vtl, &vmap, &bars[1], t0 + hp::TILE, plane);
+    }
+  }
+
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+#pragma unroll
+  for (int n8 = 0; n8 < 8; ++n8) {
+    const int col = 8 * n8 + 2 * c;
+    if (row0 < S)
+      *reinterpret_cast<float2*>(o + ((size_t)plane * S + row0) * 64 + col) =
+          make_float2(acc[4 * n8] * inv0, acc[4 * n8 + 1] * inv0);
+    if (row1 < S)
+      *reinterpret_cast<float2*>(o + ((size_t)plane * S + row1) * 64 + col) =
+          make_float2(acc[4 * n8 + 2] * inv1, acc[4 * n8 + 3] * inv1);
+  }
+  if (c == 0 && row0 < S) lse[(size_t)plane * S + row0] = (m0 + log2f(l0)) / LOG2E;
+  if (c == 0 && row1 < S) lse[(size_t)plane * S + row1] = (m1 + log2f(l1)) / LOG2E;
+}
+
+int launch_fp32(const void* q, const void* k, const void* v,
+                const float* bias, void* o, float* lse, int B, int H, int S,
+                int Tk, int bias_rows, float scale, unsigned seed_lo,
+                unsigned seed_hi, unsigned threshold, float keep_scale,
+                int head_offset, cudaStream_t stream) {
+  CUtensorMap qm, km, vm;
+  if (!hp::make_tile_map(&qm, q, S, B * H, 4) ||
+      !hp::make_tile_map(&km, k, Tk, B * H, 4) ||
+      !hp::make_tile_map(&vm, v, Tk, B * H, 4))
+    return -2;
+  auto kernel = threshold ? fwd_tf32x3_kernel<true> : fwd_tf32x3_kernel<false>;
+  // above the default 48 KB of dynamic shared memory (set per launch: the
+  // attribute belongs to the current device)
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FWD32_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((S + hp::TILE - 1) / hp::TILE, H, B);
+  kernel<<<grid, 128, FWD32_SMEM, stream>>>(
+      qm, km, vm, bias, static_cast<float*>(o), lse, H, S, Tk, bias_rows,
+      scale, seed_lo, seed_hi, threshold, keep_scale, head_offset);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The 0/1 keep mask of every (b, h, row, col), one thread per four columns.
 __global__ void keep_mask_kernel(float* __restrict__ out, int H, int S,
                                  int Tk, long long n4, unsigned seed_lo,
@@ -419,8 +501,8 @@ __global__ void keep_mask_kernel(float* __restrict__ out, int H, int S,
 
 }  // namespace
 
-// Plain C entry points, loaded with ctypes.  dtype: 0 = float32 (CUDA-core
-// kernel), 1 = bfloat16 (wgmma kernel; q, k, v 16-byte aligned).
+// Plain C entry points, loaded with ctypes.  dtype: 0 = float32 (split-TF32
+// wgmma kernel), 1 = bfloat16 (wgmma kernel); q, k, v 16-byte aligned.
 // threshold 0 turns dropout off; head_offset is the global index of head 0.
 // Each returns cudaGetLastError() after the
 // launch (0 on success, -1 for a head dimension or type this kernel was not
@@ -437,13 +519,16 @@ extern "C" int mtvaf_prefix_attention_fwd(
                        seed_lo, seed_hi, threshold, keep_scale, head_offset,
                        st);
   if (dtype != 0) return -1;
-  launch_fp32(q, k, v, bias, o, lse, B, H, S, Tk, bias_rows, scale, seed_lo,
-              seed_hi, threshold, keep_scale, head_offset, st);
-  return static_cast<int>(cudaGetLastError());
+  return launch_fp32(q, k, v, bias, o, lse, B, H, S, Tk, bias_rows, scale,
+                     seed_lo, seed_hi, threshold, keep_scale, head_offset,
+                     st);
 }
 
-// Dynamic shared memory of one bf16 block, in bytes (ptxas does not see it).
-extern "C" int mtvaf_prefix_attention_fwd_smem() { return FWD_SMEM; }
+// Dynamic shared memory of one block of the fp32 (dtype 0) or bf16 (dtype
+// 1) kernel, in bytes (ptxas does not see it).
+extern "C" int mtvaf_prefix_attention_fwd_smem(int dtype) {
+  return dtype == 0 ? FWD32_SMEM : FWD_SMEM;
+}
 
 // out (B, H, S, T) fp32: 1 where the forward and backward keep the element.
 extern "C" int mtvaf_prefix_attention_keep_mask(

@@ -32,9 +32,11 @@ probabilities from the saved lse as the kernel does (rather than autograd
 through the plain forward): every comparison of the port's tests holds at
 its tolerance that way.  There is no shape-based dispatch and no fallback
 on the card.  Inside the
-kernels the dtype picks the design: bf16 runs on the tensor cores (wgmma
-fed by TMA, ``csrc/hopper.cuh``; q, k, v, o and do must be 16-byte
-aligned), fp32 on the CUDA cores (wgmma has no fp32 operand).
+kernels the dtype picks the operand type; both run on the tensor cores
+(wgmma fed by TMA, ``csrc/hopper.cuh``; q, k, v, o and do must be 16-byte
+aligned): bf16 as bf16, fp32 as split TF32 (each operand a TF32 hi + lo
+pair, three TF32 products per product, to fp32 accuracy: wgmma has no
+fp32 operand and one TF32 product misses the fp32 tolerances).
 :func:`prefix_attention_bwd_reference` is the backward kernel's arithmetic
 step by step, for holding the kernel against it.
 """
@@ -175,8 +177,8 @@ _SIGNATURES = {
         [_P] + [_I] * 4 + [_U] * 3 + [_I, _P],
     ("prefix_attention_bwd", "mtvaf_prefix_attention_bwd"):
         [_P] * 11 + [_I] * 6 + [_F, _I, _U, _U, _U, _F, _I, _P],
-    ("prefix_attention_fwd", "mtvaf_prefix_attention_fwd_smem"): [],
-    ("prefix_attention_bwd", "mtvaf_prefix_attention_bwd_smem"): [_I],
+    ("prefix_attention_fwd", "mtvaf_prefix_attention_fwd_smem"): [_I],
+    ("prefix_attention_bwd", "mtvaf_prefix_attention_bwd_smem"): [_I, _I],
 }
 
 
@@ -233,8 +235,8 @@ def _check(q, k, v, bias, *more):
 
 
 def _check_rows(**tensors):
-    """Contiguous, 16-byte aligned: the bf16 kernels load 128-byte rows by
-    TMA, which takes no other address."""
+    """Contiguous, 16-byte aligned: the kernels load their rows by TMA,
+    which takes no other address."""
     for name, x in tensors.items():
         if not x.is_contiguous():
             raise ValueError(f"prefix_attention_cuda: {name} must be "
@@ -268,12 +270,12 @@ def prefix_attention_cuda(q, k, v, bias, *, seed: int = 0,
 
 def _bwd_scratch(q, t: int, rate: float):
     """The backward kernel's fp32 scratch: delta = rowsum(do * o), (B, H, S),
-    then, for bf16 with dropout, from a 16-byte boundary, the keep bits its
-    dq pass draws for its dk/dv pass: one 32-bit word per thread of each
-    (64-query, 64-key) tile pair."""
+    then, with dropout, from a 16-byte boundary, the keep bits its dq pass
+    draws for its dk/dv pass (in either dtype): one 32-bit word per thread
+    of each (64-query, 64-key) tile pair."""
     b, h, s, _ = q.shape
     n = -(-b * h * s // 4) * 4
-    if rate > 0.0 and q.dtype == torch.bfloat16:
+    if rate > 0.0:
         n += b * h * -(-s // 64) * -(-t // 64) * 128
     return torch.empty(n, dtype=torch.float32, device=q.device)
 

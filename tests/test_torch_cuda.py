@@ -35,6 +35,7 @@ def cuda():
 CASES = [
     (2, 3, 13, 17, 64, torch.float32, 1e-5, 1e-5),
     (16, 12, 128, 144, 64, torch.float32, 1e-5, 1e-5),
+    (2, 12, 500, 500, 64, torch.float32, 1e-5, 1e-5),
     (16, 12, 128, 144, 64, torch.bfloat16, 2e-2, 1e-2),
     (2, 12, 512, 528, 64, torch.bfloat16, 2e-2, 1e-2),
 ]
@@ -97,6 +98,7 @@ def test_keep_mask_entry_is_bit_identical_to_plain_philox(cuda, shape):
 BWD_CASES = [
     (2, 3, 13, 17, torch.float32, 1e-5),
     (32, 12, 128, 144, torch.float32, 1e-5),
+    (2, 12, 500, 500, torch.float32, 1e-5),
     (32, 12, 128, 144, torch.bfloat16, 8e-3),
     (2, 12, 512, 528, torch.bfloat16, 8e-3),
 ]
@@ -201,18 +203,21 @@ def test_autograd_runs_both_kernels_and_regenerates_the_mask(cuda):
 
 
 # ---------------------------------------------------------------------------
-# The bf16 kernels (wgmma tiles of 64 rows fed by TMA) at the tile edges:
-# S and T one short of, one past, and a quarter into a 64-row tile, T = 17
-# inside one tile.  Tolerances are those of the cases above.
+# The kernels (wgmma tiles of 64 rows fed by TMA; bf16, and fp32 as split
+# TF32) at the tile edges: S and T one short of, one past, and a quarter
+# into a 64-row tile, T = 17 inside one tile.  Tolerances are those of the
+# cases above: (K1 against its plain version, K1 against fp32, K2).
 
 EDGE_SHAPES = [(2, 3, 1, 17), (2, 3, 63, 80), (2, 3, 65, 129),
                (1, 12, 192, 208)]
+EDGE_ATOL = {torch.bfloat16: (2e-2, 1e-2, 8e-3),
+             torch.float32: (1e-5, 1e-5, 1e-5)}
 
 
-def _edge_inputs(device, B, H, S, T, bias_rows, seed):
+def _edge_inputs(device, B, H, S, T, bias_rows, seed, dtype=torch.bfloat16):
     g = torch.Generator(device=device).manual_seed(seed)
     q, k, v, do = (torch.randn(B, H, n, 64, device=device, generator=g)
-                   .to(torch.bfloat16) for n in (S, T, T, S))
+                   .to(dtype) for n in (S, T, T, S))
     mask = torch.ones(B, 1 if bias_rows == "one" else S, T, device=device)
     mask[-1, :, -7:] = 0.0
     mask[0, -1, :3] = 0.0
@@ -223,8 +228,13 @@ def _edge_inputs(device, B, H, S, T, bias_rows, seed):
 @pytest.mark.parametrize("B,H,S,T", EDGE_SHAPES)
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("bias_rows", ["one", "per_row"])
-def test_bf16_kernels_at_tile_edges(cuda, B, H, S, T, rate, bias_rows):
-    q, k, v, do, bias = _edge_inputs(cuda, B, H, S, T, bias_rows, seed=3)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_bf16_kernels_at_tile_edges(cuda, B, H, S, T, rate, bias_rows,
+                                    dtype):
+    atol, atol_vs_fp32, bwd_atol = EDGE_ATOL[dtype]
+    q, k, v, do, bias = _edge_inputs(cuda, B, H, S, T, bias_rows, seed=3,
+                                     dtype=dtype)
     keep = keep_factors(SEED, rate, (B, H, S, T), cuda) if rate else None
     o, lse = prefix_attention_cuda(q, k, v, bias, seed=SEED, rate=rate)
     torch.cuda.synchronize()
@@ -232,16 +242,16 @@ def test_bf16_kernels_at_tile_edges(cuda, B, H, S, T, rate, bias_rows):
     _, rlse = prefix_attention_reference(q, k, v, bias)   # dropout-free
     fo, flse = prefix_attention_reference(q.float(), k.float(), v.float(),
                                           bias, keep)
-    torch.testing.assert_close(o.float(), ro.float(), atol=2e-2, rtol=0)
-    torch.testing.assert_close(lse, rlse, atol=2e-2, rtol=0)
-    torch.testing.assert_close(o.float(), fo, atol=1e-2, rtol=0)
-    torch.testing.assert_close(lse, flse, atol=1e-2, rtol=0)
+    torch.testing.assert_close(o.float(), ro.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(lse, rlse, atol=atol, rtol=0)
+    torch.testing.assert_close(o.float(), fo, atol=atol_vs_fp32, rtol=0)
+    torch.testing.assert_close(lse, flse, atol=atol_vs_fp32, rtol=0)
     grads = prefix_attention_bwd_cuda(q, k, v, bias, o, lse, do, seed=SEED,
                                       rate=rate)
     torch.cuda.synchronize()
     plain = prefix_attention_bwd_reference(q, k, v, bias, o, lse, do, keep)
     for name, got, want in zip("qkv", grads, plain):
-        torch.testing.assert_close(got.float(), want.float(), atol=8e-3,
+        torch.testing.assert_close(got.float(), want.float(), atol=bwd_atol,
                                    rtol=0, msg=f"d{name}")
 
 
