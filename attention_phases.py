@@ -13,8 +13,8 @@ every step of both bf16 passes:
   the block's prologue: barrier set-up, the first loads and, in the dq pass,
   delta);
 - ``ss``: the two products with both operands in shared memory;
-- ``elem``: the element-wise work between the products (p, the keep bits,
-  ds, the bf16 hi/lo packing);
+- ``elem``: the element-wise work between the products (p, the keep bits
+  of the forward's keep words, ds, the bf16 hi/lo packing);
 - ``rs``: the products that take an operand from registers;
 - ``sync``: the barrier before a stage is refilled.
 
@@ -142,16 +142,16 @@ def main() -> int:
         bias = torch.zeros(b, 1, 1, t, device=dev)
         bias[-1, ..., -9:] = -10000.0
         for rate in (0.0, 0.1):
-            o, lse = pa.prefix_attention_cuda(q, k, v, bias, seed=1,
-                                              rate=rate)
+            o, lse, words = pa.prefix_attention_cuda(q, k, v, bias, seed=1,
+                                                     rate=rate)
             grads = [torch.empty_like(x) for x in (q, k, v)]
-            scratch = pa._bwd_scratch(q, t, rate)
+            delta = torch.empty((b, h, s), device=dev)
             stream = torch.cuda.current_stream().cuda_stream
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      bias.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                     do.data_ptr(), *(x.data_ptr() for x in grads),
-                     scratch.data_ptr(), b, h, s, t, 64, 1, 0.125, 1,
-                     *pa._dropout_args(1, rate), stream)
+                     do.data_ptr(), words.data_ptr() if rate else None,
+                     *(x.data_ptr() for x in grads), delta.data_ptr(), b, h,
+                     s, t, 64, 1, 0.125, 1, pa._keep_scale(rate), stream)
             torch.cuda.synchronize()
             if err:
                 raise RuntimeError(f"instrumented backward failed: {err}")

@@ -14,19 +14,23 @@ Phases, each of which fails the run by raising:
    a length that is not a multiple of 64; no prefix, bias (B,1,1,S)) with
    dropout 0.1 and without, and in fp32 at the serving shape, the train
    shape (B=32, S=128, T=144) and ``span_s500``, the last two with and
-   without dropout, and time kernel, plain version and the one-call
-   PyTorch yardstick (SDPA) beside the kernel's bound (each row names its
-   dtype's design: bf16 on wgmma fed by TMA, fp32 as split TF32 on the
-   same; its share of the bound; its time over SDPA's);
+   without dropout, with dropout K1's keep words (the mask it hands to
+   K2) bit for bit the plain Philox mask, and time kernel, plain version
+   and the one-call PyTorch yardstick (SDPA) beside the kernel's bound,
+   which counts the keep words' bytes (each row names its dtype's design:
+   bf16 on wgmma fed by TMA, fp32 as split TF32 on the same; its share of
+   the bound; its time over SDPA's; the bound without the words);
 3. at the train shape: the dropout-mask entry point's masks bit-identical
    to the plain Philox masks, the kept fraction within 1% of 1 - rate, and
    K1 with dropout against the plain forward given the same masks;
 4. hold the backward kernel (K2) against the plain backward in the same
    dtype and against fp32 autograd of the plain forward, at the train shape
    (bf16 and fp32), at S=512 (bf16), at the span shapes (bf16) and at
-   ``span_s500`` in fp32, with dropout off and on; time K2
-   (and each of its two passes), the plain backward and SDPA's backward
-   beside K2's bound;
+   ``span_s500`` in fp32, with dropout off and on, K2 fed K1's keep words
+   (checked against the plain mask); time K2 (and each of its two
+   passes), the plain backward and SDPA's backward beside K2's bound (with
+   the words' bytes), and print each shape's K2 with and without dropout
+   beside SDPA's (``k2_dropout``);
 5. check the whole decode forward on the card against the same forward on
    the CPU (fp32, TF32 off) at the flagship widths, on a small batch;
 6. check one fp32 train step's loss and every gradient leaf on the card
@@ -42,7 +46,7 @@ Phases, each of which fails the run by raising:
    one fixed synthetic batch with cached guides (as ``bench.py``), dropout
    live: 15 untimed and 30 timed steps; check finite losses, the last 5
    below the first, 12 K1 and 12 K2 launches per timed step, and none of
-   the mask entry (the kernels draw their masks themselves); print
+   the mask entry (K1 draws the masks and hands them to K2); print
    step time, examples/s, MFU and the forward / backward / optimizer split
    of one step; then the same step with ``bf16=False`` (``--no_bf16``, the
    kernels' fp32 route): 5 untimed and 10 timed steps, finite losses, 12
@@ -363,13 +367,23 @@ def cuda_ms(fn, iters=50, warmup=5):
 # Phase 2: the prefix-attention kernel against its plain version.
 
 
-def k1_bound(b, h, s, t, d, dtype):
+def words_bytes(b, h, s, t, rate):
+    """Bytes of the keep words K1 writes and K2 reads with dropout: one bit
+    an element of the (64-row) tiles, none without dropout."""
+    if not rate:
+        return 0
+    from mtvaf_tpu_torch.kernels.prefix_attention import keep_words_shape
+    return math.prod(keep_words_shape(b, h, s, t)) * 4
+
+
+def k1_bound(b, h, s, t, d, dtype, rate=0.0):
     """Least time for the function: each input read once, each output
-    written once (q, k, v, o in ``dtype``; bias (B, 1, 1, T) and lse fp32),
-    against the two (S, T, D) products of every (b, h)."""
+    written once (q, k, v, o in ``dtype``; bias (B, 1, 1, T) and lse fp32;
+    with dropout the keep words, an output), against the two (S, T, D)
+    products of every (b, h)."""
     esize = torch.finfo(dtype).bits // 8
     nbytes = (2 * b * h * s * d + 2 * b * h * t * d) * esize \
-        + b * t * 4 + b * h * s * 4
+        + b * t * 4 + b * h * s * 4 + words_bytes(b, h, s, t, rate)
     flops = 4 * b * h * s * t * d
     mem_ms = nbytes / HBM_BPS * 1e3
     op_ms = flops / PEAK_FLOPS[dtype] * 1e3
@@ -408,11 +422,30 @@ def attention_inputs(g, b, h, s, t, d, dtype, cut=False):
     return q, k, v, ((1.0 - mask.float()) * -10000.0)[:, None, None, :]
 
 
+def words_mismatches(words, mask):
+    """Elements where K1's keep words, unpacked, differ from the plain
+    Philox mask (0 without dropout, where the words are empty)."""
+    from mtvaf_tpu_torch.kernels.prefix_attention import unpack_keep_words
+    if mask is None:
+        return 0 if words.numel() == 0 else -1
+    return int((unpack_keep_words(words, mask.shape) != mask).sum().item())
+
+
+def keep_of(rate, shape, dev, head_offset=0):
+    """(the plain Philox mask, its fp32 keep factors), or (None, None)."""
+    from mtvaf_tpu_torch.kernels.prefix_attention import (
+        keep_mask_reference)
+    if not rate:
+        return None, None
+    mask = keep_mask_reference(DROPOUT_SEED, rate, shape, dev, head_offset)
+    return mask, mask.float() * (1.0 / (1.0 - rate))
+
+
 def check_prefix_attention(dtypes=(torch.bfloat16, torch.float32)):
     import torch.nn.functional as F
 
     from mtvaf_tpu_torch.kernels.prefix_attention import (
-        keep_factors, prefix_attention_cuda, prefix_attention_reference)
+        prefix_attention_cuda, prefix_attention_reference)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -429,11 +462,12 @@ def check_prefix_attention(dtypes=(torch.bfloat16, torch.float32)):
             continue
         q, k, v, bias = attention_inputs(g, b, h, s, t, d, dtype,
                                          cut=name.endswith("_cut"))
-        keep = keep_factors(DROPOUT_SEED, rate, (b, h, s, t), dev) \
-            if rate else None
-        o, lse = prefix_attention_cuda(q, k, v, bias, seed=DROPOUT_SEED,
-                                       rate=rate)
+        mask, keep = keep_of(rate, (b, h, s, t), dev)
+        o, lse, words = prefix_attention_cuda(q, k, v, bias,
+                                              seed=DROPOUT_SEED, rate=rate)
         torch.cuda.synchronize()
+        mismatches = words_mismatches(words, mask)
+        del mask, words
         ro, _ = prefix_attention_reference(q, k, v, bias, keep)
         _, rlse = prefix_attention_reference(q, k, v, bias)  # dropout-free
         err_o = (o.float() - ro.float()).abs().max().item()
@@ -447,7 +481,8 @@ def check_prefix_attention(dtypes=(torch.bfloat16, torch.float32)):
         ok = (math.isfinite(err_o) and err_o <= K1_ATOL[dtype]
               and err_lse <= K1_ATOL[dtype]
               and err_fp32 <= K1_ATOL_VS_FP32[dtype]
-              and err_lse_fp32 <= K1_ATOL_VS_FP32[dtype])
+              and err_lse_fp32 <= K1_ATOL_VS_FP32[dtype]
+              and mismatches == 0)
         mask_q = bias.to(dtype)
         ms = device_ms(lambda: prefix_attention_cuda(
             q, k, v, bias, seed=DROPOUT_SEED, rate=rate))
@@ -457,13 +492,16 @@ def check_prefix_attention(dtypes=(torch.bfloat16, torch.float32)):
                                                                 bias, keep))
         lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask_q, dropout_p=rate))
-        bound_ms, bound_by, nbytes, flops = k1_bound(b, h, s, t, d, dtype)
+        bound_ms, bound_by, nbytes, flops = k1_bound(b, h, s, t, d, dtype,
+                                                     rate)
         del keep
         row = {"shape": name, "B": b, "H": h, "S": s, "T": t, "D": d,
                "rate": rate,
                "dtype": str(dtype).split(".")[1], "max_abs_err_o": err_o,
                "max_abs_err_lse": err_lse, "max_abs_err_o_vs_fp32": err_fp32,
                "max_abs_err_lse_vs_fp32": err_lse_fp32,
+               "words_mismatches": mismatches,
+               "bound_ms_without_words": k1_bound(b, h, s, t, d, dtype)[0],
                "atol": K1_ATOL[dtype], "atol_vs_fp32": K1_ATOL_VS_FP32[dtype],
                "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
                "library_ms": lib_ms, "bound_ms": bound_ms,
@@ -485,8 +523,8 @@ def check_dropout(rate=0.1):
     import torch.nn.functional as F
 
     from mtvaf_tpu_torch.kernels.prefix_attention import (
-        keep_factors, keep_mask_cuda, keep_mask_reference,
-        prefix_attention_cuda, prefix_attention_reference)
+        keep_mask_cuda, keep_mask_reference, prefix_attention_cuda,
+        prefix_attention_reference)
 
     dev = torch.device("cuda")
     b, h, s, t, d, dtype = TRAIN_B, 12, TRAIN_S, TRAIN_S + 16, 64, \
@@ -514,10 +552,12 @@ def check_dropout(rate=0.1):
 
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
     q, k, v, bias = attention_inputs(g, b, h, s, t, d, dtype)
-    keep = keep_factors(DROPOUT_SEED, rate, shape, dev)
-    o, lse = prefix_attention_cuda(q, k, v, bias, seed=DROPOUT_SEED,
-                                   rate=rate)
+    keep = want.float() * (1.0 / (1.0 - rate))
+    o, lse, words = prefix_attention_cuda(q, k, v, bias, seed=DROPOUT_SEED,
+                                          rate=rate)
     torch.cuda.synchronize()
+    mismatches = words_mismatches(words, want)
+    del words
     ro, rlse = prefix_attention_reference(q, k, v, bias, keep)
     fo, _ = prefix_attention_reference(q.float(), k.float(), v.float(), bias,
                                        keep)
@@ -533,9 +573,11 @@ def check_dropout(rate=0.1):
                                                             keep))
     lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=bias.to(dtype), dropout_p=rate))
-    bound_ms, bound_by, nbytes, flops = k1_bound(b, h, s, t, d, dtype)
+    bound_ms, bound_by, nbytes, flops = k1_bound(b, h, s, t, d, dtype, rate)
     row = {"shape": "train_bf16_dropout", "B": b, "H": h, "S": s, "T": t,
            "D": d, "rate": rate, "max_abs_err_o": err_o,
+           "words_mismatches": mismatches,
+           "bound_ms_without_words": k1_bound(b, h, s, t, d, dtype)[0],
            "max_abs_err_o_vs_fp32": err_fp32, "max_abs_err_lse": err_lse,
            "atol": K1_ATOL[dtype], "atol_vs_fp32": K1_ATOL_VS_FP32[dtype],
            "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
@@ -544,7 +586,7 @@ def check_dropout(rate=0.1):
     log("k1", json.dumps(row))
     if not (math.isfinite(err_o) and err_o <= K1_ATOL[dtype]
             and err_fp32 <= K1_ATOL_VS_FP32[dtype]
-            and err_lse <= K1_ATOL[dtype]):
+            and err_lse <= K1_ATOL[dtype] and mismatches == 0):
         raise AssertionError(f"K1 with dropout disagrees with the plain "
                              f"forward on the same masks: {row}")
     return mask_row, row
@@ -554,14 +596,14 @@ def check_dropout(rate=0.1):
 # Phase 4: the backward kernel against its plain version.
 
 
-def k2_bound(b, h, s, t, d, dtype):
+def k2_bound(b, h, s, t, d, dtype, rate=0.0):
     """Least time for the backward: q, o, do read and dq written (S rows),
     k, v read and dk, dv written (T rows), in ``dtype``; lse (fp32) and
-    bias (B, 1, 1, T) read once; against the five (S, T, D) products of
-    every (b, h)."""
+    bias (B, 1, 1, T) read once, with dropout the forward's keep words too;
+    against the five (S, T, D) products of every (b, h)."""
     esize = torch.finfo(dtype).bits // 8
     nbytes = (4 * b * h * s * d + 4 * b * h * t * d) * esize \
-        + b * h * s * 4 + b * t * 4
+        + b * h * s * 4 + b * t * 4 + words_bytes(b, h, s, t, rate)
     flops = 10 * b * h * s * t * d
     mem_ms = nbytes / HBM_BPS * 1e3
     op_ms = flops / PEAK_FLOPS[dtype] * 1e3
@@ -571,9 +613,8 @@ def k2_bound(b, h, s, t, d, dtype):
 
 def check_backward(dtypes=(torch.bfloat16, torch.float32)):
     from mtvaf_tpu_torch.kernels.prefix_attention import (
-        keep_factors, prefix_attention_bwd_cuda,
-        prefix_attention_bwd_reference, prefix_attention_cuda,
-        prefix_attention_reference)
+        prefix_attention_bwd_cuda, prefix_attention_bwd_reference,
+        prefix_attention_cuda, prefix_attention_reference)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
@@ -592,13 +633,15 @@ def check_backward(dtypes=(torch.bfloat16, torch.float32)):
                                          cut=name.endswith("_cut"))
         do = torch.randn(b, h, s, d, device=dev, generator=g).to(dtype)
         for rate in (0.0, 0.1):
-            keep = keep_factors(DROPOUT_SEED, rate, (b, h, s, t), dev) \
-                if rate else None
-            o, lse = prefix_attention_cuda(q, k, v, bias, seed=DROPOUT_SEED,
-                                           rate=rate)
+            mask, keep = keep_of(rate, (b, h, s, t), dev)
+            o, lse, words = prefix_attention_cuda(q, k, v, bias,
+                                                  seed=DROPOUT_SEED,
+                                                  rate=rate)
             grads = prefix_attention_bwd_cuda(q, k, v, bias, o, lse, do,
-                                              seed=DROPOUT_SEED, rate=rate)
+                                              words, rate=rate)
             torch.cuda.synchronize()
+            mismatches = words_mismatches(words, mask)
+            del mask
             plain = prefix_attention_bwd_reference(q, k, v, bias, o, lse, do,
                                                    keep)
             leaves = [x.detach().float().requires_grad_() for x in (q, k, v)]
@@ -610,18 +653,21 @@ def check_backward(dtypes=(torch.bfloat16, torch.float32)):
                         for a, p in zip(grads, auto))
             del leaves, fo, auto
             passes = device_profile(lambda: prefix_attention_bwd_cuda(
-                q, k, v, bias, o, lse, do, seed=DROPOUT_SEED, rate=rate))
+                q, k, v, bias, o, lse, do, words, rate=rate))
             ms = sum(passes.values())
             event_ms = cuda_ms(lambda: prefix_attention_bwd_cuda(
-                q, k, v, bias, o, lse, do, seed=DROPOUT_SEED, rate=rate),
-                iters=20)
+                q, k, v, bias, o, lse, do, words, rate=rate), iters=20)
             plain_ms = device_ms(lambda: prefix_attention_bwd_reference(
                 q, k, v, bias, o, lse, do, keep))
             lib_ms = sdpa_backward_ms(q, k, v, bias, do, rate)
-            bound_ms, bound_by, nbytes, flops = k2_bound(b, h, s, t, d, dtype)
+            bound_ms, bound_by, nbytes, flops = k2_bound(b, h, s, t, d, dtype,
+                                                         rate)
             row = {"shape": name, "B": b, "H": h, "S": s, "T": t, "D": d,
                    "rate": rate, "dtype": str(dtype).split(".")[1],
                    "max_abs_err": err, "max_abs_err_vs_fp32": err32,
+                   "k1_words_mismatches": mismatches,
+                   "bound_ms_without_words":
+                       k2_bound(b, h, s, t, d, dtype)[0],
                    "atol": K2_ATOL[dtype],
                    "atol_vs_fp32": K2_ATOL_VS_FP32[dtype], "ms": ms,
                    "passes_ms": passes,
@@ -632,10 +678,20 @@ def check_backward(dtypes=(torch.bfloat16, torch.float32)):
                    **shares(dtype, ms, bound_ms, lib_ms)}
             log("k2", json.dumps(row))
             rows.append(row)
+            del words
             if not (math.isfinite(err) and err <= K2_ATOL[dtype]
-                    and err32 <= K2_ATOL_VS_FP32[dtype]):
+                    and err32 <= K2_ATOL_VS_FP32[dtype] and mismatches == 0):
                 raise AssertionError(f"backward kernel disagrees with its "
                                      f"plain version at {name}: {row}")
+        plain, drop = rows[-2:]
+        log("k2_dropout", json.dumps({
+            "shape": name, "dtype": plain["dtype"], "ms": plain["ms"],
+            "ms_dropout": drop["ms"], "library_ms": plain["library_ms"],
+            "library_ms_dropout": drop["library_ms"],
+            "dropout_over_library": drop["ms"] / drop["library_ms"],
+            "bound_ms_dropout": drop["bound_ms"],
+            "bound_ms_dropout_without_words":
+                drop["bound_ms_without_words"]}))
     return rows
 
 
@@ -1083,7 +1139,7 @@ def train(cfg, bert_cfg, params, device="cuda"):
     if k1 != layers * TIMED_STEPS or k2 != layers * TIMED_STEPS:
         raise AssertionError(f"K1 ran {k1} and K2 {k2} times in "
                              f"{TIMED_STEPS} steps, not {layers} per step")
-    if mask_launches != 0:      # K1 and K2 draw their masks in-kernel
+    if mask_launches != 0:      # K1 draws the masks in-kernel, K2 reads them
         raise AssertionError(f"the mask entry ran {mask_launches} times in "
                              "the train steps")
     return main
@@ -4073,9 +4129,9 @@ def check_head_offset(rate=0.1):
     6-11 of a 12-head call on the same inputs, and timed beside the bound
     and SDPA.  Returns the rows."""
     from mtvaf_tpu_torch.kernels.prefix_attention import (
-        keep_factors, keep_mask_cuda, keep_mask_reference,
-        prefix_attention_bwd_cuda, prefix_attention_bwd_reference,
-        prefix_attention_cuda, prefix_attention_reference)
+        keep_mask_cuda, keep_mask_reference, prefix_attention_bwd_cuda,
+        prefix_attention_bwd_reference, prefix_attention_cuda,
+        prefix_attention_reference)
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -4114,24 +4170,26 @@ def check_head_offset(rate=0.1):
                              f"the full one: {rows['mask']}")
 
     for r in (0.0, rate):
-        keep = keep_factors(DROPOUT_SEED, r, shape, dev, head_offset=lo) \
-            if r else None
-        o, lse = prefix_attention_cuda(*part[:3], bias, seed=DROPOUT_SEED,
-                                       rate=r, head_offset=lo)
-        o12, lse12 = prefix_attention_cuda(q, k, v, bias, seed=DROPOUT_SEED,
-                                           rate=r)
+        mask, keep = keep_of(r, shape, dev, head_offset=lo)
+        o, lse, words = prefix_attention_cuda(
+            *part[:3], bias, seed=DROPOUT_SEED, rate=r, head_offset=lo)
+        o12, lse12, words12 = prefix_attention_cuda(
+            q, k, v, bias, seed=DROPOUT_SEED, rate=r)
         grads = prefix_attention_bwd_cuda(*part[:3], bias, o, lse, part[3],
-                                          seed=DROPOUT_SEED, rate=r,
-                                          head_offset=lo)
+                                          words, rate=r)
         grads12 = prefix_attention_bwd_cuda(q, k, v, bias, o12, lse12, do,
-                                            seed=DROPOUT_SEED, rate=r)
+                                            words12, rate=r)
         torch.cuda.synchronize()
+        mismatches = words_mismatches(words, mask)
+        bitwise_words = bool(not r or torch.equal(words, words12[:, lo:]))
+        del mask, words12
         ro, _ = prefix_attention_reference(*part[:3], bias, keep)
         _, rlse = prefix_attention_reference(*part[:3], bias)
         rgrads = prefix_attention_bwd_reference(*part[:3], bias, o, lse,
                                                 part[3], keep)
         bitwise_fwd = bool(torch.equal(o, o12[:, lo:])
-                           and torch.equal(lse, lse12[:, lo:]))
+                           and torch.equal(lse, lse12[:, lo:])
+                           and bitwise_words and mismatches == 0)
         bitwise_bwd = all(torch.equal(a, w[:, lo:])
                           for a, w in zip(grads, grads12))
         err_o = (o.float() - ro.float()).abs().max().item()
@@ -4147,20 +4205,20 @@ def check_head_offset(rate=0.1):
                  lambda: prefix_attention_reference(*part[:3], bias, keep),
                  lambda: F.scaled_dot_product_attention(
                      *part[:3], attn_mask=bias.to(dtype), dropout_p=r),
-                 k1_bound(b, h, s, t, d, dtype)),
+                 k1_bound(b, h, s, t, d, dtype, r)),
                 ("k2", err_g, K2_ATOL[dtype], bitwise_bwd,
                  lambda: prefix_attention_bwd_cuda(
-                     *part[:3], bias, o, lse, part[3], seed=DROPOUT_SEED,
-                     rate=r, head_offset=lo),
+                     *part[:3], bias, o, lse, part[3], words, rate=r),
                  lambda: prefix_attention_bwd_reference(
                      *part[:3], bias, o, lse, part[3], keep),
-                 None, k2_bound(b, h, s, t, d, dtype))):
+                 None, k2_bound(b, h, s, t, d, dtype, r))):
             ms = device_ms(fn)
             lib_ms = device_ms(lib_fn) if lib_fn else \
                 sdpa_backward_ms(*part[:3], bias, part[3], r)
             row = {"shape": "train_h6_offset6", "B": b, "H": h, "S": s,
                    "T": t, "D": d, "rate": r, "head_offset": lo,
                    "max_abs_err": err, "atol": atol,
+                   "k1_words_mismatches": mismatches,
                    "bitwise_vs_full_heads_6_11": bitwise, "ms": ms,
                    "plain_ms": device_ms(plain_fn), "library_ms": lib_ms,
                    "bound_ms": bound[0], "bound_by": bound[1],

@@ -343,6 +343,28 @@ __device__ __forceinline__ float ex2(float x) {
 // eight calls of a thread are independent and unrolled, so they interleave;
 // skipping the calls of a ragged tile's empty columns (an early exit in the
 // loop) took that away and cost more than it saved on the H100.
+//
+// The keep words.  The mask is drawn once per forward: the forward kernel
+// stores each thread's mask of each (64-query tile, 64-key tile) as one
+// 32-bit word, and the backward reads the words back and draws nothing.
+// Word of thread tid, query tile qt, key tile kt of plane b * H + h (the
+// call's own head, whatever its head offset):
+//   words[((plane * n_qtiles + qt) * n_ktiles + kt) * 128 + tid],
+// B * H * ceil(S / 64) * ceil(T / 64) * 512 bytes (1.2 MB at the train
+// shape).  In the tile, element (query r, key t), 0 <= r, t < 64, is
+//   bit 4 (t / 8) + 2 ((r / 8) % 2) + t % 2
+//   of thread 32 (r / 16) + 4 (r % 8) + (t % 8) / 2,
+// the accumulator layout above.  Queries past S and keys past T hold the
+// Philox bits of those places, which no kernel reads.
+// ``pack_keep_words`` / ``unpack_keep_words`` in kernels/prefix_attention.py
+// are this layout in plain PyTorch.
+
+__device__ __forceinline__ size_t keep_word_index(int plane, int qt,
+                                                  int n_qtiles, int kt,
+                                                  int n_ktiles) {
+  return (((size_t)plane * n_qtiles + qt) * n_ktiles + kt) * 128 +
+         threadIdx.x;
+}
 
 // Rows are queries, columns keys (forward, dq pass).  A call covers four
 // consecutive keys of one query: lanes l and l ^ 1 hold two keys each of

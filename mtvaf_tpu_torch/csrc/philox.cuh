@@ -6,11 +6,11 @@
 // (col & 3) of philox(counter = (col >> 2, row, h, b), key = (seed_lo,
 // seed_hi)), h the head's global index (a tensor-parallel rank's local head
 // plus its head offset); the element is kept when that word is >= threshold =
-// uint32(rate * 2^32).  The forward, the backward (its dq pass, which
-// hands the bits to its dk/dv pass) and the mask entry point call these
-// functions, so they agree bit for bit whatever their
-// tiling, and ``keep_mask_reference`` in kernels/prefix_attention.py is the
-// same function in plain PyTorch.
+// uint32(rate * 2^32).  The forward (which hands its bits to the backward
+// as keep words, hopper.cuh) and the mask entry point call these functions,
+// so they agree bit for bit whatever their tiling, and
+// ``keep_mask_reference`` in kernels/prefix_attention.py is the same
+// function in plain PyTorch.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -12,9 +12,10 @@
 //   ds    = p * ((do v^T) * keep - delta)
 //   dq    = ds k * scale,   dk = ds^T q * scale
 //
-// (dbias is zero: the bias is a constant mask.)  keep comes from the same
-// Philox bits as the forward (philox.cuh, keyed on (seed, b, h, row, col)), so
-// the masks agree element by element whatever the tiling of either kernel.
+// (dbias is zero: the bias is a constant mask.)  keep is the forward's: the
+// forward kernel hands over its keep bits as keep words (one 32-bit word per
+// thread and tile pair, layout in hopper.cuh), and this kernel reads them and
+// draws no random bits.
 // Types as in the forward: q, k, v, o, do and the gradients all bf16 or all
 // fp32; bias, lse and every sum fp32.
 //
@@ -54,13 +55,15 @@
 // past the ragged edges by those infinities); it was the largest part of a
 // tile's time while it did.  A per-row bias (B, S, T), which the model does
 // not use, is read from global memory per element instead.
-// The mask is drawn once per backward: the dq pass draws a tile's keep
-// bits (8 Philox calls per thread, shared by lane pairs, hopper.cuh) and
-// stores them, one 32-bit word per thread (1.2 MB at the train shape),
-// after delta in the scratch; the dk/dv pass stages a tile's 128 words with
-// its stage and picks its own bits out by a fixed transpose.  Drawing the
-// mask again there, where the four words of a Philox call fall in four
-// lanes, took most of that pass's dropout time.
+// The mask is drawn once per forward, by the forward kernel, which stores
+// it as keep words (1.2 MB at the train shape).  The dq pass loads a
+// thread's word of a tile (one coalesced 512-byte read a tile, started
+// before the tile's wait), in its own accumulator layout; the dk/dv pass
+// stages a tile's 128 words with its stage and picks its own bits out by a
+// fixed transpose.  Drawing the mask again in the dq pass (8 Philox calls
+// per thread and tile) set that pass's pace with dropout; drawing it in the
+// dk/dv pass, where the four words of a Philox call fall in four lanes,
+// took most of that pass's dropout time.
 // A dk/dv block holds two 64 x 64 fp32 accumulators across its loop; it
 // keeps dV's in shared memory outside dV's products, so that it fits in
 // 168 registers, three blocks to an SM, without spilling (at two blocks to
@@ -77,7 +80,7 @@
 // the train shape the function moves 107.17 MB in fp32 (32.0 us at 3.35
 // TB/s) against 4.53 GFLOP, 27.5 us at a third of the 494.7 TFLOP/s TF32
 // peak: bound by bytes, the split's tensor time just under it.  The passes,
-// the mask drawn once by the dq pass and the staged vectors are bf16's;
+// the keep words read back and the staged vectors are bf16's;
 // the tiles are fp32 (16 KB, two TMA boxes of 32 columns).  TF32 wgmma
 // reads shared-memory operands K-major only, so a product that reduces
 // over a tile's rows takes that tile transposed by the threads: K^T for dQ
@@ -107,14 +110,6 @@ namespace {
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// head_offset: the global index of head 0 of this call (the Philox
-// counter's head word is h + head_offset).
-struct Dropout {
-  unsigned seed_lo, seed_hi, threshold;
-  float keep_scale;
-  int head_offset;
-};
-
 // ---------------------------------------------------------------------------
 // The bf16 route: wgmma fed by TMA.
 
@@ -122,7 +117,7 @@ namespace hp = mtvaf::hopper;
 constexpr int STAGES = 2;   // ring depth of the streamed tiles
 // A dq-pass block: 2 own tiles + 2 streamed tiles per stage, barriers, 2 KB
 // of per-tile vectors (delta, bias by stage), alignment.  A dk/dv-pass block
-// has the same (its vectors: lse, delta and keep bits by stage) and dV's
+// has the same (its vectors: lse, delta and keep words by stage) and dV's
 // accumulator between steps.
 constexpr int DQ_SMEM = (2 + 2 * STAGES) * hp::TILE_BYTES + 64 + 2048 + 1024;
 constexpr int DV_BYTES = 128 * 32 * 4;
@@ -168,9 +163,11 @@ dq_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
                const float* __restrict__ bias,
                const __nv_bfloat16* __restrict__ o,
                const __nv_bfloat16* __restrict__ dout,
-               const float* __restrict__ lse, __nv_bfloat16* __restrict__ dq,
-               float* __restrict__ delta_out, uint32_t* __restrict__ bits,
-               int H, int S, int Tk, int bias_rows, float scale, Dropout dr) {
+               const float* __restrict__ lse,
+               const uint32_t* __restrict__ words,
+               __nv_bfloat16* __restrict__ dq, float* __restrict__ delta_out,
+               int H, int S, int Tk, int bias_rows, float scale,
+               float keep_scale) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = hp::align1024(smem_raw);
   unsigned char* qs = sm;
@@ -257,6 +254,11 @@ dq_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
   for (int j = 0; j < nt; ++j) {
     const int s = j % STAGES;
     unsigned char* kt = ks + s * hp::TILE_BYTES;
+    // the forward's keep word of this tile, loaded before the wait
+    const uint32_t keep = DROPOUT
+        ? __ldg(words + hp::keep_word_index(plane, blockIdx.x, gridDim.x, j,
+                                            nt))
+        : 0xffffffffu;
     hp::mbar_wait(&bars[1 + s], (j / STAGES) & 1);
     hp::wgmma_fence();
     hp::gemm_ss(sc, qdesc, hp::desc(kt));
@@ -267,13 +269,6 @@ dq_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
     hp::fence_regs(dp);
 
     const int t0 = j * hp::TILE;
-    uint32_t keep = 0xffffffffu;
-    if (DROPOUT) {   // drawn here once, read back by the dk/dv pass
-      keep = hp::keep_mask_query_rows(b, h + dr.head_offset, row0, row1, t0,
-                                      dr.seed_lo, dr.seed_hi, dr.threshold);
-      bits[(((size_t)plane * gridDim.x + blockIdx.x) * nt + j) * 128 + tid] =
-          keep;
-    }
     // scores in base 2; past T the key tile is zero-filled and the bias
     // -inf, so p = 0 there
     if (bias_rows == 1) {
@@ -295,7 +290,7 @@ dq_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
       const bool second = (i >> 1) & 1;
       const float p = hp::ex2(sc[i] - (second ? lse1 : lse0));
       float g = dp[i];
-      if (DROPOUT) g *= (keep >> i) & 1 ? dr.keep_scale : 0.f;
+      if (DROPOUT) g *= (keep >> i) & 1 ? keep_scale : 0.f;
       sc[i] = p * (g - (second ? delta1 : delta0));   // ds
     }
 
@@ -333,10 +328,10 @@ dq_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 // The keep mask of this thread's dk/dv-pass accumulator (rows keys, columns
-// queries) from the 128 words of a tile that the dq pass stored, one per
-// thread in its own accumulator layout (rows queries, columns keys).  There
-// element (query r, key t) is bit 4 (t / 8) + 2 ((r / 8) % 2) + t % 2 of
-// thread 32 (r / 16) + 4 (r % 8) + (t % 8) / 2.  Here element j is (key
+// queries) from the 128 keep words of a tile that the forward stored, one
+// per thread in its own accumulator layout (rows queries, columns keys).
+// There element (query r, key t) is bit 4 (t / 8) + 2 ((r / 8) % 2) + t % 2
+// of thread 32 (r / 16) + 4 (r % 8) + (t % 8) / 2.  Here element j is (key
 // 16 w + l / 4 + 8 ((j / 2) % 2), query 8 (j / 4) + 2 (l % 4) + j % 2) in
 // warp w, lane l: 16 words, two bits each, no bank conflicts.
 __device__ __forceinline__ uint32_t transposed_keep(const uint32_t* words) {
@@ -370,10 +365,10 @@ dkdv_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
                  const float* __restrict__ bias,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta_in,
-                 const uint32_t* __restrict__ bits,
+                 const uint32_t* __restrict__ words,
                  __nv_bfloat16* __restrict__ dk,
                  __nv_bfloat16* __restrict__ dv, int H, int S, int Tk,
-                 int bias_rows, float scale, Dropout dr) {
+                 int bias_rows, float scale, float keep_scale) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = hp::align1024(smem_raw);
   unsigned char* ks = sm;
@@ -397,7 +392,7 @@ dkdv_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
   const float* dlp = delta_in + (size_t)plane * S;
   const int nk = gridDim.x;
   // lse * log2(e) and delta of query tile `tile` into stage `st`, and the
-  // keep bits the dq pass drew for (query tile, this key tile).
+  // forward's keep words of (query tile, this key tile).
   auto stage_rows = [&](int st, int tile) {
     if (tid < 64) {
       const int qc = tile * hp::TILE + tid;
@@ -407,7 +402,7 @@ dkdv_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
     }
     if (DROPOUT)
       bits_s[st * 128 + tid] =
-          bits[(((size_t)plane * nq + tile) * nk + blockIdx.x) * 128 + tid];
+          words[hp::keep_word_index(plane, tile, nq, blockIdx.x, nk)];
   };
   for (int s = 0; s < STAGES && s < nq; ++s) stage_rows(s, s);
 
@@ -471,7 +466,7 @@ dkdv_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
       const int cc = 8 * (i >> 2) + 2 * c + (i & 1);
       const float p = hp::ex2(st[i] - lse_t[cc]);   // 0 past S
       float kf = 1.f;
-      if (DROPOUT) kf = (keep >> i) & 1 ? dr.keep_scale : 0.f;
+      if (DROPOUT) kf = (keep >> i) & 1 ? keep_scale : 0.f;
       st[i] = p * kf;                          // y
       dpt[i] = p * (dpt[i] * kf - dl_t[cc]);   // ds
     }
@@ -524,12 +519,10 @@ dkdv_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
 template <bool DROPOUT>
 int launch_bf16(const void* q, const void* k, const void* v,
                 const float* bias, const void* o, const float* lse,
-                const void* dout, void* dq, void* dk, void* dv, float* delta,
-                int B, int H, int S, int Tk, int bias_rows, float scale,
-                Dropout dr, cudaStream_t stream) {
-  // the keep bits follow delta in the scratch, 16-byte aligned
-  uint32_t* bits = reinterpret_cast<uint32_t*>(
-      delta + (((size_t)B * H * S + 3) & ~(size_t)3));
+                const void* dout, const uint32_t* words, void* dq, void* dk,
+                void* dv, float* delta, int B, int H, int S, int Tk,
+                int bias_rows, float scale, float keep_scale,
+                cudaStream_t stream) {
   CUtensorMap qm, km, vm, dom;
   if (!hp::make_tile_map(&qm, q, S, B * H) ||
       !hp::make_tile_map(&km, k, Tk, B * H) ||
@@ -549,15 +542,16 @@ int launch_bf16(const void* q, const void* k, const void* v,
   dq_bf16_kernel<DROPOUT><<<dim3((S + hp::TILE - 1) / hp::TILE, H, B), 128,
                             DQ_SMEM, stream>>>(
       qm, km, vm, dom, bias, static_cast<const __nv_bfloat16*>(o),
-      static_cast<const __nv_bfloat16*>(dout), lse,
-      static_cast<__nv_bfloat16*>(dq), delta, bits, H, S, Tk, bias_rows, scale,
-      dr);
+      static_cast<const __nv_bfloat16*>(dout), lse, words,
+      static_cast<__nv_bfloat16*>(dq), delta, H, S, Tk, bias_rows, scale,
+      keep_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   dkdv_bf16_kernel<DROPOUT><<<dim3((Tk + hp::TILE - 1) / hp::TILE, H, B),
                               128, DKDV_SMEM, stream>>>(
-      qm, km, vm, dom, bias, lse, delta, bits, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), H, S, Tk, bias_rows, scale, dr);
+      qm, km, vm, dom, bias, lse, delta, words,
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), H, S,
+      Tk, bias_rows, scale, keep_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -573,8 +567,7 @@ constexpr int DQ32_SMEM = 12 * TB + 64 + 2 * 64 * 4 + 1024;
 // one query tile, alignment (231,488 of the 232,448 bytes a block may use).
 constexpr int DKDV32_SMEM = 14 * TB + 64 + 2 * 64 * 4 + 128 * 4 + 1024;
 
-// Pass (a): dq, delta for pass (b), and the keep bits.  Own tiles: q, do;
-// streamed: k, v.
+// Pass (a): dq, and delta for pass (b).  Own tiles: q, do; streamed: k, v.
 template <bool DROPOUT>
 __global__ void __launch_bounds__(128, 1)
 dq_tf32x3_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -583,10 +576,10 @@ dq_tf32x3_kernel(const __grid_constant__ CUtensorMap qmap,
                  const __grid_constant__ CUtensorMap domap,
                  const float* __restrict__ bias, const float* __restrict__ o,
                  const float* __restrict__ dout,
-                 const float* __restrict__ lse, float* __restrict__ dq,
-                 float* __restrict__ delta_out, uint32_t* __restrict__ bits,
-                 int H, int S, int Tk, int bias_rows, float scale,
-                 Dropout dr) {
+                 const float* __restrict__ lse,
+                 const uint32_t* __restrict__ words, float* __restrict__ dq,
+                 float* __restrict__ delta_out, int H, int S, int Tk,
+                 int bias_rows, float scale, float keep_scale) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = hp::align1024(smem_raw);
   unsigned char* qh = sm;
@@ -673,9 +666,14 @@ dq_tf32x3_kernel(const __grid_constant__ CUtensorMap qmap,
   const uint64_t vhd = hp::desc(vh), vld = hp::desc(vl);
   for (int j = 0; j < nt; ++j) {
     const int t0 = j * hp::TILE;
-    // the key tile's bias row, -inf past T, read before the wait
+    // the key tile's bias row, -inf past T, and the forward's keep word of
+    // this tile, read before the wait
     const float bias_v = bias_rows == 1 && tid < 64
         ? (t0 + tid < Tk ? bb[t0 + tid] * LOG2E : -CUDART_INF_F) : 0.f;
+    const uint32_t keep = DROPOUT
+        ? __ldg(words + hp::keep_word_index(plane, blockIdx.x, gridDim.x, j,
+                                            nt))
+        : 0xffffffffu;
     hp::mbar_wait(&bars[1], j & 1);
     hp::split_tile<true, true>(kraw, kh, kl, kth, ktl);
     hp::split_tile<true, false>(vraw, vh, vl, nullptr, nullptr);
@@ -696,13 +694,6 @@ dq_tf32x3_kernel(const __grid_constant__ CUtensorMap qmap,
     hp::fence_regs(sc);
     hp::fence_regs(dp);
 
-    uint32_t keep = 0xffffffffu;
-    if (DROPOUT) {   // drawn here once, read back by the dk/dv pass
-      keep = hp::keep_mask_query_rows(b, h + dr.head_offset, row0, row1, t0,
-                                      dr.seed_lo, dr.seed_hi, dr.threshold);
-      bits[(((size_t)plane * gridDim.x + blockIdx.x) * nt + j) * 128 + tid] =
-          keep;
-    }
     // scores in base 2; past T the key tile is zero-filled and the bias
     // -inf, so p = 0 there
     if (bias_rows == 1) {
@@ -723,7 +714,7 @@ dq_tf32x3_kernel(const __grid_constant__ CUtensorMap qmap,
       const bool second = (i >> 1) & 1;
       const float p = hp::ex2(sc[i] - (second ? lse1 : lse0));
       float g = dp[i];
-      if (DROPOUT) g *= (keep >> i) & 1 ? dr.keep_scale : 0.f;
+      if (DROPOUT) g *= (keep >> i) & 1 ? keep_scale : 0.f;
       sc[i] = p * (g - (second ? delta1 : delta0));   // ds
     }
 
@@ -762,9 +753,9 @@ dkdv_tf32x3_kernel(const __grid_constant__ CUtensorMap qmap,
                    const float* __restrict__ bias,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta_in,
-                   const uint32_t* __restrict__ bits, float* __restrict__ dk,
+                   const uint32_t* __restrict__ words, float* __restrict__ dk,
                    float* __restrict__ dv, int H, int S, int Tk,
-                   int bias_rows, float scale, Dropout dr) {
+                   int bias_rows, float scale, float keep_scale) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = hp::align1024(smem_raw);
   unsigned char* kh = sm;
@@ -831,8 +822,8 @@ dkdv_tf32x3_kernel(const __grid_constant__ CUtensorMap qmap,
   for (int it = 0; it < nq; ++it) {
     const int s0 = it * hp::TILE;
     // the query tile's lse * log2(e) (+inf past S: p = 0 there) and delta,
-    // and the keep bits the dq pass drew for (query tile, this key tile),
-    // read before the wait
+    // and the forward's keep words of (query tile, this key tile), read
+    // before the wait
     float lse_v = 0.f, dl_v = 0.f;
     if (tid < 64) {
       const int qc = s0 + tid;
@@ -840,7 +831,7 @@ dkdv_tf32x3_kernel(const __grid_constant__ CUtensorMap qmap,
       dl_v = qc < S ? dlp[qc] : 0.f;
     }
     const uint32_t bits_v = DROPOUT
-        ? bits[(((size_t)plane * nq + it) * nk + blockIdx.x) * 128 + tid] : 0u;
+        ? words[hp::keep_word_index(plane, it, nq, blockIdx.x, nk)] : 0u;
     hp::mbar_wait(&bars[1], it & 1);
     hp::split_tile<true, true>(qraw, qh, ql, qth, qtl);
     hp::split_tile<true, true>(doraw, doh, dol, doth, dotl);
@@ -884,7 +875,7 @@ dkdv_tf32x3_kernel(const __grid_constant__ CUtensorMap qmap,
       const int cc = 8 * (i >> 2) + 2 * c + (i & 1);
       const float p = hp::ex2(st[i] - lse_s[cc]);   // 0 past S
       float kf = 1.f;
-      if (DROPOUT) kf = (keep >> i) & 1 ? dr.keep_scale : 0.f;
+      if (DROPOUT) kf = (keep >> i) & 1 ? keep_scale : 0.f;
       st[i] = p * kf;                          // y
       dpt[i] = p * (dpt[i] * kf - dl_s[cc]);   // ds
     }
@@ -933,12 +924,10 @@ dkdv_tf32x3_kernel(const __grid_constant__ CUtensorMap qmap,
 template <bool DROPOUT>
 int launch_fp32(const void* q, const void* k, const void* v,
                 const float* bias, const void* o, const float* lse,
-                const void* dout, void* dq, void* dk, void* dv, float* delta,
-                int B, int H, int S, int Tk, int bias_rows, float scale,
-                Dropout dr, cudaStream_t stream) {
-  // the keep bits follow delta in the scratch, 16-byte aligned
-  uint32_t* bits = reinterpret_cast<uint32_t*>(
-      delta + (((size_t)B * H * S + 3) & ~(size_t)3));
+                const void* dout, const uint32_t* words, void* dq, void* dk,
+                void* dv, float* delta, int B, int H, int S, int Tk,
+                int bias_rows, float scale, float keep_scale,
+                cudaStream_t stream) {
   CUtensorMap qm, km, vm, dom;
   if (!hp::make_tile_map(&qm, q, S, B * H, 4) ||
       !hp::make_tile_map(&km, k, Tk, B * H, 4) ||
@@ -956,14 +945,14 @@ int launch_fp32(const void* q, const void* k, const void* v,
   dq_tf32x3_kernel<DROPOUT><<<dim3((S + hp::TILE - 1) / hp::TILE, H, B), 128,
                               DQ32_SMEM, stream>>>(
       qm, km, vm, dom, bias, static_cast<const float*>(o),
-      static_cast<const float*>(dout), lse, static_cast<float*>(dq), delta,
-      bits, H, S, Tk, bias_rows, scale, dr);
+      static_cast<const float*>(dout), lse, words, static_cast<float*>(dq),
+      delta, H, S, Tk, bias_rows, scale, keep_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   dkdv_tf32x3_kernel<DROPOUT><<<dim3((Tk + hp::TILE - 1) / hp::TILE, H, B),
                                 128, DKDV32_SMEM, stream>>>(
-      qm, km, vm, dom, bias, lse, delta, bits, static_cast<float*>(dk),
-      static_cast<float*>(dv), H, S, Tk, bias_rows, scale, dr);
+      qm, km, vm, dom, bias, lse, delta, words, static_cast<float*>(dk),
+      static_cast<float*>(dv), H, S, Tk, bias_rows, scale, keep_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -971,35 +960,36 @@ int launch_fp32(const void* q, const void* k, const void* v,
 
 // Plain C entry point, loaded with ctypes.  dtype: 0 = float32 (split-TF32
 // wgmma kernels), 1 = bfloat16 (wgmma kernels); q, k, v, o, do 16-byte
-// aligned; threshold 0 turns dropout off.  delta is an fp32 scratch: delta
-// (B, H, S), then, with dropout, from the next 16-byte boundary, the keep
-// bits the dq pass draws for the dk/dv pass,
-// B*H*ceil(S/64)*ceil(T/64)*128 32-bit words.  Two launches on `stream`
+// aligned.  words: the forward's keep words (hopper.cuh), null without
+// dropout; keep_scale = 1 / (1 - rate).  delta is an fp32 scratch of
+// (B, H, S), delta for the dk/dv pass.  Two launches on `stream`
 // (dq pass, then dk/dv pass); returns the first non-zero cudaGetLastError()
 // (0 on success, -1 for a head dimension or type this kernel was not
 // compiled for, -2 when the driver refuses a tensor map).
 extern "C" int mtvaf_prefix_attention_bwd(
     const void* q, const void* k, const void* v, const float* bias,
-    const void* o, const float* lse, const void* dout, void* dq, void* dk,
-    void* dv, float* delta, int B, int H, int S, int Tk, int D,
-    int bias_rows, float scale, int dtype, unsigned seed_lo,
-    unsigned seed_hi, unsigned threshold, float keep_scale, int head_offset,
+    const void* o, const float* lse, const void* dout, const uint32_t* words,
+    void* dq, void* dk, void* dv, float* delta, int B, int H, int S, int Tk,
+    int D, int bias_rows, float scale, int dtype, float keep_scale,
     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dropout dr{seed_lo, seed_hi, threshold, keep_scale, head_offset};
   if (D != hp::TILE) return -1;
   if (dtype == 1)
-    return threshold
-        ? launch_bf16<true>(q, k, v, bias, o, lse, dout, dq, dk, dv, delta, B,
-                            H, S, Tk, bias_rows, scale, dr, st)
-        : launch_bf16<false>(q, k, v, bias, o, lse, dout, dq, dk, dv, delta,
-                             B, H, S, Tk, bias_rows, scale, dr, st);
+    return words
+        ? launch_bf16<true>(q, k, v, bias, o, lse, dout, words, dq, dk, dv,
+                            delta, B, H, S, Tk, bias_rows, scale, keep_scale,
+                            st)
+        : launch_bf16<false>(q, k, v, bias, o, lse, dout, words, dq, dk, dv,
+                             delta, B, H, S, Tk, bias_rows, scale, keep_scale,
+                             st);
   if (dtype == 0)
-    return threshold
-        ? launch_fp32<true>(q, k, v, bias, o, lse, dout, dq, dk, dv, delta, B,
-                            H, S, Tk, bias_rows, scale, dr, st)
-        : launch_fp32<false>(q, k, v, bias, o, lse, dout, dq, dk, dv, delta,
-                             B, H, S, Tk, bias_rows, scale, dr, st);
+    return words
+        ? launch_fp32<true>(q, k, v, bias, o, lse, dout, words, dq, dk, dv,
+                            delta, B, H, S, Tk, bias_rows, scale, keep_scale,
+                            st)
+        : launch_fp32<false>(q, k, v, bias, o, lse, dout, words, dq, dk, dv,
+                             delta, B, H, S, Tk, bias_rows, scale, keep_scale,
+                             st);
   return -1;
 }
 

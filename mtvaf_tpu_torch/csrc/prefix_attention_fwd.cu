@@ -13,8 +13,10 @@
 // concatenated (T = P + S); the additive bias is fp32 (B, 1|S, T) and shared by
 // every head.  q, k, v and o are all bf16 or all fp32; softmax statistics and
 // the accumulator are fp32 whatever the input type.  keep is 1/(1-rate) or 0,
-// from the counter-based Philox bits of philox.cuh keyed on (seed, b, h, s, t);
-// the backward kernel (prefix_attention_bwd.cu) regenerates the same bits.
+// from the counter-based Philox bits of philox.cuh keyed on (seed, b, h, s, t).
+// With dropout the kernel also writes its keep bits as keep words (one
+// 32-bit word per thread and tile pair, layout in hopper.cuh), which the
+// backward kernel (prefix_attention_bwd.cu) reads instead of drawing again.
 // h is the global head, h + head_offset, where a tensor-parallel rank holds
 // heads [head_offset, head_offset + H) of the model: its masks are then those
 // heads' masks in a call over every head.
@@ -48,7 +50,11 @@
 // swizzle; the online softmax (base 2, one MUFU.EX2 per element) runs on
 // the accumulator's fragment, a row's max reduced across the four lanes of
 // a quad; dropout multiplies p after p entered l (the lse stays
-// dropout-free), its Philox calls shared by lane pairs (hopper.cuh); then p
+// dropout-free), its Philox calls (8 per thread, shared by lane pairs,
+// hopper.cuh) in the same stretch of code as the softmax, so that the
+// integer and the floating-point work interleave (drawn while S = Q K^T was
+// in flight, they ran slower on the H100), and the tile's keep word stored
+// for the backward; then p
 // is rounded to bf16 in place and O += P V takes it as the register A
 // operand, with V's tile MN-major (the transpose bit).  Query rows at
 // s >= S are not stored.  A per-row bias (B, S, T), which the model does not
@@ -113,9 +119,10 @@ fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap kmap,
                 const __grid_constant__ CUtensorMap vmap,
                 const float* __restrict__ bias, __nv_bfloat16* __restrict__ o,
-                float* __restrict__ lse, int H, int S, int Tk, int bias_rows,
-                float scale, unsigned seed_lo, unsigned seed_hi,
-                unsigned threshold, float keep_scale, int head_offset) {
+                float* __restrict__ lse, uint32_t* __restrict__ words, int H,
+                int S, int Tk, int bias_rows, float scale, unsigned seed_lo,
+                unsigned seed_hi, unsigned threshold, float keep_scale,
+                int head_offset) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = hp::align1024(smem_raw);
   unsigned char* qs = sm;
@@ -219,6 +226,7 @@ fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
     if (DROPOUT) {   // after l: the lse stays the dropout-free statistic
       const uint32_t keep = hp::keep_mask_query_rows(
           b, h + head_offset, row0, row1, t0, seed_lo, seed_hi, threshold);
+      words[hp::keep_word_index(plane, blockIdx.x, gridDim.x, j, nt)] = keep;
 #pragma unroll
       for (int i = 0; i < 32; ++i)
         sc[i] *= (keep >> i) & 1 ? keep_scale : 0.f;
@@ -269,10 +277,10 @@ fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 int launch_bf16(const void* q, const void* k, const void* v,
-                const float* bias, void* o, float* lse, int B, int H, int S,
-                int Tk, int bias_rows, float scale, unsigned seed_lo,
-                unsigned seed_hi, unsigned threshold, float keep_scale,
-                int head_offset, cudaStream_t stream) {
+                const float* bias, void* o, float* lse, uint32_t* words,
+                int B, int H, int S, int Tk, int bias_rows, float scale,
+                unsigned seed_lo, unsigned seed_hi, unsigned threshold,
+                float keep_scale, int head_offset, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   if (!hp::make_tile_map(&qm, q, S, B * H) ||
       !hp::make_tile_map(&km, k, Tk, B * H) ||
@@ -281,7 +289,7 @@ int launch_bf16(const void* q, const void* k, const void* v,
   dim3 grid((S + hp::TILE - 1) / hp::TILE, H, B);
   auto kernel = threshold ? fwd_bf16_kernel<true> : fwd_bf16_kernel<false>;
   kernel<<<grid, 128, FWD_SMEM, stream>>>(
-      qm, km, vm, bias, static_cast<__nv_bfloat16*>(o), lse, H, S, Tk,
+      qm, km, vm, bias, static_cast<__nv_bfloat16*>(o), lse, words, H, S, Tk,
       bias_rows, scale, seed_lo, seed_hi, threshold, keep_scale, head_offset);
   return static_cast<int>(cudaGetLastError());
 }
@@ -299,10 +307,10 @@ fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap qmap,
                   const __grid_constant__ CUtensorMap kmap,
                   const __grid_constant__ CUtensorMap vmap,
                   const float* __restrict__ bias, float* __restrict__ o,
-                  float* __restrict__ lse, int H, int S, int Tk,
-                  int bias_rows, float scale, unsigned seed_lo,
-                  unsigned seed_hi, unsigned threshold, float keep_scale,
-                  int head_offset) {
+                  float* __restrict__ lse, uint32_t* __restrict__ words,
+                  int H, int S, int Tk, int bias_rows, float scale,
+                  unsigned seed_lo, unsigned seed_hi, unsigned threshold,
+                  float keep_scale, int head_offset) {
   constexpr int TB = hp::F32_TILE_BYTES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = hp::align1024(smem_raw);
@@ -413,6 +421,7 @@ fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap qmap,
     if (DROPOUT) {   // after l: the lse stays the dropout-free statistic
       const uint32_t keep = hp::keep_mask_query_rows(
           b, h + head_offset, row0, row1, t0, seed_lo, seed_hi, threshold);
+      words[hp::keep_word_index(plane, blockIdx.x, gridDim.x, j, nt)] = keep;
 #pragma unroll
       for (int i = 0; i < 32; ++i)
         sc[i] *= (keep >> i) & 1 ? keep_scale : 0.f;
@@ -453,10 +462,10 @@ fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 int launch_fp32(const void* q, const void* k, const void* v,
-                const float* bias, void* o, float* lse, int B, int H, int S,
-                int Tk, int bias_rows, float scale, unsigned seed_lo,
-                unsigned seed_hi, unsigned threshold, float keep_scale,
-                int head_offset, cudaStream_t stream) {
+                const float* bias, void* o, float* lse, uint32_t* words,
+                int B, int H, int S, int Tk, int bias_rows, float scale,
+                unsigned seed_lo, unsigned seed_hi, unsigned threshold,
+                float keep_scale, int head_offset, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   if (!hp::make_tile_map(&qm, q, S, B * H, 4) ||
       !hp::make_tile_map(&km, k, Tk, B * H, 4) ||
@@ -470,8 +479,8 @@ int launch_fp32(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((S + hp::TILE - 1) / hp::TILE, H, B);
   kernel<<<grid, 128, FWD32_SMEM, stream>>>(
-      qm, km, vm, bias, static_cast<float*>(o), lse, H, S, Tk, bias_rows,
-      scale, seed_lo, seed_hi, threshold, keep_scale, head_offset);
+      qm, km, vm, bias, static_cast<float*>(o), lse, words, H, S, Tk,
+      bias_rows, scale, seed_lo, seed_hi, threshold, keep_scale, head_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -504,24 +513,26 @@ __global__ void keep_mask_kernel(float* __restrict__ out, int H, int S,
 // Plain C entry points, loaded with ctypes.  dtype: 0 = float32 (split-TF32
 // wgmma kernel), 1 = bfloat16 (wgmma kernel); q, k, v 16-byte aligned.
 // threshold 0 turns dropout off; head_offset is the global index of head 0.
-// Each returns cudaGetLastError() after the
+// With dropout the forward writes its keep words to `words`, uint32
+// B*H*ceil(S/64)*ceil(T/64)*128 (layout in hopper.cuh); without, it writes
+// nothing there (null is fine).  Each returns cudaGetLastError() after the
 // launch (0 on success, -1 for a head dimension or type this kernel was not
 // compiled for, -2 when the driver refuses a tensor map).
 extern "C" int mtvaf_prefix_attention_fwd(
     const void* q, const void* k, const void* v, const float* bias, void* o,
-    float* lse, int B, int H, int S, int Tk, int D, int bias_rows,
-    float scale, int dtype, unsigned seed_lo, unsigned seed_hi,
+    float* lse, uint32_t* words, int B, int H, int S, int Tk, int D,
+    int bias_rows, float scale, int dtype, unsigned seed_lo, unsigned seed_hi,
     unsigned threshold, float keep_scale, int head_offset, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D != 64) return -1;
   if (dtype == 1)
-    return launch_bf16(q, k, v, bias, o, lse, B, H, S, Tk, bias_rows, scale,
-                       seed_lo, seed_hi, threshold, keep_scale, head_offset,
-                       st);
+    return launch_bf16(q, k, v, bias, o, lse, words, B, H, S, Tk, bias_rows,
+                       scale, seed_lo, seed_hi, threshold, keep_scale,
+                       head_offset, st);
   if (dtype != 0) return -1;
-  return launch_fp32(q, k, v, bias, o, lse, B, H, S, Tk, bias_rows, scale,
-                     seed_lo, seed_hi, threshold, keep_scale, head_offset,
-                     st);
+  return launch_fp32(q, k, v, bias, o, lse, words, B, H, S, Tk, bias_rows,
+                     scale, seed_lo, seed_hi, threshold, keep_scale,
+                     head_offset, st);
 }
 
 // Dynamic shared memory of one block of the fp32 (dtype 0) or bf16 (dtype

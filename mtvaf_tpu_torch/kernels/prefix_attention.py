@@ -6,18 +6,26 @@ Counterpart of ``mtvaf_tpu/kernels/prefix_attention.py`` (the Pallas
 already concatenated the per-layer visual prefix to the keys and values, so
 the kernels see q (B, H, S, D) and k/v (B, H, T, D) with T = P + S, plus an
 additive fp32 bias (B, 1, 1|S, T) that every head shares.  The forward
-returns o (B, H, S, D) in q's dtype and the dropout-free per-row
+returns o (B, H, S, D) in q's dtype, the dropout-free per-row
 log-sum-exp (B, H, S, 1) in fp32, which the backward reuses to recompute
-the probabilities.
+the probabilities, and the keep words of its dropout mask.
 
 Attention-probability dropout is counter-based: the keep bit of element
 (b, h, row, col) is a Philox4x32-10 word keyed on a per-call 64-bit seed
 (``csrc/philox.cuh``; :func:`keep_mask_reference` here), so the forward
-kernel, the backward kernel, the mask entry point and the plain version all
-draw the same mask without storing it.  h is the head's global index: a
-call given heads [h0, h0 + H) of a larger model (a tensor-parallel rank's,
-``head_offset=h0``) draws those heads' masks of a call over every head, as
-the Pallas kernel seeds each head's stream by its global index.
+kernel, the mask entry point and the plain version all draw the same mask.
+h is the head's global index: a call given heads [h0, h0 + H) of a larger
+model (a tensor-parallel rank's, ``head_offset=h0``) draws those heads'
+masks of a call over every head, as the Pallas kernel seeds each head's
+stream by its global index.  The mask is drawn once per forward: the
+forward also returns it as keep words, int32 (B, H, ceil(S/64),
+ceil(T/64), 128), one bit per element in the kernels' tile layout
+(``csrc/hopper.cuh``; :func:`pack_keep_words` here), and the backward
+takes those words in place of the seed (1 bit an element: 12.6 MB at
+B=32, H=12, S=T=500).  Without dropout the words are an empty tensor.
+The kernels' words are uint32; the tensors are int32 with the same bits,
+since ``torch.export`` cannot save a uint32 tensor in every PyTorch the
+port runs on.
 
 :func:`prefix_attention` is the attention core of every encoder layer.  It
 calls the operator ``mtvaf::prefix_attention_fwd`` (``torch.library``),
@@ -108,8 +116,57 @@ def keep_mask_reference(seed: int, rate: float, shape, device=None,
 
 def keep_factors(seed: int, rate: float, shape, device, head_offset: int = 0):
     """fp32 keep factors: 1/(1-rate) where kept, else 0."""
-    return keep_mask_reference(seed, rate, shape, device,
-                               head_offset).float() * (1.0 / (1.0 - rate))
+    return _factors(keep_mask_reference(seed, rate, shape, device,
+                                        head_offset), rate)
+
+
+def _factors(keep, rate: float):
+    return keep.float() * _keep_scale(rate)
+
+
+_TILE = 64
+
+
+def keep_words_shape(b: int, h: int, s: int, t: int):
+    """(B, H, ceil(S/64), ceil(T/64), 128): one 32-bit word per thread of
+    each (64-query, 64-key) tile pair."""
+    return (b, h, -(-s // _TILE), -(-t // _TILE), 128)
+
+
+def pack_keep_words(keep):
+    """The keep words of a bool mask (B, H, S, T), as the forward kernel
+    writes them: int32 (B, H, ceil(S/64), ceil(T/64), 128), bit 4 (t/8) +
+    2 ((r/8) % 2) + t % 2 of thread 32 (r/16) + 4 (r % 8) + (t % 8)/2 the
+    element (query r, key t) of a tile.  Places past S or T are 0 here (the
+    kernel leaves the Philox bits of those places there, which no kernel
+    reads)."""
+    b, h, s, t = keep.shape
+    _, _, nq, nk, _ = keep_words_shape(b, h, s, t)
+    full = keep.new_zeros((b, h, nq * _TILE, nk * _TILE), dtype=torch.int64)
+    full[:, :, :s, :t] = keep
+    # query r = 16 w + 8 rh + r8, key t = 8 n8 + 2 c + e: thread 32 w +
+    # 4 r8 + c, bit 4 n8 + 2 rh + e; (b, h, qt, w, rh, r8, kt, n8, c, e) to
+    # (b, h, qt, kt, [w, r8, c], [n8, rh, e])
+    x = full.view(b, h, nq, 4, 2, 8, nk, 8, 4, 2)
+    x = x.permute(0, 1, 2, 6, 3, 5, 8, 7, 4, 9).reshape(b, h, nq, nk, 128, 32)
+    shifts = torch.arange(32, dtype=torch.int64, device=keep.device)
+    words = (x << shifts).sum(dim=-1)
+    return (words - ((words >> 31) << 32)).to(torch.int32)  # the same bits
+
+
+def unpack_keep_words(words, shape):
+    """The bool keep mask (B, H, S, T) of ``shape`` from its keep words:
+    :func:`pack_keep_words` undone."""
+    b, h, s, t = shape
+    _, _, nq, nk, _ = keep_words_shape(b, h, s, t)
+    shifts = torch.arange(32, dtype=torch.int64, device=words.device)
+    w = words.to(torch.int64) & _U32
+    bits = ((w[..., None] >> shifts) & 1).bool()
+    # (b, h, qt, kt, w, r8, c, n8, rh, e) to (b, h, qt, w, rh, r8, kt, n8,
+    # c, e): the layout of pack_keep_words, undone
+    x = bits.view(b, h, nq, nk, 4, 8, 4, 8, 2, 2)
+    x = x.permute(0, 1, 2, 4, 8, 5, 3, 7, 6, 9)
+    return x.reshape(b, h, nq * _TILE, nk * _TILE)[:, :, :s, :t]
 
 
 def prefix_attention_reference(q, k, v, bias, keep=None):
@@ -172,11 +229,11 @@ class _LaunchCount:
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _SIGNATURES = {
     ("prefix_attention_fwd", "mtvaf_prefix_attention_fwd"):
-        [_P] * 6 + [_I] * 6 + [_F, _I, _U, _U, _U, _F, _I, _P],
+        [_P] * 7 + [_I] * 6 + [_F, _I, _U, _U, _U, _F, _I, _P],
     ("prefix_attention_fwd", "mtvaf_prefix_attention_keep_mask"):
         [_P] + [_I] * 4 + [_U] * 3 + [_I, _P],
     ("prefix_attention_bwd", "mtvaf_prefix_attention_bwd"):
-        [_P] * 11 + [_I] * 6 + [_F, _I, _U, _U, _U, _F, _I, _P],
+        [_P] * 12 + [_I] * 6 + [_F, _I, _F, _P],
     ("prefix_attention_fwd", "mtvaf_prefix_attention_fwd_smem"): [_I],
     ("prefix_attention_bwd", "mtvaf_prefix_attention_bwd_smem"): [_I, _I],
 }
@@ -201,12 +258,21 @@ def _raise_on(err: int, what: str):
         raise RuntimeError(f"{what} launch failed: {why}")
 
 
+def _keep_scale(rate: float) -> float:
+    return 1.0 / (1.0 - rate) if rate > 0.0 else 1.0
+
+
 def _dropout_args(seed: int, rate: float):
     """(seed_lo, seed_hi, threshold, keep_scale); threshold 0 = no dropout."""
     if rate <= 0.0:
         return 0, 0, 0, 1.0
     return seed & _U32, (seed >> 32) & _U32, _threshold(rate), \
-        1.0 / (1.0 - rate)
+        _keep_scale(rate)
+
+
+def _no_words(q):
+    """The keep words of a call without dropout: none."""
+    return q.new_empty((0,), dtype=torch.int32)
 
 
 def _check(q, k, v, bias, *more):
@@ -248,7 +314,8 @@ def _check_rows(**tensors):
 
 def prefix_attention_cuda(q, k, v, bias, *, seed: int = 0,
                           rate: float = 0.0, head_offset: int = 0):
-    """Launch the forward kernel on the current stream; returns (o, lse).
+    """Launch the forward kernel on the current stream; returns (o, lse,
+    words), words the keep words of its dropout mask (empty without).
     ``head_offset``: the global index of q's head 0 (the masks' key)."""
     _check(q, k, v, bias)
     b, h, s, d = q.shape
@@ -256,34 +323,37 @@ def prefix_attention_cuda(q, k, v, bias, *, seed: int = 0,
     bias = bias.to(torch.float32).contiguous()
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s, 1), dtype=torch.float32, device=q.device)
+    words = torch.empty(keep_words_shape(b, h, s, t), dtype=torch.int32,
+                        device=q.device) if rate > 0.0 else _no_words(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = _fn("prefix_attention_fwd", "mtvaf_prefix_attention_fwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), b, h, s, t, d, bias.shape[2],
-            1.0 / math.sqrt(d), _DTYPE_CODES[q.dtype],
+            o.data_ptr(), lse.data_ptr(),
+            words.data_ptr() if rate > 0.0 else None, b, h, s, t, d,
+            bias.shape[2], 1.0 / math.sqrt(d), _DTYPE_CODES[q.dtype],
             *_dropout_args(seed, rate), head_offset, stream)
     _raise_on(err, "prefix_attention_fwd")
     prefix_attention.launches.add()
-    return o, lse
+    return o, lse, words
 
 
-def _bwd_scratch(q, t: int, rate: float):
-    """The backward kernel's fp32 scratch: delta = rowsum(do * o), (B, H, S),
-    then, with dropout, from a 16-byte boundary, the keep bits its dq pass
-    draws for its dk/dv pass (in either dtype): one 32-bit word per thread
-    of each (64-query, 64-key) tile pair."""
-    b, h, s, _ = q.shape
-    n = -(-b * h * s // 4) * 4
-    if rate > 0.0:
-        n += b * h * -(-s // 64) * -(-t // 64) * 128
-    return torch.empty(n, dtype=torch.float32, device=q.device)
+def _check_words(words, q, t: int):
+    want = keep_words_shape(*q.shape[:3], t)
+    if words is None or words.dtype != torch.int32 \
+            or tuple(words.shape) != want or words.device != q.device \
+            or not words.is_contiguous():
+        raise ValueError("prefix_attention_bwd_cuda: with dropout, words "
+                         f"must be the forward's contiguous int32 {want} "
+                         "on q's device")
 
 
-def prefix_attention_bwd_cuda(q, k, v, bias, o, lse, do, *, seed: int = 0,
-                              rate: float = 0.0, head_offset: int = 0):
+def prefix_attention_bwd_cuda(q, k, v, bias, o, lse, do, words=None, *,
+                              rate: float = 0.0):
     """Launch the backward kernel (its two passes) on the current stream;
-    returns (dq, dk, dv).  One backward call counts one launch."""
+    returns (dq, dk, dv).  With dropout ``rate``, ``words`` are the keep
+    words the forward returned: the backward draws no mask.  One backward
+    call counts one launch."""
     do = do.contiguous()
     _check(q, k, v, bias, o, lse, do)
     b, h, s, d = q.shape
@@ -297,19 +367,22 @@ def prefix_attention_bwd_cuda(q, k, v, bias, o, lse, do, *, seed: int = 0,
             or not lse.is_contiguous():
         raise ValueError("prefix_attention_bwd_cuda: lse must be a "
                          "contiguous fp32 (B, H, S, 1)")
+    if rate > 0.0:
+        _check_words(words, q, t)
     bias = bias.to(torch.float32).contiguous()
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    scratch = _bwd_scratch(q, t, rate)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = _fn("prefix_attention_bwd", "mtvaf_prefix_attention_bwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), b, h, s, t, d,
+            o.data_ptr(), lse.data_ptr(), do.data_ptr(),
+            words.data_ptr() if rate > 0.0 else None, dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), b, h, s, t, d,
             bias.shape[2], 1.0 / math.sqrt(d), _DTYPE_CODES[q.dtype],
-            *_dropout_args(seed, rate), head_offset, stream)
+            _keep_scale(rate), stream)
     _raise_on(err, "prefix_attention_bwd")
     prefix_attention_bwd_cuda.launches.add()
     return dq, dk, dv
@@ -346,15 +419,18 @@ def keep_mask_cuda(seed: int, rate: float, shape, device,
 def prefix_attention_fwd_op(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, bias: torch.Tensor, seed: int,
                             rate: float, head_offset: int = 0
-                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(o, lse) of the forward, dropout ``rate`` under ``seed``, q's head 0
-    being the model's head ``head_offset``."""
-    keep = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """(o, lse, words) of the forward, dropout ``rate`` under ``seed``, q's
+    head 0 being the model's head ``head_offset``; words are the keep words
+    of the mask (:func:`pack_keep_words`), empty without dropout."""
+    keep, words = None, _no_words(q)
     if rate > 0.0:
-        keep = keep_factors(seed, rate, q.shape[:3] + (k.shape[2],),
-                            q.device, head_offset)
+        mask = keep_mask_reference(seed, rate, q.shape[:3] + (k.shape[2],),
+                                   q.device, head_offset)
+        keep, words = _factors(mask, rate), pack_keep_words(mask)
     o, lse = prefix_attention_reference(q, k, v, bias, keep)
-    return o.contiguous(), lse.contiguous()
+    return o.contiguous(), lse.contiguous(), words
 
 
 @prefix_attention_fwd_op.register_kernel("cuda")
@@ -365,8 +441,10 @@ def _fwd_cuda(q, k, v, bias, seed, rate, head_offset=0):
 
 @prefix_attention_fwd_op.register_fake
 def _fwd_fake(q, k, v, bias, seed, rate, head_offset=0):
+    words = q.new_empty(keep_words_shape(*q.shape[:3], k.shape[2]),
+                        dtype=torch.int32) if rate > 0.0 else _no_words(q)
     return (torch.empty_like(q, memory_format=torch.contiguous_format),
-            q.new_empty(q.shape[:3] + (1,), dtype=torch.float32))
+            q.new_empty(q.shape[:3] + (1,), dtype=torch.float32), words)
 
 
 @torch.library.custom_op("mtvaf::prefix_attention_bwd", mutates_args=(),
@@ -374,48 +452,49 @@ def _fwd_fake(q, k, v, bias, seed, rate, head_offset=0):
 def prefix_attention_bwd_op(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, bias: torch.Tensor,
                             o: torch.Tensor, lse: torch.Tensor,
-                            do: torch.Tensor, seed: int, rate: float,
-                            head_offset: int = 0
+                            do: torch.Tensor, words: torch.Tensor,
+                            rate: float
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
-    """(dq, dk, dv) of the backward, regenerating the forward's masks."""
+    """(dq, dk, dv) of the backward, dropout ``rate`` with the mask of the
+    forward's keep ``words``."""
     keep = None
     if rate > 0.0:
-        keep = keep_factors(seed, rate, q.shape[:3] + (k.shape[2],),
-                            q.device, head_offset)
+        keep = _factors(unpack_keep_words(
+            words, q.shape[:3] + (k.shape[2],)), rate)
     return tuple(g.contiguous() for g in prefix_attention_bwd_reference(
         q, k, v, bias, o, lse, do, keep))
 
 
 @prefix_attention_bwd_op.register_kernel("cuda")
-def _bwd_cuda(q, k, v, bias, o, lse, do, seed, rate, head_offset=0):
-    return prefix_attention_bwd_cuda(q, k, v, bias, o, lse, do, seed=seed,
-                                     rate=rate, head_offset=head_offset)
+def _bwd_cuda(q, k, v, bias, o, lse, do, words, rate):
+    return prefix_attention_bwd_cuda(q, k, v, bias, o, lse, do, words,
+                                     rate=rate)
 
 
 @prefix_attention_bwd_op.register_fake
-def _bwd_fake(q, k, v, bias, o, lse, do, seed, rate, head_offset=0):
+def _bwd_fake(q, k, v, bias, o, lse, do, words, rate):
     return tuple(torch.empty_like(x, memory_format=torch.contiguous_format)
                  for x in (q, k, v))
 
 
 def _setup_context(ctx, inputs, output):
     q, k, v, bias, seed, rate, head_offset = inputs
-    o, lse = output
-    ctx.save_for_backward(q, k, v, bias, o, lse)
-    ctx.seed, ctx.rate, ctx.head_offset = seed, rate, head_offset
-    ctx.mark_non_differentiable(lse)
+    o, lse, words = output
+    ctx.save_for_backward(q, k, v, bias, o, lse, words)
+    ctx.rate = rate
+    ctx.mark_non_differentiable(lse, words)
 
 
-def _backward(ctx, do, _dlse):
-    q, k, v, bias, o, lse = ctx.saved_tensors
-    dq, dk, dv = prefix_attention_bwd_op(q, k, v, bias, o, lse, do, ctx.seed,
-                                         ctx.rate, ctx.head_offset)
+def _backward(ctx, do, _dlse, _dwords):
+    q, k, v, bias, o, lse, words = ctx.saved_tensors
+    dq, dk, dv = prefix_attention_bwd_op(q, k, v, bias, o, lse, do, words,
+                                         ctx.rate)
     return dq, dk, dv, None, None, None, None
 
 
 # No gradient for the bias (a constant mask), the seed, the rate or the head
-# offset; lse is not differentiable.
+# offset; lse and the keep words are not differentiable.
 prefix_attention_fwd_op.register_autograd(_backward,
                                           setup_context=_setup_context)
 
@@ -428,15 +507,16 @@ def prefix_attention(q, k, v, bias, *, dropout_rate: float = 0.0, rng=None,
 
     ``rng`` (a host ``torch.Generator``) with a nonzero ``dropout_rate``
     turns attention-probability dropout on: one 63-bit seed is drawn from
-    it per call, and the backward regenerates the same mask from that seed.
+    it per call, and the backward takes the forward's mask as keep words.
     ``head_offset`` is the model's index of q's head 0 (a tensor-parallel
     rank's first head), which keys the masks.  CUDA tensors go to the
     kernels, CPU tensors to the plain versions.
     """
     rate = float(dropout_rate) if rng is not None else 0.0
     seed = draw_seed(rng) if rate > 0.0 else 0
-    return prefix_attention_fwd_op(q, k, v, bias, seed, rate,
-                                   int(head_offset))
+    o, lse, _ = prefix_attention_fwd_op(q, k, v, bias, seed, rate,
+                                        int(head_offset))
+    return o, lse
 
 
 prefix_attention.launches = _LaunchCount()

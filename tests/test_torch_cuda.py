@@ -8,10 +8,12 @@ every test here skips."""
 import pytest
 import torch
 
+from mtvaf_tpu_torch.kernels import prefix_attention as pa
 from mtvaf_tpu_torch.kernels.prefix_attention import (
-    keep_factors, keep_mask_cuda, keep_mask_reference, prefix_attention,
-    prefix_attention_bwd_cuda, prefix_attention_bwd_reference,
-    prefix_attention_cuda, prefix_attention_reference)
+    keep_factors, keep_mask_cuda, keep_mask_reference, keep_words_shape,
+    prefix_attention, prefix_attention_bwd_cuda,
+    prefix_attention_bwd_reference, prefix_attention_cuda,
+    prefix_attention_reference, unpack_keep_words)
 from mtvaf_tpu_torch.train.augment import span_cutoff
 
 
@@ -81,6 +83,19 @@ def test_prefix_attention_rejects_what_the_kernel_does_not_take(cuda):
 SEED = 0x0123456789ABCDEF
 
 
+def assert_words_hold_the_mask(words, seed, rate, shape, device,
+                               head_offset=0):
+    """K1's keep words, unpacked, are the plain Philox mask bit for bit
+    (an empty tensor without dropout)."""
+    assert words.dtype == torch.int32 and words.device.type == device.type
+    if not rate:
+        assert words.numel() == 0
+        return
+    assert tuple(words.shape) == keep_words_shape(*shape)
+    assert torch.equal(unpack_keep_words(words, shape), keep_mask_reference(
+        seed, rate, shape, device, head_offset=head_offset))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 3, 13, 17), (32, 12, 128, 144)])
 def test_keep_mask_entry_is_bit_identical_to_plain_philox(cuda, shape):
@@ -120,13 +135,15 @@ def test_prefix_attention_backward_kernel_matches_plain(cuda, B, H, S, T,
     mask[0, -1, :3] = 0.0
     bias = ((1.0 - mask) * -10000.0)[:, None]
     keep = keep_factors(SEED, rate, (B, H, S, T), cuda) if rate else None
-    o, lse = prefix_attention_cuda(q, k, v, bias, seed=SEED, rate=rate)
+    o, lse, words = prefix_attention_cuda(q, k, v, bias, seed=SEED,
+                                          rate=rate)
+    assert_words_hold_the_mask(words, SEED, rate, (B, H, S, T), cuda)
     ro, _ = prefix_attention_reference(q.float(), k.float(), v.float(), bias,
                                        keep)
     torch.testing.assert_close(o.float(), ro, atol=1e-2 if dtype ==
                                torch.bfloat16 else 1e-5, rtol=0)
     before = prefix_attention_bwd_cuda.launches.value
-    grads = prefix_attention_bwd_cuda(q, k, v, bias, o, lse, do, seed=SEED,
+    grads = prefix_attention_bwd_cuda(q, k, v, bias, o, lse, do, words,
                                       rate=rate)
     torch.cuda.synchronize()
     assert prefix_attention_bwd_cuda.launches.value == before + 1
@@ -137,18 +154,28 @@ def test_prefix_attention_backward_kernel_matches_plain(cuda, B, H, S, T,
                                    rtol=0, msg=f"d{name}")
 
 
+# (K1 against its plain version, K1 against fp32 on the same values, K2
+# against its plain backward, K2 against fp32 autograd) by dtype.
+CUT_ATOL = {torch.bfloat16: (2e-2, 1e-2, 1e-2, 1.5e-2),
+            torch.float32: (1e-5, 1e-5, 1e-5, 1e-4)}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_kernels_hold_a_cut_mask_bias(cuda, rate):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_kernels_hold_a_cut_mask_bias(cuda, rate, dtype):
     """The span cutoff (``--do_aug``) zeroes a tenth of each row's keys
     inside the text: the bias row has holes, not only a ragged tail.  K1
-    against its plain version (2e-2 in bf16, 1e-2 against fp32 on the same
-    values) and K2 against its plain backward (1e-2) and fp32 autograd
-    (1.5e-2), as the cases above."""
+    against its plain version (bf16: 2e-2, 1e-2 against fp32 on the same
+    values) with its keep words the plain mask, and K2 on those words
+    against its plain backward (1e-2) and fp32 autograd (1.5e-2), as the
+    cases above (fp32: 1e-5, and 1e-4 against autograd)."""
+    fwd_atol, fwd_atol32, bwd_atol, bwd_atol32 = CUT_ATOL[dtype]
     B, H, S = 4, 12, 128
     g = torch.Generator(device=cuda).manual_seed(5)
     q, k, v, do = (torch.randn(B, H, S, 64, device=cuda, generator=g)
-                   .to(torch.bfloat16) for _ in range(4))
+                   .to(dtype) for _ in range(4))
     lengths = torch.tensor([128, 100, 77, 64], device=cuda)
     mask = (torch.arange(S, device=cuda)[None] < lengths[:, None]).long()
     _, cut = span_cutoff(torch.zeros(B, S, 1, device=cuda), mask,
@@ -158,13 +185,15 @@ def test_kernels_hold_a_cut_mask_bias(cuda, rate):
     assert (cut[:, 1:] > cut[:, :-1]).any()         # holes inside the row
     bias = ((1.0 - cut.float()) * -10000.0)[:, None, None, :]
     keep = keep_factors(SEED, rate, (B, H, S, S), cuda) if rate else None
-    o, lse = prefix_attention_cuda(q, k, v, bias, seed=SEED, rate=rate)
+    o, lse, words = prefix_attention_cuda(q, k, v, bias, seed=SEED,
+                                          rate=rate)
+    assert_words_hold_the_mask(words, SEED, rate, (B, H, S, S), cuda)
     ro, rlse = prefix_attention_reference(q, k, v, bias, keep)
     fo, _ = prefix_attention_reference(q.float(), k.float(), v.float(), bias,
                                        keep)
-    torch.testing.assert_close(o.float(), ro.float(), atol=2e-2, rtol=0)
-    torch.testing.assert_close(o.float(), fo, atol=1e-2, rtol=0)
-    grads = prefix_attention_bwd_cuda(q, k, v, bias, o, lse, do, seed=SEED,
+    torch.testing.assert_close(o.float(), ro.float(), atol=fwd_atol, rtol=0)
+    torch.testing.assert_close(o.float(), fo, atol=fwd_atol32, rtol=0)
+    grads = prefix_attention_bwd_cuda(q, k, v, bias, o, lse, do, words,
                                       rate=rate)
     plain = prefix_attention_bwd_reference(q, k, v, bias, o, lse, do, keep)
     leaves = [x.float().requires_grad_() for x in (q, k, v)]
@@ -172,26 +201,60 @@ def test_kernels_hold_a_cut_mask_bias(cuda, rate):
         prefix_attention_reference(*leaves, bias, keep)[0], leaves,
         do.float())
     for name, got, want, want32 in zip("qkv", grads, plain, auto):
-        torch.testing.assert_close(got.float(), want.float(), atol=1e-2,
+        torch.testing.assert_close(got.float(), want.float(), atol=bwd_atol,
                                    rtol=0, msg=f"d{name}")
-        torch.testing.assert_close(got.float(), want32, atol=1.5e-2,
+        torch.testing.assert_close(got.float(), want32, atol=bwd_atol32,
                                    rtol=0, msg=f"d{name} vs fp32")
 
 
+class _Handover:
+    """Records the keep words each K1 call returns and each K2 call takes,
+    through the operators (the wrappers patched in the module)."""
+
+    def __init__(self, monkeypatch):
+        self.k1, self.k2 = [], []
+        fwd, bwd = pa.prefix_attention_cuda, pa.prefix_attention_bwd_cuda
+
+        def k1(*args, **kwargs):
+            out = fwd(*args, **kwargs)
+            self.k1.append(out[2])
+            return out
+
+        def k2(*args, **kwargs):
+            self.k2.append(args[7])
+            return bwd(*args, **kwargs)
+
+        k2.launches = bwd.launches   # the wrapper counts by its own name
+
+        monkeypatch.setattr(pa, "prefix_attention_cuda", k1)
+        monkeypatch.setattr(pa, "prefix_attention_bwd_cuda", k2)
+
+
 @pytest.mark.cuda
-def test_autograd_runs_both_kernels_and_regenerates_the_mask(cuda):
+def test_autograd_runs_both_kernels_and_hands_over_the_mask(cuda,
+                                                            monkeypatch):
+    """Autograd through the operators launches K1 once and K2 once; K2
+    takes the very keep words K1 returned, which hold the seed's mask; the
+    values equal the CPU operators'."""
+    from mtvaf_tpu_torch.core.rng import draw_seed
     g = torch.Generator(device=cuda).manual_seed(2)
     q, k, v = (torch.randn(2, 12, n, 64, device=cuda, generator=g)
                .requires_grad_() for n in (32, 48, 48))
     bias = torch.zeros(2, 1, 1, 48, device=cuda)
     fwd0 = prefix_attention.launches.value
     bwd0 = prefix_attention_bwd_cuda.launches.value
+    handover = _Handover(monkeypatch)
     o, _ = prefix_attention(q, k, v, bias, dropout_rate=0.1,
                             rng=torch.Generator().manual_seed(3))
     o.square().sum().backward()
     torch.cuda.synchronize()
     assert prefix_attention.launches.value == fwd0 + 1
     assert prefix_attention_bwd_cuda.launches.value == bwd0 + 1
+    (words,), (taken,) = handover.k1, handover.k2
+    assert taken.data_ptr() == words.data_ptr()
+    assert_words_hold_the_mask(words, draw_seed(torch.Generator()
+                                                .manual_seed(3)),
+                               0.1, (2, 12, 32, 48), cuda)
     cq, ck, cv = (x.detach().cpu().requires_grad_() for x in (q, k, v))
     co, _ = prefix_attention(cq, ck, cv, bias.cpu(), dropout_rate=0.1,
                              rng=torch.Generator().manual_seed(3))
@@ -236,8 +299,10 @@ def test_bf16_kernels_at_tile_edges(cuda, B, H, S, T, rate, bias_rows,
     q, k, v, do, bias = _edge_inputs(cuda, B, H, S, T, bias_rows, seed=3,
                                      dtype=dtype)
     keep = keep_factors(SEED, rate, (B, H, S, T), cuda) if rate else None
-    o, lse = prefix_attention_cuda(q, k, v, bias, seed=SEED, rate=rate)
+    o, lse, words = prefix_attention_cuda(q, k, v, bias, seed=SEED,
+                                          rate=rate)
     torch.cuda.synchronize()
+    assert_words_hold_the_mask(words, SEED, rate, (B, H, S, T), cuda)
     ro, _ = prefix_attention_reference(q, k, v, bias, keep)
     _, rlse = prefix_attention_reference(q, k, v, bias)   # dropout-free
     fo, flse = prefix_attention_reference(q.float(), k.float(), v.float(),
@@ -246,7 +311,7 @@ def test_bf16_kernels_at_tile_edges(cuda, B, H, S, T, rate, bias_rows,
     torch.testing.assert_close(lse, rlse, atol=atol, rtol=0)
     torch.testing.assert_close(o.float(), fo, atol=atol_vs_fp32, rtol=0)
     torch.testing.assert_close(lse, flse, atol=atol_vs_fp32, rtol=0)
-    grads = prefix_attention_bwd_cuda(q, k, v, bias, o, lse, do, seed=SEED,
+    grads = prefix_attention_bwd_cuda(q, k, v, bias, o, lse, do, words,
                                       rate=rate)
     torch.cuda.synchronize()
     plain = prefix_attention_bwd_reference(q, k, v, bias, o, lse, do, keep)
@@ -258,18 +323,21 @@ def test_bf16_kernels_at_tile_edges(cuda, B, H, S, T, rate, bias_rows,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_backward_kernel_is_bitwise_deterministic(cuda, dtype):
-    """No atomics: two runs on the same inputs give the same bits."""
+    """No atomics: two runs on the same inputs give the same bits (K1's keep
+    words too)."""
     g = torch.Generator(device=cuda).manual_seed(4)
     q, k, v, do = (torch.randn(32, 12, n, 64, device=cuda, generator=g)
                    .to(dtype) for n in (128, 144, 144, 128))
     bias = torch.zeros(32, 1, 1, 144, device=cuda)
     bias[-1, ..., -9:] = -10000.0
-    o, lse = prefix_attention_cuda(q, k, v, bias, seed=SEED, rate=0.1)
-    first = prefix_attention_bwd_cuda(q, k, v, bias, o, lse, do, seed=SEED,
+    o, lse, words = prefix_attention_cuda(q, k, v, bias, seed=SEED, rate=0.1)
+    again = prefix_attention_cuda(q, k, v, bias, seed=SEED, rate=0.1)[2]
+    first = prefix_attention_bwd_cuda(q, k, v, bias, o, lse, do, words,
                                       rate=0.1)
-    second = prefix_attention_bwd_cuda(q, k, v, bias, o, lse, do, seed=SEED,
+    second = prefix_attention_bwd_cuda(q, k, v, bias, o, lse, do, again,
                                        rate=0.1)
     torch.cuda.synchronize()
+    assert torch.equal(words, again), "K1's keep words differ"
     for name, a, b in zip("qkv", first, second):
         assert torch.equal(a, b), f"d{name} differs between two runs"
 
@@ -289,7 +357,7 @@ def test_misaligned_rows_raise_instead_of_launching(cuda):
     fwd0 = prefix_attention.launches.value
     with pytest.raises(ValueError, match="aligned"):
         prefix_attention_cuda(bad, kv, kv, bias)
-    o, lse = prefix_attention_cuda(good, kv, kv, bias)
+    o, lse, _ = prefix_attention_cuda(good, kv, kv, bias)
     bwd0 = prefix_attention_bwd_cuda.launches.value
     with pytest.raises(ValueError, match="aligned"):
         prefix_attention_bwd_cuda(bad, kv, kv, bias, o, lse, good)
@@ -312,7 +380,7 @@ def test_misaligned_rows_raise_instead_of_launching(cuda):
 def test_operators_launch_the_kernels(cuda, dtype, fwd_atol, bwd_atol, rate):
     """``mtvaf::prefix_attention_fwd`` / ``_bwd`` on CUDA tensors launch K1
     and K2 (the counters move) and agree with the plain versions at the
-    wrappers' tolerances."""
+    wrappers' tolerances; the forward's keep words hold the mask."""
     B, H, S, T = 2, 12, 40, 56
     g = torch.Generator(device=cuda).manual_seed(4)
     q, k, v, do = (torch.randn(B, H, n, 64, device=cuda, generator=g)
@@ -323,10 +391,12 @@ def test_operators_launch_the_kernels(cuda, dtype, fwd_atol, bwd_atol, rate):
     keep = keep_factors(SEED, rate, (B, H, S, T), cuda) if rate else None
     fwd0 = prefix_attention.launches.value
     bwd0 = prefix_attention_bwd_cuda.launches.value
-    o, lse = torch.ops.mtvaf.prefix_attention_fwd(q, k, v, bias, SEED, rate)
+    o, lse, words = torch.ops.mtvaf.prefix_attention_fwd(q, k, v, bias, SEED,
+                                                         rate)
     dq, dk, dv = torch.ops.mtvaf.prefix_attention_bwd(q, k, v, bias, o, lse,
-                                                      do, SEED, rate)
+                                                      do, words, rate)
     torch.cuda.synchronize()
+    assert_words_hold_the_mask(words, SEED, rate, (B, H, S, T), cuda)
     assert prefix_attention.launches.value == fwd0 + 1
     assert prefix_attention_bwd_cuda.launches.value == bwd0 + 1
     ro, _ = prefix_attention_reference(q, k, v, bias, keep)
@@ -378,10 +448,10 @@ def test_an_exported_program_launches_k1(cuda, tmp_path):
     assert got == want
 
 
-def _remat_step(cuda, remat):
+def _remat_step(cuda, remat, monkeypatch):
     """One bf16 CRF train step with dropout on the card at a width whose
     head dim (64) the kernels take; returns (loss, grads by path, K1 and
-    K2 launches)."""
+    K2 launches, the keep words K1 returned and K2 took in order)."""
     import dataclasses
 
     from mtvaf_tpu_torch.core.config import Config
@@ -405,28 +475,40 @@ def _remat_step(cuda, remat):
                                                  seed=1).items()}
     k1, k2 = prefix_attention.launches.value, \
         prefix_attention_bwd_cuda.launches.value
-    loss, _ = make_crf_loss_fn(cfg, bert_cfg)(state.params, batch,
-                                              fold_in(7, 0))
-    leaves = dict(tree_items(state.params))
-    grads = torch.autograd.grad(loss, list(leaves.values()),
-                                allow_unused=True)
+    with monkeypatch.context() as patch:
+        handover = _Handover(patch)
+        loss, _ = make_crf_loss_fn(cfg, bert_cfg)(state.params, batch,
+                                                  fold_in(7, 0))
+        leaves = dict(tree_items(state.params))
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True)
     torch.cuda.synchronize()
     return (loss, dict(zip(leaves, grads)),
             prefix_attention.launches.value - k1,
-            prefix_attention_bwd_cuda.launches.value - k2)
+            prefix_attention_bwd_cuda.launches.value - k2, handover)
 
 
 @pytest.mark.cuda
-def test_remat_replays_k1_with_the_same_masks(cuda):
+def test_remat_replays_k1_with_the_same_masks(cuda, monkeypatch):
     """Remat against no remat from one generator, dropout live: the loss
     bit for bit, every gradient leaf within rtol 1e-4 / atol 1e-5 (the
     replay runs the same kernels on the same inputs; the tolerance admits
     a library that picks its summation order anew per call; read bitwise
     on every leaf at BERT-base width, S=500), and K1 launched twice per
-    layer (the replay), K2 once."""
-    loss0, g0, k1_0, k2_0 = _remat_step(cuda, False)
-    loss1, g1, k1_1, k2_1 = _remat_step(cuda, True)
+    layer (the replay), K2 once.  Each K2 takes the keep words of its
+    layer's replay, which equal the forward's words of that layer and
+    those K2 takes without remat."""
+    loss0, g0, k1_0, k2_0, plain = _remat_step(cuda, False, monkeypatch)
+    loss1, g1, k1_1, k2_1, remat = _remat_step(cuda, True, monkeypatch)
     assert (k1_0, k2_0) == (4, 4) and (k1_1, k2_1) == (8, 4)
+    # the forward runs layers 0-3, the backward replays and takes 3-0
+    assert all(w.numel() for w in remat.k1)
+    for i, taken in enumerate(remat.k2):
+        replay, first = remat.k1[4 + i], remat.k1[3 - i]
+        assert taken.data_ptr() == replay.data_ptr()
+        assert torch.equal(replay, first)
+        assert torch.equal(taken, plain.k2[i])
+        assert torch.equal(plain.k2[i], plain.k1[3 - i])
     assert torch.equal(loss0, loss1)
     for path, a in g0.items():
         b = g1[path]
@@ -460,8 +542,8 @@ def test_parallel_decode_matches_the_scan_on_the_card(cuda, s):
 def test_head_offset_is_the_full_calls_slice(cuda, dtype, rate):
     """A tensor-parallel rank's call over heads [h0, H) keyed from h0 is,
     bit for bit, heads h0.. of the call over every head: the mask entry
-    point, K1 (o and lse) and K2 (dq, dk, dv); and K1/K2 hold against
-    their plain versions given the offset masks."""
+    point, K1 (o, lse and the keep words) and K2 (dq, dk, dv); and K1/K2
+    hold against their plain versions given the offset masks."""
     b, h, s, t, d, h0 = 2, 12, 70, 86, 64, 6
     g = torch.Generator(device=cuda).manual_seed(3)
     q, k, v, do = (torch.randn(b, h, n, d, device=cuda, generator=g)
@@ -475,14 +557,19 @@ def test_head_offset_is_the_full_calls_slice(cuda, dtype, rate):
                                             cuda)[:, h0:])
     assert torch.equal(mask, keep_mask_reference(
         seed, 0.1, (b, h - h0, s, t), cuda, head_offset=h0))
-    o, lse = prefix_attention_cuda(*part[:3], bias, seed=seed, rate=rate,
-                                   head_offset=h0)
-    o12, lse12 = prefix_attention_cuda(q, k, v, bias, seed=seed, rate=rate)
+    o, lse, words = prefix_attention_cuda(*part[:3], bias, seed=seed,
+                                          rate=rate, head_offset=h0)
+    o12, lse12, words12 = prefix_attention_cuda(q, k, v, bias, seed=seed,
+                                                rate=rate)
     grads = prefix_attention_bwd_cuda(*part[:3], bias, o, lse, part[3],
-                                      seed=seed, rate=rate, head_offset=h0)
+                                      words, rate=rate)
     grads12 = prefix_attention_bwd_cuda(q, k, v, bias, o12, lse12, do,
-                                        seed=seed, rate=rate)
+                                        words12, rate=rate)
     torch.cuda.synchronize()
+    assert_words_hold_the_mask(words, seed, rate, (b, h - h0, s, t), cuda,
+                               head_offset=h0)
+    if rate:
+        assert torch.equal(words, words12[:, h0:])
     assert torch.equal(o, o12[:, h0:]) and torch.equal(lse, lse12[:, h0:])
     for got, whole in zip(grads, grads12):
         assert torch.equal(got, whole[:, h0:])

@@ -304,7 +304,8 @@ def test_dropout_forward_backward_vs_extracted_masks():
 def test_operators_pass_opcheck(dtype, rate):
     """``torch.library.opcheck`` on both operators with CPU tensors: the
     schema, the fake implementation against the real one, and (for the
-    forward) the autograd registration."""
+    forward) the autograd registration.  The forward returns the keep words
+    (int32) beside o and lse, and the backward takes them."""
     from mtvaf_tpu_torch.kernels.prefix_attention import (
         prefix_attention_bwd_op, prefix_attention_fwd_op)
 
@@ -315,18 +316,19 @@ def test_operators_pass_opcheck(dtype, rate):
                           (q.requires_grad_(), k.requires_grad_(),
                            v.requires_grad_(), bias, seed, rate))
     q, k, v = (x.detach() for x in (q, k, v))
-    o, lse = prefix_attention_fwd_op(q, k, v, bias, seed, rate)
+    o, lse, words = prefix_attention_fwd_op(q, k, v, bias, seed, rate)
     assert lse.dtype == torch.float32 and lse.shape == q.shape[:3] + (1,)
+    assert words.dtype == torch.int32
     do = torch.from_numpy(np.random.RandomState(3).randn(*q.shape)
                           .astype(np.float32)).to(dtype)
     torch.library.opcheck(prefix_attention_bwd_op,
-                          (q, k, v, bias, o, lse, do, seed, rate))
+                          (q, k, v, bias, o, lse, do, words, rate))
 
 
 def test_operator_gradient_is_the_plain_backward():
     """On the CPU autograd of the forward operator runs the backward
-    operator, whose value is the plain backward's, masks regenerated from
-    the seed; lse is not differentiable."""
+    operator, whose value is the plain backward's on the masks of the seed
+    (handed over as keep words); lse is not differentiable."""
     q, k, v, bias = _torch(*make_inputs(1))
     q, k, v = (x.requires_grad_() for x in (q, k, v))
     g = torch.Generator().manual_seed(5)
