@@ -60,8 +60,13 @@ Phases, each of which fails the run by raising:
    card, no placeholder image and no all-zero guide row, and the run's
    files; reload the best model with ``load_predictor`` and tag a few
    sentences; print per-epoch time and examples/s beside phase 9's bare
-   step, the guide-fill time, eval sentences/s and the checkpoint's write
-   and load times; then stop a run with a real SIGTERM after epoch 1,
+   step, the guide-fill time and eval sentences/s; time the background
+   checkpoint in three rounds (``checkpoint_timing``: the stall a save
+   costs the loop, the writer's seconds, ``wait=True``'s seconds, 10 train
+   steps with a write in flight against 10 without, the landed file bit
+   for bit the state at the save, the pinned buffer's bytes and first
+   allocation, a load's seconds, each line with the card's name and power
+   limit); then stop a run with a real SIGTERM after epoch 1,
    resume it, and require its params and optimizer state to equal an
    uninterrupted run's bit for bit (under
    ``torch.use_deterministic_algorithms``, in a child process started with
@@ -1389,9 +1394,6 @@ def trainer_phase(bare_step, keep):
     SIGTERM after epoch 1, resume it, and hold the result against an
     uninterrupted run.  The run directory goes to ``keep`` (phase 13)."""
     import os
-    import shutil
-    from mtvaf_tpu_torch.core.checkpoint import (load_checkpoint,
-                                                 save_checkpoint)
     from mtvaf_tpu_torch.data.readers import PLACEHOLDER
     from mtvaf_tpu_torch.kernels.prefix_attention import (
         keep_mask_cuda, prefix_attention, prefix_attention_bwd_cuda)
@@ -1483,18 +1485,7 @@ def trainer_phase(bare_step, keep):
             evals[name] = {"sentences": len(ds), "seconds": dt,
                            "sentences_per_s": len(ds) / dt}
 
-        # checkpoint write and load of the full train state
-        ckpt = os.path.join(tmp, "ckpt_timing")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        path = save_checkpoint(ckpt, tr.state, step=99)
-        write_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        load_checkpoint(ckpt, tr.state, 99)
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
-        ckpt_bytes = os.path.getsize(path)
-        shutil.rmtree(ckpt)
+        ckpt_timing = checkpoint_timing(tr, os.path.join(tmp, "ckpt_timing"))
         split = step_split(tr)
         guide = {"images": gc.computed, "seconds": gc.compute_s,
                  "ms_per_image": gc.compute_s / gc.computed * 1e3}
@@ -1503,8 +1494,7 @@ def trainer_phase(bare_step, keep):
                "bare_step_wall_examples_per_s":
                    bare_step["wall_examples_per_s"],
                "guide_fill": guide, "eval": evals,
-               "checkpoint": {"bytes": ckpt_bytes, "write_s": write_s,
-                              "load_s": load_s},
+               "checkpoint": ckpt_timing,
                "step_split": split,
                "train_steps": steps, "eval_batches": eval_batches,
                "k1_launches": k1, "k2_launches": k2, "mask_launches": masks,
@@ -1516,6 +1506,111 @@ def trainer_phase(bare_step, keep):
         log("trainer_path", json.dumps(out))
 
         out["resume"] = resume_in_child(root, bert_dir, cache, tmp)
+    return out
+
+
+def _state_tensors(state):
+    """Every tensor of a train state, by name (params, fp32 master, AdamW
+    moments)."""
+    from mtvaf_tpu_torch.train.optim import tree_items
+    from mtvaf_tpu_torch.train.steps import MasterState
+    opt = state.opt_state
+    out = {f"params/{k}": v for k, v in tree_items(state.params)}
+    if isinstance(opt, MasterState):
+        out.update({f"master/{k}": v for k, v in tree_items(opt.master)})
+        opt = opt.inner
+    out.update({f"mu/{i}": v for i, v in enumerate(opt.mu)})
+    out.update({f"nu/{i}": v for i, v in enumerate(opt.nu)})
+    return out
+
+
+CKPT_ROUNDS, CKPT_STEPS = 3, 10
+
+
+def checkpoint_timing(tr, ckpt):
+    """The full train state's checkpoint on the trained flagship trainer,
+    in ``CKPT_ROUNDS`` rounds, each in turn: a save with ``wait=True``;
+    ``CKPT_STEPS`` train steps with no write in flight; a background save
+    (the seconds until it returns: the stall the epoch loop sees) followed
+    at once by ``CKPT_STEPS`` steps while the writer works; the writer's
+    own seconds until the file landed; then the landed file, loaded, bit
+    for bit against a clone of the state taken at the save (the steps
+    updated the state in place before the file landed).  Also the host
+    buffer's bytes and its first allocation (made by the CLI run's first
+    epoch checkpoint), and a load's seconds."""
+    import shutil
+    from mtvaf_tpu_torch.core import checkpoint
+    from mtvaf_tpu_torch.data.datasets import iterate_batches
+
+    card = card_line()
+    ds = tr.train_dataset
+    batch = tr._attach_guides(next(iterate_batches(ds.arrays, TRAIN_B)), ds)
+    batch.pop("batch_valid")
+    dev = tr._device_batch(batch)
+
+    def steps():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(CKPT_STEPS):
+            tr.state, _ = tr.train_step(tr.state, dev, SEED)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    steps()                                       # warm
+    rounds = []
+    for r in range(CKPT_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save_checkpoint(ckpt, tr.state, step=3 * r, wait=True)
+        wait_s = time.perf_counter() - t0
+        idle_ms = steps()
+        at_save = {k: v.detach().clone()
+                   for k, v in _state_tensors(tr.state).items()}
+        step_at_save = tr.state.step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = checkpoint.save_checkpoint(ckpt, tr.state, step=3 * r + 1)
+        stall_s = time.perf_counter() - t0
+        busy_ms = steps()
+        still_writing = checkpoint._WRITE["thread"] is not None \
+            and checkpoint._WRITE["thread"].is_alive()
+        checkpoint.wait_for_checkpoints()
+        stats = checkpoint.checkpoint_stats()
+        t0 = time.perf_counter()
+        loaded = checkpoint.load_checkpoint(ckpt, tr.state, 3 * r + 1)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        got = _state_tensors(loaded)
+        differ = [k for k, v in at_save.items()
+                  if got[k].dtype != v.dtype or not torch.equal(got[k], v)]
+        if got.keys() != at_save.keys() or differ \
+                or loaded.step != step_at_save:
+            raise AssertionError(
+                f"checkpoint round {r}: the landed file differs from the "
+                f"state at the save in {differ[:8]} (step {loaded.step} "
+                f"against {step_at_save})")
+        row = {"round": r, "wait_true_s": wait_s, "stall_s": stall_s,
+               "copy_s": stats["copy_s"], "writer_s": stats["write_s"],
+               "steps_idle_ms": idle_ms, "steps_writing_ms": busy_ms,
+               "writer_alive_after_steps": still_writing,
+               "load_s": load_s, "file_bytes": os.path.getsize(path),
+               "bitwise_tensors": len(at_save)}
+        log("checkpoint_round", json.dumps(row), card)
+        rounds.append(row)
+        del loaded, got, at_save
+        torch.cuda.empty_cache()
+    stats = checkpoint.checkpoint_stats()
+    shutil.rmtree(ckpt)
+    out = {"rounds": rounds, "bytes": stats["bytes"],
+           "buffer_bytes": stats["buffer_bytes"], "pinned": stats["pinned"],
+           "buffer_alloc_s": stats["alloc_s"], "card": card}
+    if not stats["pinned"]:
+        raise AssertionError("the checkpoint host buffer is not pinned")
+    log("checkpoint_summary", json.dumps(
+        {**{k: v for k, v in out.items() if k != "rounds"},
+         **{k: [row[k] for row in rounds]
+            for k in ("stall_s", "writer_s", "wait_true_s", "steps_idle_ms",
+                      "steps_writing_ms")}}), card)
     return out
 
 

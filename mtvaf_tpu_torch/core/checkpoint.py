@@ -10,8 +10,11 @@ Counterpart of ``mtvaf_tpu/core/checkpoint.py``:
   state (params, the optimizer's count and moments with their dtypes, the
   fp32 master under ``--params_bf16``, the step; the whole model under
   tensor parallelism) as one ``torch.save`` file ``step_{n}`` per
-  checkpoint, where the JAX package uses orbax.
-  The write is synchronous;
+  checkpoint, where the JAX package uses orbax.  As orbax does, a save
+  copies the state to the host and returns; a background thread writes
+  the file (see :func:`save_checkpoint`), and :func:`wait_for_checkpoints`
+  (called by :func:`load_checkpoint`, the trainers and ``atexit``) blocks
+  until it has landed and raises the writer's error, if it had one;
 * :func:`load_torch_file` reads ``.pth``/``.pt`` state dicts and
   :func:`transplant` is the NER→ABSA warm start by name.
 
@@ -21,8 +24,11 @@ reader never sees a partial file.
 
 from __future__ import annotations
 
+import atexit
 import os
-from typing import Any, Dict, Optional
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -74,13 +80,109 @@ def load_best(path: str, template_params):
     return _unflatten_into(template_params, flat)
 
 
-def save_checkpoint(ckpt_dir: str, state, step: int) -> str:
-    """Write the full train state to ``ckpt_dir/step_{step}``; returns the
-    file's path.  Under ``--params_bf16`` the state also holds the fp32
-    master (``train.steps.MasterState``), and the params keep their bf16
-    dtype."""
+# The background writer: at most one write in flight, its error kept for
+# the next call that waits, and one host buffer that every save reuses.
+_WRITE: Dict[str, Any] = {"thread": None, "error": None, "hooked": False}
+_HOST: Dict[str, Any] = {"buffer": None, "alloc_s": None}
+_STATS: Dict[str, Any] = {}
+
+
+def wait_for_checkpoints() -> None:
+    """Block until the background checkpoint write (if any) has landed;
+    raise its error if it failed (once: the error is then cleared)."""
+    thread = _WRITE["thread"]
+    if thread is not None:
+        thread.join()
+        _WRITE["thread"] = None
+    error, _WRITE["error"] = _WRITE["error"], None
+    if error is not None:
+        raise error
+
+
+def checkpoint_stats() -> Dict[str, Any]:
+    """The last save's numbers: ``buffer_bytes`` and ``pinned`` of the host
+    buffer, ``alloc_s`` (its first allocation), ``copy_s`` (the host copy,
+    the time the caller waits), ``bytes`` (the payload) and, once the file
+    has landed, ``write_s`` (the writer's own seconds)."""
+    return dict(_STATS)
+
+
+def _host_buffer(nbytes: int, pin: bool) -> torch.Tensor:
+    """The process's host buffer of at least ``nbytes``, page-locked when
+    ``pin``; allocated once and reused (grown, or pinned, when a save
+    needs it).  Only one write is in flight, so one buffer serves all."""
+    buf = _HOST["buffer"]
+    if buf is None or buf.numel() < nbytes or (pin and not buf.is_pinned()):
+        _HOST["buffer"] = None
+        t0 = time.perf_counter()
+        buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=pin)
+        if _HOST["alloc_s"] is None:
+            _HOST["alloc_s"] = time.perf_counter() - t0
+        _HOST["buffer"] = buf
+    return buf
+
+
+def _host_copy(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Host copies of ``tensors`` in the host buffer.  Each copy is a
+    storage of its own (a slice of the buffer's storage), so that
+    ``torch.save`` writes the file it writes for separate tensors; each
+    gets at least 64 bytes, so no two copies start at one address."""
+    sizes = [t.numel() * t.element_size() for t in tensors]
+    offsets, total = [], 0
+    for n in sizes:
+        offsets.append(total)
+        total += max(-(-n // 64) * 64, 64)
+    on_card = any(t.is_cuda for t in tensors)
+    storage = _host_buffer(total, on_card).untyped_storage()
+    out = []
+    for t, offset, n in zip(tensors, offsets, sizes):
+        h = torch.empty(0, dtype=t.dtype).set_(
+            storage[offset:offset + n], 0, t.shape)
+        out.append(h.copy_(t.detach(), non_blocking=True))
+    if on_card:
+        torch.cuda.synchronize()
+    return out
+
+
+def _write_file(path: str, payload: Dict[str, Any]) -> None:
+    """``torch.save`` under a temporary name, renamed into place."""
+    torch.save(payload, path + ".tmp")
+    os.replace(path + ".tmp", path)
+
+
+def _write(path: str, payload: Dict[str, Any],
+           then: Optional[Callable[[], None]]) -> None:
+    try:
+        t0 = time.perf_counter()
+        _write_file(path, payload)
+        if then is not None:
+            then()
+        _STATS["write_s"] = time.perf_counter() - t0
+    except Exception as e:               # raised again by the next wait
+        _WRITE["error"] = e
+
+
+def save_checkpoint(ckpt_dir: str, state, step: Optional[int] = None, *,
+                    wait: bool = False,
+                    then: Optional[Callable[[], None]] = None) -> str:
+    """Write the full train state to ``ckpt_dir/step_{step}`` (``step``
+    defaults to the state's); returns the file's path.  Under
+    ``--params_bf16`` the state also holds the fp32 master
+    (``train.steps.MasterState``), and the params keep their bf16 dtype.
+
+    First waits for the write before (raising its error, if any); then
+    copies params, master, moments, count and step to the host buffer
+    (page-locked when the state is on the card) and returns, while a
+    background thread writes the file.  The copy is what makes that safe:
+    AdamW updates the state in place, so a writer reading the live tensors
+    would write a later step's state.  ``then`` runs in the writer once
+    the file has landed (the trainers' meta file).  ``wait``: return only
+    once the file has landed.  Call from one thread."""
     from ..train.steps import MasterState
+    wait_for_checkpoints()
+    t0 = time.perf_counter()
     os.makedirs(ckpt_dir, exist_ok=True)
+    step = int(state.step) if step is None else step
     opt = state.opt_state
     payload = {"params": _flat(state.params), "step": state.step}
     if isinstance(opt, MasterState):
@@ -88,9 +190,26 @@ def save_checkpoint(ckpt_dir: str, state, step: int) -> str:
         opt = opt.inner
     payload["opt_state"] = {"count": opt.count, "mu": list(opt.mu),
                             "nu": list(opt.nu)}
+    live = {k: v for k, v in tree_items(payload)
+            if isinstance(v, torch.Tensor)}
+    copies = _host_copy(list(live.values()))
+    payload = _unflatten_into(payload, dict(zip(live, copies)))
+    buf = _HOST["buffer"]
+    _STATS.clear()
+    _STATS.update(buffer_bytes=buf.numel(), pinned=buf.is_pinned(),
+                  alloc_s=_HOST["alloc_s"], copy_s=time.perf_counter() - t0,
+                  bytes=sum(c.numel() * c.element_size() for c in copies))
+    if not _WRITE["hooked"]:
+        # a write still in flight at exit lands before the interpreter goes
+        atexit.register(wait_for_checkpoints)
+        _WRITE["hooked"] = True
     path = os.path.join(ckpt_dir, f"step_{step}")
-    torch.save(payload, path + ".tmp")
-    os.replace(path + ".tmp", path)
+    thread = threading.Thread(target=_write, args=(path, payload, then),
+                              name="checkpoint-writer", daemon=True)
+    _WRITE["thread"] = thread
+    thread.start()
+    if wait:
+        wait_for_checkpoints()
     return path
 
 
@@ -99,10 +218,12 @@ def load_checkpoint(ckpt_dir: str, template_state, step: int):
     template's device, with the saved dtypes (the bf16 first moment
     stays bf16; bf16 live params stay bf16 beside their fp32 master).
     A checkpoint holds the whole model; under tensor parallelism this
-    rank's shard of it is kept (the template's layout)."""
+    rank's shard of it is kept (the template's layout).  Waits for a
+    background write first."""
     from ..train.optim import AdamWState
     from ..train.steps import MasterState, TrainState, shard_state
 
+    wait_for_checkpoints()
     flat_template = _flat(template_state.params)
     device = next(iter(flat_template.values())).device
     payload = torch.load(os.path.join(ckpt_dir, f"step_{step}"),
@@ -126,6 +247,9 @@ def load_checkpoint(ckpt_dir: str, template_state, step: int):
 
 
 def latest_checkpoint_step(ckpt_dir: str) -> Optional[int]:
+    """The highest ``step_{n}`` in ``ckpt_dir`` (None without one), once a
+    background write in flight has landed."""
+    wait_for_checkpoints()
     if not os.path.isdir(ckpt_dir):
         return None
     steps = []

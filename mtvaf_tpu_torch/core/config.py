@@ -1,12 +1,17 @@
 """Configuration for the port's serving and training paths.
 
-The fields of ``mtvaf_tpu.core.config.Config`` that the CRF and span
-serving paths, their trainers and the CLI read, with the same names,
-defaults, checks and derived properties.  A JAX run's ``run_config.json`` holds every field of
-the full config; :meth:`Config.from_dict` keeps the ones listed here.  The
-port's own ``run_config.json`` holds only these, all of which the JAX
-package's ``Config`` accepts.  :func:`config_from_args` parses the CLI's
-``--flag`` / ``--no_flag`` surface over these fields.
+Every field of ``mtvaf_tpu.core.config.Config``, with the same names,
+defaults, checks and derived properties, so that a JAX run's
+``run_config.json`` round-trips through :meth:`Config.from_dict` and every
+flag of the JAX CLI parses here (:func:`config_from_args`, ``--flag`` /
+``--no_flag`` for the booleans).  Fields that the JAX package parses and
+no code reads are parsed and ignored here too (the block "parsed for the
+JAX flag surface"); two more are ignored here though the JAX package
+reads them: ``use_pallas_attention`` (the port has no dispatch layer: K1
+and K2 always run on the card) and ``device`` (the port's device is
+``cli.main.main(argv, device=)``'s, through
+``core.platform.resolve_device``).  :meth:`Config.from_dict` drops keys
+that are no field.
 """
 
 from __future__ import annotations
@@ -155,6 +160,22 @@ class Config:
     checkpoint_every: int = 1        # ... every N epochs
     resume: bool = False             # resume from the latest checkpoint
 
+    # parsed for the JAX flag surface; nothing reads them
+    device: str = "tpu"              # the device is main(argv, device=)'s
+    embed_dim: int = 300             # the reference's GCN embedding sizes
+    post_dim: int = 30
+    pos_dim: int = 30
+    hidden_dim: int = 50
+    input_dropout: float = 0.7
+    write_path: Optional[str] = None
+    ignore_idx: int = -100
+    verbose_logging: bool = False
+    fp16: bool = False               # precision is --bf16 / --no_bf16
+    loss_scale: float = 0.0
+    use_pallas_attention: bool = True  # K1/K2 always run: no dispatch layer
+    cache_prefix_features: bool = True
+    deterministic_eval_images: bool = True
+
     def __post_init__(self):
         if self.crf_decode_impl not in ("scan", "parallel"):
             raise ValueError(
@@ -203,8 +224,8 @@ class Config:
 
     @classmethod
     def from_dict(cls, d: dict) -> "Config":
-        """Build from a full config dict (``run_config.json``), dropping the
-        fields the port does not read."""
+        """Build from a config dict (``run_config.json``), dropping keys
+        that are no field."""
         names = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in names})
 

@@ -16,7 +16,7 @@ import queue
 import random
 import threading
 from dataclasses import dataclass
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -236,3 +236,18 @@ def prefetch(iterator):
                 raise err[0]
             return
         yield item
+
+
+def attach_images(batch: Dict[str, np.ndarray], image_ids: Sequence[str],
+                  store: ImageStore, with_aux: bool = True) -> Dict:
+    """``batch`` with the pixel rows of its examples' images from
+    ``store``: ``images`` (B, 224, 224, 3) and, with ``with_aux``,
+    ``aux_images`` (B, 3, 224, 224, 3); ``image_ids`` is the dataset's,
+    indexed by the batch's ``example_index``."""
+    ids = [image_ids[i] for i in batch["example_index"]]
+    main, aux = store.batch(ids, with_aux=with_aux)
+    batch = dict(batch)
+    batch["images"] = main
+    if aux is not None:
+        batch["aux_images"] = aux
+    return batch

@@ -165,7 +165,8 @@ class ImageStore:
             out[i] = self._load(self.aux_dir, p)
         return out
 
-    def batch(self, image_ids: Sequence[str]):
+    def batch(self, image_ids: Sequence[str], with_aux: bool = True):
         main = np.stack([self.main_image(i) for i in image_ids])
-        aux = np.stack([self.aux_images(i) for i in image_ids])
+        aux = np.stack([self.aux_images(i) for i in image_ids]) \
+            if with_aux else None
         return main, aux

@@ -2,7 +2,9 @@
 
 Counterpart of ``mtvaf_tpu/eval/tagging.py``: id arrays → tag lists,
 IOB2-lenient entity extraction (seqeval's default scheme), micro/macro
-P/R/F1 from per-type entity counts, and the seqeval-format report text.
+P/R/F1 from per-type entity counts, and the seqeval-format report text;
+and the reference's auxiliary metrics (modules/eval_metrics.py:238-388):
+chunk accuracy and F1, per-class chunk F1, flat-label classification.
 """
 
 from __future__ import annotations
@@ -156,3 +158,55 @@ def classification_report(y_true, y_pred) -> str:
         out += row_fmt.format(name, row["p"], row["r"], row["f1"],
                               row["support"], width=width, digits=REPORT_DIGITS)
     return out
+
+
+def chunk_evaluate(labels_pred: Sequence[Sequence[str]],
+                   labels: Sequence[Sequence[str]]) -> Tuple[float, float,
+                                                             float, float]:
+    """Token accuracy and chunk (f1, p, r) over tag-name sequences, as
+    (acc, f1, p, r)."""
+    accs = []
+    correct = total_pred = total_gold = 0
+    for gold_seq, pred_seq in zip(labels, labels_pred):
+        accs.extend(a == b for a, b in zip(gold_seq, pred_seq))
+        gold = set(extract_entities(gold_seq))
+        pred = set(extract_entities(pred_seq))
+        correct += len(gold & pred)
+        total_pred += len(pred)
+        total_gold += len(gold)
+    p, r, f1 = precision_recall_f1(correct, total_pred, total_gold)
+    acc = sum(accs) / len(accs) if accs else 0.0
+    return acc, f1, p, r
+
+
+def evaluate_each_class(labels_pred, labels, class_type: str):
+    """Chunk (f1, p, r) of one entity type: a predicted chunk of the type
+    is correct when it is a gold chunk of any type, as the reference
+    counts it."""
+    correct = total_pred = total_gold = 0
+    for gold_seq, pred_seq in zip(labels, labels_pred):
+        gold_all = set(extract_entities(gold_seq))
+        gold = {e for e in gold_all if e[0] == class_type}
+        pred = {e for e in extract_entities(pred_seq) if e[0] == class_type}
+        correct += len(pred & gold_all)
+        total_pred += len(pred)
+        total_gold += len(gold)
+    p, r, f1 = precision_recall_f1(correct, total_pred, total_gold)
+    return f1, p, r
+
+
+def classification_eval(true_labels: Sequence, pred_labels: Sequence,
+                        negative_label=None) -> Dict[str, float]:
+    """Flat-label accuracy and micro P/R/F1 with ``negative_label`` as the
+    null class."""
+    correct = correct_positive = pred_positive = gold_positive = 0
+    for gold, pred in zip(true_labels, pred_labels):
+        if gold == pred:
+            correct += 1
+            correct_positive += gold != negative_label
+        gold_positive += gold != negative_label
+        pred_positive += pred != negative_label
+    acc = correct / len(true_labels) if len(true_labels) else 0.0
+    p, r, f1 = precision_recall_f1(correct_positive, pred_positive,
+                                   gold_positive)
+    return {"acc": acc, "micro_p": p, "micro_r": r, "micro_f1": f1}

@@ -9,7 +9,11 @@ Counterpart of ``mtvaf_tpu/nn/probe.py``:
   minimum, no sequential loop);
 * :func:`probe_loss`: MSE between depths and the (detached) labels;
 * :func:`combine_loss`: ``loss + probe_loss·β·2^(−epoch)`` gated on
-  probe_loss > 0.1, with the constant epoch the CRF model passes (30).
+  probe_loss > 0.1, with the constant epoch the CRF model passes (30);
+* the rest of the reference's probe family (probes/probe.py:9-152), which
+  no pipeline trains: :func:`init_probe_params`, :func:`two_word_distances`
+  (TwoWordPSDProbe), :func:`init_nonpsd_probe_params`,
+  :func:`one_word_nonpsd_depths` and :func:`two_word_nonpsd_scores`.
 """
 
 from __future__ import annotations
@@ -17,6 +21,14 @@ from __future__ import annotations
 import torch
 
 from ..core.mesh import batch_rows, batch_sum
+
+
+def init_probe_params(generator: torch.Generator, hidden_dim: int = 768,
+                      rank: int = 384):
+    """``{"proj": (hidden_dim, rank)}`` uniform in [-0.05, 0.05) from
+    ``generator``."""
+    return {"proj": torch.rand(hidden_dim, rank, generator=generator)
+            * 0.1 - 0.05}
 
 
 def probe_depths(params, hidden):
@@ -61,3 +73,34 @@ def combine_loss(loss, p_loss, beta: float, epoch_const: int):
     factor = beta * (2.0 ** (-epoch_const))
     gate = batch_sum(p_loss.detach()) / batch_rows(1)
     return torch.where(gate > 0.1, loss + p_loss * factor, loss)
+
+
+def two_word_distances(params, hidden):
+    """TwoWordPSDProbe: the squared L2 distance of every pair of tokens
+    after the projection, (B, S, H) → (B, S, S), in fp32."""
+    t = hidden.float() @ params["proj"].float()
+    return (t[:, :, None, :] - t[:, None, :, :]).square().sum(dim=-1)
+
+
+def init_nonpsd_probe_params(generator: torch.Generator,
+                             hidden_dim: int = 768):
+    """``{"proj": (hidden_dim, hidden_dim)}`` uniform in [-0.05, 0.05)
+    from ``generator``."""
+    return {"proj": torch.rand(hidden_dim, hidden_dim, generator=generator)
+            * 0.1 - 0.05}
+
+
+def one_word_nonpsd_depths(params, hidden):
+    """OneWordNonPSDProbe: the bilinear affinity hᵢᵀ A hᵢ, (B, S, H) →
+    (B, S), in fp32."""
+    h = hidden.float()
+    return torch.einsum("bsh,hk,bsk->bs", h, params["proj"].float(), h)
+
+
+def two_word_nonpsd_scores(params, hidden):
+    """TwoWordNonPSDProbe: (hᵢ − hⱼ)ᵀ A (hᵢ − hⱼ), (B, S, H) → (B, S, S),
+    in fp32."""
+    h = hidden.float()
+    diffs = h[:, :, None, :] - h[:, None, :, :]
+    return torch.einsum("bsth,hk,bstk->bst", diffs, params["proj"].float(),
+                        diffs)

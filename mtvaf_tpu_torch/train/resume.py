@@ -4,21 +4,28 @@ Counterpart of ``mtvaf_tpu/train/resume.py``: the full train state is
 checkpointed per epoch (``core.checkpoint.save_checkpoint``) with a
 ``meta_{epoch}.json`` beside it holding the epoch, the best metrics and the
 run's randomness (the seed; each step's dropout is ``fold_in(seed, step)``
-and the step is in the state).  A checkpointing run installs a SIGTERM
-handler: on the signal the trainer finishes the current epoch, writes a
-checkpoint whatever ``checkpoint_every`` says, and returns.  Epoch
-boundaries keep ``--resume`` bit-identical: the data order is a function of
-seed and epoch alone.
+and the step is in the state).  The state is copied to the host and
+written in the background while the next epoch trains; the writer writes
+the meta file only once ``step_{epoch}`` has landed, so a resume never
+finds a meta file whose state file is still being written.
+:func:`load_latest_checkpoint` waits for a write in flight first, and the
+trainers call :func:`wait_for_epoch_checkpoints` before ``train()``
+returns.  A checkpointing run installs a SIGTERM handler: on the signal
+the trainer finishes the current epoch, writes a checkpoint whatever
+``checkpoint_every`` says, and returns.  Epoch boundaries keep
+``--resume`` bit-identical: the data order is a function of seed and
+epoch alone.
 
 Under data and tensor parallelism rank 0 writes the checkpoint and its
-meta while the other ranks wait at a barrier, and every rank loads it.  A
-checkpoint holds no rank's own state: the params, master and moments are
-gathered from the TP group first (the whole model), and a load cuts this
-rank's shard again, so ``mesh_model`` may change between runs.  The
-dropout draws depend on the data axis (``core.rng.fold_in`` of the data
-rank), so the meta records the data axis (``mesh_data``; with
-``mesh_model`` and the world size) and a resume on another data axis is
-refused.
+meta, and every rank loads it; the barrier after a save only means that
+rank 0 has taken its host copy, so at the end of ``train()`` rank 0 waits
+for the file and then every rank meets it.  A checkpoint holds no rank's
+own state: the params, master and moments are gathered from the TP group
+first (the whole model), and a load cuts this rank's shard again, so
+``mesh_model`` may change between runs.  The dropout draws depend on the
+data axis (``core.rng.fold_in`` of the data rank), so the meta records the
+data axis (``mesh_data``; with ``mesh_model`` and the world size) and a
+resume on another data axis is refused.
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ from typing import Optional, Tuple
 
 from ..core import mesh
 from ..core.checkpoint import (latest_checkpoint_step, load_checkpoint,
-                               save_checkpoint)
+                               save_checkpoint, wait_for_checkpoints)
 
 logger = logging.getLogger(__name__)
 
@@ -89,30 +96,51 @@ def _ckpt_dir(save_path: str) -> str:
 def _write_epoch_checkpoint(save_path: str, state, epoch: int,
                            meta: dict) -> None:
     ckpt = _ckpt_dir(save_path)
-    save_checkpoint(ckpt, state, step=epoch)
     path = os.path.join(ckpt, f"meta_{epoch}.json")
-    with open(path + ".tmp", "w") as f:
-        json.dump({"epoch": epoch, "world_size": mesh.world_size(),
-                   "mesh_data": mesh.data_size(),
-                   "mesh_model": mesh.model_size(), **meta}, f)
-    os.replace(path + ".tmp", path)
+    record = {"epoch": epoch, "world_size": mesh.world_size(),
+              "mesh_data": mesh.data_size(),
+              "mesh_model": mesh.model_size(), **meta}
+
+    def write_meta():
+        with open(path + ".tmp", "w") as f:
+            json.dump(record, f)
+        os.replace(path + ".tmp", path)
+
+    save_checkpoint(ckpt, state, step=epoch, then=write_meta)
 
 
 def save_epoch_checkpoint(save_path: str, state, epoch: int,
                           meta: dict) -> None:
-    """``ckpt/step_{epoch}`` and ``ckpt/meta_{epoch}.json`` of the whole
-    state, written by rank 0; every rank calls it and returns once the
-    files are whole."""
+    """``ckpt/step_{epoch}`` and then ``ckpt/meta_{epoch}.json`` of the
+    whole state, written in the background by rank 0; every rank calls it
+    and returns once rank 0 has its host copy."""
     from .steps import gather_state
     mesh.primary_write(_write_epoch_checkpoint, save_path,
                        gather_state(state), epoch, meta)
 
 
+def wait_for_epoch_checkpoints() -> None:
+    """Return on every rank once the files of every epoch checkpoint are
+    whole: rank 0 waits for its background write, then the ranks meet.  A
+    failed write raises on every rank (rank 0's error there).  Every rank
+    must call it."""
+    error = None
+    if mesh.is_primary():
+        try:
+            wait_for_checkpoints()
+        except Exception as e:
+            error = e
+    if mesh.any_rank(error is not None):
+        raise error or RuntimeError("rank 0's checkpoint write failed")
+
+
 def load_latest_checkpoint(save_path: str, template_state
                            ) -> Tuple[Optional[object], int, dict]:
     """(state or None, the epoch to start from, meta): this rank's shard of
-    the saved state, cut by ``template_state``'s layout.  Raises when the
-    checkpoint was written by a run on another data axis."""
+    the saved state, cut by ``template_state``'s layout, once a write in
+    flight has landed.  Raises when the checkpoint was written by a run on
+    another data axis."""
+    wait_for_checkpoints()
     ckpt = _ckpt_dir(save_path)
     epoch = latest_checkpoint_step(ckpt)
     if epoch is None:

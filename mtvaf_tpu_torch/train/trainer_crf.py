@@ -55,7 +55,8 @@ from .optim import build_optimizer
 from .profiling import StepProfiler
 from .resume import (install_preemption_handler, load_latest_checkpoint,
                      save_epoch_checkpoint, stop_agreed,
-                     stop_requested, uninstall_preemption_handler)
+                     stop_requested, uninstall_preemption_handler,
+                     wait_for_epoch_checkpoints)
 from .steps import (broadcast_state, check_ranks_agree, create_train_state,
                     export_params, make_crf_decode_step, make_crf_loss_fn,
                     make_train_step, replace_params)
@@ -217,6 +218,9 @@ class CrfTrainer:
                 if stopping:
                     logger.info("preemption: stopping after epoch %d", epoch)
                     break
+            if checkpointing:
+                # the background writes land before train() returns
+                wait_for_epoch_checkpoints()
         finally:
             self.profiler.close()
             if checkpointing:

@@ -61,7 +61,8 @@ from .optim import build_optimizer
 from .profiling import StepProfiler
 from .resume import (install_preemption_handler, load_latest_checkpoint,
                      save_epoch_checkpoint, stop_agreed,
-                     stop_requested, uninstall_preemption_handler)
+                     stop_requested, uninstall_preemption_handler,
+                     wait_for_epoch_checkpoints)
 from .steps import (broadcast_state, check_ranks_agree, create_train_state,
                     export_params, make_classification_step,
                     make_extraction_step, make_span_eval_loss_step,
@@ -224,6 +225,9 @@ class SpanTrainer:
                 if stopping:
                     logger.info("preemption: stopping after epoch %d", epoch)
                     break
+            if checkpointing:
+                # the background writes land before train() returns
+                wait_for_epoch_checkpoints()
         finally:
             self.profiler.close()
             if checkpointing:

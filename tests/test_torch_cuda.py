@@ -583,3 +583,72 @@ def test_head_offset_is_the_full_calls_slice(cuda, dtype, rate):
     atol = 1e-2 if dtype == torch.bfloat16 else 1e-4
     for got, want in zip(grads, plain):
         assert (got.float() - want.float()).abs().max().item() <= atol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params_bf16", [False, True])
+def test_background_checkpoint_holds_the_state_at_the_save(cuda, tmp_path,
+                                                           monkeypatch,
+                                                           params_bf16):
+    """The writer is held while two AdamW steps update the state on the
+    card in place; the file still holds the state at the save, bit for
+    bit, copied through the page-locked host buffer."""
+    import threading
+
+    from mtvaf_tpu_torch.core import checkpoint
+    from mtvaf_tpu_torch.core.config import Config
+    from mtvaf_tpu_torch.train.optim import build_optimizer, tree_items
+    from mtvaf_tpu_torch.train.steps import (MasterState, create_train_state,
+                                             make_train_step)
+
+    def snapshot(state):
+        opt = state.opt_state
+        out = {f"p/{k}": v.detach().clone()
+               for k, v in tree_items(state.params)}
+        if isinstance(opt, MasterState):
+            out.update({f"m/{k}": v.clone()
+                        for k, v in tree_items(opt.master)})
+            opt = opt.inner
+        out.update({f"mu/{i}": v.clone() for i, v in enumerate(opt.mu)})
+        out.update({f"nu/{i}": v.clone() for i, v in enumerate(opt.nu)})
+        return out
+
+    g = torch.Generator().manual_seed(0)
+    params = {"fc": {"kernel": torch.randn(768, 11, generator=g),
+                     "bias": torch.randn(11, generator=g)},
+              "bert": {"w": torch.randn(3, 768, 768, generator=g)}}
+    cfg = Config(dataset_name="twitter2015", optimizer_mu_bf16=True)
+    opt, _ = build_optimizer(params, cfg, total_steps=10, pipeline="crf")
+    dtype = torch.bfloat16 if params_bf16 else None
+    state = create_train_state(params, opt, device=cuda, params_dtype=dtype)
+    step = make_train_step(lambda p, b, gen: (sum(
+        (x.float() * b["x"]).square().sum() for _, x in tree_items(p)), {}),
+        opt)
+    batch = {"x": torch.tensor(1.5, device=cuda)}
+    state, _ = step(state, batch, None)
+    at_save = snapshot(state)
+
+    go, write = threading.Event(), checkpoint._write_file
+
+    def held(path, payload):
+        assert go.wait(60)
+        write(path, payload)
+
+    monkeypatch.setattr(checkpoint, "_write_file", held)
+    checkpoint.save_checkpoint(str(tmp_path), state, step=1)
+    assert not (tmp_path / "step_1").exists()
+    for _ in range(2):
+        state, _ = step(state, batch, None)
+    torch.cuda.synchronize()
+    assert not torch.equal(snapshot(state)["nu/2"], at_save["nu/2"])
+    go.set()
+    checkpoint.wait_for_checkpoints()
+    stats = checkpoint.checkpoint_stats()
+    assert stats["pinned"] and checkpoint._HOST["buffer"].is_pinned()
+    template = create_train_state(params, opt, device=cuda,
+                                  params_dtype=dtype)
+    got = snapshot(checkpoint.load_checkpoint(str(tmp_path), template, 1))
+    assert got.keys() == at_save.keys()
+    for k, v in at_save.items():
+        assert got[k].is_cuda and got[k].dtype == v.dtype, k
+        assert torch.equal(got[k], v), k

@@ -12,8 +12,10 @@ of ``tests/test_torch_dp_trainer.py``, whose helpers this file uses.
 
 import pytest
 
-from test_torch_dp_trainer import (check_against_jax, check_rank0_writes,
-                                   jax_cli, prepare, start_ranks)
+from test_torch_dp_trainer import (check_against_jax,
+                                   check_checkpoints_on_return,
+                                   check_rank0_writes, jax_cli, prepare,
+                                   start_ranks)
 
 
 @pytest.fixture(scope="module")
@@ -32,3 +34,7 @@ def test_dp_span_cli_matches_the_jax_cli(runs):
 
 def test_only_rank_0_writes_the_span_run_directory(runs):
     check_rank0_writes(runs[1], "span")
+
+
+def test_rank_0_span_checkpoint_is_whole_when_train_returns(runs):
+    check_checkpoints_on_return(runs[1], "span")

@@ -45,7 +45,10 @@ its comparison carries no more (read: ``binary_affine/bias`` 1.08e-3,
 past the 2·lr of a run; ``tests/test_torch_gcn_data.py`` holds its own
 run's to that, and the card's one-process comparison reads 0.18 of it).
 Every rank hands AdamW the same gradients, ends with the same metrics,
-and only rank 0 opens a file in the run directory for writing.
+and only rank 0 opens a file in the run directory for writing.  The ranks
+checkpoint every epoch (``--save_checkpoints``): rank 0 alone writes the
+state files, in the background, and on every rank the last checkpoint is
+whole when ``train()`` returns.
 """
 
 import builtins
@@ -53,6 +56,7 @@ import json
 import logging
 import os
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -80,6 +84,7 @@ STEPS = 6           # 2 epochs of ceil(9 / 4) steps
 # An element whose gradient never passed this share of the run's largest
 # gradient element is at rounding level (see rounding_level)
 ROUNDING = 1e-7
+WRITE_DELAY_S = 0.5
 
 
 def rounding_level(grad_max):
@@ -217,9 +222,57 @@ def run_cli(cli, logger_name, args, **kw):
     return metrics, cap.numbers()
 
 
+class CheckpointsOnReturn:
+    """While installed: the checkpoint files this process wrote (its
+    background writer's, relative to ``save``; each write starts
+    ``WRITE_DELAY_S`` late, so a ``train()`` that did not wait would
+    return before it landed), and what ``save/ckpt`` holds the moment
+    the trainer's ``train()`` returns here (its files, the last state
+    file's step read with ``torch.load`` and its meta file's step)."""
+
+    def __init__(self, pipeline, save):
+        import mtvaf_tpu_torch.train.trainer_crf as trainer_crf
+        import mtvaf_tpu_torch.train.trainer_span as trainer_span
+        self.cls = trainer_span.SpanTrainer if pipeline == "span" \
+            else trainer_crf.CrfTrainer
+        self.save = save
+        self.writes, self.on_return = [], None
+
+    def __enter__(self):
+        import torch
+        from mtvaf_tpu_torch.core import checkpoint
+        self._train, self._write = self.cls.train, checkpoint._write_file
+        train, write, ckpt = self._train, self._write, self.save / "ckpt"
+
+        def recording_write(path, payload):
+            self.writes.append(os.path.relpath(path, str(self.save)))
+            time.sleep(WRITE_DELAY_S)     # lands well after a step would
+            write(path, payload)
+
+        def recording_train(trainer):
+            result = train(trainer)
+            names = sorted(os.listdir(ckpt))
+            last = max(int(n[5:]) for n in names if n.startswith("step_"))
+            state = torch.load(str(ckpt / f"step_{last}"), weights_only=True)
+            meta = json.loads((ckpt / f"meta_{last}.json").read_text())
+            self.on_return = {"files": names, "step": state["step"],
+                              "meta_step": meta["step"]}
+            return result
+
+        checkpoint._write_file = recording_write
+        self.cls.train = recording_train
+        return self
+
+    def __exit__(self, *exc):
+        from mtvaf_tpu_torch.core import checkpoint
+        checkpoint._write_file = self._write
+        self.cls.train = self._train
+
+
 def rank_cli(rank, world, workdir):
-    """This rank's CLI runs (the pipelines listed in ``runs.json``), with
-    the paths it opened for writing under each run directory."""
+    """This rank's CLI runs (the pipelines listed in ``runs.json``, each
+    checkpointing every epoch), with the paths it opened for writing under
+    each run directory and its checkpoint files (``CheckpointsOnReturn``)."""
     from pathlib import Path
     d = Path(workdir).parent
     out = {}
@@ -235,16 +288,19 @@ def rank_cli(rank, world, workdir):
 
         builtins.open = spy
         try:
-            with GradMax() as grads:
+            with GradMax() as grads, \
+                    CheckpointsOnReturn(pipeline, save) as ckpt:
                 metrics, numbers = run_cli(
                     main, "mtvaf_tpu_torch.train.trainer_"
                     + ("span" if pipeline == "span" else "crf"),
-                    argv(d, pipeline, save), bert_cfg_override=bert_cfg(d),
-                    device="cpu")
+                    argv(d, pipeline, save, "--save_checkpoints"),
+                    bert_cfg_override=bert_cfg(d), device="cpu")
         finally:
             builtins.open = real_open
         out[pipeline] = {"metrics": metrics, "numbers": numbers,
-                         "written": sorted(written), "grad_max": grads.max}
+                         "written": sorted(written), "grad_max": grads.max,
+                         "ckpt_writes": ckpt.writes,
+                         "ckpt_on_return": ckpt.on_return}
     return out
 
 
@@ -381,6 +437,19 @@ def check_rank0_writes(ranks, pipeline):
     assert all(w == [] for w in written[1:]), written
 
 
+def check_checkpoints_on_return(ranks, pipeline):
+    """Rank 0 alone wrote one checkpoint per epoch, in the background, and
+    when ``train()`` returned on any rank the last one was whole: its
+    state file loads and holds the last step, and its meta file is
+    there."""
+    for rank, out in enumerate(ranks):
+        assert out[pipeline]["ckpt_writes"] == (
+            ["ckpt/step_1", "ckpt/step_2"] if rank == 0 else []), rank
+        assert out[pipeline]["ckpt_on_return"] == {
+            "files": ["meta_1.json", "meta_2.json", "step_1", "step_2"],
+            "step": STEPS, "meta_step": STEPS}, rank
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     d = tmp_path_factory.mktemp("dp_trainer")
@@ -399,3 +468,8 @@ def test_dp_cli_matches_the_jax_cli(runs, world):
 @pytest.mark.parametrize("world", [2, 4])
 def test_only_rank_0_writes_the_run_directory(runs, world):
     check_rank0_writes(runs[1][world], "crf")
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_rank_0_checkpoint_is_whole_when_train_returns(runs, world):
+    check_checkpoints_on_return(runs[1][world], "crf")
