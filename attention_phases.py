@@ -130,6 +130,7 @@ def main() -> int:
     fn.argtypes = pa._SIGNATURES[("prefix_attention_bwd",
                                   "mtvaf_prefix_attention_bwd")]
     fn.restype = ctypes.c_int
+    from mtvaf_tpu_torch.core.rng import new_key
     dev = torch.device("cuda")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -142,8 +143,8 @@ def main() -> int:
         bias = torch.zeros(b, 1, 1, t, device=dev)
         bias[-1, ..., -9:] = -10000.0
         for rate in (0.0, 0.1):
-            o, lse, words = pa.prefix_attention_cuda(q, k, v, bias, seed=1,
-                                                     rate=rate)
+            o, lse, words = pa.prefix_attention_cuda(
+                q, k, v, bias, key=new_key(1, dev).word, rate=rate)
             grads = [torch.empty_like(x) for x in (q, k, v)]
             delta = torch.empty((b, h, s), device=dev)
             stream = torch.cuda.current_stream().cuda_stream

@@ -127,7 +127,7 @@ Phases, each of which fails the run by raising:
    ``prefix_attention``;
 14. the options: (a) the span step at ``--use_align``'s S=T=500
    (text-only BERT-base, B=32, bf16, dropout live) without and with
-   per-layer remat: one step each from one generator, the loss bit for
+   per-layer remat: one step each under one key, the loss bit for
    bit and every gradient leaf bitwise or within rtol 1e-4 / atol 1e-5
    (the largest difference printed with its reason), K1 12 → 24 and K2 12
    launches a step, then 10 untimed and 20 timed steps of each with
@@ -207,6 +207,26 @@ Phases, each of which fails the run by raising:
    beside its earlier readings with the same ``_row_dense``, which
    reduces a row-parallel bf16 dot as JAX does.
 
+18. the keyed draws and the device key (``core.rng.Key``: every draw of a
+   train step is a kernel reading the step's int64 word from device
+   memory and a static salt): (a), right after phase 3, the keyed dropout
+   (``csrc/keyed_random.cu``) at the flagship train activation (B=32,
+   S=128, 768, bf16 and fp32, rate 0.1) bit for bit its plain version, its
+   kept fraction within 1% of 0.9, timed beside its bound and
+   ``F.dropout`` with a cold L2 (inputs and outputs rotated through twice
+   the L2's bytes), bit for bit at an odd length and an unaligned address,
+   and the keyed uniform of the span cutoff's draw; (b) one flagship
+   encoder layer's forward + backward (prefix 16, every dropout live)
+   captured in a ``torch.cuda.CUDAGraph`` and replayed under three words
+   written into the captured key's tensor: outputs and every gradient
+   bitwise an eager run's under that word, K1's keep words the plain mask
+   of the mixed key, the three masks different; eager and replay ms in
+   turns; (c), last, the same capture of phase 9's whole forward +
+   backward: bitwise replays and their ms, or the first call of the port
+   that breaks capture (file:line).  Phase 9 requires 2 keyed dropout
+   launches per dropout site a step (``DROPOUT_SITES``, forward and
+   backward) and no keyed uniform; phase 12(a) one keyed uniform a step.
+
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times: the
 kernels' summed durations under ``torch.profiler``.  ``event_ms`` is the
 kernel's time between events over back-to-back calls, which the host's
@@ -252,6 +272,7 @@ import torch
 # The device the CLI runs (``run_cli``) and phase 14's paths are given.
 DEVICE = "cuda"
 HBM_BPS = 3.35e12
+L2_BYTES = 50 * 2 ** 20          # the H100's L2
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 494.7e12 / 3}
 # Kernel tolerances (max abs over o and lse).  Against the plain version in
 # the inputs' dtype: in bf16 that version rounds the normalised
@@ -273,10 +294,38 @@ K1_ATOL_VS_FP32 = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 K2_ATOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 K2_ATOL_VS_FP32 = {torch.float32: 1e-4, torch.bfloat16: 1.5e-2}
 SEED = 0
+# The kernel rows' dropout key: the step word DROPOUT_SEED (an int64 on the
+# card, which the kernels read) and the draw site's salt DROPOUT_SALT.
 DROPOUT_SEED = 0x0123456789ABCDEF
+DROPOUT_SALT = 0x5A17
+
+
+def dropout_key(dev="cuda"):
+    """The rows' key, its word on ``dev``."""
+    from mtvaf_tpu_torch.core.rng import Key, new_key
+    return Key(new_key(DROPOUT_SEED, dev).word, DROPOUT_SALT)
+
+
+def dropout_kw(dev="cuda"):
+    """``prefix_attention_cuda``'s key arguments for :func:`dropout_key`
+    (made once, outside a timed call)."""
+    key = dropout_key(dev)
+    return {"key": key.word, "salt": key.salt}
+
+
+def mixed_seed():
+    """The Philox key of the rows' masks: ``_mix(DROPOUT_SEED,
+    DROPOUT_SALT)``, as the kernels mix it on the card."""
+    return dropout_key("cpu").philox_key()
 N_REQUESTS = 64
 CLIENTS = 16
 TRAIN_B, TRAIN_S = 32, 128
+# The flagship CRF step's dropout sites, each one keyed dropout launch
+# forward and one backward: the embeddings, each of the 12 layers'
+# attention output and MLP output, the last hidden state, and the ANP
+# loss's main image and three aux crops (counted on the CPU through
+# ``kernels.keyed_random``: 2 L + 6 forward sites at L layers).
+DROPOUT_SITES = 2 * 12 + 6
 # 15 untimed steps, not 5: the reference's heads train at 5e-2 and, at
 # BERT-base width, the loss first rises through the 10-step warmup (to 4x
 # step 1's by step 17 on the card) and is back below step 1's only by ~35.
@@ -442,7 +491,7 @@ def keep_of(rate, shape, dev, head_offset=0):
         keep_mask_reference)
     if not rate:
         return None, None
-    mask = keep_mask_reference(DROPOUT_SEED, rate, shape, dev, head_offset)
+    mask = keep_mask_reference(mixed_seed(), rate, shape, dev, head_offset)
     return mask, mask.float() * (1.0 / (1.0 - rate))
 
 
@@ -468,8 +517,8 @@ def check_prefix_attention(dtypes=(torch.bfloat16, torch.float32)):
         q, k, v, bias = attention_inputs(g, b, h, s, t, d, dtype,
                                          cut=name.endswith("_cut"))
         mask, keep = keep_of(rate, (b, h, s, t), dev)
-        o, lse, words = prefix_attention_cuda(q, k, v, bias,
-                                              seed=DROPOUT_SEED, rate=rate)
+        kw = dropout_kw(dev)
+        o, lse, words = prefix_attention_cuda(q, k, v, bias, **kw, rate=rate)
         torch.cuda.synchronize()
         mismatches = words_mismatches(words, mask)
         del mask, words
@@ -490,9 +539,9 @@ def check_prefix_attention(dtypes=(torch.bfloat16, torch.float32)):
               and mismatches == 0)
         mask_q = bias.to(dtype)
         ms = device_ms(lambda: prefix_attention_cuda(
-            q, k, v, bias, seed=DROPOUT_SEED, rate=rate))
+            q, k, v, bias, **kw, rate=rate))
         event_ms = cuda_ms(lambda: prefix_attention_cuda(
-            q, k, v, bias, seed=DROPOUT_SEED, rate=rate))
+            q, k, v, bias, **kw, rate=rate))
         plain_ms = device_ms(lambda: prefix_attention_reference(q, k, v,
                                                                 bias, keep))
         lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
@@ -535,14 +584,14 @@ def check_dropout(rate=0.1):
     b, h, s, t, d, dtype = TRAIN_B, 12, TRAIN_S, TRAIN_S + 16, 64, \
         torch.bfloat16
     shape = (b, h, s, t)
-    got = keep_mask_cuda(DROPOUT_SEED, rate, shape, dev)
+    key, kw = dropout_key(dev), dropout_kw(dev)
+    got = keep_mask_cuda(key, rate, shape)
     torch.cuda.synchronize()
-    want = keep_mask_reference(DROPOUT_SEED, rate, shape, dev)
+    want = keep_mask_reference(mixed_seed(), rate, shape, dev)
     kept = got.float().mean().item()
     mismatches = int((got != want).sum().item())
-    mask_ms = device_ms(lambda: keep_mask_cuda(DROPOUT_SEED, rate, shape,
-                                               dev))
-    mask_plain_ms = device_ms(lambda: keep_mask_reference(DROPOUT_SEED, rate,
+    mask_ms = device_ms(lambda: keep_mask_cuda(key, rate, shape))
+    mask_plain_ms = device_ms(lambda: keep_mask_reference(mixed_seed(), rate,
                                                         shape, dev))
     # the entry point writes (B, H, S, T) fp32: its bound is that write
     mask_bytes = b * h * s * t * 4
@@ -558,8 +607,7 @@ def check_dropout(rate=0.1):
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
     q, k, v, bias = attention_inputs(g, b, h, s, t, d, dtype)
     keep = want.float() * (1.0 / (1.0 - rate))
-    o, lse, words = prefix_attention_cuda(q, k, v, bias, seed=DROPOUT_SEED,
-                                          rate=rate)
+    o, lse, words = prefix_attention_cuda(q, k, v, bias, **kw, rate=rate)
     torch.cuda.synchronize()
     mismatches = words_mismatches(words, want)
     del words
@@ -570,10 +618,10 @@ def check_dropout(rate=0.1):
     err_o = (o.float() - ro.float()).abs().max().item()
     err_fp32 = (o.float() - fo).abs().max().item()
     err_lse = (lse - nlse).abs().max().item()      # lse stays dropout-free
-    ms = device_ms(lambda: prefix_attention_cuda(q, k, v, bias,
-                                                 seed=DROPOUT_SEED, rate=rate))
+    ms = device_ms(lambda: prefix_attention_cuda(q, k, v, bias, **kw,
+                                                 rate=rate))
     event_ms = cuda_ms(lambda: prefix_attention_cuda(
-        q, k, v, bias, seed=DROPOUT_SEED, rate=rate))
+        q, k, v, bias, **kw, rate=rate))
     plain_ms = device_ms(lambda: prefix_attention_reference(q, k, v, bias,
                                                             keep))
     lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
@@ -640,7 +688,7 @@ def check_backward(dtypes=(torch.bfloat16, torch.float32)):
         for rate in (0.0, 0.1):
             mask, keep = keep_of(rate, (b, h, s, t), dev)
             o, lse, words = prefix_attention_cuda(q, k, v, bias,
-                                                  seed=DROPOUT_SEED,
+                                                  **dropout_kw(dev),
                                                   rate=rate)
             grads = prefix_attention_bwd_cuda(q, k, v, bias, o, lse, do,
                                               words, rate=rate)
@@ -967,7 +1015,8 @@ def check_train_step_against_cpu(cfg, bert_cfg, params, device="cuda",
     the CRF step, or with ``span`` the span step, or with ``aux`` the span
     step with its aux heads (``cfg``'s cutoff and GCN heads, the batch
     with GCN side arrays): the base loss and the cut pass's, dropout off,
-    the cut drawn on both devices from one host seed.  A leaf that no
+    the cut drawn on each device under one key (the keyed uniform kernel
+    on the card, its plain version on the CPU: the same cuts).  A leaf that no
     forward reads (``dep_embedding``) is held to 1e-6 absolute."""
     from mtvaf_tpu_torch.data.synthetic import crf_batch, span_batch
     from mtvaf_tpu_torch.nn.models import span_model_loss
@@ -986,11 +1035,12 @@ def check_train_step_against_cpu(cfg, bert_cfg, params, device="cuda",
         base_fn = loss_fn
         cutoff = make_cutoff_fn(cfg32.aug_type, cfg32.aug_cutoff_ratio)
 
-        def loss_fn(params, batch, generator):
+        def loss_fn(params, batch, key):
+            from mtvaf_tpu_torch.core.rng import new_key
             base, metrics = base_fn(params, batch, None)
+            cut_key = new_key(SEED + 7, batch["input_ids"].device)
             out = span_model_loss(params, cfg32, bert_cfg, batch,
-                                  cutoff=(cutoff, torch.Generator()
-                                          .manual_seed(SEED + 7)))
+                                  cutoff=(cutoff, cut_key))
             return add_consistency(cfg32, base, metrics, out)
         pipeline = "aux"
     optimizer, _ = build_optimizer(params, cfg32, total_steps=1000,
@@ -1070,7 +1120,9 @@ def train_setup(cfg, bert_cfg, params, device):
 def train(cfg, bert_cfg, params, device="cuda"):
     from mtvaf_tpu_torch.core.flops import (H100_BF16_PEAK,
                                             train_flops_per_example)
-    from mtvaf_tpu_torch.core.rng import fold_in
+    from mtvaf_tpu_torch.core.rng import step_key
+    from mtvaf_tpu_torch.kernels.keyed_random import (keyed_dropout,
+                                                      keyed_uniform)
     from mtvaf_tpu_torch.kernels.prefix_attention import (
         keep_mask_cuda, prefix_attention, prefix_attention_bwd_cuda)
     from mtvaf_tpu_torch.train.optim import tree_items
@@ -1089,6 +1141,8 @@ def train(cfg, bert_cfg, params, device="cuda"):
     prefix_attention.launches.reset()
     prefix_attention_bwd_cuda.launches.reset()
     keep_mask_cuda.launches.reset()
+    keyed_dropout.launches.reset()
+    keyed_uniform.launches.reset()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -1102,6 +1156,8 @@ def train(cfg, bert_cfg, params, device="cuda"):
     k1, k2 = prefix_attention.launches.value, \
         prefix_attention_bwd_cuda.launches.value
     mask_launches = keep_mask_cuda.launches.value
+    dropout_launches = keyed_dropout.launches.value
+    uniform_launches = keyed_uniform.launches.value
     step_ms = start.elapsed_time(end) / TIMED_STEPS
     losses = [x.item() for x in losses]
 
@@ -1110,7 +1166,8 @@ def train(cfg, bert_cfg, params, device="cuda"):
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     leaves = [p for _, p in tree_items(state.params)]
     ev[0].record()
-    loss, _ = loss_fn(state.params, batch, fold_in(SEED, state.step))
+    loss, _ = loss_fn(state.params, batch,
+                      step_key(SEED, state.step, 0, device))
     ev[1].record()
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
@@ -1132,7 +1189,9 @@ def train(cfg, bert_cfg, params, device="cuda"):
             "flops_per_example": flops,
             "mfu": flops * ex_per_s / H100_BF16_PEAK,
             "k1_launches": k1, "k2_launches": k2,
-            "mask_launches": mask_launches, **split,
+            "mask_launches": mask_launches,
+            "dropout_launches": dropout_launches,
+            "uniform_launches": uniform_launches, **split,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
             "losses": losses}
     log("train_path", json.dumps(main))
@@ -1147,6 +1206,13 @@ def train(cfg, bert_cfg, params, device="cuda"):
     if mask_launches != 0:      # K1 draws the masks in-kernel, K2 reads them
         raise AssertionError(f"the mask entry ran {mask_launches} times in "
                              "the train steps")
+    # every dropout site a keyed kernel, forward and backward; no cut
+    if dropout_launches != DROPOUT_SITES * 2 * TIMED_STEPS \
+            or uniform_launches:
+        raise AssertionError(
+            f"keyed dropout ran {dropout_launches} and the keyed uniform "
+            f"{uniform_launches} times in {TIMED_STEPS} steps, not "
+            f"{2 * DROPOUT_SITES} and 0 per step")
     return main
 
 
@@ -2221,7 +2287,8 @@ def aux_train(bert_cfg, span_step):
     setup_s = time.perf_counter() - t0
     counters = (prefix_attention.launches, prefix_attention_bwd_cuda.launches,
                 keep_mask_cuda.launches)
-    for c in counters:
+    keyed = keyed_counters()
+    for c in counters + tuple(keyed.values()):
         c.reset()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -2234,6 +2301,7 @@ def aux_train(bert_cfg, span_step):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k1, k2, masks = (c.value for c in counters)
+    drops, uniforms = keyed["dropout"].value, keyed["uniform"].value
     losses = [x.item() for x in losses]
     step_ms = start.elapsed_time(end) / TIMED_STEPS
     ex_per_s = TRAIN_B / (step_ms / 1e3)
@@ -2252,6 +2320,7 @@ def aux_train(bert_cfg, span_step):
            "span_step_ms": span_step["step_ms"],
            "span_step_mfu": span_step["mfu"],
            "k1_launches": k1, "k2_launches": k2, "mask_launches": masks,
+           "dropout_launches": drops, "uniform_launches": uniforms,
            "cutoff_loss": metrics["cutoff_loss"].item(),
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "losses": losses}
@@ -2266,6 +2335,11 @@ def aux_train(bert_cfg, span_step):
         raise AssertionError(f"K1 ran {k1}, K2 {k2} and the mask entry "
                              f"{masks} times in {TIMED_STEPS} aux steps, "
                              f"not {per_step} K1 + {per_step} K2 per step")
+    # one span cutoff draw a step (its cut starts), dropout keyed too
+    if uniforms != TIMED_STEPS or not drops:
+        raise AssertionError(f"the keyed uniform ran {uniforms} times and "
+                             f"the keyed dropout {drops} in {TIMED_STEPS} "
+                             "aux steps")
     del state, params
     torch.cuda.empty_cache()
     return out
@@ -2976,20 +3050,27 @@ def k1_host_ms():
     T=144, bf16), between events over back-to-back calls (the kernel
     itself takes ~0.008 ms there): the ctypes wrapper alone, the operator
     ``mtvaf::prefix_attention_fwd``, and ``prefix_attention`` (the call
-    each encoder layer makes), in turns."""
+    each encoder layer makes), and the last two with dropout 0.1 under a
+    device key (the key's word read by the kernel: no host draw), in
+    turns."""
     from mtvaf_tpu_torch.kernels.prefix_attention import (
         prefix_attention, prefix_attention_cuda)
     g = torch.Generator(device="cuda").manual_seed(SEED + 22)
     q, k, v, bias = attention_inputs(g, 16, 12, 128, 144, 64, torch.bfloat16)
+    key = dropout_key()
     calls = {
         "wrapper": lambda: prefix_attention_cuda(q, k, v, bias),
         "operator": lambda: torch.ops.mtvaf.prefix_attention_fwd(
-            q, k, v, bias, 0, 0.0),
-        "prefix_attention": lambda: prefix_attention(q, k, v, bias)}
+            q, k, v, bias, None, 0, 0.0),
+        "prefix_attention": lambda: prefix_attention(q, k, v, bias),
+        "operator_dropout": lambda: torch.ops.mtvaf.prefix_attention_fwd(
+            q, k, v, bias, key.word, key.salt, 0.1),
+        "prefix_attention_dropout": lambda: prefix_attention(
+            q, k, v, bias, dropout_rate=0.1, rng=key)}
+    order = list(calls)
     times = {name: [] for name in calls}
     with torch.inference_mode():
-        for name in ("wrapper", "operator", "prefix_attention",
-                     "prefix_attention", "operator", "wrapper"):
+        for name in order + order[::-1]:
             times[name].append(cuda_ms(calls[name], iters=200, warmup=20))
     return {f"{name}_event_ms": sum(t) / len(t) for name, t in times.items()}
 
@@ -3150,6 +3231,14 @@ def read_counts():
     return {k: c.value for k, c in kernel_counters().items()}
 
 
+def keyed_counters():
+    """The keyed draws' launch counts (``kernels.keyed_random``)."""
+    from mtvaf_tpu_torch.kernels.keyed_random import (keyed_dropout,
+                                                      keyed_uniform)
+    return {"dropout": keyed_dropout.launches,
+            "uniform": keyed_uniform.launches}
+
+
 def profiled_calls(fn, iters=10):
     """(device ms, kernel launches) per call of ``fn`` under
     ``torch.profiler``: the summed kernel durations and the count of
@@ -3200,7 +3289,7 @@ def long_step(bert_cfg):
     from mtvaf_tpu_torch.core.convert import params_from_jax
     from mtvaf_tpu_torch.core.flops import (H100_BF16_PEAK,
                                             train_flops_per_example)
-    from mtvaf_tpu_torch.core.rng import fold_in
+    from mtvaf_tpu_torch.core.rng import step_key
     from mtvaf_tpu_torch.data.synthetic import span_batch
     from mtvaf_tpu_torch.nn.models import init_span_model_params
     from mtvaf_tpu_torch.train.optim import build_optimizer, tree_items
@@ -3221,13 +3310,13 @@ def long_step(bert_cfg):
         cfg, dataclasses.replace(bert_cfg, remat=name == "remat"))
         for name in ("plain", "remat")}
 
-    # one step's loss and gradients each, from one generator
+    # one step's loss and gradients each, under one key
     grads, one = {}, {}
     for name, loss_fn in loss_fns.items():
         state = create_train_state(params, optimizer, device=DEVICE)
         leaves = dict(tree_items(state.params))
         reset_counts()
-        loss, _ = loss_fn(state.params, batch, fold_in(SEED, 0))
+        loss, _ = loss_fn(state.params, batch, step_key(SEED, 0, 0, DEVICE))
         g = torch.autograd.grad(loss, list(leaves.values()),
                                 allow_unused=True)
         torch.cuda.synchronize()
@@ -4210,6 +4299,328 @@ def dp_phase(tmp):
 
 
 # ---------------------------------------------------------------------------
+# Phase 18: the keyed draws (``kernels.keyed_random``) and the proof that a
+# train step's randomness lives on the card: a captured CUDA graph draws new
+# masks when the step key's tensor is given a new word before a replay.
+
+
+def keyed_rows(rate=0.1):
+    """(a) The keyed dropout at the flagship train activation (B=32, S=128,
+    768, bf16) and in fp32, bit for bit its plain version on the same
+    inputs, its kept fraction within 1% of 1 - rate, timed beside its bound
+    (each element read and written once) and ``F.dropout`` (the card's
+    default CUDA generator), both with a cold L2 (:func:`cold`; ``warm_ms``
+    and ``library_warm_ms`` on one input, which stays in the L2 between
+    calls); at an odd length and at an address that is not
+    16-byte aligned (the kernel's scalar path), bit for bit too; the keyed
+    uniform at the span cutoff's (B,) draw, bit for bit, beside
+    ``torch.rand``.  Returns the rows."""
+    import torch.nn.functional as F
+
+    from mtvaf_tpu_torch.kernels.keyed_random import (
+        keep_fraction_mask, keyed_dropout_cuda, keyed_dropout_reference,
+        keyed_uniform, keyed_uniform_reference)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 18)
+    key = dropout_key(dev)
+    rows = {}
+    for name, shape, dtype, timed in (
+            ("train_bf16", (TRAIN_B, TRAIN_S, 768), torch.bfloat16, True),
+            ("train_fp32", (TRAIN_B, TRAIN_S, 768), torch.float32, True),
+            ("odd_bf16", (7, 11, 13), torch.bfloat16, False),
+            ("odd_fp32", (7, 11, 13), torch.float32, False),
+            ("unaligned_bf16", (1, 4099), torch.bfloat16, False)):
+        x = torch.randn(shape, device=dev, generator=g).to(dtype)
+        if name.startswith("unaligned"):
+            x = x[0, 3:]                       # 6 bytes past an aligned start
+        y = keyed_dropout_cuda(x, rate, key)
+        torch.cuda.synchronize()
+        want = keyed_dropout_reference(x, rate, key)
+        keep = keep_fraction_mask(key, rate, x.shape, dev)
+        n = x.numel()
+        nbytes = 2 * n * (torch.finfo(dtype).bits // 8)
+        row = {"shape": name, "dims": list(x.shape),
+               "dtype": str(dtype).split(".")[1], "rate": rate,
+               "bitwise": bool(torch.equal(y, want)),
+               "mismatches": int((y != want).sum().item()),
+               "max_abs_err": (y.float() - want.float()).abs().max().item(),
+               "kept": keep.float().mean().item(),
+               "bytes": nbytes, "bound_ms": nbytes / HBM_BPS * 1e3,
+               "bound_by": "bytes"}
+        if timed:
+            xs = [x] + [x.clone() for _ in range(l2_slots(nbytes) - 1)]
+            kernel = cold(lambda xi: keyed_dropout_cuda(xi, rate, key), xs)
+            library = cold(lambda xi: F.dropout(xi, rate, training=True), xs)
+            row["l2_slots"] = len(xs)
+            row["ms"] = device_ms(kernel)
+            row["event_ms"] = cuda_ms(kernel)
+            row["plain_ms"] = device_ms(
+                lambda: keyed_dropout_reference(x, rate, key), iters=5)
+            row["library_ms"] = device_ms(library)
+            row["warm_ms"] = device_ms(
+                lambda: keyed_dropout_cuda(x, rate, key))
+            row["library_warm_ms"] = device_ms(
+                lambda: F.dropout(x, rate, training=True))
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            del xs, kernel, library
+        log("keyed_dropout", json.dumps(row), card_line())
+        rows[name] = row
+        if not row["bitwise"] or (timed and abs(row["kept"] - (1 - rate))
+                                  > 0.01):
+            raise AssertionError(f"keyed dropout disagrees with its plain "
+                                 f"version: {row}")
+    u = keyed_uniform(key, (TRAIN_B,))
+    torch.cuda.synchronize()
+    want = keyed_uniform_reference(key, (TRAIN_B,), dev)
+    row = {"shape": "span_cutoff_starts", "dims": [TRAIN_B],
+           "bitwise": bool(torch.equal(u, want)),
+           "max_abs_err": (u - want).abs().max().item(),
+           "ms": device_ms(lambda: keyed_uniform(key, (TRAIN_B,))),
+           "plain_ms": device_ms(lambda: keyed_uniform_reference(
+               key, (TRAIN_B,), dev), iters=5),
+           "library_ms": device_ms(lambda: torch.rand((TRAIN_B,),
+                                                      device=dev)),
+           "bytes": 4 * TRAIN_B + 8, "bound_by": "bytes"}
+    row["bound_ms"] = row["bytes"] / HBM_BPS * 1e3
+    log("keyed_uniform", json.dumps(row), card_line())
+    rows["uniform"] = row
+    if not row["bitwise"]:
+        raise AssertionError(f"keyed uniform disagrees with its plain "
+                             f"version: {row}")
+    return rows
+
+
+def l2_slots(nbytes):
+    """Buffers to rotate through so that the calls between two uses of one
+    buffer move at least twice the L2's bytes (``nbytes`` a call)."""
+    return -(-2 * L2_BYTES // nbytes) + 1
+
+
+def cold(fn, inputs):
+    """A call of ``fn`` on each of ``inputs`` in turn, each output kept
+    until its input comes round again, so that no call finds its input or
+    (with the caching allocator handing back the block freed a round
+    earlier) its output's block in the L2."""
+    ring = [None] * len(inputs)
+    turn = [0]
+
+    def call():
+        i = turn[0]
+        turn[0] = (i + 1) % len(inputs)
+        ring[i] = fn(inputs[i])
+    return call
+
+
+GRAPH_WORDS = (0x0123456789ABCDEF, 0x2545F4914F6CDD1D, 0x1B873593CC9E2D51)
+
+
+def replay_against_eager(fn, word, graph, static, n_outputs=None):
+    """Write ``word`` into the captured key, replay, and hold every output
+    of the replay bitwise against ``fn`` run eagerly under a fresh key of
+    that word; returns (bitwise, the replay's outputs cloned)."""
+    from mtvaf_tpu_torch.core.rng import new_key
+    fn.word.fill_(word)
+    graph.replay()
+    torch.cuda.synchronize()
+    replayed = [None if t is None else t.clone() for t in static]
+    eager = fn(new_key(word, "cuda"))
+    torch.cuda.synchronize()
+    same = all((a is None and b is None) or (
+        a is not None and b is not None and torch.equal(a, b))
+        for a, b in zip(replayed, eager))
+    return same, replayed
+
+
+def capture(fn):
+    """Two warm-up calls on a side stream, then ``fn(key)`` captured in a
+    CUDA graph under the static key ``fn.key``; returns (graph, outputs)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn(fn.key)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = fn(fn.key)
+    torch.cuda.synchronize()
+    return graph, static
+
+
+def turns_ms(eager, replay, n=10):
+    """Eager and replay ms per call, in turns (eager, replay, replay,
+    eager), each between two events over ``n`` calls."""
+    def one(f):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            f()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / n
+    e1, r1, r2, e2 = one(eager), one(replay), one(replay), one(eager)
+    return {"eager_ms": [e1, e2], "replay_ms": [r1, r2]}
+
+
+def layer_graph_proof(rate=0.1):
+    """(b) One flagship encoder layer (BERT-base width, B=32, S=128 with a
+    16-slot prefix, bf16, every dropout live: K1 and K2 with attention
+    dropout, the two keyed dropouts) forward + backward captured in one
+    ``torch.cuda.CUDAGraph``, replayed under three words written into the
+    captured key's tensor: each replay's output, input gradient and every
+    weight gradient bitwise equal to an eager run under a fresh key of
+    that word; K1's keep words of each replay bit for bit the plain mask
+    of ``_mix(word, salt)``, and the three replays' masks all different."""
+    from mtvaf_tpu_torch.core.rng import Key
+    from mtvaf_tpu_torch.kernels import prefix_attention as pa
+    from mtvaf_tpu_torch.kernels.prefix_attention import (
+        keep_mask_reference, unpack_keep_words)
+    from mtvaf_tpu_torch.nn.bert import BertConfig, bert_layer
+    from mtvaf_tpu_torch.nn.layers import mask_to_bias
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    cfg = BertConfig.base()
+    hd, inter, heads, p = cfg.hidden_size, cfg.intermediate_size, \
+        cfg.num_attention_heads, 16
+    b, s = TRAIN_B, TRAIN_S
+    g = torch.Generator(device=dev).manual_seed(SEED + 19)
+
+    def w(*shape, scale=0.02):
+        return (torch.randn(shape, device=dev, generator=g) * scale).to(
+            bf16).requires_grad_()
+
+    def ln():
+        return {"scale": torch.ones(hd, device=dev, requires_grad=True),
+                "bias": torch.zeros(hd, device=dev, requires_grad=True)}
+
+    lp = {"attn": {"qkv": {"kernel": w(hd, 3 * hd), "bias": w(3 * hd)},
+                   "out": {"kernel": w(hd, hd), "bias": w(hd)}, "ln": ln()},
+          "mlp": {"in": {"kernel": w(hd, inter), "bias": w(inter)},
+                  "out": {"kernel": w(inter, hd), "bias": w(hd)},
+                  "ln": ln()}}
+    x = torch.randn(b, s, hd, device=dev, generator=g).to(bf16)
+    x.requires_grad_()
+    pkv = torch.randn(2, b, heads, p, hd // heads, device=dev,
+                      generator=g).to(bf16)
+    mask = torch.ones(b, p + s, device=dev)
+    mask[:, p + s - 9:] = 0.0                     # a padded tail
+    bias = mask_to_bias(mask)
+    dy = torch.randn(b, s, hd, device=dev, generator=g).to(bf16)
+    leaves = [x] + [t for blk in lp.values() for leaf in blk.values()
+                    for t in leaf.values()]
+    seen = []
+    real_k1 = pa.prefix_attention_cuda
+
+    def k1_recording(*a, **kw):
+        out = real_k1(*a, **kw)
+        seen.append((out[2], kw["salt"], tuple(a[0].shape[:3])
+                     + (a[1].shape[2],)))
+        return out
+
+    def fn(key):
+        out = bert_layer(lp, x, bias, cfg, prefix_kv=pkv, key=key)
+        return [out, *torch.autograd.grad(out, leaves, grad_outputs=dy)]
+
+    fn.word = torch.zeros(1, dtype=torch.int64, device=dev)
+    fn.key = Key(fn.word, 0)
+    pa.prefix_attention_cuda = k1_recording
+    try:
+        graph, static = capture(fn)
+        words, salt, shape = seen[-1]             # the captured call's
+        result = {"layer": "bert_base_layer", "B": b, "S": s, "prefix": p,
+                  "dtype": "bfloat16", "rate": rate, "outputs": len(static),
+                  "replays": []}
+        masks = []
+        for word in GRAPH_WORDS:
+            same, _ = replay_against_eager(fn, word, graph, static)
+            got = unpack_keep_words(words, shape)
+            want = keep_mask_reference(Key(fn.word, salt).philox_key(),
+                                       rate, shape, dev)
+            masks.append(got.clone())
+            result["replays"].append({
+                "word": hex(word), "bitwise_vs_eager": same,
+                "k1_mask_mismatches": int((got != want).sum().item()),
+                "kept": got.float().mean().item()})
+    finally:
+        pa.prefix_attention_cuda = real_k1
+    result["masks_differ"] = all(not torch.equal(masks[i], masks[j])
+                                 for i in range(3) for j in range(i))
+    fn.word.fill_(GRAPH_WORDS[0])
+    eager_key = Key(fn.word, 0)
+    result.update(turns_ms(lambda: fn(eager_key), graph.replay))
+    log("layer_graph", json.dumps(result), card_line())
+    del graph, static
+    torch.cuda.empty_cache()
+    if not (result["masks_differ"] and all(
+            r["bitwise_vs_eager"] and r["k1_mask_mismatches"] == 0
+            for r in result["replays"])):
+        raise AssertionError(f"the captured layer does not replay its "
+                             f"keyed draws: {result}")
+    return result
+
+
+def step_capture_attempt():
+    """(c) ``bench.py``'s flagship CRF step (B=32, S=128, bf16, dropout
+    live): its forward + backward captured in one CUDA graph under a
+    static key, replayed under three words bitwise against eager runs,
+    with replay and eager ms in turns; or, where capture breaks, the first
+    call of the port that broke it, by file:line.  Both are results; a
+    capture whose replays are not bitwise the eager runs is a failure.  Run
+    last, so that a broken capture reaches no later phase."""
+    import traceback
+
+    from mtvaf_tpu_torch.core.rng import Key
+    from mtvaf_tpu_torch.train.optim import tree_items
+
+    cfg, bert_cfg, params, _ = flagship()
+    _, state, loss_fn, _, batch = train_setup(cfg, bert_cfg, params, DEVICE)
+    del params
+    leaves = [t for _, t in tree_items(state.params)]
+
+    def fn(key):
+        loss, _ = loss_fn(state.params, batch, key)
+        return [loss, *torch.autograd.grad(loss, leaves, allow_unused=True)]
+
+    fn.word = torch.zeros(1, dtype=torch.int64, device=DEVICE)
+    fn.key = Key(fn.word, 0)
+    result = {"step": "crf_flagship", "B": TRAIN_B, "S": TRAIN_S,
+              "dtype": "bfloat16"}
+    try:
+        graph, static = capture(fn)
+    except Exception as err:               # noqa: BLE001 - the result
+        # the first error of the chain (the capture's end may raise
+        # another over it), and its deepest frame in the port
+        while err.__context__ is not None:
+            err = err.__context__
+        root = os.path.dirname(os.path.abspath(__file__))
+        tb = traceback.extract_tb(err.__traceback__)
+        frames = [f for f in tb if f.filename.startswith(
+            os.path.join(root, "mtvaf_tpu_torch"))]
+        where = (frames or tb)[-1]
+        rel = os.path.relpath(where.filename, root)
+        result.update(captured=False, where=f"{rel}:{where.lineno}",
+                      call=where.line,
+                      error=f"{type(err).__name__}: {str(err)[:300]}")
+        log("step_capture", json.dumps(result), card_line())
+        return result
+    result.update(captured=True, replays=[])
+    for word in GRAPH_WORDS:
+        same, _ = replay_against_eager(fn, word, graph, static)
+        result["replays"].append({"word": hex(word), "bitwise": same})
+    fn.word.fill_(GRAPH_WORDS[0])
+    result.update(turns_ms(lambda: fn(fn.key), graph.replay, n=5))
+    log("step_capture", json.dumps(result), card_line())
+    del graph, static
+    if not all(r["bitwise"] for r in result["replays"]):
+        raise AssertionError(f"the captured step's replays differ from its "
+                             f"eager runs: {result}")
+    return result
+
+
+# ---------------------------------------------------------------------------
 # Phase 16: tensor parallelism.
 
 # A TP rank's heads of BERT-base on a model axis of 2: heads 6-11.
@@ -4241,9 +4652,10 @@ def check_head_offset(rate=0.1):
 
     # the mask entry point
     shape = (b, h, s, t)
-    got = keep_mask_cuda(DROPOUT_SEED, rate, shape, dev, head_offset=lo)
-    whole = keep_mask_cuda(DROPOUT_SEED, rate, (b, full_h, s, t), dev)
-    plain = keep_mask_reference(DROPOUT_SEED, rate, shape, dev,
+    key, kw = dropout_key(dev), dropout_kw(dev)
+    got = keep_mask_cuda(key, rate, shape, head_offset=lo)
+    whole = keep_mask_cuda(key, rate, (b, full_h, s, t))
+    plain = keep_mask_reference(mixed_seed(), rate, shape, dev,
                                 head_offset=lo)
     torch.cuda.synchronize()
     mask_bytes = b * h * s * t * 4
@@ -4251,10 +4663,10 @@ def check_head_offset(rate=0.1):
         "shape": "train_h6_offset6", "rate": rate,
         "mismatches_vs_full_heads_6_11": int((got != whole[:, lo:]).sum()),
         "mismatches_vs_plain": int((got != plain).sum()),
-        "ms": device_ms(lambda: keep_mask_cuda(DROPOUT_SEED, rate, shape, dev,
+        "ms": device_ms(lambda: keep_mask_cuda(key, rate, shape,
                                                head_offset=lo)),
         "plain_ms": device_ms(lambda: keep_mask_reference(
-            DROPOUT_SEED, rate, shape, dev, head_offset=lo)),
+            mixed_seed(), rate, shape, dev, head_offset=lo)),
         "bound_ms": mask_bytes / HBM_BPS * 1e3, "bound_by": "bytes",
         "library_ms": None}
     del whole, plain
@@ -4267,9 +4679,9 @@ def check_head_offset(rate=0.1):
     for r in (0.0, rate):
         mask, keep = keep_of(r, shape, dev, head_offset=lo)
         o, lse, words = prefix_attention_cuda(
-            *part[:3], bias, seed=DROPOUT_SEED, rate=r, head_offset=lo)
+            *part[:3], bias, **kw, rate=r, head_offset=lo)
         o12, lse12, words12 = prefix_attention_cuda(
-            q, k, v, bias, seed=DROPOUT_SEED, rate=r)
+            q, k, v, bias, **kw, rate=r)
         grads = prefix_attention_bwd_cuda(*part[:3], bias, o, lse, part[3],
                                           words, rate=r)
         grads12 = prefix_attention_bwd_cuda(q, k, v, bias, o12, lse12, do,
@@ -4295,8 +4707,7 @@ def check_head_offset(rate=0.1):
         for name, err, atol, bitwise, fn, plain_fn, lib_fn, bound in (
                 ("k1", max(err_o, err_lse), K1_ATOL[dtype], bitwise_fwd,
                  lambda: prefix_attention_cuda(
-                     *part[:3], bias, seed=DROPOUT_SEED, rate=r,
-                     head_offset=lo),
+                     *part[:3], bias, **kw, rate=r, head_offset=lo),
                  lambda: prefix_attention_reference(*part[:3], bias, keep),
                  lambda: F.scaled_dot_product_attention(
                      *part[:3], attn_mask=bias.to(dtype), dropout_p=r),
@@ -4781,6 +5192,8 @@ def main() -> int:
 
     k1_rows = check_prefix_attention()
     mask_row, k1_train = check_dropout()
+    keyed = keyed_rows()
+    graph_path = layer_graph_proof()
     k2_rows = check_backward()
     tp_kernels = check_head_offset()
 
@@ -4832,6 +5245,7 @@ def main() -> int:
                 child.stop()
             parity[0].stop()
 
+    capture_path = step_capture_attempt()
     serve_row = next(r for r in k1_rows if r["shape"] == "serve_bf16")
     k2_row = next(r for r in k2_rows
                   if r["shape"] == "train_bf16" and r["rate"] > 0)
@@ -4953,6 +5367,42 @@ def main() -> int:
         "max_abs_err": float(mask_row["mismatches"]),
         **{k: mask_row[k] for k in keys[:4]},
         "library_ms": None,
+    }, {
+        "name": "keyed_dropout",
+        "route": "cuda",
+        "design": "cuda-cores, one 16-byte vector a thread (8 bf16, 4 fp32)",
+        "source": "mtvaf_tpu_torch/csrc/keyed_random.cu",
+        "replaces": "mtvaf_tpu/nn/layers.py:57 (dropout in XLA; no TPU "
+                    "kernel)",
+        "ptxas": [r for r in ptxas if r["lib"] == "keyed_random"
+                  and r["kernel"] == "dropout_kernel"],
+        "launches": train_path["dropout_launches"],
+        "max_abs_err": keyed["train_bf16"]["max_abs_err"],
+        "mismatches": keyed["train_bf16"]["mismatches"],
+        **{k: keyed["train_bf16"][k] for k in keys},
+        "kept": keyed["train_bf16"]["kept"],
+        "warm_ms": keyed["train_bf16"]["warm_ms"],
+        "library_warm_ms": keyed["train_bf16"]["library_warm_ms"],
+        "fp32": {k: keyed["train_fp32"][k]
+                 for k in ("mismatches", "kept", "warm_ms",
+                           "library_warm_ms") + keys},
+        "aux": {"launches": aux_path["train_step"]["dropout_launches"]},
+        "graph": graph_path, "step_capture": capture_path,
+    }, {
+        "name": "keyed_uniform",
+        "route": "cuda", "design": "cuda-cores",
+        "source": "mtvaf_tpu_torch/csrc/keyed_random.cu",
+        "replaces": "mtvaf_tpu/train/augment.py:27 (the cut draw in XLA; "
+                    "no TPU kernel)",
+        "ptxas": [r for r in ptxas if r["lib"] == "keyed_random"
+                  and r["kernel"] == "uniform_kernel"],
+        # its path is the aux step's (the span cutoff draws its cuts):
+        # counted from 0 just before phase 12(a)'s timed steps
+        "path": "aux_train_step",
+        "launches": aux_path["train_step"]["uniform_launches"],
+        "crf_train_step": {"launches": train_path["uniform_launches"]},
+        "max_abs_err": keyed["uniform"]["max_abs_err"],
+        **{k: keyed["uniform"][k] for k in keys},
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -41,7 +41,7 @@ VARIANTS = {"drawn": STORE, "no_store": "",
 SHAPES = {"span_s500": (32, 12, 500, 500, torch.bfloat16),
           "span_s128": (32, 12, 128, 128, torch.bfloat16),
           "train_fp32": (32, 12, 128, 144, torch.float32)}
-SEED, RATE = 0x0123456789ABCDEF, 0.1
+SEED, SALT, RATE = 0x0123456789ABCDEF, 0, 0.1    # the step key's word
 
 
 def build():
@@ -87,6 +87,7 @@ def main() -> int:
         print("k1_words_cost.py: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    from mtvaf_tpu_torch.core.rng import Key, new_key
     from mtvaf_tpu_torch.kernels import prefix_attention as pa
     libs, sass = build()
     fns = {}
@@ -102,6 +103,7 @@ def main() -> int:
     print("sass_instructions_bf16_dropout", json.dumps(sass), flush=True)
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream().cuda_stream
+    key = Key(new_key(SEED, dev).word, SALT)
     for shape, (b, h, s, t, dtype) in SHAPES.items():
         g = torch.Generator(device=dev).manual_seed(0)
         q, k, v = (torch.randn(b, h, n, 64, device=dev, generator=g)
@@ -116,16 +118,16 @@ def main() -> int:
             err = fns[name](q.data_ptr(), k.data_ptr(), v.data_ptr(),
                             bias.data_ptr(), o.data_ptr(), lse.data_ptr(),
                             words.data_ptr(), b, h, s, t, 64, 1, 0.125,
-                            pa._DTYPE_CODES[dtype],
-                            *pa._dropout_args(SEED, RATE), 0, stream)
+                            pa._DTYPE_CODES[dtype], key.word.data_ptr(),
+                            key.salt, *pa._dropout_args(RATE), 0, stream)
             if err:
                 raise RuntimeError(f"{name}: launch failed ({err})")
 
         call("drawn")
         torch.cuda.synchronize()
         mismatches = int((pa.unpack_keep_words(words, (b, h, s, t))
-                          != pa.keep_mask_reference(SEED, RATE, (b, h, s, t),
-                                                    dev)).sum())
+                          != pa.keep_mask_reference(key.philox_key(), RATE,
+                                                    (b, h, s, t), dev)).sum())
         times = {name: [] for name in fns}
         for rnd in range(6):
             for name in (list(fns) if rnd % 2 == 0 else list(fns)[::-1]):

@@ -13,7 +13,11 @@
 // concatenated (T = P + S); the additive bias is fp32 (B, 1|S, T) and shared by
 // every head.  q, k, v and o are all bf16 or all fp32; softmax statistics and
 // the accumulator are fp32 whatever the input type.  keep is 1/(1-rate) or 0,
-// from the counter-based Philox bits of philox.cuh keyed on (seed, b, h, s, t).
+// from the counter-based Philox bits of philox.cuh keyed on (b, h, s, t) under
+// the site key mix(step key, salt): the step key is read from device memory
+// (`key`, the train step's int64 word), the salt is the call's argument, so a
+// CUDA graph that captured the launch draws new masks when the step key's
+// tensor is given a new word before a replay.
 // With dropout the kernel also writes its keep bits as keep words (one
 // 32-bit word per thread and tile pair, layout in hopper.cuh), which the
 // backward kernel (prefix_attention_bwd.cu) reads instead of drawing again.
@@ -120,9 +124,9 @@ fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap vmap,
                 const float* __restrict__ bias, __nv_bfloat16* __restrict__ o,
                 float* __restrict__ lse, uint32_t* __restrict__ words, int H,
-                int S, int Tk, int bias_rows, float scale, unsigned seed_lo,
-                unsigned seed_hi, unsigned threshold, float keep_scale,
-                int head_offset) {
+                int S, int Tk, int bias_rows, float scale,
+                const long long* __restrict__ key, unsigned long long salt,
+                unsigned threshold, float keep_scale, int head_offset) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = hp::align1024(smem_raw);
   unsigned char* qs = sm;
@@ -137,6 +141,10 @@ fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
   const int tid = threadIdx.x, lane = tid & 31, c = lane & 3;
   const int nt = (Tk + hp::TILE - 1) / hp::TILE;
   const float* bb = bias + (size_t)b * bias_rows * Tk;
+  // the dropout site's Philox key: the step key (device memory) mixed
+  // with the site's salt
+  const unsigned long long site = DROPOUT ? mtvaf::site_key(key, salt) : 0;
+  const unsigned seed_lo = (unsigned)site, seed_hi = (unsigned)(site >> 32);
   // The bias * log2(e) of key tile `tile` into stage `st`, -inf past T (one
   // row of bias serves every query).
   auto stage_bias = [&](int st, int tile) {
@@ -279,8 +287,9 @@ fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
 int launch_bf16(const void* q, const void* k, const void* v,
                 const float* bias, void* o, float* lse, uint32_t* words,
                 int B, int H, int S, int Tk, int bias_rows, float scale,
-                unsigned seed_lo, unsigned seed_hi, unsigned threshold,
-                float keep_scale, int head_offset, cudaStream_t stream) {
+                const long long* key, unsigned long long salt,
+                unsigned threshold, float keep_scale, int head_offset,
+                cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   if (!hp::make_tile_map(&qm, q, S, B * H) ||
       !hp::make_tile_map(&km, k, Tk, B * H) ||
@@ -290,7 +299,7 @@ int launch_bf16(const void* q, const void* k, const void* v,
   auto kernel = threshold ? fwd_bf16_kernel<true> : fwd_bf16_kernel<false>;
   kernel<<<grid, 128, FWD_SMEM, stream>>>(
       qm, km, vm, bias, static_cast<__nv_bfloat16*>(o), lse, words, H, S, Tk,
-      bias_rows, scale, seed_lo, seed_hi, threshold, keep_scale, head_offset);
+      bias_rows, scale, key, salt, threshold, keep_scale, head_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -309,8 +318,8 @@ fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap qmap,
                   const float* __restrict__ bias, float* __restrict__ o,
                   float* __restrict__ lse, uint32_t* __restrict__ words,
                   int H, int S, int Tk, int bias_rows, float scale,
-                  unsigned seed_lo, unsigned seed_hi, unsigned threshold,
-                  float keep_scale, int head_offset) {
+                  const long long* __restrict__ key, unsigned long long salt,
+                  unsigned threshold, float keep_scale, int head_offset) {
   constexpr int TB = hp::F32_TILE_BYTES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = hp::align1024(smem_raw);
@@ -328,6 +337,10 @@ fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap qmap,
   const int tid = threadIdx.x, lane = tid & 31, c = lane & 3;
   const int nt = (Tk + hp::TILE - 1) / hp::TILE;
   const float* bb = bias + (size_t)b * bias_rows * Tk;
+  // the dropout site's Philox key: the step key (device memory) mixed
+  // with the site's salt
+  const unsigned long long site = DROPOUT ? mtvaf::site_key(key, salt) : 0;
+  const unsigned seed_lo = (unsigned)site, seed_hi = (unsigned)(site >> 32);
 
   if (tid == 0) {
     hp::mbar_init(&bars[0], 1);
@@ -464,8 +477,9 @@ fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap qmap,
 int launch_fp32(const void* q, const void* k, const void* v,
                 const float* bias, void* o, float* lse, uint32_t* words,
                 int B, int H, int S, int Tk, int bias_rows, float scale,
-                unsigned seed_lo, unsigned seed_hi, unsigned threshold,
-                float keep_scale, int head_offset, cudaStream_t stream) {
+                const long long* key, unsigned long long salt,
+                unsigned threshold, float keep_scale, int head_offset,
+                cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   if (!hp::make_tile_map(&qm, q, S, B * H, 4) ||
       !hp::make_tile_map(&km, k, Tk, B * H, 4) ||
@@ -480,30 +494,53 @@ int launch_fp32(const void* q, const void* k, const void* v,
   dim3 grid((S + hp::TILE - 1) / hp::TILE, H, B);
   kernel<<<grid, 128, FWD32_SMEM, stream>>>(
       qm, km, vm, bias, static_cast<float*>(o), lse, words, H, S, Tk,
-      bias_rows, scale, seed_lo, seed_hi, threshold, keep_scale, head_offset);
+      bias_rows, scale, key, salt, threshold, keep_scale, head_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The 0/1 keep mask of every (b, h, row, col), one thread per four columns.
-__global__ void keep_mask_kernel(float* __restrict__ out, int H, int S,
-                                 int Tk, long long n4, unsigned seed_lo,
-                                 unsigned seed_hi, unsigned threshold,
-                                 int head_offset) {
-  const int tg = (Tk + 3) / 4;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n4;
-       i += (long long)gridDim.x * blockDim.x) {
-    const int col4 = (int)(i % tg);
-    const long long bhs = i / tg;                 // (b * H + h) * S + row
-    const int row = (int)(bhs % S);
-    const int h = (int)((bhs / S) % H);
-    const int b = (int)(bhs / ((long long)S * H));
-    const uint4 r =
-        mtvaf::keep_bits4(b, h + head_offset, row, col4, seed_lo, seed_hi);
-    float* dst = out + bhs * Tk;
+// The 0/1 keep mask of every (b, h, row, col).  What bounds it is the
+// store of the fp32 mask (4 bytes an element; 28.3 MB at the train shape,
+// B=32, H=12, S=128, T=144: 8.45 us at 3.35 TB/s) against ten Philox
+// rounds per four elements on the integer units.  So a block takes one
+// (b, h) plane (blockIdx.x) and MASK_GROUPS * 256 consecutive four-column
+// groups of it (blockIdx.y): the plane's b and h are one division per
+// thread, a group's row and column one 32-bit division (a grid-stride loop
+// over 64-bit indices spent four 64-bit divisions per group), and thread t
+// takes groups t, t + 256, ..., so that each store instruction of a warp
+// covers contiguous memory.  Where T % 4 == 0 a group is one float4 store;
+// else four scalar ones.
+constexpr int MASK_THREADS = 256, MASK_GROUPS = 4;
+
+template <bool VEC4>
+__global__ void __launch_bounds__(MASK_THREADS)
+keep_mask_kernel(float* __restrict__ out, int H, int S, int Tk,
+                 const long long* __restrict__ key, unsigned long long salt,
+                 unsigned threshold, int head_offset) {
+  const unsigned long long site = mtvaf::site_key(key, salt);
+  const unsigned k0 = (unsigned)site, k1 = (unsigned)(site >> 32);
+  const int plane = blockIdx.x, b = plane / H, h = plane - b * H;
+  const int tg = (Tk + 3) >> 2, groups = S * tg;
+  float* dst = out + (size_t)plane * S * Tk;
+  const int g0 = blockIdx.y * MASK_THREADS * MASK_GROUPS + threadIdx.x;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = col4 * 4 + j;
-      if (col < Tk) dst[col] = mtvaf::word(r, j) >= threshold ? 1.f : 0.f;
+  for (int k = 0; k < MASK_GROUPS; ++k) {
+    const int g = g0 + k * MASK_THREADS;
+    if (g >= groups) break;
+    const int row = g / tg, col4 = g - row * tg;
+    const uint4 r = mtvaf::keep_bits4(b, h + head_offset, row, col4, k0, k1);
+    const float4 m = make_float4(r.x >= threshold ? 1.f : 0.f,
+                                 r.y >= threshold ? 1.f : 0.f,
+                                 r.z >= threshold ? 1.f : 0.f,
+                                 r.w >= threshold ? 1.f : 0.f);
+    if (VEC4) {
+      reinterpret_cast<float4*>(dst)[g] = m;    // row * tg + col4 == g
+    } else {
+      float* d = dst + (size_t)row * Tk + 4 * col4;
+      const int left = Tk - 4 * col4;
+      d[0] = m.x;
+      if (left > 1) d[1] = m.y;
+      if (left > 2) d[2] = m.z;
+      if (left > 3) d[3] = m.w;
     }
   }
 }
@@ -521,17 +558,18 @@ __global__ void keep_mask_kernel(float* __restrict__ out, int H, int S,
 extern "C" int mtvaf_prefix_attention_fwd(
     const void* q, const void* k, const void* v, const float* bias, void* o,
     float* lse, uint32_t* words, int B, int H, int S, int Tk, int D,
-    int bias_rows, float scale, int dtype, unsigned seed_lo, unsigned seed_hi,
-    unsigned threshold, float keep_scale, int head_offset, void* stream) {
+    int bias_rows, float scale, int dtype, const long long* key,
+    unsigned long long salt, unsigned threshold, float keep_scale,
+    int head_offset, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D != 64) return -1;
   if (dtype == 1)
     return launch_bf16(q, k, v, bias, o, lse, words, B, H, S, Tk, bias_rows,
-                       scale, seed_lo, seed_hi, threshold, keep_scale,
+                       scale, key, salt, threshold, keep_scale,
                        head_offset, st);
   if (dtype != 0) return -1;
   return launch_fp32(q, k, v, bias, o, lse, words, B, H, S, Tk, bias_rows,
-                     scale, seed_lo, seed_hi, threshold, keep_scale,
+                     scale, key, salt, threshold, keep_scale,
                      head_offset, st);
 }
 
@@ -541,15 +579,19 @@ extern "C" int mtvaf_prefix_attention_fwd_smem(int dtype) {
   return dtype == 0 ? FWD32_SMEM : FWD_SMEM;
 }
 
-// out (B, H, S, T) fp32: 1 where the forward and backward keep the element.
+// out (B, H, S, T) fp32, 16-byte aligned: 1 where the forward and backward
+// keep the element, under the Philox key mix(*key, salt).
 extern "C" int mtvaf_prefix_attention_keep_mask(
-    float* out, int B, int H, int S, int Tk, unsigned seed_lo,
-    unsigned seed_hi, unsigned threshold, int head_offset, void* stream) {
-  const long long n4 = (long long)B * H * S * ((Tk + 3) / 4);
-  const int threads = 256;
-  const long long blocks = (n4 + threads - 1) / threads;
-  keep_mask_kernel<<<(unsigned)(blocks < 65535 * 32 ? blocks : 65535 * 32),
-                     threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      out, H, S, Tk, n4, seed_lo, seed_hi, threshold, head_offset);
+    float* out, int B, int H, int S, int Tk, const long long* key,
+    unsigned long long salt, unsigned threshold, int head_offset,
+    void* stream) {
+  const long long groups = (long long)S * ((Tk + 3) / 4);
+  const long long per_block = MASK_THREADS * MASK_GROUPS;
+  const long long chunks = (groups + per_block - 1) / per_block;
+  if (chunks > 65535) return -1;              // gridDim.y's limit
+  dim3 grid(B * H, (unsigned)chunks);
+  auto kernel = Tk % 4 == 0 ? keep_mask_kernel<true> : keep_mask_kernel<false>;
+  kernel<<<grid, MASK_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      out, H, S, Tk, key, salt, threshold, head_offset);
   return static_cast<int>(cudaGetLastError());
 }

@@ -59,7 +59,10 @@ from .infer import (CrfPredictor, SpanPredictor, _AUX_CROPS, _CROP,
 from .train.optim import tree_items
 
 _MANIFEST = "manifest.json"
-_FORMAT_VERSION = 2      # as the JAX package's bundles: fused image programs
+# 2 as the JAX package's bundles (fused image programs); 3: the programs
+# call mtvaf::prefix_attention_fwd with the step key's tensor and a salt,
+# where a version-2 program passed an integer seed
+_FORMAT_VERSION = 3
 _PLATFORMS = ("cpu", "cuda")
 
 
@@ -466,7 +469,8 @@ def load_exported_predictor(out_dir: str, tokenizer=None, *,
         manifest = json.load(f)
     if manifest["format_version"] != _FORMAT_VERSION:
         raise ValueError(f"unsupported bundle version "
-                         f"{manifest['format_version']}")
+                         f"{manifest['format_version']}: this port reads "
+                         f"version {_FORMAT_VERSION}; export the run again")
     platform = device.type
     if platform not in manifest["platforms"]:
         raise ValueError(f"the bundle has no programs for {platform!r} "

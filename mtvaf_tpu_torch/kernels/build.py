@@ -99,3 +99,12 @@ def load(name: str) -> ctypes.CDLL:
             _libs[name] = lib
     return lib
 
+
+def function(name: str, symbol: str, argtypes):
+    """``symbol`` of the library for ``csrc/<name>.cu`` (built on first
+    call), with its ctypes ``argtypes`` and an int (cudaError) result."""
+    fn = getattr(load(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn

@@ -11,9 +11,14 @@ log-sum-exp (B, H, S, 1) in fp32, which the backward reuses to recompute
 the probabilities, and the keep words of its dropout mask.
 
 Attention-probability dropout is counter-based: the keep bit of element
-(b, h, row, col) is a Philox4x32-10 word keyed on a per-call 64-bit seed
-(``csrc/philox.cuh``; :func:`keep_mask_reference` here), so the forward
-kernel, the mask entry point and the plain version all draw the same mask.
+(b, h, row, col) is a Philox4x32-10 word under the call's site key
+``_mix(word, salt)`` (``csrc/philox.cuh``, ``kernels/philox.py``;
+:func:`keep_mask_reference` here), word the train step's key, an int64
+tensor on the device (``core.rng.Key``), which the kernels read from
+device memory, and salt the call's static draw site.  So the forward
+kernel, the mask entry point and the plain version all draw the same
+mask, no seed passes through the host, and a CUDA graph that captured the
+call draws other masks once the key's tensor holds another word.
 h is the head's global index: a call given heads [h0, h0 + H) of a larger
 model (a tensor-parallel rank's, ``head_offset=h0``) draws those heads'
 masks of a call over every head, as the Pallas kernel seeds each head's
@@ -53,65 +58,35 @@ from __future__ import annotations
 
 import ctypes
 import math
-import threading
-from typing import Tuple
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
-from ..core.rng import draw_seed
+from ..core.rng import Key
+from .philox import LaunchCount, check_key, philox_words, threshold
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIM = 64        # BERT-base and -large; the kernels are built for it
 
-# Philox4x32-10 constants (Salmon et al., SC 2011).
-_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
-_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 _U32 = 0xFFFFFFFF
-
-
-def _mulhilo(a, m: int):
-    """(hi, lo) 32-bit halves of a * m for int64 tensors ``a`` < 2^32 and a
-    32-bit constant ``m``, with 16-bit halves of m so nothing overflows."""
-    p_lo = a * (m & 0xFFFF)                       # < 2^48
-    p_hi = a * (m >> 16)                          # < 2^48
-    mid = p_lo + ((p_hi & 0xFFFF) << 16)          # < 2^49
-    return (p_hi >> 16) + (mid >> 32), mid & _U32
-
-
-def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
-    """Philox4x32-10 over int64 tensors holding uint32 counter words, under
-    the key (k0, k1); returns the four output words, as ``csrc/philox.cuh``."""
-    for i in range(10):
-        if i:
-            k0 = (k0 + _PHILOX_W[0]) & _U32
-            k1 = (k1 + _PHILOX_W[1]) & _U32
-        hi0, lo0 = _mulhilo(c0, _PHILOX_M[0])
-        hi1, lo1 = _mulhilo(c2, _PHILOX_M[1])
-        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-    return c0, c1, c2, c3
-
-
-def _threshold(rate: float) -> int:
-    """Keep an element when its word is >= this (as the TPU kernel's
-    ``_keep_mask``)."""
-    return min(int(rate * 2 ** 32), 2 ** 32 - 1)
 
 
 def keep_mask_reference(seed: int, rate: float, shape, device=None,
                         head_offset: int = 0):
-    """The bool keep mask (B, H, S, T) of dropout ``rate`` under ``seed``:
-    word (col & 3) of philox(counter (col >> 2, row, h + head_offset, b),
-    key (seed low, seed high 32 bits)) >= uint32(rate · 2^32)."""
+    """The bool keep mask (B, H, S, T) of dropout ``rate`` under the site
+    key ``seed`` (``Key.philox_key()``): word (col & 3) of philox(counter
+    (col >> 2, row, h + head_offset, b), key (seed low, seed high 32 bits))
+    >= uint32(rate · 2^32)."""
     b, h, s, t = shape
     tg = (t + 3) // 4
-    ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)  # noqa
-    c0 = ar(tg).view(1, 1, 1, tg).expand(b, h, s, tg)
-    c1 = ar(s).view(1, 1, s, 1).expand(b, h, s, tg)
-    c2 = (ar(h) + head_offset).view(1, h, 1, 1).expand(b, h, s, tg)
-    c3 = ar(b).view(b, 1, 1, 1).expand(b, h, s, tg)
-    words = philox4x32_10(c0, c1, c2, c3, seed & _U32, (seed >> 32) & _U32)
-    bits = torch.stack(words, dim=-1).reshape(b, h, s, tg * 4)[..., :t]
-    return bits >= _threshold(rate)
+    ar = np.arange
+    words = philox_words(ar(tg).reshape(1, 1, 1, tg),
+                         ar(s).reshape(1, 1, s, 1),
+                         (ar(h) + head_offset).reshape(1, h, 1, 1),
+                         ar(b).reshape(b, 1, 1, 1), seed, device)
+    bits = words.reshape(b, h, s, tg * 4)[..., :t]
+    return bits >= threshold(rate)
 
 
 def keep_factors(seed: int, rate: float, shape, device, head_offset: int = 0):
@@ -206,32 +181,13 @@ def prefix_attention_bwd_reference(q, k, v, bias, o, lse, do, keep=None):
     return dq.to(dtype), dk.to(dtype), dv.to(dtype)
 
 
-class _LaunchCount:
-    """Kernel launches since the last reset (thread-safe)."""
-
-    def __init__(self):
-        self._n = 0
-        self._lock = threading.Lock()
-
-    def add(self):
-        with self._lock:
-            self._n += 1
-
-    def reset(self):
-        with self._lock:
-            self._n = 0
-
-    @property
-    def value(self) -> int:
-        return self._n
-
-
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+_U64 = ctypes.c_uint64
 _SIGNATURES = {
     ("prefix_attention_fwd", "mtvaf_prefix_attention_fwd"):
-        [_P] * 7 + [_I] * 6 + [_F, _I, _U, _U, _U, _F, _I, _P],
+        [_P] * 7 + [_I] * 6 + [_F, _I, _P, _U64, _U, _F, _I, _P],
     ("prefix_attention_fwd", "mtvaf_prefix_attention_keep_mask"):
-        [_P] + [_I] * 4 + [_U] * 3 + [_I, _P],
+        [_P] + [_I] * 4 + [_P, _U64, _U, _I, _P],
     ("prefix_attention_bwd", "mtvaf_prefix_attention_bwd"):
         [_P] * 12 + [_I] * 6 + [_F, _I, _F, _P],
     ("prefix_attention_fwd", "mtvaf_prefix_attention_fwd_smem"): [_I],
@@ -240,15 +196,11 @@ _SIGNATURES = {
 
 
 def _fn(lib_name: str, symbol: str):
-    from .build import load
-    fn = getattr(load(lib_name), symbol)
-    if fn.argtypes is None:
-        fn.argtypes = _SIGNATURES[(lib_name, symbol)]
-        fn.restype = ctypes.c_int
-    return fn
+    from .build import function
+    return function(lib_name, symbol, _SIGNATURES[(lib_name, symbol)])
 
 
-_ENTRY_ERRORS = {-1: "head dimension or dtype not compiled",
+_ENTRY_ERRORS = {-1: "head dimension, dtype or shape not compiled",
                  -2: "the driver refused a TMA tensor map"}
 
 
@@ -262,12 +214,11 @@ def _keep_scale(rate: float) -> float:
     return 1.0 / (1.0 - rate) if rate > 0.0 else 1.0
 
 
-def _dropout_args(seed: int, rate: float):
-    """(seed_lo, seed_hi, threshold, keep_scale); threshold 0 = no dropout."""
+def _dropout_args(rate: float):
+    """(threshold, keep_scale); threshold 0 = no dropout."""
     if rate <= 0.0:
-        return 0, 0, 0, 1.0
-    return seed & _U32, (seed >> 32) & _U32, _threshold(rate), \
-        _keep_scale(rate)
+        return 0, 1.0
+    return threshold(rate), _keep_scale(rate)
 
 
 def _no_words(q):
@@ -312,12 +263,16 @@ def _check_rows(**tensors):
                              "16-byte aligned")
 
 
-def prefix_attention_cuda(q, k, v, bias, *, seed: int = 0,
+def prefix_attention_cuda(q, k, v, bias, *, key=None, salt: int = 0,
                           rate: float = 0.0, head_offset: int = 0):
     """Launch the forward kernel on the current stream; returns (o, lse,
     words), words the keep words of its dropout mask (empty without).
+    With dropout ``rate``, ``key`` is the step key's int64 word on q's
+    device and ``salt`` the call's draw site (the kernel mixes the two).
     ``head_offset``: the global index of q's head 0 (the masks' key)."""
     _check(q, k, v, bias)
+    if rate > 0.0:
+        check_key(key, q.device, "prefix_attention_cuda")
     b, h, s, d = q.shape
     t = k.shape[2]
     bias = bias.to(torch.float32).contiguous()
@@ -332,7 +287,8 @@ def prefix_attention_cuda(q, k, v, bias, *, seed: int = 0,
             o.data_ptr(), lse.data_ptr(),
             words.data_ptr() if rate > 0.0 else None, b, h, s, t, d,
             bias.shape[2], 1.0 / math.sqrt(d), _DTYPE_CODES[q.dtype],
-            *_dropout_args(seed, rate), head_offset, stream)
+            key.data_ptr() if rate > 0.0 else None, salt,
+            *_dropout_args(rate), head_offset, stream)
     _raise_on(err, "prefix_attention_fwd")
     prefix_attention.launches.add()
     return o, lse, words
@@ -388,20 +344,22 @@ def prefix_attention_bwd_cuda(q, k, v, bias, o, lse, do, words=None, *,
     return dq, dk, dv
 
 
-def keep_mask_cuda(seed: int, rate: float, shape, device,
-                   head_offset: int = 0):
-    """The keep mask (B, H, S, T) as the kernels draw it, written by the
-    mask entry point of ``csrc/prefix_attention_fwd.cu``; bool."""
-    device = torch.device(device)
+def keep_mask_cuda(key: Key, rate: float, shape, head_offset: int = 0):
+    """The keep mask (B, H, S, T) as the kernels draw it under ``key`` (on
+    a CUDA device), written by the mask entry point of
+    ``csrc/prefix_attention_fwd.cu``; bool, on the key's device."""
+    device = key.device
     if device.type != "cuda":
-        raise ValueError("keep_mask_cuda: device must be a CUDA device")
+        raise ValueError("keep_mask_cuda: the key must lie on a CUDA device")
+    check_key(key.word, device, "keep_mask_cuda")
     b, h, s, t = shape
     out = torch.empty((b, h, s, t), dtype=torch.float32, device=device)
-    lo, hi, thr, _ = _dropout_args(seed, rate)
+    thr, _ = _dropout_args(rate)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         err = _fn("prefix_attention_fwd", "mtvaf_prefix_attention_keep_mask")(
-            out.data_ptr(), b, h, s, t, lo, hi, thr, head_offset, stream)
+            out.data_ptr(), b, h, s, t, key.word.data_ptr(), key.salt, thr,
+            head_offset, stream)
     _raise_on(err, "prefix_attention keep_mask")
     keep_mask_cuda.launches.add()
     return out > 0.5
@@ -417,30 +375,35 @@ def keep_mask_cuda(seed: int, rate: float, shape, device,
 @torch.library.custom_op("mtvaf::prefix_attention_fwd", mutates_args=(),
                          device_types="cpu")
 def prefix_attention_fwd_op(q: torch.Tensor, k: torch.Tensor,
-                            v: torch.Tensor, bias: torch.Tensor, seed: int,
+                            v: torch.Tensor, bias: torch.Tensor,
+                            key: Optional[torch.Tensor], salt: int,
                             rate: float, head_offset: int = 0
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
-    """(o, lse, words) of the forward, dropout ``rate`` under ``seed``, q's
-    head 0 being the model's head ``head_offset``; words are the keep words
-    of the mask (:func:`pack_keep_words`), empty without dropout."""
+    """(o, lse, words) of the forward, dropout ``rate`` under the site key
+    ``_mix(key, salt)`` (``key`` the step key's int64 word, None at rate
+    0), q's head 0 being the model's head ``head_offset``; words are the
+    keep words of the mask (:func:`pack_keep_words`), empty without
+    dropout."""
     keep, words = None, _no_words(q)
     if rate > 0.0:
-        mask = keep_mask_reference(seed, rate, q.shape[:3] + (k.shape[2],),
-                                   q.device, head_offset)
+        check_key(key, q.device, "prefix_attention")
+        mask = keep_mask_reference(Key(key, salt).philox_key(), rate,
+                                   q.shape[:3] + (k.shape[2],), q.device,
+                                   head_offset)
         keep, words = _factors(mask, rate), pack_keep_words(mask)
     o, lse = prefix_attention_reference(q, k, v, bias, keep)
     return o.contiguous(), lse.contiguous(), words
 
 
 @prefix_attention_fwd_op.register_kernel("cuda")
-def _fwd_cuda(q, k, v, bias, seed, rate, head_offset=0):
-    return prefix_attention_cuda(q, k, v, bias, seed=seed, rate=rate,
-                                 head_offset=head_offset)
+def _fwd_cuda(q, k, v, bias, key, salt, rate, head_offset=0):
+    return prefix_attention_cuda(q, k, v, bias, key=key, salt=salt,
+                                 rate=rate, head_offset=head_offset)
 
 
 @prefix_attention_fwd_op.register_fake
-def _fwd_fake(q, k, v, bias, seed, rate, head_offset=0):
+def _fwd_fake(q, k, v, bias, key, salt, rate, head_offset=0):
     words = q.new_empty(keep_words_shape(*q.shape[:3], k.shape[2]),
                         dtype=torch.int32) if rate > 0.0 else _no_words(q)
     return (torch.empty_like(q, memory_format=torch.contiguous_format),
@@ -479,7 +442,7 @@ def _bwd_fake(q, k, v, bias, o, lse, do, words, rate):
 
 
 def _setup_context(ctx, inputs, output):
-    q, k, v, bias, seed, rate, head_offset = inputs
+    q, k, v, bias, key, salt, rate, head_offset = inputs
     o, lse, words = output
     ctx.save_for_backward(q, k, v, bias, o, lse, words)
     ctx.rate = rate
@@ -490,11 +453,11 @@ def _backward(ctx, do, _dlse, _dwords):
     q, k, v, bias, o, lse, words = ctx.saved_tensors
     dq, dk, dv = prefix_attention_bwd_op(q, k, v, bias, o, lse, do, words,
                                          ctx.rate)
-    return dq, dk, dv, None, None, None, None
+    return dq, dk, dv, None, None, None, None, None
 
 
-# No gradient for the bias (a constant mask), the seed, the rate or the head
-# offset; lse and the keep words are not differentiable.
+# No gradient for the bias (a constant mask), the key, the salt, the rate or
+# the head offset; lse and the keep words are not differentiable.
 prefix_attention_fwd_op.register_autograd(_backward,
                                           setup_context=_setup_context)
 
@@ -505,20 +468,22 @@ def prefix_attention(q, k, v, bias, *, dropout_rate: float = 0.0, rng=None,
     ``mtvaf::prefix_attention_fwd`` (its gradient through
     ``mtvaf::prefix_attention_bwd``).
 
-    ``rng`` (a host ``torch.Generator``) with a nonzero ``dropout_rate``
-    turns attention-probability dropout on: one 63-bit seed is drawn from
-    it per call, and the backward takes the forward's mask as keep words.
+    ``rng`` (a ``core.rng.Key`` on q's device) with a nonzero
+    ``dropout_rate`` turns attention-probability dropout on: the kernel
+    reads the key's word from device memory and mixes it with the key's
+    salt (nothing is drawn on the host), and the backward takes the
+    forward's mask as keep words.
     ``head_offset`` is the model's index of q's head 0 (a tensor-parallel
     rank's first head), which keys the masks.  CUDA tensors go to the
     kernels, CPU tensors to the plain versions.
     """
     rate = float(dropout_rate) if rng is not None else 0.0
-    seed = draw_seed(rng) if rate > 0.0 else 0
-    o, lse, _ = prefix_attention_fwd_op(q, k, v, bias, seed, rate,
+    key, salt = (rng.word, rng.salt) if rate > 0.0 else (None, 0)
+    o, lse, _ = prefix_attention_fwd_op(q, k, v, bias, key, salt, rate,
                                         int(head_offset))
     return o, lse
 
 
-prefix_attention.launches = _LaunchCount()
-prefix_attention_bwd_cuda.launches = _LaunchCount()
-keep_mask_cuda.launches = _LaunchCount()
+prefix_attention.launches = LaunchCount()
+prefix_attention_bwd_cuda.launches = LaunchCount()
+keep_mask_cuda.launches = LaunchCount()

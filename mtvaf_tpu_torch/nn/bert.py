@@ -8,14 +8,15 @@ and values along T, layers are post-LN, and Q/K/V come from one fused
 along a leading L axis and the encoder is a Python loop over them.  The
 attention core of every layer is :func:`..kernels.prefix_attention.prefix_attention`.
 
-Training: a host ``torch.Generator`` turns dropout on (embeddings,
+Training: a step key (``core.rng.Key``) turns dropout on (embeddings,
 attention probabilities inside the kernel, attention output, MLP output),
 split per layer as the JAX package splits its key; the pad rows of the
 embedding tables get no gradient.  The kernel's backward recomputes the
 attention probabilities, so there is nothing for ``selective_remat`` to do.
 ``remat`` checkpoints each layer (``torch.utils.checkpoint``): the backward
-runs the layer's forward again, K1 included, from its input, and every
-dropout draw of the replay repeats the forward's (:func:`_remat_layer`).
+runs the layer's forward again, K1 included, from its input, under the
+same keys, so every dropout draw of the replay repeats the forward's
+(:func:`_remat_layer`).
 
 Tensor parallelism (``core.mesh``, M = ``mesh_model`` > 1): the params are
 this rank's shards (``core.convert.tp_layout``), and each function reads
@@ -31,7 +32,7 @@ the rules leave whole (a width that M does not divide) runs unsplit on
 every rank; a QKV split where H is not (M divides 3·hidden only) is
 gathered back before the attention.  The activations between the blocks
 are replicated: every rank of a TP group holds them, with the same
-dropout masks (one generator per data rank).
+dropout masks (one key per data rank).
 """
 
 from __future__ import annotations
@@ -166,12 +167,12 @@ def _row_dense(params, x, in_features: int, local: bool):
 
 
 def bert_layer(lp, hidden, bias, cfg: BertConfig, prefix_kv=None,
-               generator=None):
+               key=None):
     """One post-LN transformer layer.  ``prefix_kv``: optional
     (2, B, H, P, Dh) (key, value) prepended to this layer's keys/values
-    (this rank's heads under tensor parallelism); ``generator`` turns
+    (this rank's heads under tensor parallelism); ``key`` turns
     dropout on."""
-    rngs = [None] * 3 if generator is None else split(generator, 3)
+    rngs = [None] * 3 if key is None else split(key, 3)
     h = cfg.hidden_size
     qkv_split = lp["attn"]["qkv"]["kernel"].shape[-1] != 3 * h
     by_head = heads_split(lp, cfg)
@@ -208,7 +209,7 @@ def bert_layer(lp, hidden, bias, cfg: BertConfig, prefix_kv=None,
 
 
 def bert_embeddings(params, cfg: BertConfig, input_ids, token_type_ids=None,
-                    dtype=torch.float32, generator=None):
+                    dtype=torch.float32, key=None):
     """Embedding sum + LN + dropout.  Position ids never account for the
     prefix.  Pad positions pass no gradient to the word table (nor to the
     RoBERTa position table), as torch's ``padding_idx`` rows.  Tables
@@ -231,7 +232,7 @@ def bert_embeddings(params, cfg: BertConfig, input_ids, token_type_ids=None,
     if emb["word"].shape[1] != cfg.hidden_size:
         x = mesh.gather_from_tp(x)
     x = layer_norm(emb["ln"], x, eps=cfg.layer_norm_eps)
-    return dropout(x, cfg.hidden_dropout_prob, generator)
+    return dropout(x, cfg.hidden_dropout_prob, key)
 
 
 def cast_layers(layers, dtype):
@@ -255,34 +256,28 @@ def _layer(layers, i):
 
 
 def _remat_layer(lp, hidden, bias, cfg: BertConfig, prefix_kv=None,
-                 generator=None):
+                 key=None):
     """:func:`bert_layer` under a per-layer checkpoint: only the layer's
     inputs are kept, and the backward runs the layer again.
 
     The replay must draw the forward's dropout masks.  Every draw of a
-    layer descends from its host generator (the three splits of
-    :func:`bert_layer`, K1's Philox seed, ``layers.dropout``'s device
-    seed), so each run of the layer starts from a fresh generator set to
-    that generator's state before the layer.  ``preserve_rng_state`` is off:
-    the port draws from explicit generators only, never from the global
-    ones, so their stash would copy the device's RNG state per layer and
-    protect nothing."""
+    layer is a pure function of the layer's key (its word in device memory
+    and the salts of :func:`bert_layer`'s splits), which the replay is
+    given again, so it draws the same masks; nothing is saved or restored.
+    ``preserve_rng_state`` is off: the port draws from keys only, never
+    from the global generators, so their stash would copy the device's RNG
+    state per layer and protect nothing."""
     from torch.utils.checkpoint import checkpoint
-    state = None if generator is None else generator.get_state()
 
     def run(h, pkv):
-        gen = None
-        if state is not None:
-            gen = torch.Generator()
-            gen.set_state(state)
-        return bert_layer(lp, h, bias, cfg, prefix_kv=pkv, generator=gen)
+        return bert_layer(lp, h, bias, cfg, prefix_kv=pkv, key=key)
 
     return checkpoint(run, hidden, prefix_kv, use_reentrant=False,
                       preserve_rng_state=False)
 
 
 def bert_encoder(params, cfg: BertConfig, embedding_output, attention_mask,
-                 prefix_kvs=None, generator=None, capture_layer=None):
+                 prefix_kvs=None, key=None, capture_layer=None):
     """The encoder stack.
 
     attention_mask: (B, P+S) when prefix_kvs is given, else (B, S).
@@ -299,8 +294,8 @@ def bert_encoder(params, cfg: BertConfig, embedding_output, attention_mask,
     layers = cast_layers(params["layers"], embedding_output.dtype)
     if prefix_kvs is not None and heads_split(layers, cfg):
         prefix_kvs = mesh.scatter_to_tp(prefix_kvs, dim=3)
-    layer_rngs = [None] * cfg.num_hidden_layers if generator is None \
-        else split(generator, cfg.num_hidden_layers)
+    layer_rngs = [None] * cfg.num_hidden_layers if key is None \
+        else split(key, cfg.num_hidden_layers)
     hidden = embedding_output
     captured = None
     if capture_layer is not None:      # zeros past the last layer, as in JAX
@@ -312,7 +307,7 @@ def bert_encoder(params, cfg: BertConfig, embedding_output, attention_mask,
     for i in range(cfg.num_hidden_layers):
         hidden = layer_fn(_layer(layers, i), hidden, bias, cfg,
                           prefix_kv=None if prefix_kvs is None
-                          else prefix_kvs[i], generator=layer_rngs[i])
+                          else prefix_kvs[i], key=layer_rngs[i])
         if capture_layer == i + 1:
             captured = hidden
     return hidden, captured
@@ -326,18 +321,18 @@ def bert_pooler(params, last_hidden):
 
 def bert_model(params, cfg: BertConfig, input_ids, attention_mask=None,
                token_type_ids=None, prefix_kvs=None, dtype=torch.float32,
-               generator=None, capture_layer=None):
+               key=None, capture_layer=None):
     """Embeddings → encoder; returns (last hidden state, the hidden state
     of ``capture_layer`` or None).
 
     ``attention_mask`` is the prompt mask: (B, P+S) with a prefix attached,
-    (B, S) otherwise.  ``generator`` turns dropout on; it is split between
+    (B, S) otherwise.  ``key`` turns dropout on; it is split between
     the embeddings and the encoder as the JAX package splits its key."""
     if attention_mask is None:
         attention_mask = torch.ones_like(input_ids)
-    emb_rng, enc_rng = (None, None) if generator is None \
-        else split(generator, 2)
+    emb_rng, enc_rng = (None, None) if key is None \
+        else split(key, 2)
     x = bert_embeddings(params, cfg, input_ids, token_type_ids, dtype=dtype,
-                        generator=emb_rng)
+                        key=emb_rng)
     return bert_encoder(params, cfg, x, attention_mask, prefix_kvs=prefix_kvs,
-                        generator=enc_rng, capture_layer=capture_layer)
+                        key=enc_rng, capture_layer=capture_layer)

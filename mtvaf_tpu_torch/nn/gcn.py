@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..core.mesh import batch_frobenius, batch_rows
-from ..core.rng import draw_seed, split
+from ..core.rng import split
 from .layers import (dense, dense_init, dropout, layer_norm,
                      layer_norm_init)
 
@@ -127,7 +127,7 @@ def init_dualgcn_params(rng, num_layers: int, hidden: int) -> Dict:
     return params
 
 
-def _mha_adjacency(params, x, src_mask, heads: int, generator=None,
+def _mha_adjacency(params, x, src_mask, heads: int, key=None,
                    attn_dropout: float = 0.1):
     """The attention-matrix adjacency (B, S, S), fp32: masked scores
     (-1e9), an fp32 softmax, dropout on the probabilities, the mean over
@@ -139,18 +139,19 @@ def _mha_adjacency(params, x, src_mask, heads: int, generator=None,
     scores = torch.einsum("bhsd,bhtd->bhst", q, k) / math.sqrt(dk)
     scores = scores.masked_fill(src_mask[:, None, None, :s] == 0, -1e9)
     probs = dropout(torch.softmax(scores.float(), dim=-1), attn_dropout,
-                    generator)
+                    key)
     return probs.mean(dim=1)
 
 
 def dualgcn_forward(params: Dict, cfg, sequence_output, pooled_output, adj,
-                    src_mask, aspect_mask, generator=None,
+                    src_mask, aspect_mask, key=None,
                     heads: int = 12) -> Tuple:
-    """(logits (B, 3) fp32, alpha·penal1 + beta·penal2).  ``generator``
+    """(logits (B, 3) fp32, alpha·penal1 + beta·penal2).  ``key``
     turns the dropouts on, split four ways as the JAX package splits its
-    key; the fourth draws one mask that both GCNs' between-layer dropouts
-    share, at every layer, as the reference's one key does."""
-    rngs = [None] * 4 if generator is None else split(generator, 4)
+    key; the fourth is one draw site whose mask both GCNs' between-layer
+    dropouts share, at every layer, as the reference's one key does (the
+    same key and salt over the same shape: the same mask)."""
+    rngs = [None] * 4 if key is None else split(key, 4)
     b, s, _ = sequence_output.shape
 
     seq = _sample_layer_norm(params["layernorm"], sequence_output)
@@ -160,19 +161,14 @@ def dualgcn_forward(params: Dict, cfg, sequence_output, pooled_output, adj,
     adj = adj.float()
     denom_dep = adj.sum(dim=2, keepdim=True) + 1
     adj_ag = _mha_adjacency(params, gcn_inputs, src_mask, heads,
-                            generator=rngs[2])
+                            key=rngs[2])
     eye = torch.eye(s, dtype=torch.float32, device=adj.device)[None]
     adj_ag = adj_ag - adj_ag * eye + eye            # zero diagonal, plus I
     adj_ag = src_mask[:, :s, None].float() * adj_ag
     denom_ag = adj_ag.sum(dim=2, keepdim=True) + 1
 
-    layer_seed = None if rngs[3] is None else draw_seed(rngs[3])
-
     def layer_dropout(x):
-        if layer_seed is None:
-            return x
-        return dropout(x, cfg.gcn_dropout,
-                       torch.Generator().manual_seed(layer_seed))
+        return dropout(x, cfg.gcn_dropout, rngs[3])
 
     outputs_ag = outputs_dep = gcn_inputs.float()
     num_layers = len(params["W"])

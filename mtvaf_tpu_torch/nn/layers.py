@@ -3,9 +3,9 @@
 Dense kernels keep the JAX package's ``(in, out)`` layout, so converted
 parameters need no transpose.
 
-Randomness comes from host ``torch.Generator`` s (``core.rng``).  Draws
-for CUDA tensors come from a device generator seeded by a host draw, so no
-draw waits for the device.
+Randomness comes from step keys (``core.rng.Key``): a dropout is one
+keyed draw, the kernel of ``kernels.keyed_random`` on the card and its
+plain version on the CPU, with nothing drawn on the host.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.rng import draw_seed
+from ..kernels.keyed_random import keyed_dropout
 
 
 def dense_init(rng, din: int, dout: int, stddev=None):
@@ -45,17 +45,13 @@ def layer_norm(params, x, *, eps: float = 1e-12):
     return y.to(x.dtype)
 
 
-def dropout(x, rate: float, generator):
-    """Inverted dropout: keep with probability 1 - rate, scaled by
-    1/(1 - rate); the identity when the generator is None or the rate 0."""
-    if generator is None or rate == 0.0:
+def dropout(x, rate: float, key):
+    """Inverted dropout under ``key`` (a ``core.rng.Key`` on x's device):
+    keep with probability 1 - rate, scaled by 1/(1 - rate); the identity
+    when the key is None or the rate 0."""
+    if key is None or rate == 0.0:
         return x
-    keep = 1.0 - rate
-    if generator.device != x.device:
-        generator = torch.Generator(device=x.device).manual_seed(
-            draw_seed(generator))
-    u = torch.rand(x.shape, generator=generator, device=x.device)
-    return torch.where(u < keep, x / keep, 0.0)
+    return keyed_dropout(x, rate, key)
 
 
 def gelu(x):

@@ -130,49 +130,49 @@ def self_attentive_pool(span_emb, span_score, span_mask):
 
 
 def span_extraction(params, cfg, bert_cfg: BertConfig, input_ids, input_mask,
-                    segment_ids, prefix_kvs=None, generator=None,
+                    segment_ids, prefix_kvs=None, key=None,
                     dtype=torch.float32, cutoff=None, capture_layer=None):
     """Encoder → start/end logits (B, S) fp32, the sequence output and the
     hidden state of ``capture_layer`` (or None) (reference
-    models/bert_model.py:323-361).  ``generator`` turns dropout on; it is
+    models/bert_model.py:323-361).  ``key`` turns dropout on; it is
     split between the output dropout and the encoder, as the JAX package
     splits its key.
 
-    ``cutoff``: an optional (cutoff_fn, generator) pair
+    ``cutoff``: an optional (cutoff_fn, key) pair
     (``train.augment.make_cutoff_fn``) that cuts the embeddings and the
     text mask between the embeddings and the encoder (reference
     modules/augument.py:54-76); the encoder then attends through the cut
     mask (with the prefix's ones before it), so a cut puts holes inside the
     attention bias row.  The cut lengths come from the text mask, as in
     the JAX package."""
-    drop_rng, bert_rng = (None, None) if generator is None \
-        else split(generator, 2)
+    drop_rng, bert_rng = (None, None) if key is None \
+        else split(key, 2)
     if cutoff is not None:
         cutoff_fn, cut_rng = cutoff
         emb_rng, enc_rng = (None, None) if bert_rng is None \
             else split(bert_rng, 2)
         embeds = bert_embeddings(params["bert"], bert_cfg, input_ids,
-                                 segment_ids, dtype=dtype, generator=emb_rng)
+                                 segment_ids, dtype=dtype, key=emb_rng)
         embeds, cut_mask = cutoff_fn(embeds, input_mask, cut_rng)
         mask = cut_mask if prefix_kvs is None else \
             prompt_attention_mask(cut_mask, prefix_kvs.shape[-2])
         seq, captured = bert_encoder(
             params["bert"], bert_cfg, embeds, mask, prefix_kvs=prefix_kvs,
-            generator=enc_rng, capture_layer=capture_layer)
+            key=enc_rng, capture_layer=capture_layer)
     else:
         mask = input_mask if prefix_kvs is None else \
             prompt_attention_mask(input_mask, prefix_kvs.shape[-2])
         seq, captured = bert_model(
             params["bert"], bert_cfg, input_ids, mask,
             token_type_ids=segment_ids, prefix_kvs=prefix_kvs, dtype=dtype,
-            generator=bert_rng, capture_layer=capture_layer)
+            key=bert_rng, capture_layer=capture_layer)
     seq = dropout(seq, bert_cfg.hidden_dropout_prob, drop_rng)
     ae_logits = dense(params["binary_affine"], seq).float()
     return ae_logits[..., 0], ae_logits[..., 1], seq, captured
 
 
 def span_classification(params, cfg, seq_output, span_starts, span_ends,
-                        generator=None):
+                        key=None):
     """Span gather → self-attentive pool → dense/tanh → dropout → 4-way
     polarity logits (B, M, 4) fp32 (reference models/bert_model.py:363-376)."""
     span_emb, span_mask = get_span_representation(
@@ -181,12 +181,12 @@ def span_classification(params, cfg, seq_output, span_starts, span_ends,
     span_score = dense(params["unary_affine"], span_emb)[..., 0]
     pooled = self_attentive_pool(span_emb, span_score, span_mask)
     pooled = torch.tanh(dense(params["dense"], pooled))
-    pooled = dropout(pooled, 0.1, generator)
+    pooled = dropout(pooled, 0.1, key)
     return dense(params["classifier"], pooled).float()
 
 
 def span_model_loss(params, cfg, bert_cfg: BertConfig, batch: Dict,
-                    visual_guides: Optional[Tuple] = None, generator=None,
+                    visual_guides: Optional[Tuple] = None, key=None,
                     dtype=torch.float32, epoch_const: Optional[int] = None,
                     cutoff=None) -> Dict:
     """The train loss in one encoder pass: extraction and classification of
@@ -195,10 +195,10 @@ def span_model_loss(params, cfg, bert_cfg: BertConfig, batch: Dict,
     batch keys: input_ids, input_mask, segment_ids, start_positions,
     end_positions, span_starts, span_ends, span_labels, span_masks, and
     the GCN heads' side arrays where the batch has them (see
-    :func:`span_model_tail`).  ``generator`` turns dropout on, split three
+    :func:`span_model_tail`).  ``key`` turns dropout on, split three
     ways (extraction, classification, the GCN heads) as the JAX package
     splits its key.  ``cutoff``: see :func:`span_extraction`."""
-    rngs = [None] * 3 if generator is None else split(generator, 3)
+    rngs = [None] * 3 if key is None else split(key, 3)
     prefix_kvs = None
     if cfg.use_prefix and visual_guides is not None:
         main_g, aux_g = visual_guides
@@ -207,25 +207,25 @@ def span_model_loss(params, cfg, bert_cfg: BertConfig, batch: Dict,
             None if aux_g is None else aux_g.to(dtype), bert_cfg)
     start_logits, end_logits, seq, captured = span_extraction(
         params, cfg, bert_cfg, batch["input_ids"], batch["input_mask"],
-        batch["segment_ids"], prefix_kvs=prefix_kvs, generator=rngs[0],
+        batch["segment_ids"], prefix_kvs=prefix_kvs, key=rngs[0],
         dtype=dtype, cutoff=cutoff,
         capture_layer=cfg.probe_layer if cfg.use_probe else None)
     return span_model_tail(params, cfg, bert_cfg, batch, seq, start_logits,
                            end_logits, captured=captured,
-                           generators=(rngs[1], rngs[2]),
+                           keys=(rngs[1], rngs[2]),
                            epoch_const=epoch_const)
 
 
 def span_model_tail(params, cfg, bert_cfg: BertConfig, batch: Dict, seq,
                     start_logits, end_logits, captured=None,
-                    generators=(None, None),
+                    keys=(None, None),
                     epoch_const: Optional[int] = None) -> Dict:
     """The loss after the encoder (reference models/bert_model.py:270-316):
     the DiGCN re-encode, span classification, the distant CE of the
     start/end logits and the polarity CE, plus the DualGCN and probe
     terms.  The eval loss applies it to the extraction pass's own outputs
     (dropout is off there, so that is the reference's second full
-    forward).  ``generators`` = (classification, GCN heads) turn dropout
+    forward).  ``keys`` = (classification, GCN heads) turn dropout
     on.
 
     Each GCN head runs only when its side arrays are in the batch, as in
@@ -242,14 +242,14 @@ def span_model_tail(params, cfg, bert_cfg: BertConfig, batch: Dict, seq,
     candidate at all gives NaN, as the reference's 0/0 does.  'masked'
     averages over the masked candidates.  Inside a data-parallel train
     step both count the candidates of the global batch."""
-    cls_rng, gcn_rng = generators
+    cls_rng, gcn_rng = keys
     if cfg.gcn_layer_number > 0 and "adjacency_matrix" in batch:
         if "valid_ids" in batch:
             seq = compress_valid_ids(seq, batch["valid_ids"])
         seq = dropout(seq, 0.1, gcn_rng)
         seq = digcn_forward(params["digcn"], seq, batch["adjacency_matrix"])
     ac_logits = span_classification(params, cfg, seq, batch["span_starts"],
-                                    batch["span_ends"], generator=cls_rng)
+                                    batch["span_ends"], key=cls_rng)
     start_loss = distant_cross_entropy(start_logits, batch["start_positions"])
     end_loss = distant_cross_entropy(end_logits, batch["end_positions"])
     ae_loss = (start_loss + end_loss) / 2
@@ -274,7 +274,7 @@ def span_model_tail(params, cfg, bert_cfg: BertConfig, batch: Dict, seq,
         gcn_logits, penal = dualgcn_forward(
             params["dualgcn"], cfg, seq, bert_pooler(params["bert"], seq),
             batch["adj_matrix"], batch["src_mask"], batch["aspect_mask"],
-            generator=gcn_rng, heads=bert_cfg.num_attention_heads)
+            key=gcn_rng, heads=bert_cfg.num_attention_heads)
         lp = F.log_softmax(gcn_logits, dim=-1)
         tat_loss = -lp.gather(1, batch["polaritys"].long()[:, None]).mean()
         tot_loss = tot_loss + tat_loss + penal
@@ -296,18 +296,18 @@ def span_model_tail(params, cfg, bert_cfg: BertConfig, batch: Dict, seq,
 
 
 def crf_model_forward(params, cfg, bert_cfg: BertConfig, batch: Dict,
-                      visual_guides: Optional[Tuple] = None, generator=None,
+                      visual_guides: Optional[Tuple] = None, key=None,
                       dtype=torch.float32, with_loss: bool = True,
                       with_decode: bool = False) -> Dict:
     """TVNetSAModel2 forward.  batch keys: input_ids, input_mask,
     segment_ids, and for the loss label_ids and imagelabel.
 
-    ``generator`` (a host ``torch.Generator``) turns dropout on; it is split
+    ``key`` (a ``core.rng.Key``) turns dropout on; it is split
     three ways (encoder, last hidden state, ANP loss) as the JAX package
     splits its key.  Returns emissions (B, S, N) fp32; with the loss also
     loss, img_tag_loss (already times alpha) and, with the probe,
     probe_loss; with the decode pred_tags (B, S) and lengths (B,)."""
-    rngs = [None] * 3 if generator is None else split(generator, 3)
+    rngs = [None] * 3 if key is None else split(key, 3)
     prefix_kvs, img_tag_loss = None, 0.0
     if cfg.use_prefix and visual_guides is not None:
         main_g, aux_g = visual_guides
@@ -317,7 +317,7 @@ def crf_model_forward(params, cfg, bert_cfg: BertConfig, batch: Dict,
         if cfg.vao and with_loss:
             main_loss, aux_losses = anp_kl_loss(
                 params["prefix"], enc_main, enc_aux, batch["imagelabel"],
-                generator=rngs[2])
+                key=rngs[2])
             # noauxloss drops the aux terms
             img_tag_loss = main_loss if cfg.noauxloss \
                 else main_loss + sum(aux_losses)
@@ -326,7 +326,7 @@ def crf_model_forward(params, cfg, bert_cfg: BertConfig, batch: Dict,
     seq, captured = bert_model(
         params["bert"], bert_cfg, batch["input_ids"], mask,
         token_type_ids=batch["segment_ids"], prefix_kvs=prefix_kvs,
-        dtype=dtype, generator=rngs[0],
+        dtype=dtype, key=rngs[0],
         capture_layer=cfg.probe_layer if cfg.use_probe and with_loss
         else None)
     seq = dropout(seq, 0.1, rngs[1])

@@ -89,13 +89,13 @@ ANP_DROPOUT = 0.2
 
 
 def anp_kl_loss(params, encoded_main, encoded_aux, imagelabel, *,
-                generator=None):
+                key=None):
     """VAO adjective-noun-pair supervision: KL(label ‖ softmax(cls(mean of
     the 4 encoded chunks))) with 'batchmean' reduction, for the main image
     and each aux crop, with dropout 0.2 on the pooled vector.  The classifiers
     are cast to the encodings' dtype first (one half-width read in bf16).
     Returns (main_loss, [aux losses])."""
-    rngs = [None] * 4 if generator is None else split(generator, 4)
+    rngs = [None] * 4 if key is None else split(key, 4)
     dtype = encoded_main.dtype
     target = imagelabel.float()
     pooled = dropout(encoded_main.mean(dim=1), ANP_DROPOUT, rngs[0])

@@ -7,12 +7,13 @@ of ratio·length tokens and their mask, ``token_cutoff`` zeroes random
 token rows, ``dim_cutoff`` random embedding dimensions), whose loss and a
 Jensen-Shannon consistency term on the polarity logits join the base loss.
 
-Each cutoff is two parts: a draw of its uniforms (or integers) from a host
-``torch.Generator`` (``draw_*``), and a pure function from those draws to
-the cut (``span_cutoff``, ``token_cutoff``, ``dim_cutoff``), static-shape
-masks as in the JAX package.  The card and the CPU therefore cut the same
-positions from one seed, and the JAX package's draws for a key give its
-masks bit for bit.
+Each cutoff is two parts: a keyed draw of its uniforms (or integers) on
+the embeddings' device (``draw_*``: ``kernels.keyed_random.keyed_uniform``
+under a step key, nothing drawn or uploaded by the host), and a pure
+function from those draws to the cut (``span_cutoff``, ``token_cutoff``,
+``dim_cutoff``), static-shape masks as in the JAX package.  The card and
+the CPU therefore cut the same positions from one key, and the JAX
+package's draws for a key give its masks bit for bit.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import Callable
 import torch
 
 from ..core.rng import split
+from ..kernels.keyed_random import keyed_uniform
 from ..nn.models import span_model_loss
 
 
@@ -65,19 +67,21 @@ def dim_cutoff(embeds, mask, draw, ratio: float):
     return embeds * keep[:, None, :], mask
 
 
-def draw_span_cutoff(generator, shape, ratio: float):
-    return torch.rand((shape[0],), generator=generator)
+def draw_span_cutoff(key, shape, ratio: float):
+    """(B,) uniforms: each row's cut start."""
+    return keyed_uniform(key, (shape[0],))
 
 
-def draw_token_cutoff(generator, shape, ratio: float):
-    return torch.rand((shape[0], max(int(shape[1] * ratio), 1)),
-                      generator=generator)
+def draw_token_cutoff(key, shape, ratio: float):
+    """(B, max(int(S·ratio), 1)) uniforms: each row's cut tokens."""
+    return keyed_uniform(key, (shape[0], max(int(shape[1] * ratio), 1)))
 
 
-def draw_dim_cutoff(generator, shape, ratio: float):
-    return torch.randint(0, shape[2], (shape[0],
-                                       max(int(shape[2] * ratio), 1)),
-                         generator=generator)
+def draw_dim_cutoff(key, shape, ratio: float):
+    """(B, max(int(D·ratio), 1)) integers in [0, D): floor(u·D) of keyed
+    uniforms (u < 1, so u·D < D in fp32 for any D below 2^24)."""
+    u = keyed_uniform(key, (shape[0], max(int(shape[2] * ratio), 1)))
+    return torch.floor(u * shape[2]).to(torch.int64)
 
 
 CUTOFFS = {"span_cutoff": (draw_span_cutoff, span_cutoff),
@@ -86,15 +90,15 @@ CUTOFFS = {"span_cutoff": (draw_span_cutoff, span_cutoff),
 
 
 def make_cutoff_fn(aug_type: str, ratio: float) -> Callable:
-    """cutoff(embeds, mask, generator) -> (cut embeds, cut mask): the draws
-    from the host ``generator``, the cut on the embeddings' device."""
+    """cutoff(embeds, mask, key) -> (cut embeds, cut mask): the draws
+    keyed by ``key`` (on the embeddings' device) and the cut, both on that
+    device."""
     if aug_type not in CUTOFFS:
         raise ValueError(f"unknown aug_type {aug_type!r}")
     draw, cut = CUTOFFS[aug_type]
 
-    def cutoff(embeds, mask, generator):
-        draws = draw(generator, embeds.shape, ratio).to(embeds.device)
-        return cut(embeds, mask, draws, ratio)
+    def cutoff(embeds, mask, key):
+        return cut(embeds, mask, draw(key, embeds.shape, ratio), ratio)
 
     return cutoff
 
@@ -130,19 +134,19 @@ def add_consistency(cfg, base_loss, base_metrics, out):
 
 
 def make_span_augment_fn(cfg, bert_cfg):
-    """augment_fn(params, batch, generator, base_loss, base_metrics) ->
-    (loss, metrics), the hook of ``train.steps.make_train_step``: the cut
-    pass's draws and its dropout from two generators split from
-    ``generator``, as the JAX package splits its key."""
+    """augment_fn(params, batch, key, base_loss, base_metrics) -> (loss,
+    metrics), the hook of ``train.steps.make_train_step``: the cut pass's
+    draws and its dropout from two keys split from ``key``, as the JAX
+    package splits its key."""
     cutoff = make_cutoff_fn(cfg.aug_type, cfg.aug_cutoff_ratio)
     dtype = torch.bfloat16 if cfg.bf16 else torch.float32
 
-    def augment_fn(params, batch, generator, base_loss, base_metrics):
-        cut_rng, fwd_rng = split(generator, 2)
+    def augment_fn(params, batch, key, base_loss, base_metrics):
+        cut_rng, fwd_rng = split(key, 2)
         guides = (batch["main_guides"], batch.get("aux_guides")) \
             if "main_guides" in batch else None
         out = span_model_loss(params, cfg, bert_cfg, batch,
-                              visual_guides=guides, generator=fwd_rng,
+                              visual_guides=guides, key=fwd_rng,
                               dtype=dtype, cutoff=(cutoff, cut_rng))
         return add_consistency(cfg, base_loss, base_metrics, out)
 

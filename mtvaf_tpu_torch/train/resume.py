@@ -3,7 +3,7 @@
 Counterpart of ``mtvaf_tpu/train/resume.py``: the full train state is
 checkpointed per epoch (``core.checkpoint.save_checkpoint``) with a
 ``meta_{epoch}.json`` beside it holding the epoch, the best metrics and the
-run's randomness (the seed; each step's dropout is ``fold_in(seed, step)``
+run's randomness (the seed; each step's key is ``step_word(seed, step)``
 and the step is in the state).  The state is copied to the host and
 written in the background while the next epoch trains; the writer writes
 the meta file only once ``step_{epoch}`` has landed, so a resume never
@@ -23,7 +23,7 @@ for the file and then every rank meets it.  A checkpoint holds no rank's
 own state: the params, master and moments are gathered from the TP group
 first (the whole model), and a load cuts this rank's shard again, so
 ``mesh_model`` may change between runs.  The dropout draws depend on the
-data axis (``core.rng.fold_in`` of the data rank), so the meta records the
+data axis (``core.rng.step_word`` of the data rank), so the meta records the
 data axis (``mesh_data``; with ``mesh_model`` and the world size) and a
 resume on another data axis is refused.
 """

@@ -13,10 +13,13 @@ gradient is ``torch.autograd.grad`` over the parameter leaves (a leaf the
 loss does not reach gets zeros, as ``jax.grad`` gives), and the update is
 :class:`..train.optim.AdamW`, in place.
 
-A step's randomness is the host generator ``fold_in(seed, state.step,
-data_rank)`` (``core.rng``), the counterpart of the JAX package's per-step
-``fold_in(rng, step)``: a step is reproducible from the run's seed, the
-step number and the data rank.  ``seed=None`` runs without dropout.
+A step's randomness is its key (``core.rng``): one int64 word on the
+params' device, ``step_word(seed, state.step, data_rank)``, the counterpart
+of the JAX package's per-step ``fold_in(rng, step)``, and every draw of the
+step (each dropout, K1's masks, the cutoff's cuts) is a pure function of
+that word and a static salt for its site.  A step uploads that one word
+and draws nothing on the host, and it is reproducible from the run's seed,
+the step number and the data rank.  ``seed=None`` runs without dropout.
 
 Under data parallelism (a data axis of more than one, ``core.mesh``) each
 rank's step takes its data index's rows of the global batch: the loss
@@ -31,8 +34,8 @@ bit for bit.
 Under tensor parallelism (``mesh_model`` M > 1) the state holds this
 rank's shard of every parameter and of its AdamW moments
 (``TrainState.layout``, ``core.convert.tp_layout``): the ranks of a TP
-group draw from the same generator (the data rank's), so their
-replicated activations, dropout masks and K1 seeds agree, and the
+group share one key (the data rank's), so their replicated
+activations, dropout masks and K1 masks agree, and the
 replicated leaves' gradients with them; AdamW is elementwise, so each
 rank steps its own shards.  :func:`export_params` and checkpoints gather
 the full model; :func:`replace_params` takes a full model and keeps this
@@ -55,7 +58,7 @@ import torch
 from ..core import mesh
 from ..core.convert import shard_params, tp_layout
 from ..core.platform import resolve_device
-from ..core.rng import fold_in, split
+from ..core.rng import split, step_key
 from ..nn.bert import BertConfig
 from ..nn.gcn import compress_valid_ids, digcn_forward
 from ..nn.models import (crf_model_forward, span_classification,
@@ -238,16 +241,16 @@ def _split_guides(batch: Dict):
 
 
 def make_span_loss_fn(cfg, bert_cfg: BertConfig):
-    """loss_fn(params, batch, generator) -> (loss, metrics): the span loss
+    """loss_fn(params, batch, key) -> (loss, metrics): the span loss
     on the batch's gold candidates, in bf16 activations under ``cfg.bf16``.
     The metrics carry the polarity logits of the candidates (``ac_logits``,
     on the device) for the train F1."""
     dtype = torch.bfloat16 if cfg.bf16 else torch.float32
 
-    def loss_fn(params, batch, generator):
+    def loss_fn(params, batch, key):
         out = span_model_loss(params, cfg, bert_cfg, batch,
                               visual_guides=_split_guides(batch),
-                              generator=generator, dtype=dtype)
+                              key=key, dtype=dtype)
         metrics = {k: out[k] for k in ("loss", "ae_loss", "ac_loss",
                                        "ac_logits")}
         if "probe_loss" in out:
@@ -259,17 +262,17 @@ def make_span_loss_fn(cfg, bert_cfg: BertConfig):
 
 
 def make_crf_loss_fn(cfg, bert_cfg: BertConfig, with_decode: bool = False):
-    """loss_fn(params, batch, generator) -> (loss, metrics): the CRF loss
+    """loss_fn(params, batch, key) -> (loss, metrics): the CRF loss
     with the probe and ANP terms, in bf16 activations under ``cfg.bf16``.
     ``with_decode`` adds the Viterbi tags of the step's own forward to the
     metrics (``pred_tags``, on the device): decoded before the update, with
     the transitions the loss saw, as the JAX package fuses it."""
     dtype = torch.bfloat16 if cfg.bf16 else torch.float32
 
-    def loss_fn(params, batch, generator):
+    def loss_fn(params, batch, key):
         out = crf_model_forward(params, cfg, bert_cfg, batch,
                                 visual_guides=_split_guides(batch),
-                                generator=generator, dtype=dtype,
+                                key=key, dtype=dtype,
                                 with_decode=with_decode)
         metrics = {"loss": out["loss"], "emissions": out["emissions"]}
         if with_decode:
@@ -287,7 +290,9 @@ def make_crf_loss_fn(cfg, bert_cfg: BertConfig, with_decode: bool = False):
 def make_train_step(loss_fn: Callable, optimizer, *, accum_steps: int = 1,
                     augment_fn: Optional[Callable] = None,
                     with_grad_norm: bool = False) -> Callable:
-    """train_step(state, batch, seed) -> (new state, metrics).
+    """train_step(state, batch, seed) -> (new state, metrics); ``seed`` an
+    int (the run's seed: the step's key is made from it on the params'
+    device) or None (no dropout).
 
     With ``accum_steps > 1`` every batch leaf has a leading
     (accum_steps, micro_batch) shape: the micro-batch gradients are summed
@@ -295,29 +300,37 @@ def make_train_step(loss_fn: Callable, optimizer, *, accum_steps: int = 1,
     metrics are averaged and per-example ones concatenated back to the full
     batch.  ``with_grad_norm`` adds the global fp32 gradient norm.
 
-    ``augment_fn(params, batch, generator, base_loss, base_metrics) ->
-    (loss, metrics)`` adds cutoff-consistency training
+    ``augment_fn(params, batch, key, base_loss, base_metrics) -> (loss,
+    metrics)`` adds cutoff-consistency training
     (``train.augment.make_span_augment_fn``): the base loss and the
-    augmented one take two generators split from the step's (each
+    augmented one take two keys split from the step's (each
     micro-batch's), as the JAX package splits its key.  It draws random
     cuts, so it needs a seed."""
 
-    def compute(params, batch, generator):
+    def compute(params, batch, key):
         if augment_fn is None:
-            return loss_fn(params, batch, generator)
-        if generator is None:
+            return loss_fn(params, batch, key)
+        if key is None:
             raise ValueError("cutoff augmentation draws random cuts: the "
                              "train step needs a seed")
-        base_rng, aug_rng = split(generator, 2)
+        base_rng, aug_rng = split(key, 2)
         loss, metrics = loss_fn(params, batch, base_rng)
         return augment_fn(params, batch, aug_rng, loss, metrics)
 
     rank, world = mesh.data_rank(), mesh.data_size()
 
-    def grads_of(params, batch, generator):
+    def key_of(state, seed):
+        """The step's key, made from the seed on the params' device; None
+        without a seed."""
+        if seed is None:
+            return None
+        device = next(iter(tree_items(state.params)))[1].device
+        return step_key(seed, state.step, rank, device)
+
+    def grads_of(params, batch, key):
         leaves = [p for _, p in tree_items(params)]
         with mesh.data_parallel_step(world):
-            loss, metrics = compute(params, batch, generator)
+            loss, metrics = compute(params, batch, key)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
@@ -349,18 +362,18 @@ def make_train_step(loss_fn: Callable, optimizer, *, accum_steps: int = 1,
 
     def single_step(state: TrainState, batch: Dict, seed: Optional[int]
                     ) -> Tuple[TrainState, Dict]:
-        gen = None if seed is None else fold_in(seed, state.step, rank)
-        grads, metrics = grads_of(state.params, batch, gen)
+        grads, metrics = grads_of(state.params, batch, key_of(state, seed))
         return finish(state, grads, metrics)
 
     def accum_step(state: TrainState, batch: Dict, seed: Optional[int]
                    ) -> Tuple[TrainState, Dict]:
-        gens = [None] * accum_steps if seed is None \
-            else split(fold_in(seed, state.step, rank), accum_steps)
+        key = key_of(state, seed)
+        keys = [None] * accum_steps if key is None \
+            else split(key, accum_steps)
         total, stacked = None, []
         for i in range(accum_steps):
             micro = {k: v[i] for k, v in batch.items()}
-            grads, metrics = grads_of(state.params, micro, gens[i])
+            grads, metrics = grads_of(state.params, micro, keys[i])
             grads = [g.float() for g in grads]
             total = grads if total is None else [
                 a.add_(g) for a, g in zip(total, grads)]
@@ -401,7 +414,7 @@ def make_crf_decode_step(cfg, bert_cfg: BertConfig) -> Callable:
     def decode(params, batch):
         out = crf_model_forward(params, cfg, bert_cfg, batch,
                                 visual_guides=_split_guides(batch),
-                                generator=None, dtype=dtype, with_loss=True,
+                                key=None, dtype=dtype, with_loss=True,
                                 with_decode=True)
         return {"loss": out["loss"], "pred_tags": out["pred_tags"],
                 "lengths": out["lengths"]}

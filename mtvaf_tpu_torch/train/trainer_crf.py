@@ -196,7 +196,7 @@ class CrfTrainer:
                 self.state = state
                 self.best_dev_metric = meta.get("best_dev_metric", 0.0)
                 self.best_test_metric = meta.get("best_test_metric", 0.0)
-                # the step's dropout is fold_in(seed, step) and the step is
+                # the step's key is step_word(seed, step) and the step is
                 # in the state: resuming is bit-identical
                 self.seed = meta.get("seed", self.seed)
                 logger.info("resumed from epoch %d", start_epoch - 1)

@@ -10,7 +10,7 @@ dev/test eval as extraction → host candidates and NMS → classification,
 with the reference's logged eval loss; ``best_model.npz`` on every dev F1
 at least as good as the best; per-epoch checkpoints, SIGTERM preemption
 and ``--resume``.  The aux heads ride along: ``--do_aug`` adds the cutoff
-pass to every step (its draws come from the step's generator, so
+pass to every step (its draws are keyed by the step's key, so
 ``--resume`` stays bit-identical), and a split with a GCN side file
 carries its arrays into the train loss, the eval loss and the DiGCN
 classification.
@@ -205,7 +205,7 @@ class SpanTrainer:
             if state is not None:
                 self.state = state
                 self.best_dev_metric = meta.get("best_dev_metric", 0.0)
-                # the step's dropout is fold_in(seed, step) and the step is
+                # the step's key is step_word(seed, step) and the step is
                 # in the state: resuming is bit-identical
                 self.seed = meta.get("seed", self.seed)
                 logger.info("resumed from epoch %d", start_epoch - 1)

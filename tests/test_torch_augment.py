@@ -37,7 +37,9 @@ from mtvaf_tpu.train import augment as jax_augment
 from mtvaf_tpu.train import steps as jax_steps
 from mtvaf_tpu_torch.core.config import Config
 from mtvaf_tpu_torch.core.convert import params_from_jax
+from mtvaf_tpu_torch.core.rng import fold_in, new_key
 from mtvaf_tpu_torch.data.synthetic import span_batch
+from mtvaf_tpu_torch.kernels.keyed_random import keyed_uniform
 from mtvaf_tpu_torch.nn import models
 from mtvaf_tpu_torch.nn.bert import BertConfig
 from mtvaf_tpu_torch.train import augment
@@ -94,13 +96,25 @@ def test_each_cutoff_cuts_what_jax_cuts_from_its_draws(cut_inputs, aug_type,
 
 
 def test_cutoff_draws_come_from_the_host_generator(cut_inputs):
+    """The cuts are keyed draws (no host generator any more): one key cuts
+    the same positions twice, another key or salt elsewhere, and the draws
+    are the keyed uniforms themselves."""
     embeds, mask = (torch.from_numpy(x) for x in cut_inputs)
+    key = new_key(3)
     for aug_type in augment.CUTOFFS:
         fn = augment.make_cutoff_fn(aug_type, 0.3)
-        a = fn(embeds, mask, torch.Generator().manual_seed(3))
-        b = fn(embeds, mask, torch.Generator().manual_seed(3))
+        a = fn(embeds, mask, key)
+        b = fn(embeds, mask, new_key(3))
         assert all(torch.equal(x, y) for x, y in zip(a, b)), aug_type
         assert not torch.equal(a[0], embeds), aug_type
+        others = [fn(embeds, mask, k)[0] for k in (new_key(4),
+                                                   fold_in(key, 1))]
+        assert not any(torch.equal(a[0], o) for o in others), aug_type
+    u = keyed_uniform(key, (embeds.shape[0],))
+    assert torch.equal(augment.draw_span_cutoff(key, embeds.shape, 0.3), u)
+    dims = augment.draw_dim_cutoff(key, embeds.shape, 0.3)
+    assert dims.dtype == torch.int64 and 0 <= dims.min() \
+        and dims.max() < embeds.shape[2]
     with pytest.raises(ValueError, match="aug_type"):
         augment.make_cutoff_fn("bogus", 0.1)
 

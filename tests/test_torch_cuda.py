@@ -8,6 +8,7 @@ every test here skips."""
 import pytest
 import torch
 
+from mtvaf_tpu_torch.core.rng import Key, _mix, new_key
 from mtvaf_tpu_torch.kernels import prefix_attention as pa
 from mtvaf_tpu_torch.kernels.prefix_attention import (
     keep_factors, keep_mask_cuda, keep_mask_reference, keep_words_shape,
@@ -80,7 +81,19 @@ def test_prefix_attention_rejects_what_the_kernel_does_not_take(cuda):
         prefix_attention(q, q, q, bias)
 
 
-SEED = 0x0123456789ABCDEF
+SEED = 0x0123456789ABCDEF      # the step key's word
+SALT = 0x5A17                  # the call's draw site
+MIXED = _mix(SEED, SALT)       # the masks' Philox key
+
+
+def _key(device):
+    """The key (SEED, SALT) with its word on ``device``."""
+    return Key(new_key(SEED, device).word, SALT)
+
+
+def _kw(device):
+    """prefix_attention_cuda's key arguments for :func:`_key`."""
+    return {"key": _key(device).word, "salt": SALT}
 
 
 def assert_words_hold_the_mask(words, seed, rate, shape, device,
@@ -100,10 +113,10 @@ def assert_words_hold_the_mask(words, seed, rate, shape, device,
 @pytest.mark.parametrize("shape", [(2, 3, 13, 17), (32, 12, 128, 144)])
 def test_keep_mask_entry_is_bit_identical_to_plain_philox(cuda, shape):
     before = keep_mask_cuda.launches.value
-    got = keep_mask_cuda(SEED, 0.1, shape, cuda)
+    got = keep_mask_cuda(_key(cuda), 0.1, shape)
     torch.cuda.synchronize()
     assert keep_mask_cuda.launches.value == before + 1
-    assert torch.equal(got, keep_mask_reference(SEED, 0.1, shape, cuda))
+    assert torch.equal(got, keep_mask_reference(MIXED, 0.1, shape, cuda))
 
 
 # (B, H, S, T, dtype, atol): dq, dk, dv against the plain backward in the
@@ -134,10 +147,10 @@ def test_prefix_attention_backward_kernel_matches_plain(cuda, B, H, S, T,
     mask[-1, :, -7:] = 0.0
     mask[0, -1, :3] = 0.0
     bias = ((1.0 - mask) * -10000.0)[:, None]
-    keep = keep_factors(SEED, rate, (B, H, S, T), cuda) if rate else None
-    o, lse, words = prefix_attention_cuda(q, k, v, bias, seed=SEED,
+    keep = keep_factors(MIXED, rate, (B, H, S, T), cuda) if rate else None
+    o, lse, words = prefix_attention_cuda(q, k, v, bias, **_kw(cuda),
                                           rate=rate)
-    assert_words_hold_the_mask(words, SEED, rate, (B, H, S, T), cuda)
+    assert_words_hold_the_mask(words, MIXED, rate, (B, H, S, T), cuda)
     ro, _ = prefix_attention_reference(q.float(), k.float(), v.float(), bias,
                                        keep)
     torch.testing.assert_close(o.float(), ro, atol=1e-2 if dtype ==
@@ -184,10 +197,10 @@ def test_kernels_hold_a_cut_mask_bias(cuda, rate, dtype):
     assert ((mask - cut).sum(dim=1) == (lengths * 0.1).floor()).all()
     assert (cut[:, 1:] > cut[:, :-1]).any()         # holes inside the row
     bias = ((1.0 - cut.float()) * -10000.0)[:, None, None, :]
-    keep = keep_factors(SEED, rate, (B, H, S, S), cuda) if rate else None
-    o, lse, words = prefix_attention_cuda(q, k, v, bias, seed=SEED,
+    keep = keep_factors(MIXED, rate, (B, H, S, S), cuda) if rate else None
+    o, lse, words = prefix_attention_cuda(q, k, v, bias, **_kw(cuda),
                                           rate=rate)
-    assert_words_hold_the_mask(words, SEED, rate, (B, H, S, S), cuda)
+    assert_words_hold_the_mask(words, MIXED, rate, (B, H, S, S), cuda)
     ro, rlse = prefix_attention_reference(q, k, v, bias, keep)
     fo, _ = prefix_attention_reference(q.float(), k.float(), v.float(), bias,
                                        keep)
@@ -234,9 +247,8 @@ class _Handover:
 def test_autograd_runs_both_kernels_and_hands_over_the_mask(cuda,
                                                             monkeypatch):
     """Autograd through the operators launches K1 once and K2 once; K2
-    takes the very keep words K1 returned, which hold the seed's mask; the
+    takes the very keep words K1 returned, which hold the key's mask; the
     values equal the CPU operators'."""
-    from mtvaf_tpu_torch.core.rng import draw_seed
     g = torch.Generator(device=cuda).manual_seed(2)
     q, k, v = (torch.randn(2, 12, n, 64, device=cuda, generator=g)
                .requires_grad_() for n in (32, 48, 48))
@@ -245,24 +257,46 @@ def test_autograd_runs_both_kernels_and_hands_over_the_mask(cuda,
     bwd0 = prefix_attention_bwd_cuda.launches.value
     handover = _Handover(monkeypatch)
     o, _ = prefix_attention(q, k, v, bias, dropout_rate=0.1,
-                            rng=torch.Generator().manual_seed(3))
+                            rng=new_key(3, cuda))
     o.square().sum().backward()
     torch.cuda.synchronize()
     assert prefix_attention.launches.value == fwd0 + 1
     assert prefix_attention_bwd_cuda.launches.value == bwd0 + 1
     (words,), (taken,) = handover.k1, handover.k2
     assert taken.data_ptr() == words.data_ptr()
-    assert_words_hold_the_mask(words, draw_seed(torch.Generator()
-                                                .manual_seed(3)),
+    assert_words_hold_the_mask(words, new_key(3).philox_key(),
                                0.1, (2, 12, 32, 48), cuda)
     cq, ck, cv = (x.detach().cpu().requires_grad_() for x in (q, k, v))
     co, _ = prefix_attention(cq, ck, cv, bias.cpu(), dropout_rate=0.1,
-                             rng=torch.Generator().manual_seed(3))
+                             rng=new_key(3))
     co.square().sum().backward()
     torch.testing.assert_close(o.detach().cpu(), co.detach(), atol=1e-5,
                                rtol=0)
     for a, b in ((q, cq), (k, ck), (v, cv)):
         torch.testing.assert_close(a.grad.cpu(), b.grad, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_repeat_bitwise_on_the_same_inputs(cuda, dtype):
+    """K1 and K2 own their outputs (no atomics): 50 forward + backward
+    runs through the operators on the inputs of the test above, dropout
+    under one key, give bitwise the same output and gradients."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (torch.randn(2, 12, n, 64, device=cuda, generator=g)
+               .to(dtype).requires_grad_() for n in (32, 48, 48))
+    bias = torch.zeros(2, 1, 1, 48, device=cuda)
+    key = new_key(3, cuda)
+
+    def run():
+        o, _ = prefix_attention(q, k, v, bias, dropout_rate=0.1, rng=key)
+        return [o, *torch.autograd.grad(o.float().square().sum(),
+                                        (q, k, v))]
+
+    first = run()
+    for i in range(50):
+        for name, a, b in zip(("o", "dq", "dk", "dv"), run(), first):
+            assert torch.equal(a, b), (i, name, (a - b).abs().max().item())
 
 
 # ---------------------------------------------------------------------------
@@ -298,11 +332,11 @@ def test_bf16_kernels_at_tile_edges(cuda, B, H, S, T, rate, bias_rows,
     atol, atol_vs_fp32, bwd_atol = EDGE_ATOL[dtype]
     q, k, v, do, bias = _edge_inputs(cuda, B, H, S, T, bias_rows, seed=3,
                                      dtype=dtype)
-    keep = keep_factors(SEED, rate, (B, H, S, T), cuda) if rate else None
-    o, lse, words = prefix_attention_cuda(q, k, v, bias, seed=SEED,
+    keep = keep_factors(MIXED, rate, (B, H, S, T), cuda) if rate else None
+    o, lse, words = prefix_attention_cuda(q, k, v, bias, **_kw(cuda),
                                           rate=rate)
     torch.cuda.synchronize()
-    assert_words_hold_the_mask(words, SEED, rate, (B, H, S, T), cuda)
+    assert_words_hold_the_mask(words, MIXED, rate, (B, H, S, T), cuda)
     ro, _ = prefix_attention_reference(q, k, v, bias, keep)
     _, rlse = prefix_attention_reference(q, k, v, bias)   # dropout-free
     fo, flse = prefix_attention_reference(q.float(), k.float(), v.float(),
@@ -330,8 +364,9 @@ def test_backward_kernel_is_bitwise_deterministic(cuda, dtype):
                    .to(dtype) for n in (128, 144, 144, 128))
     bias = torch.zeros(32, 1, 1, 144, device=cuda)
     bias[-1, ..., -9:] = -10000.0
-    o, lse, words = prefix_attention_cuda(q, k, v, bias, seed=SEED, rate=0.1)
-    again = prefix_attention_cuda(q, k, v, bias, seed=SEED, rate=0.1)[2]
+    o, lse, words = prefix_attention_cuda(q, k, v, bias, **_kw(cuda),
+                                          rate=0.1)
+    again = prefix_attention_cuda(q, k, v, bias, **_kw(cuda), rate=0.1)[2]
     first = prefix_attention_bwd_cuda(q, k, v, bias, o, lse, do, words,
                                       rate=0.1)
     second = prefix_attention_bwd_cuda(q, k, v, bias, o, lse, do, again,
@@ -388,15 +423,15 @@ def test_operators_launch_the_kernels(cuda, dtype, fwd_atol, bwd_atol, rate):
     mask = torch.ones(B, 1, T, device=cuda)
     mask[-1, :, -9:] = 0.0
     bias = ((1.0 - mask) * -10000.0)[:, None]
-    keep = keep_factors(SEED, rate, (B, H, S, T), cuda) if rate else None
+    keep = keep_factors(MIXED, rate, (B, H, S, T), cuda) if rate else None
     fwd0 = prefix_attention.launches.value
     bwd0 = prefix_attention_bwd_cuda.launches.value
-    o, lse, words = torch.ops.mtvaf.prefix_attention_fwd(q, k, v, bias, SEED,
-                                                         rate)
+    o, lse, words = torch.ops.mtvaf.prefix_attention_fwd(
+        q, k, v, bias, _key(cuda).word, SALT, rate)
     dq, dk, dv = torch.ops.mtvaf.prefix_attention_bwd(q, k, v, bias, o, lse,
                                                       do, words, rate)
     torch.cuda.synchronize()
-    assert_words_hold_the_mask(words, SEED, rate, (B, H, S, T), cuda)
+    assert_words_hold_the_mask(words, MIXED, rate, (B, H, S, T), cuda)
     assert prefix_attention.launches.value == fwd0 + 1
     assert prefix_attention_bwd_cuda.launches.value == bwd0 + 1
     ro, _ = prefix_attention_reference(q, k, v, bias, keep)
@@ -456,7 +491,7 @@ def _remat_step(cuda, remat, monkeypatch):
 
     from mtvaf_tpu_torch.core.config import Config
     from mtvaf_tpu_torch.core.convert import params_from_jax
-    from mtvaf_tpu_torch.core.rng import fold_in
+    from mtvaf_tpu_torch.core.rng import step_key
     from mtvaf_tpu_torch.data.synthetic import crf_batch
     from mtvaf_tpu_torch.nn.bert import BertConfig
     from mtvaf_tpu_torch.nn.models import init_crf_model_params
@@ -478,7 +513,7 @@ def _remat_step(cuda, remat, monkeypatch):
     with monkeypatch.context() as patch:
         handover = _Handover(patch)
         loss, _ = make_crf_loss_fn(cfg, bert_cfg)(state.params, batch,
-                                                  fold_in(7, 0))
+                                                  step_key(7, 0, 0, cuda))
         leaves = dict(tree_items(state.params))
         grads = torch.autograd.grad(loss, list(leaves.values()),
                                     allow_unused=True)
@@ -551,15 +586,15 @@ def test_head_offset_is_the_full_calls_slice(cuda, dtype, rate):
     bias = torch.zeros(b, 1, 1, t, device=cuda)
     bias[1, ..., -9:] = -10000.0
     part = [x[:, h0:].contiguous() for x in (q, k, v, do)]
-    seed = 0x0123456789ABCDEF
-    mask = keep_mask_cuda(seed, 0.1, (b, h - h0, s, t), cuda, head_offset=h0)
-    assert torch.equal(mask, keep_mask_cuda(seed, 0.1, (b, h, s, t),
-                                            cuda)[:, h0:])
+    seed = MIXED
+    mask = keep_mask_cuda(_key(cuda), 0.1, (b, h - h0, s, t), head_offset=h0)
+    assert torch.equal(mask, keep_mask_cuda(_key(cuda), 0.1,
+                                            (b, h, s, t))[:, h0:])
     assert torch.equal(mask, keep_mask_reference(
         seed, 0.1, (b, h - h0, s, t), cuda, head_offset=h0))
-    o, lse, words = prefix_attention_cuda(*part[:3], bias, seed=seed,
+    o, lse, words = prefix_attention_cuda(*part[:3], bias, **_kw(cuda),
                                           rate=rate, head_offset=h0)
-    o12, lse12, words12 = prefix_attention_cuda(q, k, v, bias, seed=seed,
+    o12, lse12, words12 = prefix_attention_cuda(q, k, v, bias, **_kw(cuda),
                                                 rate=rate)
     grads = prefix_attention_bwd_cuda(*part[:3], bias, o, lse, part[3],
                                       words, rate=rate)
@@ -652,3 +687,87 @@ def test_background_checkpoint_holds_the_state_at_the_save(cuda, tmp_path,
     for k, v in at_save.items():
         assert got[k].is_cuda and got[k].dtype == v.dtype, k
         assert torch.equal(got[k], v), k
+
+
+# ---------------------------------------------------------------------------
+# The keyed draws (kernels.keyed_random) and the device key under a graph.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,offset", [(4 * 3001, 0), (1001, 0), (2050, 3)],
+                         ids=["aligned", "odd", "unaligned"])
+def test_keyed_dropout_kernel_is_its_plain_version(cuda, dtype, n, offset):
+    """The kernel bit for bit the plain version at a length that is not a
+    multiple of 4 and at an address that is not 16-byte aligned (its
+    scalar path); its gradient the same dropout of the gradient; one
+    launch each way."""
+    from mtvaf_tpu_torch.kernels.keyed_random import (
+        keyed_dropout, keyed_dropout_reference, keyed_uniform,
+        keyed_uniform_reference)
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn(n + offset, device=cuda, generator=g).to(dtype)[offset:]
+    x.requires_grad_()
+    key = _key(cuda)
+    before = keyed_dropout.launches.value
+    y = keyed_dropout(x, 0.1, key)
+    dy = torch.randn(n, device=cuda, generator=g).to(dtype)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert keyed_dropout.launches.value == before + 2
+    assert torch.equal(y, keyed_dropout_reference(x.detach(), 0.1, key))
+    assert torch.equal(x.grad, keyed_dropout_reference(dy, 0.1, key))
+    u = keyed_uniform(key, (n,))
+    assert torch.equal(u, keyed_uniform_reference(key, (n,), cuda))
+
+
+@pytest.mark.cuda
+def test_a_captured_layer_draws_under_the_word_written_before_replay(cuda):
+    """One encoder layer's forward + backward with every dropout live,
+    captured in a CUDA graph: a replay after writing a word into the
+    captured key's tensor is bitwise an eager run under that word, and
+    two words give two different outputs."""
+    from mtvaf_tpu_torch.nn.bert import BertConfig, bert_layer
+    cfg = BertConfig.tiny(hidden_size=128, num_attention_heads=2,
+                          intermediate_size=256)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    h = cfg.hidden_size
+
+    def w(*shape):
+        return (torch.randn(shape, device=cuda, generator=g) * 0.05).to(
+            torch.bfloat16).requires_grad_()
+
+    ln = lambda: {"scale": torch.ones(h, device=cuda),  # noqa: E731
+                  "bias": torch.zeros(h, device=cuda)}
+    lp = {"attn": {"qkv": {"kernel": w(h, 3 * h), "bias": w(3 * h)},
+                   "out": {"kernel": w(h, h), "bias": w(h)}, "ln": ln()},
+          "mlp": {"in": {"kernel": w(h, 256), "bias": w(256)},
+                  "out": {"kernel": w(256, h), "bias": w(h)}, "ln": ln()}}
+    x = torch.randn(2, 24, h, device=cuda, generator=g).to(torch.bfloat16)
+    x.requires_grad_()
+    bias = torch.zeros(2, 1, 1, 24, device=cuda)
+    dy = torch.randn(2, 24, h, device=cuda, generator=g).to(torch.bfloat16)
+    leaves = [x, lp["attn"]["qkv"]["kernel"], lp["mlp"]["out"]["kernel"]]
+
+    def run(key):
+        out = bert_layer(lp, x, bias, cfg, key=key)
+        return [out, *torch.autograd.grad(out, leaves, grad_outputs=dy)]
+
+    word = torch.zeros(1, dtype=torch.int64, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run(Key(word, 0))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = run(Key(word, 0))
+    replays = []
+    for value in (11, 12):
+        word.fill_(value)
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append([t.clone() for t in static])
+        eager = run(new_key(value, cuda))
+        assert all(torch.equal(a, b) for a, b in zip(replays[-1], eager))
+    assert not torch.equal(replays[0][0], replays[1][0])

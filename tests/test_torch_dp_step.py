@@ -34,8 +34,8 @@ where they agree to a few ulps of the gradient, up to 2·lr where the
 gradient itself is at rounding level; the step moves every element by
 about lr = 1e-3); and the two ranks' leaves bit for bit.
 
-With dropout live, rank 0's step generator is the single process's (the
-K1 seeds it draws are the same) and rank 1's differs.  The same two ranks
+With dropout live, rank 0's step key is the single process's (the Philox
+keys of K1's masks are the same) and rank 1's differs.  The same two ranks
 run ``tests/test_torch_mesh.py``'s ``collectives``, held at the end of
 this file.
 """
@@ -51,7 +51,7 @@ import torch
 from _torch_dp import start
 from test_torch_mesh import BIG, IDS, collectives
 from mtvaf_tpu_torch.core.config import Config
-from mtvaf_tpu_torch.core.rng import draw_seed, fold_in
+from mtvaf_tpu_torch.core.rng import Key, step_word
 from mtvaf_tpu_torch.data.synthetic import crf_batch, span_batch
 from mtvaf_tpu_torch.kernels import prefix_attention as k1
 from mtvaf_tpu_torch.nn.bert import BertConfig
@@ -162,8 +162,8 @@ def _rows(batch, rows):
 
 
 def rank_steps(rank, world, workdir):
-    """Each case's step on this rank's rows, and the K1 seeds of a step
-    with dropout live."""
+    """Each case's step on this rank's rows, and the Philox keys of K1's
+    masks in a step with dropout live."""
     params = torch.load(os.path.join(workdir, "params.pt"),
                         weights_only=True)
     rows = slice(rank * B // world, (rank + 1) * B // world)
@@ -178,20 +178,21 @@ def rank_steps(rank, world, workdir):
 
 
 def _k1_seeds(rows, params):
-    """The seeds K1's wrapper draws in one CRF step with dropout live."""
+    """The Philox keys of K1's masks (its key's word mixed with its salt)
+    in one CRF step with dropout live."""
     cfg, bert_cfg, batch = _case("crf")
-    seeds, draw = [], k1.draw_seed
+    seeds, op = [], k1.prefix_attention_fwd_op
 
-    def recording(generator):
-        seeds.append(draw(generator))
-        return seeds[-1]
+    def recording(q, k, v, bias, key, salt, rate, head_offset=0):
+        seeds.append(Key(key, salt).philox_key())
+        return op(q, k, v, bias, key, salt, rate, head_offset)
 
-    k1.draw_seed = recording
+    k1.prefix_attention_fwd_op = recording
     try:
         _port_step(cfg, bert_cfg, params["twitter2015"], _rows(batch, rows),
                    seed=DROPOUT_SEED)
     finally:
-        k1.draw_seed = draw
+        k1.prefix_attention_fwd_op = op
     return seeds
 
 
@@ -381,16 +382,16 @@ def test_dropout_rank0_is_the_single_process_and_ranks_differ(runs):
     assert len(seeds0) == len(seeds1) == BertConfig.tiny().num_hidden_layers
     assert seeds0 == single["k1_seeds"]
     assert not set(seeds0) & set(seeds1)
-    # rank 0's generator is the one fold_in(seed, step) made before the
+    # rank 0's step word is the one step_word(seed, step) made before the
     # rank entered it (a splitmix64 of the two)
     mask = (1 << 64) - 1
     z = (DROPOUT_SEED * 0x9E3779B97F4A7C15 + 3 + 0x632BE59BD9B4E019) & mask
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & mask
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & mask
-    legacy = torch.Generator().manual_seed((z ^ (z >> 31)) & (2 ** 63 - 1))
-    assert draw_seed(fold_in(DROPOUT_SEED, 3, 0)) == draw_seed(legacy) \
-        == draw_seed(fold_in(DROPOUT_SEED, 3))
-    assert draw_seed(fold_in(DROPOUT_SEED, 3, 1)) != draw_seed(legacy)
+    legacy = (z ^ (z >> 31)) & (2 ** 63 - 1)
+    assert step_word(DROPOUT_SEED, 3, 0) == legacy \
+        == step_word(DROPOUT_SEED, 3)
+    assert step_word(DROPOUT_SEED, 3, 1) != legacy
 
 
 # --- core.mesh's collectives on the same two ranks (test_torch_mesh) ------

@@ -337,6 +337,23 @@ def test_bundle_behind_the_batching_server(crf_run, crf_bundle):
 # What a bundle refuses.
 
 
+def test_bundle_of_format_2_is_refused_by_its_version(crf_bundle, tmp_path):
+    """Version-2 programs called K1's operator with an integer seed; since
+    the operator takes the step key's tensor and a salt, the bundles carry
+    version 3, and a version-2 bundle is refused with a message that names
+    its version (and the one this port reads)."""
+    out, manifest = crf_bundle
+    assert manifest["format_version"] == 3
+    old = tmp_path / "v2"
+    shutil.copytree(out, old)
+    m = json.loads((old / "manifest.json").read_text())
+    m["format_version"] = 2
+    (old / "manifest.json").write_text(json.dumps(m))
+    with pytest.raises(ValueError, match="bundle version 2: this port "
+                                         "reads version 3"):
+        load_exported_predictor(str(old), device="cpu")
+
+
 def test_bundle_errors(crf_bundle, tmp_path, monkeypatch):
     out, _ = crf_bundle
     served = load_exported_predictor(str(out), device="cpu")

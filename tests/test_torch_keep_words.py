@@ -7,7 +7,7 @@ Here, on the CPU: the layout's plain versions (``pack_keep_words`` /
 ``unpack_keep_words``) undo each other, place each element where the
 kernels look for it (the dk/dv pass's transpose included), key on the
 global head, and leave the gradients bit for bit what they were when the
-backward drew the mask again from the seed.  Exact throughout: no
+backward drew the mask again from the key.  Exact throughout: no
 tolerance."""
 
 import pytest
@@ -17,9 +17,11 @@ from mtvaf_tpu_torch.kernels.prefix_attention import (
     keep_factors, keep_mask_reference, keep_words_shape, pack_keep_words,
     prefix_attention, prefix_attention_bwd_op, prefix_attention_bwd_reference,
     prefix_attention_fwd_op, unpack_keep_words)
-from mtvaf_tpu_torch.core.rng import draw_seed
+from mtvaf_tpu_torch.core.rng import new_key
 
 SEED = 0x0123456789ABCDEF
+KEY = new_key(SEED)          # the operator's (word, salt 0)
+MIXED = KEY.philox_key()     # its masks' Philox key
 U32 = 0xFFFFFFFF
 
 
@@ -109,12 +111,12 @@ def test_head_offset_words_are_the_full_calls_heads():
     """A call over heads 6-11 keyed from head 6 returns, word for word,
     heads 6-11 of the 12-head call's words."""
     q, k, v, bias, _ = _inputs(2, 12, 13, 17)
-    _, _, whole = prefix_attention_fwd_op(q, k, v, bias, SEED, 0.1)
+    _, _, whole = prefix_attention_fwd_op(q, k, v, bias, KEY.word, 0, 0.1)
     part = [x[:, 6:].contiguous() for x in (q, k, v)]
-    _, _, words = prefix_attention_fwd_op(*part, bias, SEED, 0.1, 6)
+    _, _, words = prefix_attention_fwd_op(*part, bias, KEY.word, 0, 0.1, 6)
     assert torch.equal(words, whole[:, 6:])
     assert torch.equal(words, pack_keep_words(keep_mask_reference(
-        SEED, 0.1, (2, 6, 13, 17), head_offset=6)))
+        MIXED, 0.1, (2, 6, 13, 17), head_offset=6)))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -124,12 +126,12 @@ def test_head_offset_words_are_the_full_calls_heads():
 def test_gradients_equal_the_seeds_masks(dtype, shape):
     """Autograd of the operator with dropout (the backward on the forward's
     keep words) gives dq, dk and dv bit for bit equal to the plain backward
-    given the seed's keep factors: the words change no arithmetic."""
+    given the key's keep factors: the words change no arithmetic."""
     q, k, v, bias, do = _inputs(*shape, seed=3, dtype=dtype)
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-    seed = draw_seed(torch.Generator().manual_seed(7))
-    o, lse = prefix_attention(*leaves, bias, dropout_rate=0.1,
-                              rng=torch.Generator().manual_seed(7))
+    key = new_key(7)
+    seed = key.philox_key()
+    o, lse = prefix_attention(*leaves, bias, dropout_rate=0.1, rng=key)
     o.backward(do)
     keep = keep_factors(seed, 0.1, shape, "cpu")
     want = prefix_attention_bwd_reference(q, k, v, bias, o.detach(), lse, do,
@@ -145,13 +147,14 @@ def test_fake_shapes_match_the_real_ones(rate):
     without dropout, (B, H, ceil(S/64), ceil(T/64), 128) with."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     q, k, v, bias, do = _inputs(2, 3, 65, 129)
-    real = prefix_attention_fwd_op(q, k, v, bias, SEED, rate)
+    real = prefix_attention_fwd_op(q, k, v, bias, KEY.word, 0, rate)
     real_grads = prefix_attention_bwd_op(q, k, v, bias, *real[:2], do,
                                          real[2], rate)
     with FakeTensorMode() as mode:
         fq, fk, fv, fb, fdo = (mode.from_tensor(x)
                                for x in (q, k, v, bias, do))
-        fake = prefix_attention_fwd_op(fq, fk, fv, fb, SEED, rate)
+        fake = prefix_attention_fwd_op(fq, fk, fv, fb, mode.from_tensor(
+            KEY.word), 0, rate)
         fake_grads = prefix_attention_bwd_op(fq, fk, fv, fb, *fake[:2], fdo,
                                              fake[2], rate)
     for got, want in zip(fake + fake_grads, real + real_grads):

@@ -24,11 +24,12 @@ from mtvaf_tpu.kernels.prefix_attention import (_ZERO_SEED,
                                                 prefix_flash_attention)
 from mtvaf_tpu.nn.bert import xla_attention
 from mtvaf_tpu.nn.layers import mask_to_bias
+from mtvaf_tpu_torch.kernels.philox import philox4x32_10
 from mtvaf_tpu_torch.kernels.prefix_attention import (
-    keep_mask_reference, philox4x32_10, prefix_attention,
-    prefix_attention_bwd_cuda, prefix_attention_bwd_reference,
-    prefix_attention_cuda, prefix_attention_reference)
-from mtvaf_tpu_torch.core.rng import draw_seed
+    keep_mask_reference, prefix_attention, prefix_attention_bwd_cuda,
+    prefix_attention_bwd_reference, prefix_attention_cuda,
+    prefix_attention_reference)
+from mtvaf_tpu_torch.core.rng import new_key
 
 ATOL = 1e-5
 
@@ -108,12 +109,11 @@ def test_kernel_wrapper_rejects_cpu_tensors():
 
 
 def test_dropout_waits_for_the_training_slice():
-    """Dropout came with the training slice: a generator and a nonzero rate
+    """Dropout came with the training slice: a key and a nonzero rate
     now drop (on the CPU through the plain Philox mask) instead of raising;
-    rate 0 or no generator (serving) is plain attention."""
+    rate 0 or no key (serving) is plain attention."""
     q, k, v, bias = _torch(*make_inputs(1))
-    o, _ = prefix_attention(q, k, v, bias, dropout_rate=0.1,
-                            rng=torch.Generator().manual_seed(0))
+    o, _ = prefix_attention(q, k, v, bias, dropout_rate=0.1, rng=new_key(0))
     assert not torch.equal(o, prefix_attention_reference(q, k, v, bias)[0])
     o, _ = prefix_attention(q, k, v, bias, dropout_rate=0.1, rng=None)
     assert torch.equal(o, prefix_attention_reference(q, k, v, bias)[0])
@@ -229,9 +229,9 @@ def test_keep_mask_layout_and_rate():
 
 
 def _attn(q, k, v, bias, rate, seed):
-    gen = None if seed is None else torch.Generator().manual_seed(seed)
+    key = None if seed is None else new_key(seed)
     return prefix_attention(*_torch(q, k, v, bias), dropout_rate=rate,
-                            rng=gen)[0]
+                            rng=key)[0]
 
 
 def test_dropout_deterministic_and_gated():
@@ -261,7 +261,7 @@ def test_dropout_forward_backward_vs_extracted_masks():
     B, H, S, P, D = 1, 2, 8, 4, 8
     q, k, v, bias = _dropout_inputs(B=B, H=H, S=S, P=P, D=D, seed=4)
     rate = 0.3
-    seed = draw_seed(torch.Generator().manual_seed(11))
+    seed = new_key(11).philox_key()
     keep = keep_mask_reference(seed, rate, (B, H, S, S + P))
     assert 0.55 < keep.float().mean().item() < 0.85
     M = keep.float() / (1 - rate)
@@ -277,7 +277,7 @@ def test_dropout_forward_backward_vs_extracted_masks():
     ins = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
     ref_ins = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
     o, lse = prefix_attention(*ins, torch.from_numpy(bias), dropout_rate=rate,
-                              rng=torch.Generator().manual_seed(11))
+                              rng=new_key(11))
     o_ref = ref(*ref_ins)
     np.testing.assert_allclose(o.detach().numpy(), o_ref.detach().numpy(),
                                atol=1e-5)
@@ -311,12 +311,12 @@ def test_operators_pass_opcheck(dtype, rate):
 
     q, k, v, bias = (x.to(dtype) for x in _torch(*make_inputs(13)))
     bias = bias.float()
-    seed = 0x0123456789ABCDEF
+    word, salt = new_key(0x0123456789ABCDEF).word, 0x2468ACE
     torch.library.opcheck(prefix_attention_fwd_op,
                           (q.requires_grad_(), k.requires_grad_(),
-                           v.requires_grad_(), bias, seed, rate))
+                           v.requires_grad_(), bias, word, salt, rate))
     q, k, v = (x.detach() for x in (q, k, v))
-    o, lse, words = prefix_attention_fwd_op(q, k, v, bias, seed, rate)
+    o, lse, words = prefix_attention_fwd_op(q, k, v, bias, word, salt, rate)
     assert lse.dtype == torch.float32 and lse.shape == q.shape[:3] + (1,)
     assert words.dtype == torch.int32
     do = torch.from_numpy(np.random.RandomState(3).randn(*q.shape)
@@ -327,12 +327,12 @@ def test_operators_pass_opcheck(dtype, rate):
 
 def test_operator_gradient_is_the_plain_backward():
     """On the CPU autograd of the forward operator runs the backward
-    operator, whose value is the plain backward's on the masks of the seed
+    operator, whose value is the plain backward's on the masks of the key
     (handed over as keep words); lse is not differentiable."""
     q, k, v, bias = _torch(*make_inputs(1))
     q, k, v = (x.requires_grad_() for x in (q, k, v))
-    g = torch.Generator().manual_seed(5)
-    seed = draw_seed(torch.Generator().manual_seed(5))
+    g = new_key(5)
+    seed = g.philox_key()
     o, lse = prefix_attention(q, k, v, bias, dropout_rate=0.1, rng=g)
     assert not lse.requires_grad
     w = torch.from_numpy(np.random.RandomState(4).randn(*q.shape)

@@ -1,11 +1,11 @@
 """Per-layer remat (``BertConfig.remat``): the backward replays each
 encoder layer, K1 and every dropout draw included, from the layer's input.
 
-* Port with remat against port without, the same host generator, dropout
-  live: the loss and every gradient leaf bit for bit on the CPU.  Eager
-  PyTorch replays the same operations on the same inputs, and the replay
-  starts from a generator in the state the forward's started from, so the
-  masks, and with them every value, repeat exactly.
+* Port with remat against port without, the same step key, dropout live:
+  the loss and every gradient leaf bit for bit on the CPU.  Eager PyTorch
+  replays the same operations on the same inputs, and the replay draws
+  under the same key and salts as the forward, so the masks, and with them
+  every value, repeat exactly.
 * Port remat against JAX remat (``jax.checkpoint`` of each scanned layer)
   in fp32 without dropout: JAX's ``tests/test_bert.py::TestRemat``
   tolerances (gradients rtol 1e-4, atol 1e-5; the loss, a sum of 640
@@ -31,7 +31,7 @@ from mtvaf_tpu.nn.bert import bert_model as jax_bert_model
 from mtvaf_tpu.nn.bert import init_bert_params as jax_init_bert_params
 from mtvaf_tpu_torch.core.config import Config
 from mtvaf_tpu_torch.core.convert import params_from_jax
-from mtvaf_tpu_torch.core.rng import fold_in
+from mtvaf_tpu_torch.core.rng import step_key
 from mtvaf_tpu_torch.data.synthetic import crf_batch, span_batch
 from mtvaf_tpu_torch.nn.bert import BertConfig, bert_model
 from mtvaf_tpu_torch.nn.models import (init_crf_model_params,
@@ -79,7 +79,7 @@ def _loss_and_grads(pipeline, remat, generator_seed, **bert_kw):
     bert_cfg = dataclasses.replace(bert_cfg, remat=remat)
     opt, _ = build_optimizer(params, cfg, total_steps=10, pipeline=pipeline)
     state = create_train_state(params, opt, device="cpu")
-    gen = None if generator_seed is None else fold_in(generator_seed, 0)
+    gen = None if generator_seed is None else step_key(generator_seed, 0)
     loss, metrics = make_loss(cfg, bert_cfg)(state.params, batch, gen)
     leaves = dict(tree_items(state.params))
     grads = torch.autograd.grad(loss, list(leaves.values()),
@@ -97,7 +97,7 @@ def test_remat_is_bitwise_with_live_dropout(pipeline):
         b = g1[path]
         assert (a is None) == (b is None), path
         assert a is None or torch.equal(a, b), path
-    # dropout was live: another generator gives another loss
+    # dropout was live: another key gives another loss
     assert not torch.equal(loss0, _loss_and_grads(pipeline, True, 8)[0])
 
 
@@ -120,7 +120,7 @@ def test_probe_capture_under_remat_equals_without():
         last, captured = bert_model(
             params["bert"], dataclasses.replace(bert_cfg, remat=remat),
             batch["input_ids"], batch["input_mask"],
-            generator=fold_in(3, 0), capture_layer=2)
+            key=step_key(3, 0), capture_layer=2)
         grads = torch.autograd.grad((captured * 1.5).sum() + last.sum(),
                                     leaves, allow_unused=True)
         return captured.detach(), grads

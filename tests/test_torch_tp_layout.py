@@ -26,6 +26,7 @@ import torch
 from mtvaf_tpu_torch.core.config import Config
 from mtvaf_tpu_torch.core.convert import (gather_params, params_from_jax,
                                           shard_params, tp_layout, tp_spec)
+from mtvaf_tpu_torch.core.rng import new_key
 from mtvaf_tpu_torch.kernels.prefix_attention import (keep_mask_reference,
                                                       prefix_attention)
 from mtvaf_tpu_torch.nn.bert import BertConfig
@@ -137,7 +138,7 @@ def test_head_offset_masks_and_plain_kernels_are_the_full_calls_slice():
     def call(lo, hi):
         xs = [x[:, lo:hi].clone().requires_grad_(True) for x in (q, k, v)]
         o, lse = prefix_attention(*xs, bias, dropout_rate=0.1,
-                                  rng=torch.Generator().manual_seed(5),
+                                  rng=new_key(5),
                                   head_offset=lo)
         o.backward(do[:, lo:hi])
         return [o.detach(), lse] + [x.grad for x in xs]
