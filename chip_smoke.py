@@ -44,21 +44,35 @@ Phases, each of which fails the run by raising:
 9. train: ``create_train_state`` → ``make_crf_loss_fn`` →
    ``make_train_step`` at the flagship configuration, B=32, S=128, bf16,
    one fixed synthetic batch with cached guides (as ``bench.py``), dropout
-   live: 15 untimed and 30 timed steps; check finite losses, the last 5
-   below the first, 12 K1 and 12 K2 launches per timed step, and none of
-   the mask entry (K1 draws the masks and hands them to K2); print
-   step time, examples/s, MFU and the forward / backward / optimizer split
-   of one step; then the same step with ``bf16=False`` (``--no_bf16``, the
-   kernels' fp32 route): 5 untimed and 10 timed steps, finite losses, 12
-   K1 and 12 K2 launches a step, K1's and K2's device ms in one step;
+   live, the step captured (``train.graphs``: forward, backward and AdamW
+   one CUDA graph replay a call): first ``graph_check``, five steps of one
+   state through the captured step (a warm-up, the capture, three replays
+   under three other words) against the same five steps of a twin state
+   under ``disable_graphs()``, every loss, param and AdamW moment bit for
+   bit and one capture; 15 untimed and 30 timed steps; check finite
+   losses, the last 5 below the first, one capture, 12 K1, 12 K2 and 60
+   keyed dropout launches a step and none of the mask entry (K1 draws the
+   masks and hands them to K2), counted by name in the profiler's trace of
+   three replayed steps and equal to the graph's per-replay count and to
+   the eager steps' wrapper counts (``replay_launches``);
+   print step time, examples/s, MFU, eager and graphed step ms in turns,
+   a graphed step's device busy ms and kernel records under the profiler,
+   and the eager forward / backward / optimizer split of one step; then
+   the same ``graph_check`` of the step with two accumulation
+   micro-batches; then the same step with ``bf16=False`` (``--no_bf16``,
+   the kernels' fp32 route): 5 untimed and 10 timed steps, finite losses,
+   12 K1 and 12 K2 launches a step, K1's and K2's device ms in one step;
 10. trainer: the CLI (``cli.main.main``) → ``CrfTrainer.train()`` /
    ``.test()`` at the flagship configuration for 2 epochs on a synthetic
    Twitter-2015 tree in the reference layout (320/96/96 examples, the
    pixel cache seeded so that nothing is decoded); check finite losses, 12
    K1 + 12 K2 launches per train step and 12 K1 per dev/test batch, none of
-   the mask entry, every parameter, moment and guide-table tensor on the
-   card, no placeholder image and no all-zero guide row, and the run's
-   files; reload the best model with ``load_predictor`` and tag a few
+   the mask entry, one capture of the train step for the run (the padded
+   tail batch has the full batches' signature), every parameter, moment
+   and guide-table tensor on the card, no placeholder image and no
+   all-zero guide row, and the run's files; the same CLI run under
+   ``disable_graphs()``: each epoch's loss and ``best_model.npz`` bit for
+   bit, both runs' examples/s (``cli_graphed_vs_eager``); reload the best model with ``load_predictor`` and tag a few
    sentences; print per-epoch time and examples/s beside phase 9's bare
    step, the guide-fill time and eval sentences/s; time the background
    checkpoint in three rounds (``checkpoint_timing``: the stall a save
@@ -75,13 +89,14 @@ Phases, each of which fails the run by raising:
 11. span: the span pipeline (text-only BERT-base, twitter15) with random
    weights from a seed: (a) the bare span train step
    (``make_span_loss_fn`` → ``make_train_step``, one fixed ``span_batch``,
-   B=32, S=128, 20 candidates of width up to 12, bf16, dropout live; 15
-   untimed and 30 timed steps; finite losses, the last 5 below the first,
-   12 K1 and 12 K2 launches per step); (b) one fp32 span step on the card
+   B=32, S=128, 20 candidates of width up to 12, bf16, dropout live,
+   captured: phase 9's ``graph_check``, then 15 untimed and 30 timed
+   steps; finite losses, the last 5 below the first, 12 K1 and 12 K2
+   launches per step); (b) one fp32 span step on the card
    against the CPU (B=2, S=32, TF32 off, no dropout); (c) the CLI →
    ``SpanTrainer`` for 2 epochs on a synthetic Twitter-2015 span tree
-   (320/96/96 sentences), 12 K1 + 12 K2 per train step and 12 K1 per eval
-   batch, eval sentences/s and the host's candidate/NMS share of it; (d)
+   (320/96/96 sentences), one capture, 12 K1 + 12 K2 per train step and 12
+   K1 per eval batch, eval sentences/s and the host's candidate/NMS share of it; (d)
    ``load_predictor`` on that run → ``BatchingServer`` → ``SpanPredictor``,
    64 requests from 16 threads, each result equal to ``predict_many``'s,
    the serving params and a dev batch's extraction logits equal to the
@@ -90,14 +105,16 @@ Phases, each of which fails the run by raising:
    at ratio 0.1, CE and JS weights 1), DiGCN (2 layers) and DualGCN (2
    layers), BERT-base, bf16, random weights from a seed: (a) the bare aux
    train step (two encoder passes, B=32, S=128, GCN side arrays drawn from
-   the seed, dropout live; 15 untimed and 30 timed steps; finite losses,
-   the last 5 below the first, 24 K1 and 24 K2 launches per step); (b) one
+   the seed, dropout live, captured: phase 9's ``graph_check``, then 15
+   untimed and 30 timed steps; finite losses, the last 5 below the first,
+   24 K1, 24 K2 and one keyed uniform a step in the profiler's trace of
+   replayed steps, its keyed dropouts those of the eager steps); (b) one
    fp32 aux step on the card against the CPU (B=2, S=32, TF32 off, dropout
    off, the cut drawn from one host seed on both); (c) the CLI →
    ``SpanTrainer`` with images (ResNet-152 guides, the visual prefix, the
    pixel cache seeded as in phase 10) for 2 epochs, side files for train
-   and dev and none for test, 24 K1 + 24 K2 per train step and 12 K1 per
-   eval batch; (d) ``load_predictor`` on that run → ``SpanPredictor``
+   and dev and none for test, one capture, 24 K1 + 24 K2 per train step
+   and 12 K1 per eval batch; (d) ``load_predictor`` on that run → ``SpanPredictor``
    (bf16, with images): the DiGCN classification given a dev batch's side
    arrays equal to the trainer's, the extraction with images equal to the
    trainer's fp32-prefix forward bit for bit, ``BatchingServer`` with 64
@@ -130,15 +147,17 @@ Phases, each of which fails the run by raising:
    per-layer remat: one step each under one key, the loss bit for
    bit and every gradient leaf bitwise or within rtol 1e-4 / atol 1e-5
    (the largest difference printed with its reason), K1 12 → 24 and K2 12
-   launches a step, then 10 untimed and 20 timed steps of each with
-   their peak memory; (b) phase 9's step with ``--params_bf16`` (15 +
-   30 steps): finite losses, the last 5 below the first, live ==
-   bf16(master), kernel launches and device ms per step beside the
-   fp32-param step's; (c) the CLI → ``SpanTrainer`` with ``--use_align
-   --remat --params_bf16 --profile_dir`` for 2 epochs on a synthetic
-   twitter15 tree with AGN files (320/96/96): 24 K1 + 12 K2 per train
-   step and 12 K1 per eval batch, a trace whose kernel records name K1
-   and K2, an fp32 ``best_model.npz``, then ``load_predictor`` →
+   launches a step, then (the remat step after phase 9's ``graph_check``)
+   10 untimed and 20 timed steps of each, captured, then the peak memory
+   of one eager step of each; (b) phase 9's step with ``--params_bf16``, captured (phase 9's
+   ``graph_check``, master included, then 15 + 30 steps): finite losses,
+   the last 5 below the first, live == bf16(master), kernel launches and
+   device ms per step beside the fp32-param step's; (c) the CLI →
+   ``SpanTrainer`` with ``--use_align --remat --params_bf16
+   --profile_dir`` for 2 epochs on a synthetic twitter15 tree with AGN
+   files (320/96/96): one capture, 24 K1 + 12 K2 per train step and 12 K1
+   per eval batch, a trace of two replayed steps whose kernel records name
+   48 K1 and 24 of each of K2's two passes, an fp32 ``best_model.npz``, then ``load_predictor`` →
    ``BatchingServer`` → ``SpanPredictor`` at S=500 (64 requests from 16
    threads, each equal to ``predict_many``'s); (d) phase 7's requests
    through a ``CrfPredictor`` with ``crf_decode_impl="parallel"``, each
@@ -221,9 +240,9 @@ Phases, each of which fails the run by raising:
    written into the captured key's tensor: outputs and every gradient
    bitwise an eager run's under that word, K1's keep words the plain mask
    of the mixed key, the three masks different; eager and replay ms in
-   turns; (c), last, the same capture of phase 9's whole forward +
-   backward: bitwise replays and their ms, or the first call of the port
-   that breaks capture (file:line).  Phase 9 requires 2 keyed dropout
+   turns; (c) is phase 9's ``graph_check``: the whole captured step
+   (forward, backward, AdamW) replayed under three words bit for bit the
+   eager steps.  Phase 9 requires 2 keyed dropout
    launches per dropout site a step (``DROPOUT_SITES``, forward and
    backward) and no keyed uniform; phase 12(a) one keyed uniform a step.
 
@@ -232,8 +251,9 @@ kernels' summed durations under ``torch.profiler``.  ``event_ms`` is the
 kernel's time between events over back-to-back calls, which the host's
 launch time sets where that is longer.
 
-Prints the card's name and power limit, then one JSON line with the
-kernels' numbers, then ``{"ok": true, "device": {...}}`` as the last line.
+Prints the smoke's seconds (``smoke_seconds``), the card's name and power
+limit, then one JSON line with the kernels' numbers, then ``{"ok": true,
+"device": {...}}`` as the last line.
 Exits non-zero, printing no result, without a CUDA device.
 
     python3 chip_smoke.py --kernel-rows [bf16|fp32]
@@ -1117,6 +1137,81 @@ def train_setup(cfg, bert_cfg, params, device):
         batch
 
 
+GRAPH_STEPS = 5
+# Phase 9's graph check runs its five steps under five seeds: the run's
+# twice (the warm-up and the capture), then one per word of GRAPH_WORDS,
+# so that three replays draw under three other words (phase 18(b) writes
+# GRAPH_WORDS themselves into a captured layer's key).
+GRAPH_WORDS = (0x0123456789ABCDEF, 0x2545F4914F6CDD1D, 0x1B873593CC9E2D51)
+GRAPH_SEEDS = (SEED, SEED) + GRAPH_WORDS
+
+
+def graph_check(name, step, state, twin, batch, seeds=(SEED,) * GRAPH_STEPS):
+    """One step path's graphs against eager work: ``len(seeds)`` steps of
+    ``state`` through the captured ``step`` (the first a real step on the
+    capture stream, the warm-up; the second the capture and its replay;
+    the rest replays) and the same steps of ``twin`` (the same values in
+    other tensors) under ``disable_graphs()``: every loss, param, fp32
+    master and AdamW moment bit for bit, and one capture.  Returns (the
+    graphed state, the row)."""
+    from mtvaf_tpu_torch.core.rng import step_word
+    from mtvaf_tpu_torch.train.graphs import disable_graphs
+
+    t0 = time.perf_counter()
+    captures = step.captures
+    words, g_loss, e_loss = [], [], []
+    for seed in seeds:
+        words.append(hex(step_word(seed, state.step)))
+        state, m = step(state, batch, seed)
+        g_loss.append(m["loss"])
+    counters = {**kernel_counters(), **keyed_counters()}
+    before = {k: c.value for k, c in counters.items()}
+    with disable_graphs():
+        for seed in seeds:
+            twin, m = step(twin, batch, seed)
+            e_loss.append(m["loss"])
+    torch.cuda.synchronize()
+    eager_launches = {k: (c.value - before[k]) / len(seeds)
+                      for k, c in counters.items()}
+    got, want = _state_tensors(state), _state_tensors(twin)
+    differ = [k for k, v in want.items()
+              if got[k].dtype != v.dtype or not torch.equal(got[k], v)]
+    same_losses = all(torch.equal(a, b) for a, b in zip(g_loss, e_loss))
+    row = {"path": name, "steps": len(seeds), "words": words,
+           "captures": step.captures - captures, "tensors": len(want),
+           "differ": differ[:8], "losses_bitwise": same_losses,
+           "losses": [x.item() for x in g_loss],
+           "eager_launches_per_step": eager_launches,
+           "seconds": time.perf_counter() - t0}
+    log("graph_check", json.dumps(row), card_line())
+    del twin, got, want
+    torch.cuda.empty_cache()
+    if differ or not same_losses or row["captures"] != 1:
+        raise AssertionError(f"{name}: the graphed steps differ from the "
+                             f"eager ones: {row}")
+    return state, row
+
+
+def step_turns(step, state, batch, n=10):
+    """Eager (``disable_graphs()``) and graphed step ms in turns (eager,
+    graphed, graphed, eager), each between two events over ``n`` steps of
+    one state; returns (state, row)."""
+    from mtvaf_tpu_torch.train.graphs import disable_graphs
+    holder = {"s": state}
+
+    def run():
+        holder["s"], _ = step(holder["s"], batch, SEED)
+
+    def eager():
+        with disable_graphs():
+            run()
+
+    times = turns_ms(eager, run, n=n)
+    row = {"eager_step_ms": times["eager_ms"],
+           "graphed_step_ms": times["replay_ms"]}
+    return holder["s"], row
+
+
 def train(cfg, bert_cfg, params, device="cuda"):
     from mtvaf_tpu_torch.core.flops import (H100_BF16_PEAK,
                                             train_flops_per_example)
@@ -1126,12 +1221,21 @@ def train(cfg, bert_cfg, params, device="cuda"):
     from mtvaf_tpu_torch.kernels.prefix_attention import (
         keep_mask_cuda, prefix_attention, prefix_attention_bwd_cuda)
     from mtvaf_tpu_torch.train.optim import tree_items
+    from mtvaf_tpu_torch.train.steps import (create_train_state,
+                                             make_train_step)
 
     t0 = time.perf_counter()
     optimizer, state, loss_fn, train_step, batch = train_setup(
         cfg, bert_cfg, params, device)
-    losses = []
-    for _ in range(WARMUP_STEPS):
+    # the step captured against the same steps run eagerly, three replays
+    # under three words (this replaces PR 15's capture of the forward and
+    # backward alone)
+    state, check = graph_check(
+        "crf_flagship", train_step, state,
+        create_train_state(params, optimizer, device=device), batch,
+        seeds=GRAPH_SEEDS)
+    losses = [torch.tensor(x) for x in check["losses"]]
+    for _ in range(WARMUP_STEPS - len(GRAPH_SEEDS)):
         state, metrics = train_step(state, batch, SEED)
         losses.append(metrics["loss"])
     torch.cuda.synchronize()
@@ -1161,10 +1265,19 @@ def train(cfg, bert_cfg, params, device="cuda"):
     step_ms = start.elapsed_time(end) / TIMED_STEPS
     losses = [x.item() for x in losses]
 
-    # where one step's device time goes: the step's three parts, timed
-    # apart with events (the same calls make_train_step makes)
+    # graphed and eager steps in turns, and a graphed step's device time
+    state, turns = step_turns(train_step, state, batch)
+    # the replays' launches, counted in the profiler's trace
+    state, traced = replay_launches("crf_flagship", train_step, state, batch,
+                                    check["eager_launches_per_step"])
+    busy_ms = traced["device_busy_ms_per_step"]
+    captures = train_step.captures
+
+    # where one eager step's device time goes: the step's three parts,
+    # timed apart with events (the calls make_train_step makes)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     leaves = [p for _, p in tree_items(state.params)]
+    optimizer.step_scalars(state.opt_state.count, device)
     ev[0].record()
     loss, _ = loss_fn(state.params, batch,
                       step_key(SEED, state.step, 0, device))
@@ -1178,11 +1291,29 @@ def train(cfg, bert_cfg, params, device="cuda"):
     torch.cuda.synchronize()
     split = {"forward_ms": ev[0].elapsed_time(ev[1]),
              "backward_ms": ev[1].elapsed_time(ev[2]),
-             "optimizer_ms": ev[2].elapsed_time(ev[3])}
+             "optimizer_ms": ev[2].elapsed_time(ev[3]),
+             # AdamW's kernels alone, as the graph replays them
+             "optimizer_device_ms": device_ms(lambda: optimizer.apply(
+                 state.params, grads, state.opt_state), iters=3, warmup=1)}
+    del grads, loss, leaves, state
+    train_step.release()
+    torch.cuda.empty_cache()
+
+    # gradient accumulation over two micro-batches, captured
+    accum_step = make_train_step(loss_fn, optimizer, accum_steps=2)
+    micro = {k: v.reshape((2, TRAIN_B // 2) + v.shape[1:])
+             for k, v in batch.items()}
+    _, accum = graph_check(
+        "crf_flagship_accum2", accum_step,
+        create_train_state(params, optimizer, device=device),
+        create_train_state(params, optimizer, device=device), micro)
+    del accum_step
+    torch.cuda.empty_cache()
 
     ex_per_s = TRAIN_B / (step_ms / 1e3)
     flops = train_flops_per_example(bert_cfg, TRAIN_S, prefix_len=16)
     main = {"batch": TRAIN_B, "seq": TRAIN_S, "steps": TIMED_STEPS,
+            "graphed": True, "captures": captures,
             "step_ms": step_ms, "wall_step_ms": wall / TIMED_STEPS * 1e3,
             "examples_per_s": ex_per_s,
             "wall_examples_per_s": TRAIN_B * TIMED_STEPS / wall,
@@ -1191,15 +1322,32 @@ def train(cfg, bert_cfg, params, device="cuda"):
             "k1_launches": k1, "k2_launches": k2,
             "mask_launches": mask_launches,
             "dropout_launches": dropout_launches,
-            "uniform_launches": uniform_launches, **split,
+            "uniform_launches": uniform_launches,
+            "launches_per_step": traced["traced_per_step"],
+            "counted_launches_per_step": {
+                "k1": k1 / TIMED_STEPS, "k2": k2 / TIMED_STEPS,
+                "keyed_dropout": dropout_launches / TIMED_STEPS},
+            "turns": turns, "device_busy_ms_per_step": busy_ms,
+            "kernel_records_per_step": traced["kernel_records_per_step"],
+            "eager_split": split,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "graph_check": check, "accum2_graph_check": accum,
             "losses": losses}
-    log("train_path", json.dumps(main))
+    log("train_path", json.dumps(main), card_line())
     layers = bert_cfg.num_hidden_layers
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite train loss: {losses}")
     if not sum(losses[-5:]) / 5 < losses[0]:
         raise AssertionError(f"train loss did not fall: {losses}")
+    if captures != 1:
+        raise AssertionError(f"the flagship step was captured {captures} "
+                             "times, not once")
+    # measured in the replays' trace: 12 K1, 12 K2, 60 keyed dropouts a step
+    want = {"k1": layers, "k2": layers, "k2_dkdv": layers, "mask": 0,
+            "dropout": 2 * DROPOUT_SITES, "uniform": 0}
+    if traced["traced_per_step"] != want:
+        raise AssertionError(f"a replayed flagship step launched "
+                             f"{traced['traced_per_step']}, not {want}")
     if k1 != layers * TIMED_STEPS or k2 != layers * TIMED_STEPS:
         raise AssertionError(f"K1 ran {k1} and K2 {k2} times in "
                              f"{TIMED_STEPS} steps, not {layers} per step")
@@ -1506,6 +1654,15 @@ def trainer_phase(bare_step, keep):
                 f"per step and {layers} K1 per eval batch")
         if masks != 0:
             raise AssertionError(f"the mask entry ran {masks} times")
+        if tr.train_step.captures != 1:
+            raise AssertionError(f"the trainer captured its step "
+                                 f"{tr.train_step.captures} times, not once "
+                                 "(every batch, the padded tail's too, has "
+                                 "one signature)")
+        eager_run = cli_against_eager(
+            tr, save, _trainer_argv(root, bert_dir, cache,
+                                    os.path.join(tmp, "run_eager"),
+                                    "--do_train"), bert_cfg)
         gc = tr.guide_cache
         tensors = [p for _, p in tree_items(tr.state.params)] \
             + list(tr.state.opt_state.mu) + list(tr.state.opt_state.nu) \
@@ -1564,6 +1721,7 @@ def trainer_phase(bare_step, keep):
                "step_split": split,
                "train_steps": steps, "eval_batches": eval_batches,
                "k1_launches": k1, "k2_launches": k2, "mask_launches": masks,
+               "captures": tr.train_step.captures, "eager_run": eager_run,
                "metrics": metrics}
         out["predictor"] = predictor
         del tr
@@ -1573,6 +1731,39 @@ def trainer_phase(bare_step, keep):
 
         out["resume"] = resume_in_child(root, bert_dir, cache, tmp)
     return out
+
+
+def cli_against_eager(tr, save, argv, bert_cfg, span=False):
+    """The CLI run that built ``tr`` (graphed, its run directory ``save``)
+    against the same flags under ``disable_graphs()``: each epoch's train
+    loss and every array of ``best_model.npz`` bit for bit; both runs'
+    train examples/s per epoch.  Returns the row."""
+    from mtvaf_tpu_torch.train.graphs import disable_graphs
+
+    with disable_graphs():
+        _, eager = run_cli(argv, bert_cfg, span=span)
+    eager_save = argv[argv.index("--save_path") + 1]
+    graphed_npz = np.load(os.path.join(save, "best_model.npz"))
+    eager_npz = np.load(os.path.join(eager_save, "best_model.npz"))
+    differ = sorted(set(graphed_npz.files) ^ set(eager_npz.files)) + [
+        k for k in graphed_npz.files if k in eager_npz.files
+        and not np.array_equal(graphed_npz[k], eager_npz[k])]
+    row = {"arrays": len(graphed_npz.files), "differ": differ[:8],
+           "train_losses": [[h["train_loss"] for h in r.history]
+                            for r in (tr, eager)],
+           "examples_per_s": {"graphed": [h["examples_per_s"]
+                                          for h in tr.history],
+                              "eager": [h["examples_per_s"]
+                                        for h in eager.history]},
+           "eager_captures": getattr(eager.train_step, "captures", 0)}
+    row["losses_bitwise"] = row["train_losses"][0] == row["train_losses"][1]
+    del eager
+    torch.cuda.empty_cache()
+    log("cli_graphed_vs_eager", json.dumps(row), card_line())
+    if differ or not row["losses_bitwise"] or row["eager_captures"]:
+        raise AssertionError(f"the graphed CLI run differs from the eager "
+                             f"one: {row}")
+    return row
 
 
 def _state_tensors(state):
@@ -1917,8 +2108,11 @@ def span_train(bert_cfg):
     step = make_train_step(make_span_loss_fn(cfg, bert_cfg), optimizer)
     batch = {k: v.cuda() for k, v in span_batch(
         cfg, bert_cfg, TRAIN_B, TRAIN_S, seed=SEED).items()}
-    losses = []
-    for _ in range(WARMUP_STEPS):
+    state, check = graph_check(
+        "span", step, state,
+        create_train_state(params, optimizer, device="cuda"), batch)
+    losses = [torch.tensor(x) for x in check["losses"]]
+    for _ in range(WARMUP_STEPS - GRAPH_STEPS):
         state, metrics = step(state, batch, SEED)
         losses.append(metrics["loss"])
     torch.cuda.synchronize()
@@ -1943,7 +2137,8 @@ def span_train(bert_cfg):
     ex_per_s = TRAIN_B / (step_ms / 1e3)
     flops = train_flops_per_example(bert_cfg, TRAIN_S, prefix_len=0)
     out = {"batch": TRAIN_B, "seq": TRAIN_S, "n_best": SPAN_N_BEST,
-           "width": SPAN_WIDTH, "steps": TIMED_STEPS,
+           "width": SPAN_WIDTH, "steps": TIMED_STEPS, "graph_check": check,
+           "captures": step.captures,
            "setup_and_untimed_s": setup_s, "step_ms": step_ms,
            "wall_step_ms": wall / TIMED_STEPS * 1e3,
            "examples_per_s": ex_per_s,
@@ -2067,6 +2262,9 @@ def span_phase(bare_step):
                 f"{layers} K1 per eval batch")
         if any(not p.is_cuda for _, p in tree_items(tr.state.params)):
             raise AssertionError("a span parameter is not on the card")
+        if tr.train_step.captures != 1:
+            raise AssertionError(f"the span trainer captured its step "
+                                 f"{tr.train_step.captures} times")
         for name in ("best_model.npz", "train_predictions.json",
                      "dev_predictions.json", "test_predictions.json",
                      "final_metrics.json", "run_config.json", "ckpt/step_2"):
@@ -2279,8 +2477,11 @@ def aux_train(bert_cfg, span_step):
     batch = span_batch(cfg, bert_cfg, TRAIN_B, TRAIN_S, seed=SEED)
     batch.update(gcn_side_arrays(TRAIN_B, TRAIN_S, seed=SEED))
     batch = {k: v.cuda() for k, v in batch.items()}
-    losses = []
-    for _ in range(WARMUP_STEPS):
+    state, check = graph_check(
+        "aux", step, state,
+        create_train_state(params, optimizer, device="cuda"), batch)
+    losses = [torch.tensor(x) for x in check["losses"]]
+    for _ in range(WARMUP_STEPS - GRAPH_STEPS):
         state, metrics = step(state, batch, SEED)
         losses.append(metrics["loss"])
     torch.cuda.synchronize()
@@ -2302,12 +2503,16 @@ def aux_train(bert_cfg, span_step):
     wall = time.perf_counter() - t0
     k1, k2, masks = (c.value for c in counters)
     drops, uniforms = keyed["dropout"].value, keyed["uniform"].value
+    # the replays' launches, counted in the profiler's trace
+    state, traced = replay_launches("aux", step, state, batch,
+                                    check["eager_launches_per_step"])
     losses = [x.item() for x in losses]
     step_ms = start.elapsed_time(end) / TIMED_STEPS
     ex_per_s = TRAIN_B / (step_ms / 1e3)
     # two encoder passes per example; the heads' FLOPs are left out
     flops = 2 * train_flops_per_example(bert_cfg, TRAIN_S, prefix_len=0)
     out = {"batch": TRAIN_B, "seq": TRAIN_S, "steps": TIMED_STEPS,
+           "graph_check": check, "captures": step.captures,
            "aug": cfg.aug_type, "ratio": cfg.aug_cutoff_ratio,
            "gcn_layer_number": cfg.gcn_layer_number,
            "num_layers": cfg.num_layers,
@@ -2321,6 +2526,7 @@ def aux_train(bert_cfg, span_step):
            "span_step_mfu": span_step["mfu"],
            "k1_launches": k1, "k2_launches": k2, "mask_launches": masks,
            "dropout_launches": drops, "uniform_launches": uniforms,
+           "launches_per_step": traced["traced_per_step"],
            "cutoff_loss": metrics["cutoff_loss"].item(),
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "losses": losses}
@@ -2335,6 +2541,12 @@ def aux_train(bert_cfg, span_step):
         raise AssertionError(f"K1 ran {k1}, K2 {k2} and the mask entry "
                              f"{masks} times in {TIMED_STEPS} aux steps, "
                              f"not {per_step} K1 + {per_step} K2 per step")
+    got = traced["traced_per_step"]
+    if (got["k1"], got["k2"], got["mask"], got["uniform"]) \
+            != (per_step, per_step, 0, 1) or not got["dropout"]:
+        raise AssertionError(f"a replayed aux step launched {got}, not "
+                             f"{per_step} K1 + {per_step} K2, one keyed "
+                             "uniform and keyed dropouts")
     # one span cutoff draw a step (its cut starts), dropout keyed too
     if uniforms != TIMED_STEPS or not drops:
         raise AssertionError(f"the keyed uniform ran {uniforms} times and "
@@ -2490,6 +2702,9 @@ def aux_phase(span_path, keep):
         if any(t is None or not t.is_cuda for t in tensors):
             raise AssertionError("an aux parameter, moment or guide-table "
                                  "tensor is not on the card")
+        if tr.train_step.captures != 1:
+            raise AssertionError(f"the aux trainer captured its step "
+                                 f"{tr.train_step.captures} times")
         sides = [("adjacency_matrix" in d.arrays) for d in
                  (tr.train_dataset, tr.dev_dataset, tr.test_dataset)]
         if sides != [True, True, False] or gc.computed != len(ids):
@@ -3210,8 +3425,18 @@ LONG_WARMUP, LONG_TIMED = 10, 20
 # sums in an order it picks anew per call
 REMAT_RTOL, REMAT_ATOL = 1e-4, 1e-5
 AGN_IDS = [f"img_{i}.jpg" for i in range(4)]   # make_learnable_span_file's
-KERNEL_NAMES = {"k1": ("fwd_bf16_kernel",),
-                "k2": ("dq_bf16_kernel", "dkdv_bf16_kernel")}
+# The port's bf16 kernels as the profiler names them: one record per
+# launch of the wrapper that counts it (K2 launches a dq and a dkdv pass)
+TRACED = {"k1": "fwd_bf16_kernel", "k2": "dq_bf16_kernel",
+          "k2_dkdv": "dkdv_bf16_kernel", "mask": "keep_mask_kernel",
+          "dropout": "dropout_kernel", "uniform": "uniform_kernel"}
+
+
+def traced_name(name, kernel):
+    """Whether a profiler record ``name`` is ``kernel`` (a whole word:
+    ``dropout_kernel`` is not PyTorch's ``fused_dropout_kernel_vec``)."""
+    import re
+    return re.search(rf"\b{kernel}\b", name) is not None
 
 
 def kernel_counters():
@@ -3239,23 +3464,69 @@ def keyed_counters():
             "uniform": keyed_uniform.launches}
 
 
-def profiled_calls(fn, iters=10):
-    """(device ms, kernel launches) per call of ``fn`` under
-    ``torch.profiler``: the summed kernel durations and the count of
-    kernel records."""
+def profiled_kernels(fn, iters=10):
+    """``fn`` once, then ``iters`` calls of it under ``torch.profiler``:
+    (the kernel rows of ``key_averages()``, the port's launch counters'
+    increase per profiled call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    counters = {**kernel_counters(), **keyed_counters()}
+    before = {k: c.value for k, c in counters.items()}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    counted = {k: (c.value - before[k]) / iters for k, c in counters.items()}
+    return ([e for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA], counted)
+
+
+def traced_launches(rows, iters):
+    """Launches per call of each kernel of ``TRACED``, counted by name in
+    the profiler's kernel rows of ``iters`` calls: a replayed graph's
+    kernels too, which enter no wrapper."""
+    return {k: sum(e.count for e in rows if traced_name(e.key, n)) / iters
+            for k, n in TRACED.items()}
+
+
+def profiled_calls(fn, iters=10):
+    """(device ms, kernel launches) per call of ``fn`` under
+    ``torch.profiler``: the summed kernel durations and the count of
+    kernel records."""
+    kernels, _ = profiled_kernels(fn, iters)
     return (sum(e.self_device_time_total for e in kernels) / iters / 1e3,
             sum(e.count for e in kernels) / iters)
+
+
+def replay_launches(name, step, state, batch, want, iters=3):
+    """The port's kernels launched per step of ``iters`` steps of ``step``
+    (replays, after one unprofiled) counted in the profiler's trace, held
+    against ``want`` (the launches per step its eager steps counted in the
+    wrappers) and against the graph's per-replay count.  Returns (state,
+    row)."""
+    holder = {"s": state}
+
+    def one_step():
+        holder["s"], _ = step(holder["s"], batch, SEED)
+
+    rows, counted = profiled_kernels(one_step, iters=iters)
+    traced = traced_launches(rows, iters)
+    row = {"traced_per_step": traced, "counted_per_step": counted,
+           "eager_counted_per_step": want,
+           "device_busy_ms_per_step":
+               sum(e.self_device_time_total for e in rows) / iters / 1e3,
+           "kernel_records_per_step": sum(e.count for e in rows) / iters}
+    log("replay_launches", name, json.dumps(row))
+    bad = [k for k in want if not traced[k] == counted[k] == want[k]]
+    if bad or traced["k2_dkdv"] != traced["k2"]:
+        raise AssertionError(
+            f"{name}: the replays' traced launches {traced} differ from "
+            f"the eager steps' {want} or the graph's count {counted} "
+            f"({bad})")
+    return holder["s"], row
 
 
 def timed_steps(step, state, batch, n):
@@ -3283,8 +3554,9 @@ def long_step(bert_cfg):
     dropout live), without and with remat: one step each from one
     generator (the loss bit for bit, every gradient leaf bitwise or within
     ``REMAT_RTOL``/``REMAT_ATOL``; K1 12 → 24 launches, K2 12), then
-    ``LONG_WARMUP`` untimed and ``LONG_TIMED`` timed steps of each, with
-    the peak memory of the timed steps."""
+    ``LONG_WARMUP`` untimed and ``LONG_TIMED`` timed steps of each,
+    captured, then one eager step of each for its peak memory (a replay
+    allocates nothing)."""
     import dataclasses
     from mtvaf_tpu_torch.core.convert import params_from_jax
     from mtvaf_tpu_torch.core.flops import (H100_BF16_PEAK,
@@ -3292,6 +3564,7 @@ def long_step(bert_cfg):
     from mtvaf_tpu_torch.core.rng import step_key
     from mtvaf_tpu_torch.data.synthetic import span_batch
     from mtvaf_tpu_torch.nn.models import init_span_model_params
+    from mtvaf_tpu_torch.train.graphs import disable_graphs
     from mtvaf_tpu_torch.train.optim import build_optimizer, tree_items
     from mtvaf_tpu_torch.train.steps import (create_train_state,
                                              make_span_loss_fn,
@@ -3361,12 +3634,18 @@ def long_step(bert_cfg):
     del grads, g0, g1, loss0, loss1
     torch.cuda.empty_cache()
 
-    # timed steps of each
+    # timed steps of each; the remat step first graphed against eager
     for name, loss_fn in loss_fns.items():
         state = create_train_state(params, optimizer, device=DEVICE)
         step = make_train_step(loss_fn, optimizer)
-        losses = []
-        for _ in range(LONG_WARMUP):
+        losses, warm = [], LONG_WARMUP
+        if name == "remat":
+            state, out["remat_graph_check"] = graph_check(
+                "span_s500_remat", step, state,
+                create_train_state(params, optimizer, device=DEVICE), batch)
+            losses = list(out["remat_graph_check"]["losses"])
+            warm = max(LONG_WARMUP - GRAPH_STEPS, 0)
+        for _ in range(warm):
             state, metrics = step(state, batch, SEED)
             losses.append(metrics["loss"].item())
         reset_counts()
@@ -3374,12 +3653,22 @@ def long_step(bert_cfg):
                                                            batch, LONG_TIMED)
         counts = read_counts()
         losses += timed
+        # a replay allocates nothing (its activations live in the graph's
+        # pool, reserved at capture), so the activations' peak is read on
+        # one eager step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with disable_graphs():
+            state, _ = step(state, batch, SEED)
+        torch.cuda.synchronize()
+        eager_peak = torch.cuda.max_memory_allocated()
         ex_per_s = TRAIN_B / (step_ms / 1e3)
         out[name] = {"batch": TRAIN_B, "seq": LONG_S, "steps": LONG_TIMED,
                      "step_ms": step_ms, "wall_step_ms": wall_ms,
                      "examples_per_s": ex_per_s,
                      "mfu": flops * ex_per_s / H100_BF16_PEAK,
-                     "peak_mem_gb": peak / 1e9,
+                     "graphed_peak_mem_gb": peak / 1e9,
+                     "peak_mem_gb": eager_peak / 1e9,
                      "k1_launches": counts["k1"],
                      "k2_launches": counts["k2"],
                      "mask_launches": counts["mask"], "losses": losses}
@@ -3410,25 +3699,33 @@ def master_step(cfg, bert_cfg, params, bare):
     from mtvaf_tpu_torch.train.optim import tree_items
     from mtvaf_tpu_torch.train.steps import MasterState, create_train_state
 
+    from mtvaf_tpu_torch.train.steps import make_train_step
+
     cfg16 = cfg.replace(params_bf16=True)
-    optimizer, state32, _, step, batch = train_setup(cfg16, bert_cfg,
-                                                     params, DEVICE)
-    state = create_train_state(params, optimizer, device=DEVICE,
-                               params_dtype=torch.bfloat16)
+    optimizer, state32, loss_fn, step32, batch = train_setup(
+        cfg16, bert_cfg, params, DEVICE)
+    step = make_train_step(loss_fn, optimizer)
+    state, check = graph_check(
+        "crf_flagship_params_bf16", step,
+        create_train_state(params, optimizer, device=DEVICE,
+                           params_dtype=torch.bfloat16),
+        create_train_state(params, optimizer, device=DEVICE,
+                           params_dtype=torch.bfloat16), batch)
     launches = {}
-    for name, st in (("fp32_params", state32), ("params_bf16", state)):
+    for name, st, stp in (("fp32_params", state32, step32),
+                          ("params_bf16", state, step)):
         holder = {"s": st}
 
         def one_step():
-            holder["s"], _ = step(holder["s"], batch, SEED)
+            holder["s"], _ = stp(holder["s"], batch, SEED)
 
+        one_step()          # the warm-up: the capture comes next, unprofiled
         launches[name] = profiled_calls(one_step, iters=3)
-    del state32, holder
+    state = holder["s"]
+    del state32, step32, holder
     torch.cuda.empty_cache()
-    state = create_train_state(params, optimizer, device=DEVICE,
-                               params_dtype=torch.bfloat16)
-    losses = []
-    for _ in range(WARMUP_STEPS):
+    losses = list(check["losses"])
+    for _ in range(WARMUP_STEPS - GRAPH_STEPS - 4):
         state, metrics = step(state, batch, SEED)
         losses.append(metrics["loss"].item())
     reset_counts()
@@ -3449,7 +3746,8 @@ def master_step(cfg, bert_cfg, params, bare):
            "examples_per_s": TRAIN_B / (step_ms / 1e3),
            "peak_mem_gb": peak / 1e9, "k1_launches": counts["k1"],
            "k2_launches": counts["k2"], "mask_launches": counts["mask"],
-           "live_is_bf16_master": cast_ok,
+           "live_is_bf16_master": cast_ok, "graph_check": check,
+           "captures": step.captures,
            "profiled": {k: {"device_ms_per_step": v[0],
                             "kernel_launches_per_step": v[1]}
                         for k, v in launches.items()},
@@ -3527,26 +3825,33 @@ def long_trainer(bert_cfg):
         trace = os.path.join(prof, traces[0])
         with open(trace) as f:
             events = json.load(f)["traceEvents"]
-        kernels = sum(e.get("cat") == "kernel" for e in events)
-        named = {k: sum(any(n in e.get("name", "") for n in names)
-                        for e in events)
-                 for k, names in KERNEL_NAMES.items()}
-        # 2 steps: 48 K1 records (24 a step) and 48 of K2's two passes
-        if not (named["k1"] and named["k2"]):
-            raise AssertionError(f"the trace of 2 steps names K1 and K2 "
-                                 f"{named} times")
+        kernels = [e.get("name", "") for e in events
+                   if e.get("cat") == "kernel"]
+        named = {k: sum(traced_name(e, TRACED[k]) for e in kernels)
+                 for k in ("k1", "k2", "k2_dkdv")}
+        # 2 replayed steps: 48 K1 records (24 a step, as the wrappers
+        # count above) and 24 of each of K2's two passes
+        want = {"k1": 2 * 2 * layers, "k2": 2 * layers,
+                "k2_dkdv": 2 * layers}
+        if named != want:
+            raise AssertionError(f"the trace of 2 steps names {named} "
+                                 f"kernel records, not {want}")
         with np.load(os.path.join(save, "best_model.npz")) as best:
             dtypes = sorted({str(best[k].dtype) for k in best.files})
         if dtypes != ["float32"]:
             raise AssertionError(f"best_model.npz holds {dtypes}")
+        if tr.train_step.captures != 1:
+            raise AssertionError(f"the --use_align trainer captured its "
+                                 f"step {tr.train_step.captures} times")
         out["trainer"] = {
             "epochs": tr.history, "wall_s": wall, "metrics": metrics,
+            "captures": tr.train_step.captures,
             "train_steps": steps, "eval_batches": eval_batches,
             "k1_launches": counts["k1"], "k2_launches": counts["k2"],
             "mask_launches": counts["mask"],
             "profiler_mean_step_ms": tr.profiler.mean_step_ms,
             "trace_bytes": os.path.getsize(trace),
-            "trace_kernel_records": kernels, "trace_named": named}
+            "trace_kernel_records": len(kernels), "trace_named": named}
         log("long_trainer_path", json.dumps(out["trainer"]))
         del tr
         torch.cuda.empty_cache()
@@ -3799,9 +4104,11 @@ def dp_child(spec):
     rows.  Under tensor parallelism the gradients it keeps
     (``spec["grads"]``) are gathered whole from the TP group, and global
     rank 0 writes them."""
+    import contextlib
     import datetime
     import torch.distributed as dist
     from mtvaf_tpu_torch.nn.bert import BertConfig
+    from mtvaf_tpu_torch.train.graphs import disable_graphs
 
     # fp32 runs are compared across processes: no TF32 in convs or matmuls
     torch.backends.cudnn.allow_tf32 = False
@@ -3832,12 +4139,18 @@ def dp_child(spec):
 
         tr.train_step = counted
 
+    # the gradients are recorded by a hook on the optimizer's apply, which
+    # a graph replay does not enter: a process that records them (a
+    # one-process reference) trains eagerly
+    eager = disable_graphs() if spec.get("grads") \
+        else contextlib.nullcontext()
     reset_counts()
     t0 = time.perf_counter()
-    metrics, tr = run_cli(spec["argv"],
-                          BertConfig.base(is_roberta=spec.get("roberta",
-                                                              False)),
-                          span=spec["span"], on_trainer=on_trainer)
+    with eager:
+        metrics, tr = run_cli(spec["argv"],
+                              BertConfig.base(is_roberta=spec.get(
+                                  "roberta", False)),
+                              span=spec["span"], on_trainer=on_trainer)
     torch.cuda.synchronize()
     counts = read_counts()
     model_rank, writer = 0, True
@@ -4412,9 +4725,6 @@ def cold(fn, inputs):
     return call
 
 
-GRAPH_WORDS = (0x0123456789ABCDEF, 0x2545F4914F6CDD1D, 0x1B873593CC9E2D51)
-
-
 def replay_against_eager(fn, word, graph, static, n_outputs=None):
     """Write ``word`` into the captured key, replay, and hold every output
     of the replay bitwise against ``fn`` run eagerly under a fresh key of
@@ -4559,64 +4869,6 @@ def layer_graph_proof(rate=0.1):
             for r in result["replays"])):
         raise AssertionError(f"the captured layer does not replay its "
                              f"keyed draws: {result}")
-    return result
-
-
-def step_capture_attempt():
-    """(c) ``bench.py``'s flagship CRF step (B=32, S=128, bf16, dropout
-    live): its forward + backward captured in one CUDA graph under a
-    static key, replayed under three words bitwise against eager runs,
-    with replay and eager ms in turns; or, where capture breaks, the first
-    call of the port that broke it, by file:line.  Both are results; a
-    capture whose replays are not bitwise the eager runs is a failure.  Run
-    last, so that a broken capture reaches no later phase."""
-    import traceback
-
-    from mtvaf_tpu_torch.core.rng import Key
-    from mtvaf_tpu_torch.train.optim import tree_items
-
-    cfg, bert_cfg, params, _ = flagship()
-    _, state, loss_fn, _, batch = train_setup(cfg, bert_cfg, params, DEVICE)
-    del params
-    leaves = [t for _, t in tree_items(state.params)]
-
-    def fn(key):
-        loss, _ = loss_fn(state.params, batch, key)
-        return [loss, *torch.autograd.grad(loss, leaves, allow_unused=True)]
-
-    fn.word = torch.zeros(1, dtype=torch.int64, device=DEVICE)
-    fn.key = Key(fn.word, 0)
-    result = {"step": "crf_flagship", "B": TRAIN_B, "S": TRAIN_S,
-              "dtype": "bfloat16"}
-    try:
-        graph, static = capture(fn)
-    except Exception as err:               # noqa: BLE001 - the result
-        # the first error of the chain (the capture's end may raise
-        # another over it), and its deepest frame in the port
-        while err.__context__ is not None:
-            err = err.__context__
-        root = os.path.dirname(os.path.abspath(__file__))
-        tb = traceback.extract_tb(err.__traceback__)
-        frames = [f for f in tb if f.filename.startswith(
-            os.path.join(root, "mtvaf_tpu_torch"))]
-        where = (frames or tb)[-1]
-        rel = os.path.relpath(where.filename, root)
-        result.update(captured=False, where=f"{rel}:{where.lineno}",
-                      call=where.line,
-                      error=f"{type(err).__name__}: {str(err)[:300]}")
-        log("step_capture", json.dumps(result), card_line())
-        return result
-    result.update(captured=True, replays=[])
-    for word in GRAPH_WORDS:
-        same, _ = replay_against_eager(fn, word, graph, static)
-        result["replays"].append({"word": hex(word), "bitwise": same})
-    fn.word.fill_(GRAPH_WORDS[0])
-    result.update(turns_ms(lambda: fn(fn.key), graph.replay, n=5))
-    log("step_capture", json.dumps(result), card_line())
-    del graph, static
-    if not all(r["bitwise"] for r in result["replays"]):
-        raise AssertionError(f"the captured step's replays differ from its "
-                             f"eager runs: {result}")
     return result
 
 
@@ -5180,6 +5432,7 @@ def main() -> int:
     from mtvaf_tpu_torch.kernels import build
     from mtvaf_tpu_torch.native.binding import maybe_accelerate
 
+    t_start = time.perf_counter()
     card = card_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)} ({card})")
@@ -5245,7 +5498,6 @@ def main() -> int:
                 child.stop()
             parity[0].stop()
 
-    capture_path = step_capture_attempt()
     serve_row = next(r for r in k1_rows if r["shape"] == "serve_bf16")
     k2_row = next(r for r in k2_rows
                   if r["shape"] == "train_bf16" and r["rate"] > 0)
@@ -5302,6 +5554,8 @@ def main() -> int:
         "parity_wall_s": parity_path["wall_s"],
         "parity_waited_s": parity_path["waited_s"],
         "host_runtime_s": host_path["seconds"], "card": card}))
+    log("smoke_seconds", json.dumps({
+        "seconds": time.perf_counter() - t_start, "card": card}))
     log(card)
     log(json.dumps({"kernels": [{
         "name": "prefix_attention_fwd",
@@ -5387,7 +5641,8 @@ def main() -> int:
                  for k in ("mismatches", "kept", "warm_ms",
                            "library_warm_ms") + keys},
         "aux": {"launches": aux_path["train_step"]["dropout_launches"]},
-        "graph": graph_path, "step_capture": capture_path,
+        "graph": graph_path,
+        "step_graph": train_path["graph_check"],
     }, {
         "name": "keyed_uniform",
         "route": "cuda", "design": "cuda-cores",

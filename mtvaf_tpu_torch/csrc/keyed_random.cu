@@ -18,7 +18,10 @@
 //   dropout: y[i] = word >= threshold ? x[i] / keep_p : 0, in x's type;
 //            the quotient is the IEEE fp32 quotient of fp32(x[i]) and
 //            keep_p, rounded once to x's type (bf16: nearest even), as
-//            the plain version's fp32 division and cast compute it.
+//            the plain version's fp32 division and cast compute it;
+//            keep_p is 1 - rate rounded to x's type by the caller
+//            (0.8984375 for bf16 at rate 0.1), as the JAX package's
+//            weakly typed keep probability rounds.
 //   uniform: u[i] = (word >> 8) * 2^-24, fp32 in [0, 1).
 //
 // What bounds them: bytes.  The dropout reads and writes every element once

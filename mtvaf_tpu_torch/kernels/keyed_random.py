@@ -14,8 +14,11 @@ here.
 
 :func:`keyed_dropout` is ``where(keep, x / (1 - rate), 0)`` in x's dtype,
 keep = word >= uint32(rate · 2^32); the quotient is fp32's, rounded once to
-x's dtype.  Its gradient is the same dropout of the incoming gradient
-(the same key: the same mask), so nothing is saved for the backward.
+x's dtype, and the divisor is ``1 - rate`` rounded to x's dtype, as the JAX
+package's ``x / keep`` rounds its weakly typed ``keep`` (0.8984375 for a
+bf16 x at rate 0.1; :func:`keep_prob`).  Its gradient is the same
+dropout of the incoming gradient (the same key: the same mask), so
+nothing is saved for the backward.
 :func:`keyed_uniform` is (word >> 8) · 2^-24, fp32.  CPU tensors take the
 plain versions; CUDA tensors launch the kernels or raise.
 """
@@ -61,12 +64,20 @@ def keep_fraction_mask(key: Key, rate: float, shape, device=None):
     return element_words(key, n, device).view(shape) >= threshold(rate)
 
 
+def keep_prob(rate: float, dtype) -> float:
+    """The dropout's divisor: ``1 - rate`` rounded to ``dtype``, as the JAX
+    package divides a ``dtype`` activation by its weakly typed keep
+    probability."""
+    return float(torch.tensor(1.0 - rate, dtype=dtype))
+
+
 def keyed_dropout_reference(x, rate: float, key: Key):
     """The dropout's plain PyTorch version: fp32 quotient by a 0-d fp32
-    tensor (an IEEE division on the CPU and on the card alike), cast once
-    to x's dtype."""
+    tensor holding :func:`keep_prob` (an IEEE division on the CPU and on
+    the card alike), cast once to x's dtype."""
     keep = keep_fraction_mask(key, rate, x.shape, x.device)
-    keep_p = torch.tensor(1.0 - rate, dtype=torch.float32, device=x.device)
+    keep_p = torch.tensor(keep_prob(rate, x.dtype), dtype=torch.float32,
+                          device=x.device)
     return torch.where(keep, (x.float() / keep_p).to(x.dtype), 0.0)
 
 
@@ -83,7 +94,8 @@ def keyed_dropout_cuda(x, rate: float, key: Key):
     with torch.cuda.device(x.device):
         err = _fn("mtvaf_keyed_dropout")(
             x.data_ptr(), y.data_ptr(), x.numel(), _DTYPE_CODES[x.dtype],
-            key.word.data_ptr(), key.salt, threshold(rate), 1.0 - rate,
+            key.word.data_ptr(), key.salt, threshold(rate),
+            keep_prob(rate, x.dtype),
             stream)
     if err != 0:
         raise RuntimeError(f"keyed_dropout launch failed: CUDA error {err}")

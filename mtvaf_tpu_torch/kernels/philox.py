@@ -77,15 +77,21 @@ def check_key(word, device, what: str):
 
 
 class LaunchCount:
-    """Kernel launches since the last reset (thread-safe)."""
+    """Kernel launches since the last reset (thread-safe).  Every counter
+    is listed in ``LaunchCount.every``, so that a CUDA graph of the train
+    step (``train.graphs``), whose replays launch kernels without entering
+    their wrappers, can add each replay's launches to the counters."""
+
+    every: list = []
 
     def __init__(self):
         self._n = 0
         self._lock = threading.Lock()
+        LaunchCount.every.append(self)
 
-    def add(self):
+    def add(self, n: int = 1):
         with self._lock:
-            self._n += 1
+            self._n += n
 
     def reset(self):
         with self._lock:

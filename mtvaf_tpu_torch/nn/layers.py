@@ -47,8 +47,9 @@ def layer_norm(params, x, *, eps: float = 1e-12):
 
 def dropout(x, rate: float, key):
     """Inverted dropout under ``key`` (a ``core.rng.Key`` on x's device):
-    keep with probability 1 - rate, scaled by 1/(1 - rate); the identity
-    when the key is None or the rate 0."""
+    keep with probability 1 - rate, divided by 1 - rate rounded to x's
+    dtype, as the JAX package divides; the identity when the key is None
+    or the rate 0."""
     if key is None or rate == 0.0:
         return x
     return keyed_dropout(x, rate, key)

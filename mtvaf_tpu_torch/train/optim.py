@@ -18,14 +18,18 @@ to μ's dtype, as XLA evaluates optax's update), the step is
 computed from the uncast bias-corrected μ̂ and ν̂ as μ̂/(√ν̂ + 1e-8), 1e-2·p
 is added, the sum is scaled by −lr(count) and by the group factor, and only
 then is μ stored (in bf16 under ``optimizer_mu_bf16``).  The parameters and
-moments are updated in place.  Under ``--params_bf16`` the optimizer walks
-the fp32 master (``train.steps.MasterState``), never the bf16 live params.
+moments are updated in place.  The step's −lr and bias corrections are
+computed on the host in ``np.float32`` and read by the update from 0-d
+device tensors (:meth:`AdamW.step_scalars`), so the same update runs
+eagerly and inside the train step's CUDA graph (``train.graphs``).  Under
+``--params_bf16`` the optimizer walks the fp32 master
+(``train.steps.MasterState``), never the bf16 live params.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -93,6 +97,7 @@ class AdamW:
         self.schedule = schedule
         self.factors = factors
         self.mu_dtype = mu_dtype
+        self._scalars = {}                   # device -> (-lr, bc1, bc2)
 
     def init(self, params) -> AdamWState:
         leaves = [p for _, p in tree_items(params)]
@@ -106,25 +111,57 @@ class AdamW:
     def _b1_in(dtype) -> float:
         return float(torch.tensor(B1, dtype=dtype))
 
+    def host_scalars(self, count: int):
+        """(-lr, bc1, bc2) of the update that follows ``count`` updates, as
+        host floats computed in ``np.float32``."""
+        n = np.float32(count + 1)
+        return (-self.schedule(count),
+                float(np.float32(1) - np.float32(B1) ** n),
+                float(np.float32(1) - np.float32(B2) ** n))
+
+    def step_scalars(self, count: int, device) -> Tuple[torch.Tensor, ...]:
+        """Write the -lr, bc1 and bc2 of the update that follows ``count``
+        updates (:meth:`host_scalars`) into this optimizer's three 0-d fp32
+        buffers on ``device``; returns the buffers.  :meth:`apply` reads
+        them on the device, as optax reads its schedule from its traced
+        count inside the compiled step, so a CUDA graph that captured
+        :meth:`apply` takes each step's values from the writes made before
+        its replay.  Each write is a ``fill_``, the value a kernel
+        argument, so it never races the step in flight."""
+        device = torch.device(device)
+        bufs = self._scalars.get(device)
+        if bufs is None:
+            bufs = self._scalars[device] = tuple(
+                torch.zeros((), dtype=torch.float32, device=device)
+                for _ in range(3))
+        for buf, v in zip(bufs, self.host_scalars(count)):
+            buf.fill_(v)
+        return bufs
+
     @torch.no_grad()
     def apply(self, params, grads: List[torch.Tensor],
               state: AdamWState) -> AdamWState:
-        """One update, in place, with ``grads`` in tree order."""
-        count = state.count + 1
-        bc1 = float(np.float32(1) - np.float32(B1) ** np.float32(count))
-        bc2 = float(np.float32(1) - np.float32(B2) ** np.float32(count))
-        lr = self.schedule(state.count)
+        """One update, in place, with ``grads`` in tree order; the state
+        after it.  The step's -lr and bias corrections are read from the
+        device buffers of :meth:`step_scalars`: whoever runs the update
+        writes them first, for ``state.count``."""
+        device = next(tree_items(params))[1].device
+        neg_lr, bc1, bc2 = self._scalars[device]
         for (path, p), g, mu, nu in zip(tree_items(params), grads, state.mu,
                                         state.nu):
             g = g.float()
             # fp32 from the stored μ, with b1 rounded to μ's dtype (0.8984
             # for bf16), as XLA evaluates optax's moment update
-            m = (1 - B1) * g + self._b1_in(mu.dtype) * mu.float()
-            nu.mul_(B2).add_((1 - B2) * (g * g))
-            update = m / bc1 / ((nu / bc2).sqrt() + EPS) + WEIGHT_DECAY * p
-            p.add_(update * -lr * self.factors[path])
+            m = (1 - B1) * g
+            m.add_(self._b1_in(mu.dtype) * mu.float())
+            nu.mul_(B2).add_((g * g).mul_(1 - B2))
+            # m/bc1 / (sqrt(nu/bc2) + eps) + wd*p, then * -lr * factor: the
+            # same operations in the same order, in place on temporaries
+            den = (nu / bc2).sqrt_().add_(EPS)
+            update = (m / bc1).div_(den).add_(WEIGHT_DECAY * p)
+            p.add_(update.mul_(neg_lr).mul_(self.factors[path]))
             mu.copy_(m)
-        return AdamWState(count=count, mu=state.mu, nu=state.nu)
+        return AdamWState(count=state.count + 1, mu=state.mu, nu=state.nu)
 
 
 def build_optimizer(params, cfg, *, total_steps: int, pipeline: str = "span"):

@@ -7,19 +7,24 @@ accumulation over micro-batches.  ``make_crf_decode_step`` is the CRF eval
 forward; the span pipeline's eval is three steps around a host seam:
 ``make_extraction_step`` (the encoder and the start/end logits), the host's
 candidate picking (``eval.span_decode``), then ``make_classification_step``
-or, with the logged eval loss, ``make_span_eval_loss_step``.  PyTorch runs
-eagerly, so the step is a plain function; the
+or, with the logged eval loss, ``make_span_eval_loss_step``.  The
 gradient is ``torch.autograd.grad`` over the parameter leaves (a leaf the
 loss does not reach gets zeros, as ``jax.grad`` gives), and the update is
-:class:`..train.optim.AdamW`, in place.
+:class:`..train.optim.AdamW`, in place.  Where the JAX package jits the
+train step, the port captures it: on a CUDA device in a single process
+the whole step is one CUDA graph per batch signature (``train.graphs``);
+data- and tensor-parallel ranks, and any step under
+``train.graphs.disable_graphs()``, run eagerly.  The eval steps run
+eagerly.
 
 A step's randomness is its key (``core.rng``): one int64 word on the
 params' device, ``step_word(seed, state.step, data_rank)``, the counterpart
 of the JAX package's per-step ``fold_in(rng, step)``, and every draw of the
 step (each dropout, K1's masks, the cutoff's cuts) is a pure function of
-that word and a static salt for its site.  A step uploads that one word
-and draws nothing on the host, and it is reproducible from the run's seed,
-the step number and the data rank.  ``seed=None`` runs without dropout.
+that word and a static salt for its site.  A step writes that one word
+(into its graph's key tensor when captured) and draws nothing on the
+host, and it is reproducible from the run's seed, the step number and the
+data rank.  ``seed=None`` runs without dropout.
 
 Under data parallelism (a data axis of more than one, ``core.mesh``) each
 rank's step takes its data index's rows of the global batch: the loss
@@ -64,6 +69,7 @@ from ..nn.gcn import compress_valid_ids, digcn_forward
 from ..nn.models import (crf_model_forward, span_classification,
                          span_extraction, span_model_loss, span_model_tail,
                          visual_prompt)
+from .graphs import CUDA_GRAPHS, GraphedStep
 from .optim import tree_items
 
 
@@ -279,9 +285,13 @@ def make_crf_loss_fn(cfg, bert_cfg: BertConfig, with_decode: bool = False):
             metrics["pred_tags"] = out["pred_tags"]
         if "probe_loss" in out:
             metrics["probe_loss"] = out["probe_loss"]
-        metrics["img_tag_loss"] = torch.as_tensor(
-            out["img_tag_loss"], dtype=torch.float32,
-            device=out["loss"].device)
+        img_tag_loss = out["img_tag_loss"]
+        # a fill, not an upload, where the loss has no image term: a CUDA
+        # graph captures a fill and refuses a blocking host copy
+        metrics["img_tag_loss"] = img_tag_loss.float() \
+            if isinstance(img_tag_loss, torch.Tensor) else torch.full(
+                (), float(img_tag_loss), dtype=torch.float32,
+                device=out["loss"].device)
         return out["loss"], metrics
 
     return loss_fn
@@ -289,7 +299,8 @@ def make_crf_loss_fn(cfg, bert_cfg: BertConfig, with_decode: bool = False):
 
 def make_train_step(loss_fn: Callable, optimizer, *, accum_steps: int = 1,
                     augment_fn: Optional[Callable] = None,
-                    with_grad_norm: bool = False) -> Callable:
+                    with_grad_norm: bool = False,
+                    graphs=CUDA_GRAPHS) -> Callable:
     """train_step(state, batch, seed) -> (new state, metrics); ``seed`` an
     int (the run's seed: the step's key is made from it on the params'
     device) or None (no dropout).
@@ -305,7 +316,18 @@ def make_train_step(loss_fn: Callable, optimizer, *, accum_steps: int = 1,
     (``train.augment.make_span_augment_fn``): the base loss and the
     augmented one take two keys split from the step's (each
     micro-batch's), as the JAX package splits its key.  It draws random
-    cuts, so it needs a seed."""
+    cuts, so it needs a seed.
+
+    In a single process (data and model axes both 1) on a CUDA device the
+    step is captured: one CUDA graph per batch signature holds the whole
+    step, forward, backward and AdamW (``train.graphs.GraphedStep``, the
+    counterpart of the JAX package's ``jax.jit``); ``graphs`` is the
+    capture backend (a stand-in in the CPU tests).  Data- and
+    tensor-parallel ranks run eagerly: their forward and their gradients
+    cross ranks through collectives that a graph does not capture.  Under
+    ``train.graphs.disable_graphs()`` the same step runs eagerly on any
+    device.  Either way the returned metrics are fresh tensors, and the
+    step has ``release()``, which drops its graphs."""
 
     def compute(params, batch, key):
         if augment_fn is None:
@@ -324,8 +346,7 @@ def make_train_step(loss_fn: Callable, optimizer, *, accum_steps: int = 1,
         without a seed."""
         if seed is None:
             return None
-        device = next(iter(tree_items(state.params)))[1].device
-        return step_key(seed, state.step, rank, device)
+        return step_key(seed, state.step, rank, _device(state))
 
     def grads_of(params, batch, key):
         leaves = [p for _, p in tree_items(params)]
@@ -340,12 +361,12 @@ def make_train_step(loss_fn: Callable, optimizer, *, accum_steps: int = 1,
     def apply(state, grads):
         opt = state.opt_state
         if not isinstance(opt, MasterState):
-            return optimizer.apply(state.params, grads, opt)
+            optimizer.apply(state.params, grads, opt)
+            return
         # bf16 live params: AdamW on the fp32 master (it upcasts each
         # gradient once), then the live leaves become the master's cast
-        inner = optimizer.apply(opt.master, grads, opt.inner)
+        optimizer.apply(opt.master, grads, opt.inner)
         _cast_into(state.params, opt.master)
-        return MasterState(master=opt.master, inner=inner)
 
     def finish(state, grads, metrics):
         if world > 1:
@@ -354,20 +375,16 @@ def make_train_step(loss_fn: Callable, optimizer, *, accum_steps: int = 1,
             for k, v in zip(scalars, mesh.all_reduce_mean(
                     [metrics[k] for k in scalars])):
                 metrics[k] = v
-        opt_state = apply(state, grads)
+        apply(state, grads)
         if with_grad_norm:
             metrics["grad_norm"] = _grad_norm(state, grads)
-        return TrainState(state.params, opt_state, state.step + 1,
-                          state.layout), metrics
+        return metrics
 
-    def single_step(state: TrainState, batch: Dict, seed: Optional[int]
-                    ) -> Tuple[TrainState, Dict]:
-        grads, metrics = grads_of(state.params, batch, key_of(state, seed))
+    def single_run(state, batch, key) -> Dict:
+        grads, metrics = grads_of(state.params, batch, key)
         return finish(state, grads, metrics)
 
-    def accum_step(state: TrainState, batch: Dict, seed: Optional[int]
-                   ) -> Tuple[TrainState, Dict]:
-        key = key_of(state, seed)
+    def accum_run(state, batch, key) -> Dict:
         keys = [None] * accum_steps if key is None \
             else split(key, accum_steps)
         total, stacked = None, []
@@ -385,7 +402,52 @@ def make_train_step(loss_fn: Callable, optimizer, *, accum_steps: int = 1,
                    for k in stacked[0]}
         return finish(state, grads, metrics)
 
-    return accum_step if accum_steps > 1 else single_step
+    run = accum_run if accum_steps > 1 else single_run
+
+    def write_scalars(state: TrainState) -> None:
+        """AdamW's -lr and bias corrections for the state's next update,
+        into its device buffers (read by ``optimizer.apply``)."""
+        opt = state.opt_state
+        optimizer.step_scalars(getattr(opt, "inner", opt).count,
+                               _device(state))
+
+    def eager_step(state: TrainState, batch: Dict, seed: Optional[int]
+                   ) -> Tuple[TrainState, Dict]:
+        write_scalars(state)
+        metrics = run(state, batch, key_of(state, seed))
+        return _advanced(state), metrics
+
+    if world > 1 or mesh.model_size() > 1:
+        eager_step.release = lambda: None
+        return eager_step
+    return GraphedStep(run, eager_step, _advanced, _written_leaves,
+                       write_scalars, accum_steps=accum_steps, rank=rank,
+                       backend=graphs)
+
+
+def _device(state: TrainState) -> torch.device:
+    return next(iter(tree_items(state.params)))[1].device
+
+
+def _advanced(state: TrainState) -> TrainState:
+    """The state after one step's in-place update, eager or replayed: step
+    and AdamW count + 1, the same tensors."""
+    from .optim import AdamWState
+    opt = state.opt_state
+    inner = opt.inner if isinstance(opt, MasterState) else opt
+    inner = AdamWState(count=inner.count + 1, mu=inner.mu, nu=inner.nu)
+    if isinstance(opt, MasterState):
+        inner = MasterState(master=opt.master, inner=inner)
+    return TrainState(state.params, inner, state.step + 1, state.layout)
+
+
+def _written_leaves(state: TrainState) -> tuple:
+    """The containers of the tensors a step writes: params, μ, ν and,
+    under ``--params_bf16``, the master."""
+    opt = state.opt_state
+    if isinstance(opt, MasterState):
+        return (state.params, opt.inner.mu, opt.inner.nu, opt.master)
+    return (state.params, opt.mu, opt.nu)
 
 
 def _grad_norm(state: TrainState, grads) -> torch.Tensor:

@@ -12,7 +12,11 @@ Host syncs: each step's loss and tags stay on the device until the epoch
 ends, then come back in one stacked copy each; eval batches are all
 dispatched before their results are read.  Guides, pixels and the host →
 device copies are made in ``prefetch``'s thread, on the default stream the
-steps run on.  ``--params_bf16`` trains bf16 live params on an fp32
+steps run on.  On a single card the train step is one CUDA graph replay
+(``train.graphs``): every batch, the tail's too (padded to full), has one
+signature, so a run captures once (again after ``--resume`` loads other
+tensors), and ``train()`` drops the graph when it returns.
+``--params_bf16`` trains bf16 live params on an fp32
 master (``best_model.npz`` holds the master; a reload sets both), and
 ``--profile_dir`` traces a window of train steps
 (``train.profiling.StepProfiler``).
@@ -223,6 +227,10 @@ class CrfTrainer:
                 wait_for_epoch_checkpoints()
         finally:
             self.profiler.close()
+            # the step's CUDA graphs and their memory pools go with the run
+            release = getattr(self.train_step, "release", None)
+            if release is not None:
+                release()
             if checkpointing:
                 uninstall_preemption_handler(preempt_prev)
         return self.best_dev_metric

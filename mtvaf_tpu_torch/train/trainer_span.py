@@ -18,8 +18,11 @@ classification.
 Device and stream rules are the CRF trainer's: each step's loss and logits
 stay on the device until the epoch ends and then come back in one stacked
 copy each; guides, pixels and the host → device copies are made in
-``prefetch``'s thread, on the default stream the steps run on.  The eval
-seam keeps up to ``_EVAL_WINDOW`` extractions in flight: each batch's
+``prefetch``'s thread, on the default stream the steps run on; on a single
+card each train step is one CUDA graph replay, one capture a run
+(``train.graphs``; the tail batch is padded to full), dropped when
+``train()`` returns.  The eval seam keeps up to ``_EVAL_WINDOW``
+extractions in flight: each batch's
 start/end logits come back by a non-blocking copy into pinned memory
 marked by a CUDA event, so the host picks one batch's candidates while the
 device runs the next batches' encoders; the classifications' results are
@@ -230,6 +233,10 @@ class SpanTrainer:
                 wait_for_epoch_checkpoints()
         finally:
             self.profiler.close()
+            # the step's CUDA graphs and their memory pools go with the run
+            release = getattr(self.train_step, "release", None)
+            if release is not None:
+                release()
             if checkpointing:
                 uninstall_preemption_handler(preempt_prev)
         return self.best_dev_metric

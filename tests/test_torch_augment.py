@@ -43,7 +43,7 @@ from mtvaf_tpu_torch.kernels.keyed_random import keyed_uniform
 from mtvaf_tpu_torch.nn import models
 from mtvaf_tpu_torch.nn.bert import BertConfig
 from mtvaf_tpu_torch.train import augment
-from mtvaf_tpu_torch.train.optim import tree_items
+from mtvaf_tpu_torch.train.optim import AdamWState, tree_items
 from mtvaf_tpu_torch.train.steps import (create_train_state,
                                          make_span_loss_fn, make_train_step)
 from test_torch_gcn import ZERO_GRADIENT, one_torch_thread  # noqa: F401
@@ -135,10 +135,15 @@ def test_kl_and_js_match_jax():
 
 
 class _RecordingOptimizer:
-    """Catches the step's gradient and leaves the params alone."""
+    """Catches the step's gradient and leaves the params alone; it keeps
+    no moments (the step advances the state's count) and writes no
+    per-step scalars."""
 
     def init(self, params):
-        return None
+        return AdamWState(count=0, mu=[], nu=[])
+
+    def step_scalars(self, count, device):
+        pass
 
     def apply(self, params, grads, state):
         self.grads = [g.clone() for g in grads]

@@ -16,6 +16,7 @@ from mtvaf_tpu.nn.bert import init_bert_params
 from mtvaf_tpu_torch.core.convert import params_from_jax
 from mtvaf_tpu_torch.nn.bert import BertConfig, bert_model
 from mtvaf_tpu_torch.nn.layers import layer_norm, mask_to_bias
+from test_torch_gcn import one_torch_thread  # noqa: F401
 
 ATOL = 1e-4
 

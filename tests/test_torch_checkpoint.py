@@ -24,6 +24,7 @@ from mtvaf_tpu_torch.core import checkpoint, convert
 from mtvaf_tpu_torch.core.config import Config
 from mtvaf_tpu_torch.train.optim import build_optimizer, tree_items
 from mtvaf_tpu_torch.train.steps import create_train_state
+from test_torch_gcn import one_torch_thread  # noqa: F401
 
 CFG = dict(dataset_name="twitter2015", use_prefix=True, use_18=True,
            vao=True, use_probe=True, probe_layer=2, num_anp_classes=8)
@@ -184,6 +185,7 @@ def test_full_state_round_trip_keeps_values_and_dtypes(jax_params, tmp_path,
     g = torch.Generator().manual_seed(0)
     grads = [torch.randn(p.shape, generator=g)
              for _, p in tree_items(state.params)]
+    opt.step_scalars(0, "cpu")
     state.opt_state = opt.apply(state.params, grads, state.opt_state)
     state.step = 1
     ckpt = str(tmp_path / "ckpt")

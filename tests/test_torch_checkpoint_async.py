@@ -56,6 +56,7 @@ from mtvaf_tpu_torch.nn.models import init_crf_model_params as \
     port_init_crf_model_params
 from test_torch_trainer import (BASE, RecordingWriter, _assert_params_match,
                                 _datasets, tree)  # noqa: F401
+from test_torch_gcn import one_torch_thread  # noqa: F401
 
 HOLD_S = 30          # the longest a held writer waits for its release
 

@@ -29,6 +29,7 @@ from mtvaf_tpu_torch.data.synthetic import (make_learnable_crf_files,
 from mtvaf_tpu_torch.data.tokenization import load_vocab
 from mtvaf_tpu_torch.infer import load_predictor
 from mtvaf_tpu_torch.nn.bert import BertConfig
+from test_torch_gcn import one_torch_thread  # noqa: F401
 
 SENTS = ["the great pizza was", "I really awful service", "so nice room and",
          "the phone"]

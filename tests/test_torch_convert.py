@@ -18,6 +18,7 @@ from mtvaf_tpu_torch.core.convert import (params_from_jax, params_to_jax,
 from mtvaf_tpu_torch.nn.bert import BertConfig
 from mtvaf_tpu_torch.nn.models import init_crf_model_params, \
     init_resnet_params
+from test_torch_gcn import one_torch_thread  # noqa: F401
 
 FLAGSHIP = dict(dataset_name="twitter2015", use_prefix=True, use_18=True,
                 vao=True, use_probe=True, prefix_len=4, num_anp_classes=9,

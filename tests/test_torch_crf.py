@@ -20,6 +20,7 @@ from mtvaf_tpu.nn.crf import (crf_decode_brute_force,
                               crf_log_normalizer_brute_force)
 from mtvaf_tpu_torch.nn.crf import (crf_decode, crf_log_likelihood,
                                     crf_log_normalizer, crf_loss)
+from test_torch_gcn import one_torch_thread  # noqa: F401
 
 LENGTHS = [6, 4, 1, 3]
 

@@ -771,3 +771,221 @@ def test_a_captured_layer_draws_under_the_word_written_before_replay(cuda):
         eager = run(new_key(value, cuda))
         assert all(torch.equal(a, b) for a, b in zip(replays[-1], eager))
     assert not torch.equal(replays[0][0], replays[1][0])
+
+
+# ---------------------------------------------------------------------------
+# The captured train step (train.graphs) against the same steps eagerly.
+
+
+GRAPH_PATHS = ["crf", "span", "aux", "remat", "params_bf16", "accum2"]
+
+
+def _graph_path(cuda, name):
+    """(step, make_state, batch) of one bf16 train step path at a width
+    whose head dim (64) the kernels take, dropout live: the CRF step, the
+    span step, the aux step (span cutoff, DiGCN, DualGCN), the CRF step
+    with remat, with ``--params_bf16`` and with two micro-batches."""
+    import dataclasses
+
+    import numpy as np
+
+    from mtvaf_tpu_torch.core.config import Config
+    from mtvaf_tpu_torch.core.convert import params_from_jax
+    from mtvaf_tpu_torch.data.synthetic import crf_batch, span_batch
+    from mtvaf_tpu_torch.nn.bert import BertConfig
+    from mtvaf_tpu_torch.nn.models import (init_crf_model_params,
+                                           init_span_model_params)
+    from mtvaf_tpu_torch.train.augment import make_span_augment_fn
+    from mtvaf_tpu_torch.train.optim import build_optimizer
+    from mtvaf_tpu_torch.train.steps import (create_train_state,
+                                             make_crf_loss_fn,
+                                             make_span_loss_fn,
+                                             make_train_step)
+
+    b, s = 4, 24
+    bert_cfg = dataclasses.replace(
+        BertConfig.tiny(hidden_size=128, num_attention_heads=2,
+                        intermediate_size=256), remat=name == "remat")
+    if name in ("span", "aux"):
+        kw = dict(dataset_name="twitter15", bf16=True, n_best_size=5,
+                  max_answer_length=4, span_ac_loss_mode="masked")
+        if name == "aux":
+            kw.update(do_aug=True, aug_type="span_cutoff",
+                      aug_cutoff_ratio=0.3, aug_ce_loss=1.0,
+                      aug_js_loss=1.0, gcn_layer_number=2, num_layers=2)
+        cfg = Config(**kw)
+        params = init_span_model_params(cfg, bert_cfg, seed=0)
+        batch = span_batch(cfg, bert_cfg, b, s, seed=1)
+        if name == "aux":
+            rng = np.random.RandomState(7)
+            adj = np.zeros((b, s, s), np.float32)
+            for i in range(b):
+                for t in range(1, s):
+                    p = rng.randint(0, t)
+                    adj[i, t, p] = adj[i, p, t] = 1.0
+                adj[i][np.arange(s), np.arange(s)] = 1.0
+            aspect = np.zeros((b, s), np.int64)
+            aspect[:, 2:4] = 1
+            batch.update(adj_matrix=torch.from_numpy(adj),
+                         adjacency_matrix=torch.from_numpy(adj),
+                         src_mask=torch.ones(b, s, dtype=torch.int64),
+                         aspect_mask=torch.from_numpy(aspect),
+                         polaritys=torch.from_numpy(rng.randint(0, 3, b)))
+        loss_fn = make_span_loss_fn(cfg, bert_cfg)
+        pipeline = "span"
+    else:
+        cfg = Config(dataset_name="twitter2015", bf16=True,
+                     gradient_accumulation_steps=2 if name == "accum2"
+                     else 1)
+        params = init_crf_model_params(cfg, bert_cfg, seed=0)
+        batch = crf_batch(cfg, bert_cfg, b, s, seed=1)
+        loss_fn = make_crf_loss_fn(cfg, bert_cfg, with_decode=True)
+        pipeline = "crf"
+    accum = cfg.gradient_accumulation_steps
+    if accum > 1:
+        batch = {k: v.reshape((accum, b // accum) + v.shape[1:])
+                 for k, v in batch.items()}
+    params = params_from_jax(params)
+    opt, _ = build_optimizer(params, cfg, total_steps=10, pipeline=pipeline)
+    step = make_train_step(
+        loss_fn, opt, accum_steps=accum,
+        augment_fn=make_span_augment_fn(cfg, bert_cfg) if cfg.do_aug
+        else None)
+    dtype = torch.bfloat16 if name == "params_bf16" else None
+    return (step,
+            lambda: create_train_state(params, opt, device=cuda,
+                                       params_dtype=dtype),
+            {k: v.to(cuda) for k, v in batch.items()})
+
+
+def _state_tensors(state):
+    from mtvaf_tpu_torch.train.optim import tree_items
+    from mtvaf_tpu_torch.train.steps import MasterState
+    opt = state.opt_state
+    out = [p.detach() for _, p in tree_items(state.params)]
+    if isinstance(opt, MasterState):
+        out += [m for _, m in tree_items(opt.master)]
+        opt = opt.inner
+    return out + list(opt.mu) + list(opt.nu)
+
+
+def _assert_same_states(a, b):
+    assert a.step == b.step
+    for x, y in zip(_state_tensors(a), _state_tensors(b)):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", GRAPH_PATHS)
+def test_graphed_steps_are_the_eager_steps(cuda, name):
+    """Five steps through the captured step (a warm-up, a capture, three
+    replays) against the same five under ``disable_graphs()``: every
+    loss, param, master and moment bit for bit, one capture, and the
+    kernels' launches counted per replay as per eager step."""
+    from mtvaf_tpu_torch.kernels.keyed_random import keyed_dropout
+    from mtvaf_tpu_torch.train.graphs import GraphedStep, disable_graphs
+
+    step, make_state, batch = _graph_path(cuda, name)
+    assert isinstance(step, GraphedStep)
+    runs = []
+    for eager in (False, True):
+        state, losses, counts = make_state(), [], []
+        for _ in range(5):
+            before = (prefix_attention.launches.value,
+                      prefix_attention_bwd_cuda.launches.value,
+                      keyed_dropout.launches.value)
+            if eager:
+                with disable_graphs():
+                    state, m = step(state, batch, 3)
+            else:
+                state, m = step(state, batch, 3)
+            losses.append(m["loss"])
+            counts.append((prefix_attention.launches.value - before[0],
+                           prefix_attention_bwd_cuda.launches.value
+                           - before[1],
+                           keyed_dropout.launches.value - before[2]))
+        torch.cuda.synchronize()
+        runs.append((state, losses, counts))
+    (g, g_loss, g_counts), (e, e_loss, e_counts) = runs
+    assert step.captures == 1
+    _assert_same_states(g, e)
+    assert all(torch.equal(a, b) for a, b in zip(g_loss, e_loss))
+    assert g_counts == e_counts and all(c[0] and c[1] and c[2]
+                                        for c in g_counts)
+
+
+@pytest.mark.cuda
+def test_capture_under_a_live_prefetch_thread(cuda):
+    """The captured CRF step fed by ``data.datasets.prefetch``, whose
+    thread uploads each batch through pinned memory, while a second thread
+    keeps uploading and launching kernels on its stream throughout the
+    capture: bit for bit the same steps run eagerly."""
+    import threading
+
+    import numpy as np
+
+    from mtvaf_tpu_torch.core.platform import upload
+    from mtvaf_tpu_torch.data.datasets import prefetch
+    from mtvaf_tpu_torch.train.graphs import disable_graphs
+
+    step, make_state, batch = _graph_path(cuda, "crf")
+    host = {k: v.cpu().numpy() for k, v in batch.items()}
+
+    def batches():
+        for _ in range(6):
+            yield {k: upload(v, cuda) for k, v in host.items()}
+
+    stop = threading.Event()
+
+    def noise():
+        x = np.ones((256, 256), np.float32)
+        while not stop.is_set():
+            y = upload(x, cuda)
+            (y @ y).sum()
+
+    busy = threading.Thread(target=noise, daemon=True)
+    busy.start()
+    try:
+        state = make_state()
+        for b in prefetch(batches()):
+            state, _ = step(state, b, 5)
+        torch.cuda.synchronize()
+    finally:
+        stop.set()
+        busy.join(60)
+    eager = make_state()
+    with disable_graphs():
+        for _ in range(6):
+            eager, _ = step(eager, batch, 5)
+    torch.cuda.synchronize()
+    assert step.captures == 1
+    _assert_same_states(state, eager)
+
+
+@pytest.mark.cuda
+def test_resumed_graphed_run_is_the_uninterrupted_one(cuda, tmp_path):
+    """Six captured steps straight, against three, a checkpoint written
+    and loaded into new tensors (as ``--resume`` loads it), and three
+    more through the same step: the step captures again on the loaded
+    tensors, leaves the dropped state alone, and ends bit for bit where
+    the uninterrupted run does."""
+    from mtvaf_tpu_torch.core import checkpoint
+
+    step, make_state, batch = _graph_path(cuda, "crf")
+    straight = make_state()
+    for _ in range(6):
+        straight, _ = step(straight, batch, 9)
+    state = make_state()
+    for _ in range(3):
+        state, _ = step(state, batch, 9)
+    checkpoint.save_checkpoint(str(tmp_path), state, step=1, wait=True)
+    loaded = checkpoint.load_checkpoint(str(tmp_path), make_state(), 1)
+    dropped = [t.clone() for t in _state_tensors(state)]
+    captures = step.captures
+    for _ in range(3):
+        loaded, _ = step(loaded, batch, 9)
+    torch.cuda.synchronize()
+    assert step.captures == captures + 1
+    assert all(torch.equal(a, b) for a, b in zip(_state_tensors(state),
+                                                 dropped))
+    _assert_same_states(loaded, straight)

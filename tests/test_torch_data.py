@@ -31,6 +31,7 @@ from mtvaf_tpu_torch.data import datasets, features, images, readers, \
 from mtvaf_tpu_torch.data.tokenization import FullTokenizer
 from mtvaf_tpu_torch.eval import metrics, tagging
 from test_torch_native import jax_native_library
+from test_torch_gcn import one_torch_thread  # noqa: F401
 
 N = 10
 IMG_IDS = [f"{700000 + i}.jpg" for i in range(4)]

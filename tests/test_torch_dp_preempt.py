@@ -25,6 +25,7 @@ import torch
 from _torch_dp import spawn
 from mtvaf_tpu_torch.cli.main import main
 from test_torch_dp_trainer import bert_cfg, crf_tree
+from test_torch_gcn import one_torch_thread  # noqa: F401
 
 ARGV = ["--dataset_name", "twitter2015", "--max_seq", "24",
         "--num_anp_classes", "8", "--train_batch_size", "4",

@@ -16,6 +16,7 @@ from test_torch_dp_trainer import (check_against_jax,
                                    check_checkpoints_on_return,
                                    check_rank0_writes, jax_cli, prepare,
                                    start_ranks)
+from test_torch_gcn import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -364,6 +364,7 @@ def test_a_mean_of_per_rank_losses_is_not_the_global_step(runs):
     grads = {k: sum(h[1][k] for h in halves) / WORLD for k in halves[0][1]}
     opt = _optimizer(cfg, params["twitter15"])
     state = create_train_state(params["twitter15"], opt, device="cpu")
+    opt.step_scalars(0, "cpu")
     opt.apply(state.params, [torch.from_numpy(grads[k])
                              for k, _ in tree_items(state.params)],
               state.opt_state)

@@ -68,6 +68,7 @@ from mtvaf_tpu_torch.data.synthetic import (make_crf_files, make_images,
                                             make_vocab_file)
 from mtvaf_tpu_torch.data.tokenization import load_vocab
 from mtvaf_tpu_torch.nn.bert import BertConfig
+from test_torch_gcn import one_torch_thread  # noqa: F401
 
 IMG_IDS = [f"{720000 + i}.jpg" for i in range(4)]
 _ABSENT = object()

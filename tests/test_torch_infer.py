@@ -36,6 +36,7 @@ from mtvaf_tpu_torch.kernels.prefix_attention import prefix_attention
 from mtvaf_tpu_torch.nn.bert import BertConfig
 from mtvaf_tpu_torch.serve import BatchingServer
 from test_torch_resnet import torchvision_state_dict
+from test_torch_gcn import one_torch_thread  # noqa: F401
 
 ATOL = 1e-4
 SENTS = ["the pizza was great but service slow", "bad battery",

@@ -22,6 +22,7 @@ from mtvaf_tpu_torch.core.convert import params_from_jax
 from mtvaf_tpu_torch.data.images import ImageStore
 from mtvaf_tpu_torch.data.synthetic import make_images
 from mtvaf_tpu_torch.train.ingest import GuideCache
+from test_torch_gcn import one_torch_thread  # noqa: F401
 
 IDS = [f"{800000 + i}.jpg" for i in range(5)]
 

@@ -18,6 +18,7 @@ from mtvaf_tpu_torch.kernels.prefix_attention import (
     prefix_attention, prefix_attention_bwd_op, prefix_attention_bwd_reference,
     prefix_attention_fwd_op, unpack_keep_words)
 from mtvaf_tpu_torch.core.rng import new_key
+from test_torch_gcn import one_torch_thread  # noqa: F401
 
 SEED = 0x0123456789ABCDEF
 KEY = new_key(SEED)          # the operator's (word, salt 0)

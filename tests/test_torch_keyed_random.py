@@ -106,14 +106,11 @@ def test_plain_keyed_dropout_keeps_one_minus_rate(rate):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 def test_keyed_dropout_is_jax_dropout_given_the_mask(dtype, monkeypatch):
-    """In fp32 the JAX package's ``dropout`` with ``jax.random.bernoulli``
-    handing it the port's mask gives the port's values bit for bit: the
-    same ``where(keep, x / keep_prob, 0)``.  In bf16 the port's kept value
-    is fp32(x) / fp32(0.9) rounded once to bf16 (PyTorch's ``x / 0.9``
-    before keys, and the kernel's), where the JAX package divides by its
-    weakly typed 0.9 rounded to bf16 (0.8984375, 0.17% off): so in bf16
-    the JAX values are held at one bf16 ulp of the port's (2^-7
-    relative) and the port's to the fp32 quotient exactly."""
+    """The JAX package's ``dropout`` with ``jax.random.bernoulli`` handing
+    it the port's mask gives the port's values bit for bit, in fp32 and in
+    bf16: the same ``where(keep, x / keep_prob, 0)``, the divisor the
+    weakly typed 0.9 rounded to x's dtype (0.8984375 in bf16), the kept
+    value the fp32 quotient rounded once to x's dtype."""
     x = np.random.RandomState(0).randn(4, 5, 27).astype(np.float32)
     tx = torch.from_numpy(x).to(dtype)
     key = rng.fold_in(rng.step_key(8, 1), 3)
@@ -125,15 +122,12 @@ def test_keyed_dropout_is_jax_dropout_given_the_mask(dtype, monkeypatch):
     want = np.asarray(jax_layers.dropout(
         jnp.asarray(tx.float().numpy(), jdtype), 0.1,
         jax.random.PRNGKey(0)), np.float32)
-    quotient = np.where(mask, tx.float().numpy() / np.float32(0.9), 0.0)
+    keep_p = np.float32(0.9 if dtype == torch.float32 else 0.8984375)
+    quotient = np.where(mask, tx.float().numpy() / keep_p, 0.0)
     exact = torch.from_numpy(quotient.astype(np.float32)).to(dtype)
     assert torch.equal(got, exact)
-    if dtype == torch.float32:
-        np.testing.assert_array_equal(got.numpy(), want)
-    else:
-        np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -7,
-                                   atol=0)
-        assert (want == 0).tolist() == (~mask).tolist()
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    assert (want == 0).tolist() == (~mask).tolist()
 
 
 def test_keyed_dropout_gradient_is_the_same_dropout():

@@ -32,6 +32,7 @@ import torch
 from mtvaf_tpu_torch.core import mesh
 from mtvaf_tpu_torch.core.config import Config, config_from_args
 from mtvaf_tpu_torch.data import datasets
+from test_torch_gcn import one_torch_thread  # noqa: F401
 
 IDS = [f"{810000 + i}.jpg" for i in range(4)]
 BIG = [(1 << 24) + 3, (1 << 24) + 10]

@@ -29,6 +29,7 @@ from mtvaf_tpu.native import binding as jbinding
 from mtvaf_tpu_torch.data import images, readers, synthetic
 from mtvaf_tpu_torch.data.tokenization import FullTokenizer, build_tokenizer
 from mtvaf_tpu_torch.native import binding, build, reference
+from test_torch_gcn import one_torch_thread  # noqa: F401
 
 TOKENS = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "the", "quick", "brown", "fox",
           "jump", "##s", "##ed", "over", "lazy", "dog", "!", ",", "un",

@@ -17,6 +17,7 @@ from mtvaf_tpu.nn.prefix import build_prefix_kvs as jax_build_prefix_kvs
 from mtvaf_tpu.nn.prefix import init_prefix_params as jax_init_prefix_params
 from mtvaf_tpu_torch.core.convert import params_from_jax
 from mtvaf_tpu_torch.nn.prefix import anp_kl_loss, build_prefix_kvs
+from test_torch_gcn import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 L, H, DH, C = 3, 4, 8, 24

@@ -30,6 +30,7 @@ from mtvaf_tpu_torch.kernels.prefix_attention import (
     prefix_attention_bwd_reference, prefix_attention_cuda,
     prefix_attention_reference)
 from mtvaf_tpu_torch.core.rng import new_key
+from test_torch_gcn import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 

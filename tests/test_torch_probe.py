@@ -16,6 +16,7 @@ from mtvaf_tpu.nn.probe import construct_pseudo_labels as jax_labels
 from mtvaf_tpu.nn.probe import probe_loss as jax_probe_loss
 from mtvaf_tpu_torch.nn.probe import (combine_loss, construct_pseudo_labels,
                                       probe_loss)
+from test_torch_gcn import one_torch_thread  # noqa: F401
 
 
 def _norms(seed, ties):

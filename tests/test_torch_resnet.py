@@ -14,6 +14,7 @@ from mtvaf_tpu.nn.resnet import resnet_stage_guides as jax_guides
 from mtvaf_tpu_torch.core.convert import (params_from_jax,
                                           resnet_params_from_torchvision)
 from mtvaf_tpu_torch.nn.resnet import resnet_stage_guides
+from test_torch_gcn import one_torch_thread  # noqa: F401
 
 
 def _jax_case():

@@ -28,6 +28,7 @@ from mtvaf_tpu_torch.data.tokenization import (ByteLevelBPETokenizer,
                                                FullTokenizer,
                                                build_tokenizer)
 from mtvaf_tpu_torch.nn.bert import BertConfig
+from test_torch_gcn import one_torch_thread  # noqa: F401
 
 IMG_IDS = [f"img_{i}.jpg" for i in range(6)]
 

@@ -25,6 +25,7 @@ from mtvaf_tpu_torch.data.synthetic import (make_learnable_span_file,
                                             make_span_file, make_vocab_file)
 from mtvaf_tpu_torch.data.tokenization import FullTokenizer
 from mtvaf_tpu_torch.eval import metrics, span_decode, squad_eval
+from test_torch_gcn import one_torch_thread  # noqa: F401
 
 S = 24
 CASES = {

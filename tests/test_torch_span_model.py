@@ -38,6 +38,7 @@ from mtvaf_tpu_torch.nn import models
 from mtvaf_tpu_torch.nn.bert import BertConfig
 from mtvaf_tpu_torch.train import steps
 from mtvaf_tpu_torch.train.optim import tree_items
+from test_torch_gcn import one_torch_thread  # noqa: F401
 
 B, S = 3, 20
 BASE = dict(dataset_name="twitter15", n_best_size=5, max_answer_length=4,

@@ -47,6 +47,7 @@ from mtvaf_tpu_torch.nn.models import init_span_model_params as port_init
 from mtvaf_tpu_torch.train.optim import tree_items
 from mtvaf_tpu_torch.train.trainer_span import SpanTrainer
 from test_torch_trainer import JaxStoreView, RecordingWriter
+from test_torch_gcn import one_torch_thread  # noqa: F401
 
 IMG_IDS = [f"img_{i}.jpg" for i in range(4)]
 BASE = dict(dataset_name="twitter15", max_seq=24, train_batch_size=4,

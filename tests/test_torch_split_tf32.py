@@ -33,6 +33,7 @@ from mtvaf_tpu.kernels.prefix_attention import (_ZERO_SEED,
                                                 _attention_fwd_impl,
                                                 prefix_flash_attention)
 from mtvaf_tpu_torch.kernels.prefix_attention import keep_factors
+from test_torch_gcn import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 SEED = 0x0123456789ABCDEF

@@ -37,6 +37,7 @@ from mtvaf_tpu_torch.data.images import ImageStore
 from mtvaf_tpu_torch.eval import squad_eval, tagging
 from mtvaf_tpu_torch.nn import probe
 from mtvaf_tpu_torch.nn.bert import BertConfig
+from test_torch_gcn import one_torch_thread  # noqa: F401
 
 WORDS = ["the", "pizza", "A", "great", "view,", "an", "room", "slow",
          "service!", "nice", "The", "food"]

@@ -33,6 +33,7 @@ from mtvaf_tpu_torch.nn.bert import BertConfig
 from mtvaf_tpu_torch.nn.models import (init_crf_model_params,
                                        init_span_model_params)
 from mtvaf_tpu_torch.train.optim import tree_items
+from test_torch_gcn import one_torch_thread  # noqa: F401
 
 COLUMN_BIASES = ("bert/layers/attn/qkv/bias", "bert/layers/mlp/in/bias")
 

@@ -36,6 +36,7 @@ from _torch_dp import start
 from test_torch_dp_trainer import (GradMax, argv, bert_cfg,
                                    check_against_jax, check_rank0_writes,
                                    prepare, run_cli)
+from test_torch_gcn import one_torch_thread  # noqa: F401
 
 # one epoch each (the trees' 9 train rows: 3 steps)
 GRIDS = {"crf": ["--mesh_model", "2", "--num_epochs", "1"],

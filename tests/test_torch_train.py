@@ -51,6 +51,7 @@ from mtvaf_tpu_torch.nn.bert import BertConfig
 from mtvaf_tpu_torch.train.optim import build_optimizer, tree_items
 from mtvaf_tpu_torch.train.steps import (create_train_state,
                                          make_crf_loss_fn, make_train_step)
+from test_torch_gcn import one_torch_thread  # noqa: F401
 
 CFG = dict(dataset_name="twitter2015", use_prefix=True, use_18=True,
            vao=True, use_probe=True, probe_layer=2, num_anp_classes=8,

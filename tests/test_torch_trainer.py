@@ -30,6 +30,7 @@ with a checkpoint, and ``--resume`` without checkpoints starts afresh.
 """
 
 import dataclasses
+import functools
 import json
 import logging
 import os
@@ -58,6 +59,7 @@ from mtvaf_tpu_torch.nn.bert import BertConfig
 from mtvaf_tpu_torch.train import resume as resume_mod
 from mtvaf_tpu_torch.train.optim import tree_items
 from mtvaf_tpu_torch.train.trainer_crf import CrfTrainer
+from test_torch_gcn import one_torch_thread  # noqa: F401
 
 IMG_IDS = [f"{700000 + i}.jpg" for i in range(4)]
 BASE = dict(dataset_name="twitter2015", max_seq=24, train_batch_size=4,
@@ -268,15 +270,22 @@ def test_final_params_match_jax(runs):
 # Port-only: checkpoints, preemption, resume.
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_init(vocab_size):
+    """The JAX package's initial CRF params for the port-only tests, as
+    numpy (made once: op by op, each init compiles its draws)."""
+    return jax.tree.map(np.asarray, init_crf_model_params(
+        jax.random.PRNGKey(0), JaxConfig(**BASE), JaxBertConfig.tiny(
+            vocab_size=vocab_size)))
+
+
 def _port_trainer(d, save, **kw):
     cfg = Config(**{**BASE, "deterministic": False, "eval_begin_epoch": 99,
                     "save_path": str(save), "save_checkpoints": True,
                     "num_epochs": 3, **kw})
     tok = FullTokenizer(str(d / "vocab.txt"))
     bert_cfg = BertConfig.tiny(vocab_size=len(tok.vocab))
-    jparams = jax.tree.map(np.asarray, init_crf_model_params(
-        jax.random.PRNGKey(0), JaxConfig(**BASE), JaxBertConfig.tiny(
-            vocab_size=len(tok.vocab))))
+    jparams = _jax_init(len(tok.vocab))
     ds = CrfDataset.load(cfg, tok, str(d / "train.txt"), str(d / "anp.json"))
     return CrfTrainer(cfg, bert_cfg, params_from_jax(jparams),
                       train_dataset=ds, dev_dataset=ds, test_dataset=ds,
