@@ -40,7 +40,23 @@ Phases, each of which fails the run by raising:
    ``BatchingServer`` → ``CrfPredictor`` at the flagship configuration
    (BERT-base, 12 layers, ResNet-152 guides, 16 prefix slots, bf16) with
    random weights from a seed, and check that K1 ran 12 times per batch;
-8. time the stages of one image-bearing batch of 16;
+   the predictor's device stage is one CUDA graph per signature
+   (``train.graphs.GraphedFunction``), so the server runs graphed and
+   under ``disable_graphs()`` in turns, twice each (``serve_twins``; the
+   later serving phases once each):
+   every batch either server formed gives the same predictions through
+   the other mode, the first graphed ``warmup()`` captures both served
+   signatures (text, images without aux crops) and nothing captures
+   under traffic; p50, p99 and sentences/s of each run; one batch of each
+   variant (also images with aux crops) bitwise against its eager run
+   (``device_twins``: emissions, tags, lengths);
+8. time the stages of one image-bearing batch of 16 (the whole forward
+   replayed and eager); count one served batch's kernels in the
+   profiler's trace of three replayed batches (``served_batch_launches``:
+   12 K1, no K2, equal to the graphs' bookkeeping and to an eager batch's
+   wrapper counts); print ``memory_reserved()`` before and after the
+   predictor's graphs are released (``release_report``, as every serving
+   phase and trainer eval below does);
 9. train: ``create_train_state`` → ``make_crf_loss_fn`` →
    ``make_train_step`` at the flagship configuration, B=32, S=128, bf16,
    one fixed synthetic batch with cached guides (as ``bench.py``), dropout
@@ -71,10 +87,14 @@ Phases, each of which fails the run by raising:
    tail batch has the full batches' signature), every parameter, moment
    and guide-table tensor on the card, no placeholder image and no
    all-zero guide row, and the run's files; the same CLI run under
-   ``disable_graphs()``: each epoch's loss and ``best_model.npz`` bit for
-   bit, both runs' examples/s (``cli_graphed_vs_eager``); reload the best model with ``load_predictor`` and tag a few
-   sentences; print per-epoch time and examples/s beside phase 9's bare
-   step, the guide-fill time and eval sentences/s; time the background
+   ``disable_graphs()``: each epoch's loss, every eval pass's loss, every
+   prediction file and ``best_model.npz`` bit for bit, eval graphs
+   captured in the graphed run and none in the eager one, both runs'
+   examples/s (``cli_graphed_vs_eager``); reload the best model with
+   ``load_predictor`` and tag a few sentences; print per-epoch time and
+   examples/s beside phase 9's bare step, the guide-fill time, and eval
+   sentences/s graphed and eager in turns (``eval_turns``: the results
+   equal, K1 12 a batch in each); time the background
    checkpoint in three rounds (``checkpoint_timing``: the stall a save
    costs the loop, the writer's seconds, ``wait=True``'s seconds, 10 train
    steps with a write in flight against 10 without, the landed file bit
@@ -96,11 +116,15 @@ Phases, each of which fails the run by raising:
    against the CPU (B=2, S=32, TF32 off, no dropout); (c) the CLI →
    ``SpanTrainer`` for 2 epochs on a synthetic Twitter-2015 span tree
    (320/96/96 sentences), one capture, 12 K1 + 12 K2 per train step and 12
-   K1 per eval batch, eval sentences/s and the host's candidate/NMS share of it; (d)
-   ``load_predictor`` on that run → ``BatchingServer`` → ``SpanPredictor``,
-   64 requests from 16 threads, each result equal to ``predict_many``'s,
-   the serving params and a dev batch's extraction logits equal to the
-   trainer's bit for bit;
+   K1 per eval batch, its CLI twin under ``disable_graphs()`` as phase
+   10's, eval sentences/s graphed and eager in turns and the host's
+   candidate/NMS share of each; (d) ``load_predictor`` on that run →
+   ``BatchingServer`` → ``SpanPredictor``, 64 requests from 16 threads
+   graphed and eager in turns (``serve_twins``), each result equal to
+   ``predict_many``'s, the serving params and a dev batch's extraction
+   logits equal to the trainer's bit for bit, one batch's logits, seq and
+   ac logits bitwise its eager run, and a replayed batch's kernels in the
+   trace (12 K1, no K2);
 12. aux heads: the span pipeline with cutoff augmentation (``span_cutoff``
    at ratio 0.1, CE and JS weights 1), DiGCN (2 layers) and DualGCN (2
    layers), BERT-base, bf16, random weights from a seed: (a) the bare aux
@@ -118,7 +142,9 @@ Phases, each of which fails the run by raising:
    (bf16, with images): the DiGCN classification given a dev batch's side
    arrays equal to the trainer's, the extraction with images equal to the
    trainer's fp32-prefix forward bit for bit, ``BatchingServer`` with 64
-   image-bearing requests equal to ``predict_many``.  Phases 2 and 4 also
+   image-bearing requests equal to ``predict_many``, graphed and eager in
+   turns (three captures: text and images extractions, the
+   classification), each variant's device outputs bitwise.  Phases 2 and 4 also
    hold K1 and K2 at ``span_s128_cut``: the span shape with the span
    cutoff's holes inside the bias row;
 13. the serving tier, run after phase 16: its two exports run in child
@@ -132,12 +158,16 @@ Phases, each of which fails the run by raising:
    ``BatchingServer`` with every batch's results equal to the live
    ``load_predictor``'s on the same batch and 12 K1 launches per batch
    from the programs (K1 is the operator ``mtvaf::prefix_attention_fwd``
-   inside them); (b) phase 12(c)'s run (prefix, images, DiGCN) exported
-   at rung 16, 64 image-bearing requests held the same way; (c)
-   ``cli.serve_main --bundle`` over (a) in a child process, 64 text-only
-   POSTs from 16 threads held to the in-process bundle, /stats and
-   /metrics parsed, 12 K1 per batch in the child; then ``build_app`` in
-   this process: 16 base64 PNG images through the eval transform (where
+   inside them), each rung's program replayed from a CUDA graph and the
+   server run graphed and eager in turns as phase 7's; (b) phase 12(c)'s
+   run (prefix, images, DiGCN) exported at rung 16, 64 image-bearing
+   requests held the same way; (c) ``cli.serve_main --bundle`` over (a)
+   in a child process, 64 text-only POSTs from 16 threads held to the
+   in-process bundle's graphed and eager results, /stats and /metrics
+   parsed, 12 K1 per batch and two graphs captured in the child; the same
+   POSTs to ``build_app`` in this process graphed and eager in turns
+   (client p50, p99, sentences/s); then
+   16 base64 PNG images through the eval transform (where
    PIL is installed; else said so and held on the CPU only) and a burst
    against ``max_queue=1`` that must give both 200 and 429; (d) the host
    time of one K1 call through the wrapper, the operator and
@@ -159,12 +189,14 @@ Phases, each of which fails the run by raising:
    per eval batch, a trace of two replayed steps whose kernel records name
    48 K1 and 24 of each of K2's two passes, an fp32 ``best_model.npz``, then ``load_predictor`` →
    ``BatchingServer`` → ``SpanPredictor`` at S=500 (64 requests from 16
-   threads, each equal to ``predict_many``'s); (d) phase 7's requests
-   through a ``CrfPredictor`` with ``crf_decode_impl="parallel"``, each
+   threads, each equal to ``predict_many``'s, graphed and eager in
+   turns); (d) phase 7's requests through a ``CrfPredictor`` with
+   ``crf_decode_impl="parallel"``, graphed and eager in turns, each
    batch held to the scan predictor's (a tie that breaks otherwise is
    printed with both path scores, which must be equal), fc + Viterbi's
-   device ms and launches for both decodes at the batch of 16, and one
-   text decode program of each exported for ``cuda`` (nodes, seconds);
+   device ms and launches for both decodes at the batch of 16, eager and
+   replayed from one CUDA graph (bitwise), and one text decode program of
+   each exported for ``cuda`` (nodes, seconds);
 15. data parallelism, one epoch per run at the flagship width on phase
    10's tree (and phase 11's span tree with DualGCN side files), each
    process a child of this one (``--dp-child``) counting its own kernel
@@ -899,79 +931,242 @@ def check_forward_against_cpu(cfg, bert_cfg, params, resnet, tok):
 
 
 def serve(cfg, bert_cfg, params, resnet, tok):
+    """Phase 7: 64 threaded requests (half with images) through
+    ``BatchingServer`` → the flagship ``CrfPredictor``, graphed and under
+    ``disable_graphs()`` in turns (``serve_twins``: two captures, text and
+    images without aux crops, both in the first ``warmup()``), and one
+    batch of each variant's device outputs bit for bit."""
     from mtvaf_tpu_torch.infer import CrfPredictor
-    from mtvaf_tpu_torch.kernels.prefix_attention import prefix_attention
-    from mtvaf_tpu_torch.serve import BatchingServer
 
     t0 = time.perf_counter()
     pred = CrfPredictor(cfg, bert_cfg, params, tok, resnet_params=resnet,
                         device="cuda")
-    server = BatchingServer(pred, max_batch=16, max_wait_ms=5.0,
-                            pipeline_depth=4)
-    try:
-        server.warmup()
-        torch.cuda.synchronize()
-        log(f"predictor + warmup: {time.perf_counter() - t0:.1f} s")
+    # single-batch check of the result's form and the output shape
+    host = pred._make_host_batch(["the pizza was great"] * 16)
+    out = pred.forward(host, np.zeros((16, 224, 224, 3), np.float32))
+    em = out["emissions"]
+    if em.shape != (16, cfg.max_seq, cfg.num_crf_labels) \
+            or not torch.isfinite(em).all():
+        raise AssertionError(f"bf16 emissions {tuple(em.shape)} are "
+                             "malformed or not finite")
+    torch.cuda.synchronize()
+    log(f"predictor: {time.perf_counter() - t0:.1f} s")
 
-        # single-request check of the result's form and the output shape
-        host = pred._make_host_batch(["the pizza was great"] * 16)
-        out = pred.forward(host, np.zeros((16, 224, 224, 3), np.float32))
-        em = out["emissions"]
-        if em.shape != (16, cfg.max_seq, cfg.num_crf_labels) \
-                or not torch.isfinite(em).all():
-            raise AssertionError(f"bf16 emissions {tuple(em.shape)} are "
-                                 "malformed or not finite")
-
-        reqs = requests(N_REQUESTS, seed=SEED)
-        results = [None] * len(reqs)
-        errors = []
-
-        def client(idx):
-            try:
-                for i in idx:
-                    results[i] = server.submit(*reqs[i]).result(timeout=300)
-            except BaseException as e:      # re-raised on the main thread
-                errors.append(e)
-
-        torch.cuda.synchronize()
-        prefix_attention.launches.reset()
-        t0 = time.perf_counter()
-        threads = [threading.Thread(target=client,
-                                    args=(range(c, len(reqs), CLIENTS),))
-                   for c in range(CLIENTS)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = prefix_attention.launches.value
-        stats = server.stats()
-    finally:
-        server.close()
-    if errors:
-        raise errors[0]
-    if any(t.is_alive() for t in threads):
-        raise AssertionError("a client did not finish")
+    reqs = requests(N_REQUESTS, seed=SEED)
+    results, first, twin = serve_twins("crf_serve", pred, reqs, 2, rounds=2)
     for r in results:
         if not isinstance(r, list) or not all(
                 isinstance(term, str) and pol in ("POS", "NEG", "NEU")
                 for term, pol in r):
             raise AssertionError(f"malformed result {r!r}")
-    main = {"requests": len(reqs), "served": stats["served"],
-            "batches": stats["batches"], "mean_batch": stats["mean_batch"],
-            "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
-            "wall_s": wall, "sentences_per_s": len(reqs) / wall,
-            "k1_launches": launches,
-            "entities": sum(len(r) for r in results)}
+    sents = [s for s, _ in requests(16, seed=7)]
+    images = np.stack([img for _, img in requests(32, seed=7)
+                       if img is not None])
+    device = device_twins("crf_serve", pred, sents, {
+        "text": {}, "images_noaux": {"images": images},
+        "images": {"images": images, "aux_images": np.stack(
+            [images] * 3, axis=1)}})
+    main = {"requests": len(reqs), "served": first["stats"]["served"],
+            "batches": first["batches"], "mean_batch": first["mean_batch"],
+            "p50_ms": first["p50_ms"], "p99_ms": first["p99_ms"],
+            "wall_s": first["wall_s"],
+            "sentences_per_s": first["sentences_per_s"],
+            "k1_launches": first["k1_launches"],
+            "entities": sum(len(r) for r in results),
+            "graphed_vs_eager": twin, "device_bitwise": device}
     log("main_path", json.dumps(main))
-    if stats["served"] != len(reqs):
-        raise AssertionError(f"served {stats['served']} of {len(reqs)}")
-    if launches == 0 or launches != bert_cfg.num_hidden_layers \
-            * stats["batches"]:
-        raise AssertionError(f"prefix attention kernel launched {launches} "
-                             f"times for {stats['batches']} batches")
     return pred, main
+
+
+# ---------------------------------------------------------------------------
+# The captured eval and serving stages (``train.graphs.GraphedFunction``),
+# held against ``disable_graphs()`` in every serving phase.
+
+# graphed then eager once per serving phase; phase 7, the serving path the
+# port was built around, twice (graphed, eager, graphed, eager).  One round
+# elsewhere keeps the smoke's depth within its time limit on a slow host.
+GRAPH_ROUNDS = 1
+
+
+def serve_twins(name, pred, reqs, captures_want, max_batch=16,
+                rounds=GRAPH_ROUNDS):
+    """``reqs`` ((sentence, image or None) pairs) through ``BatchingServer``
+    → ``pred``, the server given the predictor and its eager twin
+    (``Recorded(pred, eager=True)``, every call under
+    ``disable_graphs()``) in turns, ``rounds`` each: every batch a
+    server formed gives the same predictions through the other mode (a
+    text-only request's result depends on whether its batch carried
+    images, so batches are compared, not requests); K1 ran once per layer
+    per batch in both; with the predictor's graphs released first, the
+    first graphed server's ``warmup()`` captured ``captures_want`` graphs,
+    and nothing else captured.  Prints each
+    run's p50, p99 and sentences/s.  Returns (the first graphed run's
+    results, its row with the batches it formed, the twin row)."""
+    import contextlib
+    from mtvaf_tpu_torch.serve import BatchingServer
+    from mtvaf_tpu_torch.train.graphs import disable_graphs
+
+    layers = pred.bert_cfg.num_hidden_layers
+    pred.release_graphs()          # every signature captured in warmup()
+    before = pred.graph_captures
+    runs = {"graphed": [], "eager": []}
+    first = None
+    for _ in range(rounds):
+        for mode in ("graphed", "eager"):
+            rec = Recorded(pred, eager=mode == "eager")
+            with BatchingServer(rec, max_batch=max_batch, max_wait_ms=5.0,
+                                pipeline_depth=4) as server:
+                server.warmup()
+                torch.cuda.synchronize()
+                warm = pred.graph_captures - before
+                rec.batches.clear()
+                reset_counts()
+                results, wall = serve_threaded(server, reqs)
+                k1 = read_counts()["k1"]
+                stats = server.stats()
+            traffic = pred.graph_captures - before - warm
+            if stats["served"] != len(reqs) or k1 != layers \
+                    * stats["batches"] or traffic:
+                raise AssertionError(
+                    f"{name} {mode} serving: served {stats['served']}, K1 "
+                    f"ran {k1} times for {stats['batches']} batches, "
+                    f"{traffic} captures under traffic")
+            # the same batches through the other mode
+            with (contextlib.nullcontext() if mode == "eager"
+                  else disable_graphs()):
+                for sentences, images, got in rec.batches:
+                    if pred.predict(sentences, images=images) != got:
+                        raise AssertionError(
+                            f"{name}: a {mode} batch's predictions differ "
+                            f"from the same batch's "
+                            f"{'graphed' if mode == 'eager' else 'eager'}")
+            row = {"p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
+                   "sentences_per_s": len(reqs) / wall, "wall_s": wall,
+                   "batches": stats["batches"],
+                   "mean_batch": stats["mean_batch"], "k1_launches": k1,
+                   "captures_in_warmup": warm if mode == "graphed" else 0}
+            runs[mode].append(row)
+            if first is None:
+                first = results, {**row, "stats": stats,
+                                  "recorded": list(rec.batches)}
+            before = pred.graph_captures
+    captured = sum(r["captures_in_warmup"] for r in runs["graphed"])
+    twin = {"graphed": runs["graphed"], "eager": runs["eager"],
+            "captures": captured, "batches_compared": sum(
+                r["batches"] for rs in runs.values() for r in rs)}
+    log("serve_graphed_vs_eager", name, json.dumps(twin), card_line())
+    if captured != captures_want or runs["graphed"][0][
+            "captures_in_warmup"] != captures_want:
+        raise AssertionError(f"{name}: the graphed servers captured "
+                             f"{captured} graphs, not {captures_want} in the "
+                             "first warmup()")
+    return first[0], first[1], twin
+
+
+def device_twins(name, pred, sents, variants):
+    """One batch's device outputs per variant (``{variant: kwargs}``),
+    replayed from the predictor's graphs against the same batch under
+    ``disable_graphs()``, bit for bit: a CRF predictor's emissions, tags
+    and lengths; a span predictor's start/end logits and seq, and the
+    classification's ac logits of seeded candidate pairs on the eager
+    seq.  A variant the server did not capture is called twice first.
+    Returns {variant: [differing outputs]} (empty lists: all bitwise)."""
+    from mtvaf_tpu_torch.infer import SpanPredictor
+    from mtvaf_tpu_torch.train.graphs import disable_graphs
+
+    span = isinstance(pred, SpanPredictor)
+    rng = np.random.default_rng(SEED + 17)
+    host = pred._make_host_batch(sents)
+    s_len = pred.cfg.effective_max_seq
+    starts = rng.integers(0, s_len - 4, (len(sents), pred.cfg.n_best_size))
+    pairs = np.stack([starts, starts + rng.integers(0, 3, starts.shape)])
+
+    def run(kw):
+        with torch.inference_mode():
+            if not span:
+                out = pred.forward(host, **kw)
+                return {k: out[k] for k in ("emissions", "pred_tags",
+                                            "lengths")}
+            s, e, seq, _ = pred.extract(host[2], **kw)
+            return {"start_logits": s, "end_logits": e, "seq": seq}
+
+    rows = {}
+    for variant, kw in variants.items():
+        for _ in range(2):
+            run(kw)
+        got = run(kw)
+        with disable_graphs():
+            want = run(kw)
+        if span:
+            with torch.inference_mode():
+                for _ in range(2):
+                    pred._classify_batch(want["seq"], pairs, None)
+                got["ac_logits"] = pred._classify_batch(want["seq"], pairs,
+                                                        None)
+                with disable_graphs():
+                    want["ac_logits"] = pred._classify_batch(want["seq"],
+                                                             pairs, None)
+        rows[variant] = {k: (want[k].float() - got[k].float()).abs().max()
+                         .item() for k in want
+                         if not torch.equal(got[k], want[k])}
+    log("device_graphed_vs_eager", name, json.dumps(rows), card_line())
+    if any(rows.values()):
+        raise AssertionError(f"{name}: replayed device outputs differ from "
+                             f"eager ones: {rows}")
+    return rows
+
+
+def served_batch_launches(name, pred, sents, images=None):
+    """The port's kernels per served batch (``pred.predict`` of ``sents``,
+    replayed) counted by name in the profiler's trace (``TRACED``), held
+    against the graphs' bookkeeping and the eager batch's wrapper counts:
+    12 K1 and no K2, mask or keyed draw."""
+    from mtvaf_tpu_torch.train.graphs import disable_graphs
+
+    def batch():
+        pred.predict(sents, images=images)
+
+    for _ in range(2):
+        batch()                     # warm-up and capture, where needed
+    torch.cuda.synchronize()
+    with disable_graphs():
+        before = read_counts()
+        batch()
+        eager = {k: v - before[k] for k, v in read_counts().items()}
+    rows, counted = profiled_kernels(batch, iters=3)
+    traced = traced_launches(rows, 3)
+    row = {"traced_per_batch": traced, "counted_per_batch": counted,
+           "eager_counted_per_batch": eager}
+    log("replay_launches", name, json.dumps(row), card_line())
+    layers = pred.bert_cfg.num_hidden_layers
+    if not (traced["k1"] == counted["k1"] == eager["k1"] == layers
+            and traced["k2"] == counted["k2"] == eager["k2"] == 0
+            and traced["k2_dkdv"] == traced["mask"] == 0
+            and counted["mask"] == eager["mask"] == 0):
+        raise AssertionError(f"{name}: a replayed batch's traced launches "
+                             f"{traced}, counted {counted}, eager {eager}: "
+                             f"not {layers} K1 and no K2 in each")
+    return row
+
+
+def release_report(name, *preds):
+    """Each predictor's (or trainer's) graphs released:
+    ``memory_reserved()`` before and after (the graphs' pools returned by
+    ``empty_cache``)."""
+    import gc
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_reserved()
+    captures = sum(p.graph_captures if hasattr(p, "graph_captures")
+                   else eval_captures(p) for p in preds)
+    for p in preds:
+        p.release_graphs()
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = {"reserved_before_gb": before / 1e9,
+           "reserved_after_gb": torch.cuda.memory_reserved() / 1e9,
+           "captures": captures}
+    log("graphs_released", name, json.dumps(row), card_line())
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -986,6 +1181,7 @@ def breakdown(pred):
     from mtvaf_tpu_torch.nn.models import (compute_visual_guides,
                                            prompt_attention_mask,
                                            visual_prompt)
+    from mtvaf_tpu_torch.train.graphs import disable_graphs
 
     cfg, dev, dtype = pred.cfg, pred.device, pred.dtype
     host = pred._make_host_batch([s for s, _ in requests(16, seed=7)])
@@ -1020,6 +1216,10 @@ def breakdown(pred):
                 (16, 224, 224, 3), np.float32)),
         }
         times = {k: cuda_ms(fn, iters=5, warmup=2) for k, fn in stages.items()}
+        # the same forward under disable_graphs() (whole_forward replays)
+        with disable_graphs():
+            times["whole_forward_eager"] = cuda_ms(
+                stages["whole_forward"], iters=5, warmup=2)
     del em
     log("breakdown_b16_images", json.dumps(times))
     return times
@@ -1535,9 +1735,10 @@ def seed_pixel_cache(img_dir, pix_dir, ids, rng):
 def run_cli(argv, bert_cfg, on_epoch_log=None, span=False, on_trainer=None):
     """``cli.main.main(argv)`` with the trainer it built kept (and its
     params at the end of ``train()``, before the CLI reloads the best
-    model); ``on_epoch_log`` is called with each trainer log message and
-    ``on_trainer`` with the trainer once it is built.  ``span``: the run
-    trains the span model (``SpanTrainer``)."""
+    model, and every eval pass's loss, ``eval_losses``); ``on_epoch_log``
+    is called with each trainer log message and ``on_trainer`` with the
+    trainer once it is built.  ``span``: the run trains the span model
+    (``SpanTrainer``)."""
     import logging
     import mtvaf_tpu_torch.train.trainer_crf as trainer_crf
     import mtvaf_tpu_torch.train.trainer_span as trainer_span
@@ -1552,9 +1753,16 @@ def run_cli(argv, bert_cfg, on_epoch_log=None, span=False, on_trainer=None):
     class Kept(base_cls):
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
+            self.eval_losses = []
             made.append(self)
             if on_trainer:
                 on_trainer(self)
+
+        def _predict(self, *a, **kw):
+            out = super()._predict(*a, **kw)
+            if isinstance(out, tuple):      # an eval pass with its loss
+                self.eval_losses.append(out[-1])
+            return out
 
         def train(self):
             out = super().train()
@@ -1691,22 +1899,13 @@ def trainer_phase(bare_step, keep):
 
         predictor = check_predictor(tr, save)
 
-        # eval alone: one pass over each split, K1 counted per batch
-        evals = {}
-        for name, ds in (("dev", tr.dev_dataset), ("test", tr.test_dataset)):
-            prefix_attention.launches.reset()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            tr._predict(ds)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            n_batches = -(-len(ds) // TRAINER_EVAL_BATCH)
-            if prefix_attention.launches.value != layers * n_batches:
-                raise AssertionError(
-                    f"{name} eval: K1 ran {prefix_attention.launches.value} "
-                    f"times in {n_batches} batches")
-            evals[name] = {"sentences": len(ds), "seconds": dt,
-                           "sentences_per_s": len(ds) / dt}
+        # eval alone: each split graphed and eager in turns, K1 counted
+        # per batch
+        evals = {name: eval_turns(f"crf {name}", ds, layers,
+                                  lambda ds=ds: tr._predict(ds))
+                 for name, ds in (("dev", tr.dev_dataset),
+                                  ("test", tr.test_dataset))}
+        evals["released"] = release_report("crf trainer eval", tr)
 
         ckpt_timing = checkpoint_timing(tr, os.path.join(tmp, "ckpt_timing"))
         split = step_split(tr)
@@ -1733,11 +1932,65 @@ def trainer_phase(bare_step, keep):
     return out
 
 
+# the files of a run that its eval passes write (and its metrics)
+PREDICTION_FILES = ("train_predictions.json", "dev_predictions.json",
+                    "test_predictions.json", "error_dev.json",
+                    "error_test.json", "final_metrics.json")
+
+
+def eval_turns(name, ds, layers, predict, on_pass=None):
+    """``predict()`` (one eval pass over ``ds``) once to warm up and
+    capture, then graphed and under ``disable_graphs()`` in turns: K1 ran
+    once per layer per batch in each, the two passes' results equal (the
+    losses bit for bit); the seconds and sentences/s of each.
+    ``on_pass(mode)``, called before each timed pass, returns extra
+    numbers read after it."""
+    import contextlib
+    from mtvaf_tpu_torch.kernels.prefix_attention import prefix_attention
+    from mtvaf_tpu_torch.train.graphs import disable_graphs
+
+    predict()
+    n_batches = -(-len(ds) // TRAINER_EVAL_BATCH)
+    row, outs = {"sentences": len(ds), "batches": n_batches}, {}
+    for mode in ("graphed", "eager"):
+        extra = on_pass(mode) if on_pass else (lambda dt: {})
+        prefix_attention.launches.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (disable_graphs() if mode == "eager"
+              else contextlib.nullcontext()):
+            outs[mode] = predict()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if prefix_attention.launches.value != layers * n_batches:
+            raise AssertionError(
+                f"{name} {mode} eval: K1 ran "
+                f"{prefix_attention.launches.value} times in {n_batches} "
+                "batches")
+        row[mode] = {"seconds": dt, "sentences_per_s": len(ds) / dt,
+                     **extra(dt)}
+    if repr(outs["graphed"]) != repr(outs["eager"]):
+        raise AssertionError(f"{name}: the graphed eval pass differs from "
+                             "the eager one")
+    # the headline numbers stay the graphed pass's
+    row.update(seconds=row["graphed"]["seconds"],
+               sentences_per_s=row["graphed"]["sentences_per_s"])
+    return row
+
+
+def eval_captures(tr) -> int:
+    """The CUDA graphs a trainer's eval steps captured."""
+    return sum(getattr(tr, n).captures for n in (
+        "decode_step", "extraction_step", "eval_loss_step",
+        "classification_step") if hasattr(tr, n))
+
+
 def cli_against_eager(tr, save, argv, bert_cfg, span=False):
     """The CLI run that built ``tr`` (graphed, its run directory ``save``)
     against the same flags under ``disable_graphs()``: each epoch's train
-    loss and every array of ``best_model.npz`` bit for bit; both runs'
-    train examples/s per epoch.  Returns the row."""
+    loss, every eval pass's loss, every array of ``best_model.npz`` and
+    every prediction file bit for bit; both runs' train examples/s per
+    epoch.  Returns the row."""
     from mtvaf_tpu_torch.train.graphs import disable_graphs
 
     with disable_graphs():
@@ -1748,19 +2001,35 @@ def cli_against_eager(tr, save, argv, bert_cfg, span=False):
     differ = sorted(set(graphed_npz.files) ^ set(eager_npz.files)) + [
         k for k in graphed_npz.files if k in eager_npz.files
         and not np.array_equal(graphed_npz[k], eager_npz[k])]
+    files, files_differ = [], []
+    for name in PREDICTION_FILES:
+        a, b = (os.path.join(d, name) for d in (save, eager_save))
+        if not (os.path.exists(a) or os.path.exists(b)):
+            continue
+        files.append(name)
+        if not (os.path.exists(a) and os.path.exists(b)) \
+                or open(a, "rb").read() != open(b, "rb").read():
+            files_differ.append(name)
     row = {"arrays": len(graphed_npz.files), "differ": differ[:8],
            "train_losses": [[h["train_loss"] for h in r.history]
                             for r in (tr, eager)],
+           "eval_losses": [r.eval_losses for r in (tr, eager)],
+           "prediction_files": files, "files_differ": files_differ,
            "examples_per_s": {"graphed": [h["examples_per_s"]
                                           for h in tr.history],
                               "eager": [h["examples_per_s"]
                                         for h in eager.history]},
+           "eval_captures": [eval_captures(r) for r in (tr, eager)],
            "eager_captures": getattr(eager.train_step, "captures", 0)}
     row["losses_bitwise"] = row["train_losses"][0] == row["train_losses"][1]
+    row["eval_losses_bitwise"] = \
+        row["eval_losses"][0] == row["eval_losses"][1] != []
     del eager
     torch.cuda.empty_cache()
     log("cli_graphed_vs_eager", json.dumps(row), card_line())
-    if differ or not row["losses_bitwise"] or row["eager_captures"]:
+    if differ or files_differ or not files or not row["losses_bitwise"] \
+            or not row["eval_losses_bitwise"] or row["eager_captures"] \
+            or row["eval_captures"][1] or not row["eval_captures"][0]:
         raise AssertionError(f"the graphed CLI run differs from the eager "
                              f"one: {row}")
     return row
@@ -2203,7 +2472,6 @@ def span_phase(bare_step):
         keep_mask_cuda, prefix_attention, prefix_attention_bwd_cuda)
     from mtvaf_tpu_torch.nn.bert import BertConfig
     from mtvaf_tpu_torch.nn.models import init_span_model_params
-    from mtvaf_tpu_torch.serve import BatchingServer
     from mtvaf_tpu_torch.train.optim import tree_items
     from mtvaf_tpu_torch.train.steps import export_params
 
@@ -2270,6 +2538,10 @@ def span_phase(bare_step):
                      "final_metrics.json", "run_config.json", "ckpt/step_2"):
             if not os.path.exists(os.path.join(save, name)):
                 raise AssertionError(f"the span run wrote no {name}")
+        eager_run = cli_against_eager(
+            tr, save, [a if a != save else os.path.join(tmp, "span_eager")
+                       for a in argv if a != "--save_checkpoints"],
+            bert_cfg, span=True)
 
         # eval alone, with the host's candidate/NMS share of its wall time
         host = {"s": 0.0}
@@ -2282,38 +2554,31 @@ def span_phase(bare_step):
             finally:
                 host["s"] += time.perf_counter() - t
 
+        def host_share(mode):
+            host["s"] = 0.0
+            return lambda dt: {"host_candidates_s": host["s"],
+                               "host_candidates_share": host["s"] / dt}
+
         evals = {}
         trainer_span.batch_eval_candidates = timed_picker
         try:
             for name, ds in (("dev", tr.dev_dataset),
                              ("test", tr.test_dataset)):
-                prefix_attention.launches.reset()
-                host["s"] = 0.0
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                _, loss = tr._predict(ds, compute_loss=True)
-                torch.cuda.synchronize()
-                dt = time.perf_counter() - t0
-                n_batches = -(-len(ds) // TRAINER_EVAL_BATCH)
-                if prefix_attention.launches.value != layers * n_batches:
-                    raise AssertionError(
-                        f"span {name} eval: K1 ran "
-                        f"{prefix_attention.launches.value} times in "
-                        f"{n_batches} batches")
-                evals[name] = {"sentences": len(ds), "seconds": dt,
-                               "sentences_per_s": len(ds) / dt,
-                               "host_candidates_s": host["s"],
-                               "host_candidates_share": host["s"] / dt,
-                               "loss": loss}
+                evals[name] = eval_turns(
+                    f"span {name}", ds, layers,
+                    lambda ds=ds: tr._predict(ds, compute_loss=True),
+                    on_pass=host_share)
+                evals[name].update(evals[name]["graphed"])
         finally:
             trainer_span.batch_eval_candidates = picker
+        evals["released"] = release_report("span trainer eval", tr)
         out["trainer"] = {
             "epochs": tr.history, "wall_s": wall, "metrics": metrics,
             "sizes": TRAINER_SIZES, "cut_from": TWITTER15_SIZES,
             "bare_step_examples_per_s": out["train_step"]["examples_per_s"],
             "train_steps": steps, "eval_batches": eval_batches,
             "k1_launches": k1, "k2_launches": k2, "mask_launches": masks,
-            "eval": evals}
+            "eval": evals, "eager_run": eager_run}
         log("span_trainer_path", json.dumps(out["trainer"]))
 
         # (d) serving the run directory; every serving leaf equals the
@@ -2347,59 +2612,29 @@ def span_phase(bare_step):
         torch.cuda.empty_cache()
 
         sents = span_requests(N_REQUESTS, seed=SEED + 11)
-        server = BatchingServer(pred, max_batch=16, max_wait_ms=5.0,
-                                pipeline_depth=4)
-        results, errors = [None] * len(sents), []
-        try:
-            server.warmup()
-            torch.cuda.synchronize()
-
-            def client(idx):
-                try:
-                    for i in idx:
-                        results[i] = server.submit(sents[i]).result(
-                            timeout=300)
-                except BaseException as e:    # re-raised on the main thread
-                    errors.append(e)
-
-            prefix_attention.launches.reset()
-            t0 = time.perf_counter()
-            threads = [threading.Thread(
-                target=client, args=(range(c, len(sents), CLIENTS),))
-                for c in range(CLIENTS)]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join(timeout=600)
-            torch.cuda.synchronize()
-            serve_wall = time.perf_counter() - t0
-            serve_k1 = prefix_attention.launches.value
-            stats = server.stats()
-        finally:
-            server.close()
-        if errors:
-            raise errors[0]
-        if any(t.is_alive() for t in threads):
-            raise AssertionError("a span client did not finish")
+        # extraction and classification, text only: two captures
+        results, first, twin = serve_twins("span_serve", pred,
+                                           [(x, None) for x in sents], 2)
         many = pred.predict_many(sents, batch_size=16)
         if results != many:
             bad = [i for i, (r, m) in enumerate(zip(results, many)) if r != m]
             raise AssertionError(f"served span results differ from "
                                  f"predict_many at requests {bad[:8]}")
-        if stats["served"] != len(sents) or serve_k1 != layers \
-                * stats["batches"]:
-            raise AssertionError(f"span serving: served {stats['served']}, "
-                                 f"K1 ran {serve_k1} times for "
-                                 f"{stats['batches']} batches")
-        out["serve"] = {"requests": len(sents), "batches": stats["batches"],
-                        "mean_batch": stats["mean_batch"],
-                        "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
-                        "wall_s": serve_wall,
-                        "sentences_per_s": len(sents) / serve_wall,
-                        "k1_launches": serve_k1,
+        out["serve"] = {"requests": len(sents), "batches": first["batches"],
+                        "mean_batch": first["mean_batch"],
+                        "p50_ms": first["p50_ms"], "p99_ms": first["p99_ms"],
+                        "wall_s": first["wall_s"],
+                        "sentences_per_s": first["sentences_per_s"],
+                        "k1_launches": first["k1_launches"],
                         "spans": sum(len(r) for r in results),
                         "extraction_bitwise_rows": TRAINER_EVAL_BATCH,
-                        "params_bitwise": len(want)}
+                        "params_bitwise": len(want),
+                        "graphed_vs_eager": twin,
+                        "device_bitwise": device_twins(
+                            "span_serve", pred, sents[:16], {"text": {}}),
+                        "replay_launches": served_batch_launches(
+                            "span_serve_b16", pred, sents[:16]),
+                        "released": release_report("span_serve", pred)}
         log("span_serve_path", json.dumps(out["serve"]))
         del pred
         torch.cuda.empty_cache()
@@ -2631,13 +2866,13 @@ def aux_phase(span_path, keep):
     ``predict_many``.  The run directory goes to ``keep`` (phase 13)."""
     from mtvaf_tpu_torch.core.convert import params_from_jax
     from mtvaf_tpu_torch.eval.span_decode import batch_eval_candidates
-    from mtvaf_tpu_torch.infer import (SpanPredictor, load_predictor,
-                                       serving_params)
+    from mtvaf_tpu_torch.core.platform import upload
+    from mtvaf_tpu_torch.infer import (SpanPredictor, guides_from_rows,
+                                       load_predictor, serving_params)
     from mtvaf_tpu_torch.kernels.prefix_attention import (
         keep_mask_cuda, prefix_attention, prefix_attention_bwd_cuda)
     from mtvaf_tpu_torch.nn.bert import BertConfig
     from mtvaf_tpu_torch.nn.models import init_span_model_params
-    from mtvaf_tpu_torch.serve import BatchingServer
     from mtvaf_tpu_torch.train.optim import tree_items
     from mtvaf_tpu_torch.train.steps import export_params
 
@@ -2780,7 +3015,10 @@ def aux_phase(span_path, keep):
                                 ("input_ids", "input_mask", "segment_ids",
                                  "valid_ids", "adjacency_matrix")})
         with torch.inference_mode():
-            main_g, aux_g = pred._guides(images, None)
+            main_g, aux_g = guides_from_rows(
+                pred.resnet_params, upload(pred._cast_image_rows(images),
+                                           pred.device),
+                None, depth=pred.cfg.resnet_depth)
         s_tr, e_tr, seq_tr, _ = tr.extraction_step(
             tr.state.params, {**dev, "main_guides": main_g,
                               "aux_guides": aux_g})
@@ -2820,62 +3058,37 @@ def aux_phase(span_path, keep):
         sents = span_requests(N_REQUESTS, seed=SEED + 12)
         pix = [img for _, img in requests(2 * N_REQUESTS, seed=SEED + 13)
                if img is not None][:N_REQUESTS]
-        server = BatchingServer(pred, max_batch=16, max_wait_ms=5.0,
-                                pipeline_depth=4)
-        results, errors = [None] * len(sents), []
-        try:
-            server.warmup()
-            torch.cuda.synchronize()
-
-            def client(idx):
-                try:
-                    for i in idx:
-                        results[i] = server.submit(
-                            sents[i], pix[i]).result(timeout=300)
-                except BaseException as e:    # re-raised on the main thread
-                    errors.append(e)
-
-            prefix_attention.launches.reset()
-            t0 = time.perf_counter()
-            threads = [threading.Thread(
-                target=client, args=(range(c, len(sents), CLIENTS),))
-                for c in range(CLIENTS)]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join(timeout=600)
-            torch.cuda.synchronize()
-            serve_wall = time.perf_counter() - t0
-            serve_k1 = prefix_attention.launches.value
-            stats = server.stats()
-        finally:
-            server.close()
-        if errors:
-            raise errors[0]
-        if any(t.is_alive() for t in threads):
-            raise AssertionError("an aux client did not finish")
+        # every request carries its image: extraction with images (no aux
+        # crops) and text (the warm-up's), and the classification
+        results, first, twin = serve_twins("aux_serve", pred,
+                                           list(zip(sents, pix)), 3)
         many = pred.predict_many(sents, images=np.stack(pix), batch_size=16)
         if results != many:
             bad = [i for i, (r, m) in enumerate(zip(results, many)) if r != m]
             raise AssertionError(f"served aux results differ from "
                                  f"predict_many at requests {bad[:8]}")
-        if stats["served"] != len(sents) or serve_k1 != layers \
-                * stats["batches"]:
-            raise AssertionError(f"aux serving: served {stats['served']}, "
-                                 f"K1 ran {serve_k1} times for "
-                                 f"{stats['batches']} batches")
         out["serve"] = {"requests": len(sents), "images": len(pix),
-                        "batches": stats["batches"],
-                        "mean_batch": stats["mean_batch"],
-                        "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
-                        "wall_s": serve_wall,
-                        "sentences_per_s": len(sents) / serve_wall,
-                        "k1_launches": serve_k1,
+                        "batches": first["batches"],
+                        "mean_batch": first["mean_batch"],
+                        "p50_ms": first["p50_ms"], "p99_ms": first["p99_ms"],
+                        "wall_s": first["wall_s"],
+                        "sentences_per_s": first["sentences_per_s"],
+                        "k1_launches": first["k1_launches"],
                         "spans": sum(len(r) for r in results),
                         "params_bitwise": len(want),
                         "extraction_bitwise_rows": len(rows),
                         "gcn_dispatch_rows": len(rows),
-                        "bf16_guide_prefix_logit_gap": bf16_prefix_gap}
+                        "bf16_guide_prefix_logit_gap": bf16_prefix_gap,
+                        "graphed_vs_eager": twin,
+                        "device_bitwise": device_twins(
+                            "aux_serve", pred, sents[:16],
+                            {"text": {}, "images_noaux": {
+                                "images": np.stack(pix[:16])},
+                             "images": {"images": np.stack(pix[:16]),
+                                        "aux_images": np.stack(
+                                            [np.stack(pix[:16])] * 3,
+                                            axis=1)}}),
+                        "released": release_report("aux_serve", pred)}
         log("aux_serve_path", json.dumps(out["serve"]))
         del pred
         torch.cuda.empty_cache()
@@ -2894,25 +3107,36 @@ class Recorded:
     given (sentences and image rows, as the server padded them) with the
     results it returned, so that each can be held against the live
     predictor on the same batch: a text-only request's result depends on
-    whether its batch carried images."""
+    whether its batch carried images.  ``eager``: every call runs under
+    ``disable_graphs()`` (the server's worker and fetch threads serve the
+    eager twin)."""
 
-    def __init__(self, pred):
+    def __init__(self, pred, eager=False):
         self.pred = pred
+        self.eager = eager
         self.serves_images = pred.serves_images
         self.batches = []
 
+    def _mode(self):
+        import contextlib
+        from mtvaf_tpu_torch.train.graphs import disable_graphs
+        return disable_graphs() if self.eager else contextlib.nullcontext()
+
     def dispatch(self, sentences, images=None):
-        return list(sentences), images, self.pred.dispatch(sentences,
-                                                           images=images)
+        with self._mode():
+            return list(sentences), images, self.pred.dispatch(
+                sentences, images=images)
 
     def collect(self, handle):
         sentences, images, inner = handle
-        out = self.pred.collect(inner)
+        with self._mode():
+            out = self.pred.collect(inner)
         self.batches.append((sentences, images, out))
         return out
 
     def predict(self, sentences, images=None):
-        return self.pred.predict(sentences, images=images)
+        with self._mode():
+            return self.pred.predict(sentences, images=images)
 
 
 def serve_threaded(server, reqs, timeout=300):
@@ -2944,40 +3168,88 @@ def serve_threaded(server, reqs, timeout=300):
     return results, wall
 
 
-def serve_bundle(name, bundle, live, reqs):
-    """``reqs`` through ``BatchingServer`` → the bundle's predictor: every
-    batch's results equal the live predictor's on the same batch, and K1
-    ran once per layer per batch, inside the bundle's programs."""
-    from mtvaf_tpu_torch.kernels.prefix_attention import prefix_attention
-    from mtvaf_tpu_torch.serve import BatchingServer
-
-    layers = live.bert_cfg.num_hidden_layers
-    rec = Recorded(bundle)
-    with BatchingServer(rec, max_batch=16, max_wait_ms=5.0,
-                        pipeline_depth=4) as server:
-        server.warmup()
-        torch.cuda.synchronize()
-        prefix_attention.launches.reset()
-        results, wall = serve_threaded(server, reqs)
-        launches = prefix_attention.launches.value
-        stats = server.stats()
-    if stats["served"] != len(reqs) or len(rec.batches) != stats["batches"]:
-        raise AssertionError(f"{name} bundle: served {stats['served']} in "
-                             f"{stats['batches']} batches")
-    if launches != layers * stats["batches"]:
-        raise AssertionError(f"{name} bundle: K1 ran {launches} times for "
-                             f"{stats['batches']} batches")
-    for sentences, images, got in rec.batches:
+def serve_bundle(name, bundle, live, reqs, captures_want):
+    """``reqs`` through ``BatchingServer`` → the bundle's predictor, its
+    programs graphed and under ``disable_graphs()`` in turns
+    (``serve_twins``): every batch's results equal the live predictor's on
+    the same batch, and K1 ran once per layer per batch, inside the
+    bundle's programs; one batch per served variant bitwise against its
+    eager run."""
+    results, first, twin = serve_twins(f"{name}_bundle", bundle, reqs,
+                                       captures_want)
+    for sentences, images, got in first["recorded"]:
         if live.predict(sentences, images=images) != got:
             raise AssertionError(f"{name} bundle: a served batch differs "
                                  "from the live predictor's on it")
-    out = {"requests": len(reqs), "batches": stats["batches"],
-           "mean_batch": stats["mean_batch"], "p50_ms": stats["p50_ms"],
-           "p99_ms": stats["p99_ms"], "wall_s": wall,
-           "sentences_per_s": len(reqs) / wall, "k1_launches": launches,
-           "image_batches": sum(i is not None for _, i, _ in rec.batches),
-           "terms": sum(len(r) for r in results)}
+    sents = [s for s, _ in reqs[:16]]
+    images = np.stack([i for _, i in reqs if i is not None][:16])
+    out = {"requests": len(reqs), "batches": first["batches"],
+           "mean_batch": first["mean_batch"], "p50_ms": first["p50_ms"],
+           "p99_ms": first["p99_ms"], "wall_s": first["wall_s"],
+           "sentences_per_s": first["sentences_per_s"],
+           "k1_launches": first["k1_launches"],
+           "image_batches": sum(i is not None
+                                for _, i, _ in first["recorded"]),
+           "terms": sum(len(r) for r in results),
+           "graphed_vs_eager": twin,
+           "device_bitwise": device_twins(f"{name}_bundle", bundle, sents, {
+               "text": {}, "images_noaux": {"images": images}})}
     return results, out
+
+
+def http_twins(bundle, sents, want):
+    """The 64 text POSTs of (c) from ``CLIENTS`` threads to ``build_app``
+    in this process over the bundle, the server given the bundle and its
+    eager twin (``Recorded(bundle, eager=True)``) in turns: each result
+    ``want``'s, no capture under traffic; client p50/p99 and sentences/s
+    of each run."""
+    from mtvaf_tpu_torch.cli.serve_main import HTTPServer, build_app
+    from mtvaf_tpu_torch.serve import BatchingServer
+
+    runs = {"graphed": [], "eager": []}
+    for _ in range(GRAPH_ROUNDS):
+        for mode in runs:
+            with BatchingServer(Recorded(bundle, eager=mode == "eager"),
+                                max_batch=16, max_wait_ms=5.0) as server:
+                server.warmup()
+                before = bundle.graph_captures
+                httpd = HTTPServer(("127.0.0.1", 0), build_app(server))
+                threading.Thread(target=httpd.serve_forever,
+                                 daemon=True).start()
+                base = f"http://127.0.0.1:{httpd.server_address[1]}"
+                replies = [None] * len(sents)
+                try:
+                    def client(idx):
+                        for i in idx:
+                            replies[i] = http_json(
+                                f"{base}/predict", {"sentences": [sents[i]]})
+                    t0 = time.perf_counter()
+                    threads = [threading.Thread(
+                        target=client, args=(range(c, len(sents), CLIENTS),))
+                        for c in range(CLIENTS)]
+                    for t in threads:
+                        t.start()
+                    for t in threads:
+                        t.join(timeout=600)
+                    wall = time.perf_counter() - t0
+                finally:
+                    httpd.shutdown()
+                    httpd.server_close()
+            bad = [i for i, r in enumerate(replies)
+                   if r is None or r[0] != 200
+                   or r[1]["results"] != as_json([want[i]])]
+            if bad or bundle.graph_captures != before:
+                raise AssertionError(f"in-process HTTP, {mode}: results "
+                                     f"differ at {bad[:8]} or a capture "
+                                     "under traffic")
+            lat = sorted(r[2] * 1e3 for r in replies)
+            runs[mode].append({
+                "client_p50_ms": lat[len(lat) // 2],
+                "client_p99_ms": lat[min(len(lat) - 1,
+                                         int(0.99 * len(lat)))],
+                "sentences_per_s": len(sents) / wall})
+    log("http_graphed_vs_eager", json.dumps(runs), card_line())
+    return runs
 
 
 def start_exports(runs):
@@ -3156,10 +3428,13 @@ def http_requests(child, base, sents, want):
     if rc != 0 or not stopped:
         raise AssertionError("serve_main did not stop cleanly: "
                              + child.text()[-3000:])
-    k1 = json.loads(stopped[-1].split("stopped: ", 1)[1])["k1_launches"]
-    if k1 != 12 * stats["batches"]:
+    last = json.loads(stopped[-1].split("stopped: ", 1)[1])
+    k1, captures = last["k1_launches"], last["graph_captures"]
+    # the multimodal bundle's warmup(): text and images without aux crops
+    if k1 != 12 * stats["batches"] or captures != 2:
         raise AssertionError(f"serve_main: K1 ran {k1} times for "
-                             f"{stats['batches']} batches")
+                             f"{stats['batches']} batches, {captures} "
+                             "graphs captured")
     lat = sorted(r[2] * 1e3 for r in replies)
     return {"requests": len(sents), "wall_s": wall,
             "sentences_per_s": len(sents) / wall,
@@ -3168,7 +3443,7 @@ def http_requests(child, base, sents, want):
             "server_p50_ms": stats["p50_ms"],
             "server_p99_ms": stats["p99_ms"], "batches": stats["batches"],
             "mean_batch": stats["mean_batch"], "k1_launches": k1,
-            "metrics_lines": len(metrics)}
+            "graph_captures": captures, "metrics_lines": len(metrics)}
 
 
 def http_in_process(bundle, sents):
@@ -3304,6 +3579,7 @@ def serving_tier_phase(runs, serve_path, exports):
     timed serving run starts after the child is up and idle."""
     from mtvaf_tpu_torch.export import load_exported_predictor
     from mtvaf_tpu_torch.infer import load_predictor
+    from mtvaf_tpu_torch.train.graphs import disable_graphs
 
     t_phase = time.perf_counter()
     out = {}
@@ -3355,7 +3631,7 @@ def serving_tier_phase(runs, serve_path, exports):
             f"{gaps}")
         ready_s = wait_ready(server_child, base)
 
-        results, served = serve_bundle("CRF", bundle, live, reqs)
+        results, served = serve_bundle("CRF", bundle, live, reqs, 2)
         out["crf"] = {"export_s": export_s, "load_s": load_s,
                       "programs": manifest["programs"],
                       "weights_bytes": os.path.getsize(
@@ -3366,8 +3642,6 @@ def serving_tier_phase(runs, serve_path, exports):
                       "live_serve_phase7": {k: serve_path[k] for k in (
                           "p50_ms", "p99_ms", "sentences_per_s")}}
         log("bundle_crf_path", json.dumps(out["crf"]))
-        del live
-        torch.cuda.empty_cache()
 
         # (b) the span bundle with images and DiGCN
         live_span = load_predictor(span_run, bert_name=span_bert,
@@ -3383,24 +3657,33 @@ def serving_tier_phase(runs, serve_path, exports):
         torch.cuda.synchronize()                         # programs served
         span_load_s = time.perf_counter() - t0
         _, out["span"] = serve_bundle("span", span_bundle, live_span,
-                                      list(zip(sents, pix)))
+                                      list(zip(sents, pix)), 3)
         out["span"].update(export_s=span_export_s, load_s=span_load_s,
                            programs=span_manifest["programs"])
         log("bundle_span_path", json.dumps(out["span"]))
+        out["span"]["released"] = release_report("span_bundle", live_span,
+                                                 span_bundle)
         del live_span, span_bundle
         torch.cuda.empty_cache()
 
-        # (c) HTTP: serve_main in the child process, then build_app here
+        # (c) HTTP: serve_main in the child process (graphed, its default),
+        # then build_app here, graphed and eager in turns
         text = [s for s, _ in reqs]
         want = bundle.predict_many(text, batch_size=16)
+        with disable_graphs():
+            if bundle.predict_many(text, batch_size=16) != want:
+                raise AssertionError("the CRF bundle's text results differ "
+                                     "under disable_graphs()")
         out["http"] = {"ready_s": ready_s,
                        **http_requests(server_child, base, text, want),
                        "in_process_live_phase7": out["crf"][
                            "live_serve_phase7"]}
         log("http_path", json.dumps(out["http"]))
+        out["http"]["graphed_vs_eager"] = http_twins(bundle, text, want)
         out["http_in_process"] = http_in_process(bundle, text)
         log("http_in_process", json.dumps(out["http_in_process"]))
-        del bundle
+        out["crf"]["released"] = release_report("crf_bundle", live, bundle)
+        del live, bundle
         torch.cuda.empty_cache()
     finally:
         for child in children:
@@ -3777,7 +4060,6 @@ def long_trainer(bert_cfg):
     threads, each equal to ``predict_many``'s."""
     from mtvaf_tpu_torch.data.synthetic import make_agn_file
     from mtvaf_tpu_torch.infer import SpanPredictor, load_predictor
-    from mtvaf_tpu_torch.serve import BatchingServer
 
     layers = bert_cfg.num_hidden_layers
     out = {}
@@ -3862,32 +4144,25 @@ def long_trainer(bert_cfg):
             raise AssertionError(f"load_predictor built {type(pred)} at "
                                  f"S={pred.cfg.effective_max_seq}")
         sents = span_requests(N_REQUESTS, seed=SEED + 14)
-        with BatchingServer(pred, max_batch=16, max_wait_ms=5.0,
-                            pipeline_depth=4) as server:
-            server.warmup()
-            torch.cuda.synchronize()
-            reset_counts()
-            results, serve_wall = serve_threaded(
-                server, [(s,) for s in sents])
-            k1 = read_counts()["k1"]
-            stats = server.stats()
+        results, first, twin = serve_twins("long_serve", pred,
+                                           [(x, None) for x in sents], 2)
         many = pred.predict_many(sents, batch_size=16)
         if results != many:
             bad = [i for i, (r, m) in enumerate(zip(results, many)) if r != m]
             raise AssertionError(f"S=500 served span results differ from "
                                  f"predict_many at requests {bad[:8]}")
-        if stats["served"] != len(sents) or k1 != layers * stats["batches"]:
-            raise AssertionError(f"S=500 serving: served {stats['served']}, "
-                                 f"K1 ran {k1} times for {stats['batches']} "
-                                 "batches")
         out["serve"] = {"requests": len(sents), "seq": LONG_S,
-                        "batches": stats["batches"],
-                        "mean_batch": stats["mean_batch"],
-                        "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
-                        "wall_s": serve_wall,
-                        "sentences_per_s": len(sents) / serve_wall,
-                        "k1_launches": k1,
-                        "spans": sum(len(r) for r in results)}
+                        "batches": first["batches"],
+                        "mean_batch": first["mean_batch"],
+                        "p50_ms": first["p50_ms"], "p99_ms": first["p99_ms"],
+                        "wall_s": first["wall_s"],
+                        "sentences_per_s": first["sentences_per_s"],
+                        "k1_launches": first["k1_launches"],
+                        "spans": sum(len(r) for r in results),
+                        "graphed_vs_eager": twin,
+                        "device_bitwise": device_twins(
+                            "long_serve", pred, sents[:16], {"text": {}}),
+                        "released": release_report("long_serve", pred)}
         log("long_serve_path", json.dumps(out["serve"]))
         del pred
         torch.cuda.empty_cache()
@@ -3908,33 +4183,20 @@ def parallel_decode(cfg, bert_cfg, params, resnet, tok, tmp):
     from mtvaf_tpu_torch.nn.crf import (crf_decode, crf_decode_parallel,
                                         crf_sequence_score)
     from mtvaf_tpu_torch.nn.layers import dense
-    from mtvaf_tpu_torch.serve import BatchingServer
+    from mtvaf_tpu_torch.train.graphs import GraphedFunction
 
-    layers = bert_cfg.num_hidden_layers
     cfg_par = cfg.replace(crf_decode_impl="parallel")
     scan = CrfPredictor(cfg, bert_cfg, params, tok, resnet_params=resnet,
                         device=DEVICE)
     par = CrfPredictor(cfg_par, bert_cfg, params, tok, resnet_params=resnet,
                        device=DEVICE)
     reqs = requests(N_REQUESTS, seed=SEED)
-    rec = Recorded(par)
-    with BatchingServer(rec, max_batch=16, max_wait_ms=5.0,
-                        pipeline_depth=4) as server:
-        server.warmup()
-        torch.cuda.synchronize()
-        rec.batches.clear()
-        reset_counts()
-        _, wall = serve_threaded(server, reqs)
-        k1 = read_counts()["k1"]
-        stats = server.stats()
-    if stats["served"] != len(reqs) or k1 != layers * stats["batches"]:
-        raise AssertionError(f"parallel-decode serving: served "
-                             f"{stats['served']}, K1 ran {k1} times for "
-                             f"{stats['batches']} batches")
+    _, first, twin = serve_twins("parallel_decode_serve", par, reqs, 2)
+    stats, wall, k1 = first["stats"], first["wall_s"], first["k1_launches"]
     ties, rows = [], 0
     crf = {k: v.float() for k, v in par.params["crf"].items()}
     with torch.inference_mode():
-        for sentences, images, got in rec.batches:
+        for sentences, images, got in first["recorded"]:
             host = par._make_host_batch(sentences)
             a, b = par.forward(host, images), scan.forward(host, images)
             mask = torch.from_numpy(host["input_mask"]).to(DEVICE)
@@ -3961,7 +4223,10 @@ def parallel_decode(cfg, bert_cfg, params, resnet, tok, tmp):
                      "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
                      "wall_s": wall, "sentences_per_s": len(reqs) / wall,
                      "k1_launches": k1, "rows_checked": rows,
-                     "ties": ties}}
+                     "ties": ties, "graphed_vs_eager": twin}}
+    sents = [s for s, _ in requests(16, seed=7)]
+    out["serve"]["device_bitwise"] = device_twins(
+        "parallel_decode_serve", par, sents, {"text": {}})
 
     # fc + Viterbi at the served batch of 16, both decodes
     host = scan._make_host_batch([s for s, _ in requests(16, seed=7)])
@@ -3980,9 +4245,28 @@ def parallel_decode(cfg, bert_cfg, params, resnet, tok, tmp):
                           dense(scan.params["fc"], seq).float(),
                           batch["input_mask"])
             ms, launches = profiled_calls(call, iters=10)
-            decode_stage[name] = {"device_ms": ms, "launches": launches,
-                                  "event_ms": cuda_ms(call, iters=20,
-                                                      warmup=3)}
+            # the same stage replayed from one CUDA graph
+            graphed = GraphedFunction(
+                lambda p, s, m, fn=fn: fn(p["crf"], dense(p["fc"], s)
+                                          .float(), m),
+                f"fc and the {name} Viterbi")
+
+            def replay(graphed=graphed):
+                return graphed(scan.params, seq, batch["input_mask"])
+            g_ms, g_launches = profiled_calls(replay, iters=10)
+            g_out = replay()
+            decode_stage[name] = {
+                "device_ms": ms, "launches": launches,
+                "event_ms": cuda_ms(call, iters=20, warmup=3),
+                "graphed": {"device_ms": g_ms, "kernel_records": g_launches,
+                            "event_ms": cuda_ms(replay, iters=20, warmup=3),
+                            "bitwise": all(torch.equal(a, b) for a, b in zip(
+                                g_out, call()))}}
+            if not decode_stage[name]["graphed"]["bitwise"]:
+                raise AssertionError(f"the graphed fc + {name} Viterbi "
+                                     "differs from the eager one")
+            graphed.release()
+    log("fc_and_viterbi_b16", json.dumps(decode_stage), card_line())
     out["fc_and_viterbi_b16"] = decode_stage
 
     # one text decode program of each, exported for cuda
@@ -4001,6 +4285,7 @@ def parallel_decode(cfg, bert_cfg, params, resnet, tok, tmp):
                          "bytes": manifest["programs"][0]["bytes"]}
         del text_only, program
     out["export_b16"] = exports
+    out["released"] = release_report("parallel_decode", scan, par)
     log("parallel_decode_path", json.dumps(out))
     del scan, par
     torch.cuda.empty_cache()
@@ -5460,6 +5745,13 @@ def main() -> int:
     check_train_step_against_cpu(cfg, bert_cfg, params)
     pred, serve_path = serve(cfg, bert_cfg, params, resnet, tok)
     breakdown(pred)
+    served = requests(16, seed=7)
+    serve_path["replay_launches"] = served_batch_launches(
+        "crf_serve_b16", pred, [s for s, _ in served],
+        np.stack([img if img is not None else np.zeros((224, 224, 3),
+                                                       np.float32)
+                  for _, img in served]))
+    serve_path["released"] = release_report("crf_serve", pred)
     del pred
     torch.cuda.empty_cache()
     train_path = train(cfg, bert_cfg, params)

@@ -24,8 +24,10 @@ queue answers 429 with ``Retry-After: 1``.
 The predictor runs on ``cuda`` (``--serve_devices``: how many cards);
 ``main(argv, device="cpu")`` serves on the CPU.  The JAX package's
 ``--batch_shapes`` and ``--partial_inflight`` are not accepted: they shape
-a ladder of compiled batch programs, and the port runs eagerly and has no
-compiled shapes (every batch runs at ``--max_batch`` rows).
+a ladder of compiled batch programs, and the port has one shape, every
+batch at ``--max_batch`` rows (one CUDA graph per variant, captured by
+``BatchingServer.warmup`` before the first request).  The ``stopped`` line
+counts the graphs captured, which go with the server.
 """
 
 from __future__ import annotations
@@ -278,7 +280,11 @@ def main(argv=None, device=None):
             httpd.server_close()
             logger.info("stopped: %s", json.dumps({
                 **server.stats(),
-                "k1_launches": prefix_attention.launches.value}))
+                "k1_launches": prefix_attention.launches.value,
+                "graph_captures": sum(p.graph_captures
+                                      for p in server.predictors)}))
+            for p in server.predictors:
+                p.release_graphs()
 
 
 if __name__ == "__main__":

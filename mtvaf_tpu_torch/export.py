@@ -53,9 +53,10 @@ import numpy as np
 import torch
 
 from .core.checkpoint import _unflatten_into
-from .core.platform import resolve_device, tree_to, upload
+from .core.platform import resolve_device, tree_to
 from .infer import (CrfPredictor, SpanPredictor, _AUX_CROPS, _CROP,
                     _pad_rows, guides_from_rows)
+from .train.graphs import GraphedFunction, single_process
 from .train.optim import tree_items
 
 _MANIFEST = "manifest.json"
@@ -300,25 +301,44 @@ class _ExportedRungs:
     """Smallest-rung-that-fits dispatch over a stage's program files, each
     loaded on its first use: ``torch.export.load`` rebuilds a program's
     graph in Python (seconds at BERT-base), and a server that pads every
-    batch to its ``max_batch`` never runs the other rungs."""
+    batch to its ``max_batch`` never runs the other rungs.  A loaded
+    program is called through a ``GraphedFunction`` (``prog(weights,
+    *inputs)``, the weights the program's leading inputs): a CUDA graph per
+    signature on a single card, as the live predictors' stages."""
 
-    def __init__(self, paths: Dict[int, str]):
+    def __init__(self, paths: Dict[int, str], device=None):
         self._paths = dict(sorted(paths.items()))
-        self._loaded: Dict[int, object] = {}
+        self._loaded: Dict[int, GraphedFunction] = {}
         self._lock = threading.Lock()
+        self._device = device
         self.rungs = tuple(self._paths)
 
-    def fit(self, n: int) -> Tuple[int, object]:
+    def fit(self, n: int) -> Tuple[int, GraphedFunction]:
         for rung, path in self._paths.items():
             if rung >= n:
                 with self._lock:
                     if rung not in self._loaded:
-                        self._loaded[rung] = torch.export.load(path).module()
+                        module = torch.export.load(path).module()
+                        self._loaded[rung] = GraphedFunction(
+                            lambda w, *a, _m=module: _m(*w, *a),
+                            f"the bundle program {os.path.basename(path)}",
+                            backend=single_process(), device=self._device)
                     return rung, self._loaded[rung]
         raise ValueError(
             f"batch of {n} exceeds the largest exported rung "
             f"{self.rungs[-1]}; re-export with a larger batch size or "
             f"split the batch")
+
+    def release(self) -> None:
+        """Drop the loaded programs' CUDA graphs (the programs stay)."""
+        with self._lock:
+            for graphed in self._loaded.values():
+                graphed.release()
+
+    @property
+    def captures(self) -> int:
+        with self._lock:
+            return sum(g.captures for g in self._loaded.values())
 
 
 def _pad_to_rung(rung: int, arr, pred) -> np.ndarray:
@@ -332,9 +352,10 @@ def _pad_to_rung(rung: int, arr, pred) -> np.ndarray:
 
 
 def _mm_call_args(pred, n: int, rung: int, images, aux_images):
-    """(program, image-batch extras) for one exported image batch: the
-    no-aux program when the caller has no aux crops (the zero crops are
-    made inside the program), else the full with-images program."""
+    """(program, image-batch extras as host arrays) for one exported image
+    batch: the no-aux program when the caller has no aux crops (the zero
+    crops are made inside the program), else the full with-images
+    program."""
     if pred._mm_rungs is None:
         raise ValueError("bundle was exported without the multimodal "
                          "programs")
@@ -375,18 +396,33 @@ class _ExportedBase:
         """The bundle's batch sizes (any other batch pads up to the next)."""
         return self._rungs.rungs
 
+    def release_graphs(self) -> None:
+        """Drop the programs' CUDA graphs and their memory pools."""
+        for rungs in self._all_rungs():
+            rungs.release()
+
+    @property
+    def graph_captures(self) -> int:
+        return sum(rungs.captures for rungs in self._all_rungs())
+
+    def _all_rungs(self):
+        return [r for r in (self._rungs, self._mm_rungs, self._mm_noaux_rungs,
+                            getattr(self, "_classify_rungs", None))
+                if r is not None]
+
     def _run(self, host: Dict, images, aux_images):
         """Run the rung's program on one host batch, padded to the rung by
-        repeating its last row (as the live predictor pads a batch)."""
+        repeating its last row (as the live predictor pads a batch); the
+        host arrays go straight into the program's graph."""
         n = len(host["input_ids"])
         rung, prog = self._rungs.fit(n)
-        batch = {k: upload(_pad_rows(host[k], rung), self.device)
+        batch = {k: _pad_rows(host[k], rung)
                  for k in ("input_ids", "input_mask", "segment_ids")}
         if images is None:
-            return prog(*self._wargs, batch)
+            return prog(self._wargs, batch)
         prog, extras = _mm_call_args(self, n, rung, images, aux_images)
-        batch.update({k: upload(v, self.device) for k, v in extras.items()})
-        return prog(*self._wargs, *self._guide_wargs, batch)
+        batch.update(extras)
+        return prog(self._wargs + self._guide_wargs, batch)
 
 
 class ExportedCrfPredictor(_ExportedBase, CrfPredictor):
@@ -424,20 +460,21 @@ class ExportedSpanPredictor(_ExportedBase, SpanPredictor):
         self._init_bundle(extract, mm_rungs, mm_noaux_rungs, weights,
                           resnet_weights)
         self._classify_rungs = classify
-        self._classify = self._classify_program
 
     def extract(self, host: Dict, images=None, aux_images=None):
         with torch.inference_mode():
             s_logits, e_logits, seq = self._run(host, images, aux_images)
         return s_logits, e_logits, seq, None
 
-    def _classify_program(self, params, seq, pairs):
-        """The classification program of ``seq``'s rung, the candidates
-        padded to it with zero pairs (rows are classified independently)."""
+    def _classify_batch(self, seq, pairs: np.ndarray, gcn):
+        """The classification program of ``seq``'s rung, the host
+        candidates padded to it with zero pairs (rows are classified
+        independently)."""
         rung = seq.shape[0]
-        pad = pairs.new_zeros((2, rung - pairs.shape[1], pairs.shape[2]))
+        pad = np.zeros((2, rung - pairs.shape[1], pairs.shape[2]),
+                       pairs.dtype)
         return self._classify_rungs.fit(rung)[1](
-            *self._wargs, seq, torch.cat([pairs, pad], dim=1))
+            self._wargs, seq, np.concatenate([pairs, pad], axis=1))
 
     def dispatch(self, sentences: Sequence[str], images=None,
                  aux_images=None, gcn=None):
@@ -488,7 +525,7 @@ def load_exported_predictor(out_dir: str, tokenizer=None, *,
         missing = [p for p in paths.values() if not os.path.exists(p)]
         if missing:
             raise FileNotFoundError(f"the bundle lacks {missing}")
-        return _ExportedRungs(paths)
+        return _ExportedRungs(paths, device)
 
     weights = resnet_weights = None
     if not manifest["bake_weights"]:

@@ -16,6 +16,20 @@ answered a high-latency host link; here each host array is its own pinned,
 non-blocking copy, and the logits come back by a non-blocking copy into
 pinned memory that a CUDA event marks done.
 
+Where the JAX predictors jit their device stages, the port captures them
+(``train.graphs.GraphedFunction``): on a CUDA device each stage is one CUDA
+graph per call signature, the host arrays copied from pinned memory
+straight into the graph's input buffers.  ``CrfPredictor``'s graph holds
+the guides (ResNet-152, for image-bearing batches) and the decode;
+``SpanPredictor``'s the guides and the extraction, and a second one the
+classification.  A signature is a batch size and a variant: text only,
+with images, with images but no aux crops (zero crops made inside the
+graph).  The first call of a signature runs eagerly, the second captures
+(``serve.BatchingServer.warmup`` makes both before traffic);
+``release_graphs()`` drops them, and ``train.graphs.disable_graphs()``
+runs the stages eagerly.  ``export`` traces the plain stages (``_decode``,
+``_extract``, ``_classify``), never the graphs.
+
   >>> predictor = CrfPredictor(cfg, bert_cfg, params, tokenizer)
   >>> predictor.predict(["the pizza was great but service slow"])
   [[('pizza', 'POS')], ...]
@@ -28,13 +42,14 @@ from __future__ import annotations
 
 import json
 import os
+import weakref
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .core.config import CRF_LABEL_LIST, Config, ID_TO_POLARITY
-from .core.platform import resolve_device, to_host_async, tree_to, upload
+from .core.platform import resolve_device, to_host_async, tree_to
 from .data.features import (SemEvalExample, convert_examples_to_features,
                             convert_mm_examples_to_features)
 from .data.images import denormalize_to_u8
@@ -44,10 +59,12 @@ from .eval.tagging import extract_entities, labels_to_tags
 from .nn.bert import BertConfig, cast_layers
 from .nn.models import compute_visual_guides, crf_model_forward, \
     image_rows_to_f32
+from .train.graphs import GraphedFunction, single_process
 from .train.steps import make_classification_step, make_extraction_step
 
 _AUX_CROPS = 3
 _CROP = 224
+_IDS = ("input_ids", "input_mask", "segment_ids")
 
 
 def _check_aligned(n_sentences: int, images, aux_images) -> None:
@@ -122,6 +139,7 @@ class _PredictorBase:
         # None: the device work is another's (an export bundle's programs)
         self.params = None if params is None else serving_params(
             params, self.dtype, self.device, self.PREFIX_DTYPE)
+        self._graph_stages = []
         self.resnet_params = None
         if cfg.use_prefix and resnet_params is not None:
             self.resnet_params = tree_to(resnet_params, self.device)
@@ -133,6 +151,29 @@ class _PredictorBase:
                                     np.dtype(np.uint8)):
             raise ValueError("image_dtype must be float32, float16 or "
                              f"uint8, got {self.image_dtype}")
+
+    def _graphed(self, method, name: str) -> GraphedFunction:
+        """``method(self, weights, *args)`` as a device stage of this
+        predictor: a CUDA graph per call signature on a single card.  The
+        stage holds the predictor weakly, so that a predictor dropped by
+        its caller takes its graphs and their memory pools with it."""
+        this = weakref.ref(self)
+        graphed = GraphedFunction(lambda w, *a: method(this(), w, *a), name,
+                                  backend=single_process(),
+                                  device=self.device)
+        self._graph_stages.append(graphed)
+        return graphed
+
+    def release_graphs(self) -> None:
+        """Drop the device stages' CUDA graphs and their memory pools; the
+        next call of a signature warms up and captures again."""
+        for stage in self._graph_stages:
+            stage.release()
+
+    @property
+    def graph_captures(self) -> int:
+        """CUDA graphs captured by this predictor's stages so far."""
+        return sum(stage.captures for stage in self._graph_stages)
 
     @property
     def serves_images(self) -> bool:
@@ -152,18 +193,26 @@ class _PredictorBase:
             return denormalize_to_u8(a)
         return np.asarray(a, self.image_dtype)
 
-    def _guides(self, images, aux_images):
-        """Visual guides for a batch, computed on the device, or None for
-        text-only batches and models without a prefix.  A batch without aux
-        crops gets zero crops made on the device."""
-        if self.resnet_params is None or images is None:
-            return None
-        aux = None if aux_images is None else \
-            upload(self._cast_image_rows(aux_images), self.device)
-        return guides_from_rows(
-            self.resnet_params, upload(self._cast_image_rows(images),
-                                       self.device),
-            aux, depth=self.cfg.resnet_depth)
+    def _stage_inputs(self, host: Dict, images, aux_images) -> Dict:
+        """A device stage's host inputs: the ids (B, S) and, where this
+        predictor serves images, the image rows in the transfer dtype
+        (``aux_images`` None: the zero crops are made on the device)."""
+        batch = {k: host[k] for k in _IDS}
+        if self.resnet_params is not None and images is not None:
+            batch["images"] = self._cast_image_rows(images)
+            batch["aux_images"] = None if aux_images is None else \
+                self._cast_image_rows(aux_images)
+        return batch
+
+    def _with_guides(self, resnet_params, batch: Dict) -> Dict:
+        """The ids of a stage's inputs, with the visual guides computed
+        from its image rows on the device where it has them."""
+        out = {k: batch[k] for k in _IDS}
+        if "images" in batch:
+            out["main_guides"], out["aux_guides"] = guides_from_rows(
+                resnet_params, batch["images"], batch["aux_images"],
+                depth=self.cfg.resnet_depth)
+        return out
 
 
 class CrfPredictor(_PredictorBase):
@@ -175,6 +224,10 @@ class CrfPredictor(_PredictorBase):
                           for i, label in enumerate(CRF_LABEL_LIST, 1)}
         self.inv_label_map = {i: lab for lab, i in self.label_map.items()}
         self.inv_label_map[0] = "PAD"
+        # guides and decode, the counterpart of the JAX predictor's fused
+        # upload + guides + decode program
+        self._decode_stage = self._graphed(
+            CrfPredictor._guided_decode, "the CRF predictor's decode stage")
 
     def _make_host_batch(self, sentences: Sequence[str]) -> Dict:
         examples = []
@@ -209,16 +262,16 @@ class CrfPredictor(_PredictorBase):
                                  visual_guides=guides, dtype=self.dtype,
                                  with_loss=False, with_decode=True)
 
+    def _guided_decode(self, weights, batch: Dict) -> Dict:
+        return self._decode(weights[0], self._with_guides(weights[1], batch))
+
     def forward(self, host: Dict, images=None, aux_images=None) -> Dict:
         """The device forward of one host batch: emissions, pred_tags and
-        lengths as device tensors (not synchronised)."""
+        lengths as device tensors (not synchronised, fresh per call)."""
         with torch.inference_mode():
-            batch = {k: upload(host[k], self.device)
-                     for k in ("input_ids", "input_mask", "segment_ids")}
-            guides = self._guides(images, aux_images)
-            if guides is not None:
-                batch["main_guides"], batch["aux_guides"] = guides
-            return self._decode(self.params, batch)
+            return self._decode_stage(
+                (self.params, self.resnet_params),
+                self._stage_inputs(host, images, aux_images))
 
     def _to_results(self, sentences: Sequence[str], label_ids, input_mask,
                     tags_np) -> List[List[Tuple[str, str]]]:
@@ -304,8 +357,17 @@ class SpanPredictor(_PredictorBase):
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
-        self._extract = make_extraction_step(self.cfg, self.bert_cfg)
-        self._classify = make_classification_step(self.cfg, self.bert_cfg)
+        # the plain steps (what export traces) and this predictor's graphs:
+        # guides and extraction, then the classification
+        self._extract = make_extraction_step(self.cfg, self.bert_cfg).plain
+        self._classify = make_classification_step(self.cfg,
+                                                  self.bert_cfg).plain
+        self._extract_stage = self._graphed(
+            SpanPredictor._guided_extract,
+            "the span predictor's extraction stage")
+        self._classify_stage = self._graphed(
+            lambda self, p, *a: self._classify(p, *a),
+            "the span predictor's classification stage")
 
     def _make_host_batch(self, sentences: Sequence[str]):
         """(examples, features, host arrays input_ids, input_mask,
@@ -323,15 +385,23 @@ class SpanPredictor(_PredictorBase):
                 for k in ("input_ids", "input_mask", "segment_ids")}
         return examples, feats, host
 
+    def _guided_extract(self, weights, batch: Dict):
+        return self._extract(weights[0], self._with_guides(weights[1], batch))
+
     def extract(self, host: Dict, images=None, aux_images=None):
         """The extraction forward of one host batch: (start_logits,
-        end_logits, seq, captured) as device tensors (not synchronised)."""
+        end_logits, seq, captured) as device tensors (not synchronised,
+        fresh per call)."""
         with torch.inference_mode():
-            batch = {k: upload(v, self.device) for k, v in host.items()}
-            guides = self._guides(images, aux_images)
-            if guides is not None:
-                batch["main_guides"], batch["aux_guides"] = guides
-            return self._extract(self.params, batch)
+            return self._extract_stage(
+                (self.params, self.resnet_params),
+                self._stage_inputs(host, images, aux_images))
+
+    def _classify_batch(self, seq, pairs: np.ndarray, gcn):
+        """ac_logits (B, n_best, 4) of one batch's candidates ``pairs`` (2,
+        B, n_best) host int64, re-encoded through DiGCN on ``gcn``'s host
+        arrays where given."""
+        return self._classify_stage(self.params, seq, pairs, *(gcn or ()))
 
     def _to_results(self, examples, feats, all_ss, all_se, all_masks,
                     preds) -> List[List[Tuple[str, str]]]:
@@ -358,9 +428,7 @@ class SpanPredictor(_PredictorBase):
         with torch.inference_mode():
             logits, done = to_host_async(torch.stack([s_logits, e_logits]))
         if gcn is not None:
-            gcn = tuple(None if g is None else upload(np.asarray(g),
-                                                      self.device)
-                        for g in gcn)
+            gcn = tuple(None if g is None else np.asarray(g) for g in gcn)
         return examples, feats, logits, done, seq, gcn
 
     def collect(self, handle) -> List[List[Tuple[str, str]]]:
@@ -374,10 +442,9 @@ class SpanPredictor(_PredictorBase):
             examples, feats, range(len(feats)), se_np[0], se_np[1],
             self.cfg)
         with torch.inference_mode():
-            pairs = upload(np.asarray([all_ss, all_se], np.int64),
-                           self.device)
-            preds = self._classify(self.params, seq, pairs,
-                                   *(gcn or ())).argmax(dim=-1)
+            preds = self._classify_batch(
+                seq, np.asarray([all_ss, all_se], np.int64),
+                gcn).argmax(dim=-1)
         return self._to_results(examples, feats, all_ss, all_se, all_masks,
                                 preds.cpu().numpy())
 

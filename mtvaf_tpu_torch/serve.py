@@ -26,6 +26,12 @@ Batching policy:
 * ``devices``      optional list of ``torch.device``: one predictor replica
                    (``predictor.to_device``) and one worker per device, all
                    draining the shared queue.
+
+The predictors replay their device stages from CUDA graphs
+(``train.graphs``): :meth:`BatchingServer.warmup` runs every variant twice
+per replica, so that each signature is warmed up and captured before
+traffic.  :meth:`close` leaves the predictors usable; their graphs go
+with their ``release_graphs()``.
 """
 
 from __future__ import annotations
@@ -115,14 +121,23 @@ class BatchingServer:
         return self.submit(sentence, image).result()
 
     def warmup(self) -> None:
-        """Run one batch on every replica (text-only and, for prefix
-        models, image-bearing) before taking traffic."""
+        """Run every variant the server sends (text-only and, for prefix
+        models, image-bearing) twice on every replica before taking
+        traffic: the first call of a signature warms up, the second
+        captures its CUDA graphs, so that no capture meets live
+        traffic."""
         n = self._max_batch
         for p in self._predictors:
-            p.predict(["warm up"] * n)
-            if p.serves_images:
-                p.predict(["warm up"] * n,
-                          images=np.zeros((n, 224, 224, 3), np.float32))
+            for _ in range(2):
+                p.predict(["warm up"] * n)
+                if p.serves_images:
+                    p.predict(["warm up"] * n, images=np.zeros(
+                        (n, 224, 224, 3), np.float32))
+
+    @property
+    def predictors(self) -> tuple:
+        """The replicas this server dispatches to, one per device."""
+        return tuple(self._predictors)
 
     def stats(self) -> Dict[str, float]:
         """Cumulative served/rejected/batch counts (monotonic) plus latency

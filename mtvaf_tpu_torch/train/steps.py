@@ -69,7 +69,8 @@ from ..nn.gcn import compress_valid_ids, digcn_forward
 from ..nn.models import (crf_model_forward, span_classification,
                          span_extraction, span_model_loss, span_model_tail,
                          visual_prompt)
-from .graphs import CUDA_GRAPHS, GraphedStep
+from .graphs import CUDA_GRAPHS, GraphedFunction, GraphedStep, \
+    single_process
 from .optim import tree_items
 
 
@@ -420,9 +421,8 @@ def make_train_step(loss_fn: Callable, optimizer, *, accum_steps: int = 1,
     if world > 1 or mesh.model_size() > 1:
         eager_step.release = lambda: None
         return eager_step
-    return GraphedStep(run, eager_step, _advanced, _written_leaves,
-                       write_scalars, accum_steps=accum_steps, rank=rank,
-                       backend=graphs)
+    return GraphedStep(run, _advanced, _written_leaves, write_scalars,
+                       rank=rank, backend=graphs)
 
 
 def _device(state: TrainState) -> torch.device:
@@ -466,10 +466,25 @@ def _grad_norm(state: TrainState, grads) -> torch.Tensor:
     return torch.as_tensor(total).sqrt()
 
 
-def make_crf_decode_step(cfg, bert_cfg: BertConfig) -> Callable:
+def _eval_step(fn: Callable, name: str, graphs) -> GraphedFunction:
+    """``fn`` replayed from CUDA graphs under the train step's rule: in a
+    single process on a CUDA device; eagerly on data- and tensor-parallel
+    ranks and under ``train.graphs.disable_graphs()``."""
+    return GraphedFunction(fn, name, backend=single_process(graphs))
+
+
+# the batch keys the extraction reads (a caller passes no others into its
+# graph's buffers)
+EXTRACTION_KEYS = ("input_ids", "input_mask", "segment_ids", "main_guides",
+                   "aux_guides")
+
+
+def make_crf_decode_step(cfg, bert_cfg: BertConfig,
+                         graphs=CUDA_GRAPHS) -> GraphedFunction:
     """decode(params, batch) -> {loss, pred_tags, lengths}: the eval
     forward (no dropout, no gradient) with the loss and the Viterbi path,
-    device tensors not synchronised."""
+    device tensors not synchronised; a CUDA graph per batch signature on
+    one card (``_eval_step``)."""
     dtype = torch.bfloat16 if cfg.bf16 else torch.float32
 
     @torch.no_grad()
@@ -481,15 +496,17 @@ def make_crf_decode_step(cfg, bert_cfg: BertConfig) -> Callable:
         return {"loss": out["loss"], "pred_tags": out["pred_tags"],
                 "lengths": out["lengths"]}
 
-    return decode
+    return _eval_step(decode, "the CRF decode step", graphs)
 
 
-def make_extraction_step(cfg, bert_cfg: BertConfig) -> Callable:
+def make_extraction_step(cfg, bert_cfg: BertConfig,
+                         graphs=CUDA_GRAPHS) -> GraphedFunction:
     """extract(params, batch) -> (start_logits, end_logits, seq, captured):
     the span eval's encoder pass (no dropout, no gradient), device tensors
-    not synchronised.  Guides, when the batch has them, enter the prefix
-    in their own dtype, as in the JAX package: a predictor's fp32 guides
-    give an fp32 prefix, the trainer's bf16 guide table a bf16 one."""
+    not synchronised; it reads ``EXTRACTION_KEYS`` of the batch.  Guides,
+    when the batch has them, enter the prefix in their own dtype, as in the
+    JAX package: a predictor's fp32 guides give an fp32 prefix, the
+    trainer's bf16 guide table a bf16 one."""
     dtype = torch.bfloat16 if cfg.bf16 else torch.float32
 
     @torch.no_grad()
@@ -504,10 +521,11 @@ def make_extraction_step(cfg, bert_cfg: BertConfig) -> Callable:
             batch["segment_ids"], prefix_kvs=prefix_kvs, dtype=dtype,
             capture_layer=cfg.probe_layer if cfg.use_probe else None)
 
-    return extraction
+    return _eval_step(extraction, "the extraction step", graphs)
 
 
-def make_span_eval_loss_step(cfg, bert_cfg: BertConfig) -> Callable:
+def make_span_eval_loss_step(cfg, bert_cfg: BertConfig,
+                             graphs=CUDA_GRAPHS) -> GraphedFunction:
     """eval_loss(params, batch, seq, start_logits, end_logits, captured,
     span_pack) -> (ac_logits, loss): the loss after the encoder
     (``span_model_tail``) on the extraction pass's own outputs and the
@@ -527,10 +545,11 @@ def make_span_eval_loss_step(cfg, bert_cfg: BertConfig) -> Callable:
                               end_logits, captured=captured)
         return out["ac_logits"], out["loss"]
 
-    return eval_loss
+    return _eval_step(eval_loss, "the span eval-loss step", graphs)
 
 
-def make_classification_step(cfg, bert_cfg: BertConfig) -> Callable:
+def make_classification_step(cfg, bert_cfg: BertConfig,
+                             graphs=CUDA_GRAPHS) -> GraphedFunction:
     """classify(params, seq, span_pairs, valid_ids=None,
     adjacency_matrix=None) -> ac_logits (B, n_best, 4): the polarity of the
     host-picked candidates, stacked as one (2, B, n_best) integer tensor
@@ -551,4 +570,4 @@ def make_classification_step(cfg, bert_cfg: BertConfig) -> Callable:
         return span_classification(params, cfg, seq, span_pairs[0],
                                    span_pairs[1])
 
-    return classify
+    return _eval_step(classify, "the classification step", graphs)

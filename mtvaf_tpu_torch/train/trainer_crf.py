@@ -120,7 +120,10 @@ class CrfTrainer:
             make_crf_loss_fn(cfg, bert_cfg, with_decode=True),
             self.optimizer, accum_steps=cfg.gradient_accumulation_steps,
             with_grad_norm=cfg.log_grad_norm)
+        # the eval forward, a CUDA graph per batch signature on one card (the
+        # cut tail batch is a signature of its own)
         self.decode_step = make_crf_decode_step(cfg, bert_cfg)
+        self._training = False
 
         self.guide_cache = None
         if cfg.use_prefix and resnet_params is not None and any(
@@ -205,6 +208,7 @@ class CrfTrainer:
                 self.seed = meta.get("seed", self.seed)
                 logger.info("resumed from epoch %d", start_epoch - 1)
         check_ranks_agree(self.state)
+        self._training = True
         try:
             for epoch in range(start_epoch, cfg.num_epochs + 1):
                 self._train_epoch(ds, epoch, accum)
@@ -227,13 +231,20 @@ class CrfTrainer:
                 wait_for_epoch_checkpoints()
         finally:
             self.profiler.close()
-            # the step's CUDA graphs and their memory pools go with the run
-            release = getattr(self.train_step, "release", None)
-            if release is not None:
-                release()
+            self._training = False
+            # the steps' CUDA graphs and their memory pools go with the run
+            self.release_graphs()
             if checkpointing:
                 uninstall_preemption_handler(preempt_prev)
         return self.best_dev_metric
+
+    def release_graphs(self) -> None:
+        """Drop the train and eval steps' CUDA graphs and their memory
+        pools (``train()`` and a ``test()`` outside it do so on return)."""
+        for step in (self.train_step, self.decode_step):
+            release = getattr(step, "release", None)   # a caller's wrapper
+            if release is not None:
+                release()
 
     def _train_epoch(self, ds, epoch: int, accum: int) -> None:
         cfg = self.cfg
@@ -408,6 +419,8 @@ class CrfTrainer:
                                           y_pred)
                 self._write_json(nbest, "test_predictions.json")
                 self._write_json(errors, "error_test.json")
+        if not self._training:
+            self.release_graphs()
         return f1
 
     def _write_json(self, obj, name: str):

@@ -67,7 +67,8 @@ from .resume import (install_preemption_handler, load_latest_checkpoint,
                      stop_requested, uninstall_preemption_handler,
                      wait_for_epoch_checkpoints)
 from .steps import (broadcast_state, check_ranks_agree, create_train_state,
-                    export_params, make_classification_step,
+                    EXTRACTION_KEYS, export_params,
+                    make_classification_step,
                     make_extraction_step, make_span_eval_loss_step,
                     make_span_loss_fn, make_train_step, replace_params)
 
@@ -132,6 +133,7 @@ class SpanTrainer:
         self.extraction_step = make_extraction_step(cfg, bert_cfg)
         self.classification_step = make_classification_step(cfg, bert_cfg)
         self.eval_loss_step = make_span_eval_loss_step(cfg, bert_cfg)
+        self._training = False
 
         self.guide_cache = None
         if cfg.use_prefix and resnet_params is not None and any(
@@ -213,6 +215,7 @@ class SpanTrainer:
                 self.seed = meta.get("seed", self.seed)
                 logger.info("resumed from epoch %d", start_epoch - 1)
         check_ranks_agree(self.state)
+        self._training = True
         try:
             for epoch in range(start_epoch, cfg.num_epochs + 1):
                 self._train_epoch(epoch)
@@ -233,13 +236,21 @@ class SpanTrainer:
                 wait_for_epoch_checkpoints()
         finally:
             self.profiler.close()
-            # the step's CUDA graphs and their memory pools go with the run
-            release = getattr(self.train_step, "release", None)
-            if release is not None:
-                release()
+            self._training = False
+            # the steps' CUDA graphs and their memory pools go with the run
+            self.release_graphs()
             if checkpointing:
                 uninstall_preemption_handler(preempt_prev)
         return self.best_dev_metric
+
+    def release_graphs(self) -> None:
+        """Drop the train and eval steps' CUDA graphs and their memory
+        pools (``train()`` and a ``test()`` outside it do so on return)."""
+        for step in (self.train_step, self.extraction_step,
+                     self.classification_step, self.eval_loss_step):
+            release = getattr(step, "release", None)   # a caller's wrapper
+            if release is not None:
+                release()
 
     def _train_epoch(self, epoch: int) -> None:
         cfg = self.cfg
@@ -368,10 +379,9 @@ class SpanTrainer:
                     pack = pack[:, :n]
                 s_logits, e_logits, seq, captured = ext
                 ac_logits, loss = self.eval_loss_step(
-                    params, tail, seq, s_logits, e_logits, captured,
-                    upload(pack, self.device))
+                    params, tail, seq, s_logits, e_logits, captured, pack)
             else:
-                pairs = upload(np.asarray([ss, se], np.int64), self.device)
+                pairs = np.asarray([ss, se], np.int64)
                 # DiGCN re-encodes on the split's side arrays, if it has any
                 ac_logits = self.classification_step(
                     params, ext[2], pairs, dev.get("valid_ids"),
@@ -380,7 +390,8 @@ class SpanTrainer:
                            ac_logits.argmax(dim=-1), loss))
 
         for bi, batch, valid, dev in prefetch(host_batches()):
-            ext = self.extraction_step(params, dev)
+            ext = self.extraction_step(
+                params, {k: dev[k] for k in EXTRACTION_KEYS if k in dev})
             logits, done = to_host_async(torch.stack([ext[0], ext[1]]))
             pending.append((bi, batch, valid, dev, ext, logits, done))
             if len(pending) > _EVAL_WINDOW:
@@ -456,6 +467,8 @@ class SpanTrainer:
             self._write_json(nbest, "test_predictions.json")
         if metrics["f1"] >= self.best_test_metric:
             self.best_test_metric = metrics["f1"]
+        if not self._training:
+            self.release_graphs()
         return metrics["f1"]
 
     def _write_json(self, obj, name: str):

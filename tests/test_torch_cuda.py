@@ -5,6 +5,8 @@ Imports no JAX, so it also runs on a machine that has only PyTorch:
 (``--noconftest``: the repo's conftest imports JAX).  Without a GPU
 every test here skips."""
 
+import contextlib
+
 import pytest
 import torch
 
@@ -989,3 +991,70 @@ def test_resumed_graphed_run_is_the_uninterrupted_one(cuda, tmp_path):
     assert all(torch.equal(a, b) for a, b in zip(_state_tensors(state),
                                                  dropped))
     _assert_same_states(loaded, straight)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["crf", "span"])
+def test_graphed_predictors_are_their_eager_twins(cuda, name):
+    """A bf16 predictor at a small width (hidden 128, two heads of 64,
+    ResNet-18 guides): its device stage replayed from CUDA graphs is bit
+    for bit the same stage under ``disable_graphs()``, text only and with
+    images, and each replay counts K1 once per layer, as the eager call
+    counts it in the wrapper; the span classification likewise."""
+    import numpy as np
+
+    from mtvaf_tpu_torch.core.config import Config
+    from mtvaf_tpu_torch.core.convert import params_from_jax
+    from mtvaf_tpu_torch.infer import CrfPredictor, SpanPredictor
+    from mtvaf_tpu_torch.nn.bert import BertConfig
+    from mtvaf_tpu_torch.nn.models import (init_crf_model_params,
+                                           init_resnet_params,
+                                           init_span_model_params)
+    from mtvaf_tpu_torch.train.graphs import disable_graphs
+
+    b, s = 4, 32
+    bert_cfg = BertConfig.tiny(hidden_size=128, num_attention_heads=2,
+                               intermediate_size=256)
+    kw = dict(max_seq=s, bf16=True, use_prefix=True, use_18=True)
+    if name == "span":
+        cfg = Config(dataset_name="twitter15", n_best_size=5,
+                     max_answer_length=4, prefix_dim=48, **kw)
+        init, cls = init_span_model_params, SpanPredictor
+    else:
+        cfg = Config(dataset_name="twitter2015", num_anp_classes=8, **kw)
+        init, cls = init_crf_model_params, CrfPredictor
+    pred = cls(cfg, bert_cfg, params_from_jax(init(cfg, bert_cfg, seed=0)),
+               None, resnet_params=params_from_jax(init_resnet_params(
+                   18, seed=1)), device=cuda)
+    rng = np.random.RandomState(2)
+    ids = rng.randint(1, bert_cfg.vocab_size, (b, s)).astype(np.int64)
+    mask = (np.arange(s)[None] < np.array([s, 20, 9, 3])[:, None])
+    host = {"input_ids": ids * mask, "input_mask": mask.astype(np.int64),
+            "segment_ids": np.zeros((b, s), np.int64)}
+    images = rng.randn(b, 224, 224, 3).astype(np.float32)
+    starts = rng.randint(0, s - 4, (b, cfg.n_best_size))
+    pairs = np.stack([starts, starts + rng.randint(0, 3, starts.shape)])
+
+    def stage():
+        if name == "crf":
+            return pred.forward(host, **variant)
+        s_logits, e_logits, seq, _ = pred.extract(host, **variant)
+        return {"start": s_logits, "end": e_logits, "seq": seq,
+                "ac": pred._classify_batch(seq, pairs, None)}
+
+    for variant in ({}, {"images": images}):
+        outs, counts = [], []
+        for eager in (False, False, False, False, True):
+            before = prefix_attention.launches.value
+            with disable_graphs() if eager else contextlib.nullcontext():
+                with torch.inference_mode():
+                    outs.append(stage())
+            torch.cuda.synchronize()
+            counts.append(prefix_attention.launches.value - before)
+        assert counts == [bert_cfg.num_hidden_layers] * 5
+        for out in outs[:4]:
+            for k, v in outs[4].items():
+                assert out[k].dtype == v.dtype and torch.equal(out[k], v), k
+    # text and images: a graph each (and the span classification's one)
+    assert pred.graph_captures == 2 + (name == "span")
+    pred.release_graphs()

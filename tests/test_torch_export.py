@@ -8,9 +8,12 @@ weights with a ResNet-18, as the JAX package's export tests build theirs.
 Every bundle's results must equal the port's live predictor's and the JAX
 predictor's; its emissions and start/end logits agree with the live
 port's to 1e-5 in fp32 (the same operations traced into a program: they
-agree to rounding).
+agree to rounding).  The bundles' programs replayed from graphs (through
+``tests/test_torch_graph_step.py``'s ``ReplayClosure`` in place of CUDA
+graphs) are bit for bit the same programs run under ``disable_graphs()``.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -46,6 +49,8 @@ from mtvaf_tpu_torch.nn.models import (init_crf_model_params,
                                        init_resnet_params,
                                        init_span_model_params)
 from mtvaf_tpu_torch.serve import BatchingServer
+from mtvaf_tpu_torch.train import graphs
+from test_torch_graph_step import ReplayClosure
 
 ATOL = 1e-5
 SENTS = ["the great pizza was", "I really awful service",
@@ -186,6 +191,55 @@ def _export(pred, out, **kw):
     return export_predictor(pred, str(out), platforms=("cpu",), **kw)
 
 
+@contextlib.contextmanager
+def _stand_in():
+    backend = ReplayClosure()
+    with pytest.MonkeyPatch.context() as mp:
+        for name in ("applies", "warmup", "capture"):
+            mp.setattr(graphs.CUDA_GRAPHS, name, getattr(backend, name))
+        yield backend
+
+
+def _same_outputs(a, b) -> bool:
+    if isinstance(a, dict):
+        assert list(a) == list(b)
+        a, b = a.values(), b.values()
+    return all(x is None and y is None or torch.equal(x, y)
+               for x, y in zip(a, b))
+
+
+def _graphed_is_eager(served, sents, batch_size, **kw):
+    """``served`` with its programs replayed from graphs against the same
+    calls under ``disable_graphs()``: ``predict_many`` at ``window`` 4
+    equal, and one batch's device outputs bit for bit (a warm-up, a
+    capture and a replay first).  Returns the captures it made."""
+    served.release_graphs()
+    before = served.graph_captures
+    with _stand_in():
+        got = served.predict_many(sents, batch_size=batch_size, window=4,
+                                  **kw)
+        host = served._make_host_batch(sents[:batch_size])
+        if isinstance(served, SpanPredictor):
+            host = host[2]
+            stage = served.extract
+        else:
+            stage = served.forward
+        rows = {k: v[:batch_size] for k, v in kw.items()}
+        for _ in range(3):
+            out = stage(host, *(rows.get(k) for k in ("images",
+                                                       "aux_images")))
+        with graphs.disable_graphs():
+            want = served.predict_many(sents, batch_size=batch_size,
+                                       window=4, **kw)
+            ref = stage(host, *(rows.get(k) for k in ("images",
+                                                       "aux_images")))
+    assert got == want
+    assert _same_outputs(out, ref)
+    captures = served.graph_captures - before
+    served.release_graphs()
+    return captures
+
+
 # ---------------------------------------------------------------------------
 # Bundles of the CLI-trained runs.
 
@@ -225,6 +279,16 @@ def test_crf_bundle_matches_live_port_and_jax(crf_run, crf_bundle,
     assert manifest["torch_version"] == torch.__version__
 
 
+@pytest.mark.parametrize("batch_size", [2, 4])
+def test_crf_bundle_graphed_is_eager(crf_bundle, batch_size):
+    """Each rung's program through its graph: nine sentences in batches of
+    ``batch_size``, bit for bit the eager program; one capture (the rung's
+    text program; rung 2 at batch 2, rung 4 at 4)."""
+    served = load_exported_predictor(str(crf_bundle[0]), device="cpu")
+    sents = [f"{s} {i}" for i, s in enumerate(SENTS * 3)]
+    assert _graphed_is_eager(served, sents, batch_size) == 1
+
+
 def test_baked_crf_bundle_holds_its_weights(crf_run, tmp_path):
     live = load_predictor(str(crf_run), device="cpu")
     manifest = _export(live, tmp_path / "b", batch_sizes=(4,),
@@ -254,6 +318,8 @@ def test_span_bundle_matches_live_port_and_jax(span_run, tmp_path):
     got, ref = served.extract(host), live.extract(host)
     for a, b in zip(got[:2], ref[:2]):                 # start/end logits
         torch.testing.assert_close(a[:3], b, atol=ATOL, rtol=0)
+    # extraction and classification programs, graphed against eager
+    assert _graphed_is_eager(served, SENTS * 3, 4) == 2
     with pytest.raises(ValueError, match="without the multimodal"):
         served.predict(SENTS[:1], images=_images(1)[0])
     with pytest.raises(ValueError, match="GCN side arrays"):
@@ -305,6 +371,14 @@ def test_multimodal_bundle_matches_live_port_and_jax(bert_dir, tmp_path,
     # a partial batch with aux crops: image and aux rows both pad to the rung
     one = {"images": images[:1], "aux_images": aux[:1]}
     assert served.predict(sents[:1], **one) == port.predict(sents[:1], **one)
+    # each variant's program graphed against eager (the span pipeline's
+    # classification program is captured once, beside its extraction)
+    tiled = {"images": np.concatenate([images] * 2),
+             "aux_images": np.concatenate([aux] * 2)}
+    for keys in ((), ("images",), ("images", "aux_images")):
+        kw = {k: tiled[k] for k in keys}
+        assert _graphed_is_eager(served, sents * 2, 2, **kw) == 1 + span, \
+            keys
     if span:
         host = port._make_host_batch(sents)[2]
         got = served.extract(host, images, aux)

@@ -240,13 +240,16 @@ def test_graphed_step_is_the_eager_step(accum):
         step_before = g_state.step
         g_state, gm = graphed(g_state, batch, 7)
         if i in (1, 2, 3, 5, 6, 7):            # a replay
-            g = graphed.graphs[graphs._signature(batch, accum, 7)]
+            (g,) = [g for g in graphed.graphs.values() if all(
+                g.inputs[0][k].shape == v.shape for k, v in batch.items())]
+            static_batch, word = g.inputs
             for k, v in batch.items():
-                assert torch.equal(g.batch[k], v), k
-            assert int(g.word) == rng.step_word(7, step_before)
+                assert torch.equal(static_batch[k], v), k
+            assert int(word) == rng.step_word(7, step_before)
             got = [float(t) for t in opt._scalars[torch.device("cpu")]]
             assert got == list(opt.host_scalars(step_before))
-            assert all(gm[k] is not v for k, v in g.outputs.items())
+            static = {id(v) for v in g.outputs.values()}
+            assert all(id(v) not in static for v in gm.values())
         with graphs.disable_graphs():
             e_state, em = eager(e_state, batch, 7)
         g_losses.append(gm["loss"])
