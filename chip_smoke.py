@@ -9,8 +9,9 @@ Phases, each of which fails the run by raising:
    nvcc per source, all started together), print each instance's ptxas
    registers, static shared memory and spills, and fail on a spill;
 2. hold the prefix-attention forward kernel (K1) against its plain PyTorch
-   version on the card, at the shapes the serving path gives it and at the
-   span pipeline's (``span_s128``: B=32, S=T=128; ``span_s500``: S=T=500,
+   version on the card, at the shapes the serving path gives it (the
+   batch of 16 and, in bf16, the serving ladder's rungs B = 1, 2, 4 and
+   8) and at the span pipeline's (``span_s128``: B=32, S=T=128; ``span_s500``: S=T=500,
    a length that is not a multiple of 64; no prefix, bias (B,1,1,S)) with
    dropout 0.1 and without, and in fp32 at the serving shape, the train
    shape (B=32, S=128, T=144) and ``span_s500``, the last two with and
@@ -49,7 +50,20 @@ Phases, each of which fails the run by raising:
    signatures (text, images without aux crops) and nothing captures
    under traffic; p50, p99 and sentences/s of each run; one batch of each
    variant (also images with aux crops) bitwise against its eager run
-   (``device_twins``: emissions, tags, lengths);
+   (``device_twins``: emissions, tags, lengths); (b), after phase 8, the
+   serving ladder (``ladder_serve``): the same 64 requests through
+   ``BatchingServer(batch_shapes=(1, 2, 4, 8, 16))`` and the single-rung
+   server (16) in turns, twice each: the ladder's ``warmup()`` captures 5
+   rungs × 2 variants and nothing captures under traffic, every batch
+   the ladder formed bitwise its ``disable_graphs()`` twin at its rung
+   and, inside the same batch padded to 16, its emissions within
+   ``LADDER_RTOL`` and the same predictions (a tie of two tag paths
+   within the emissions' difference is printed and allowed), K1 12 a
+   batch; p50, p99, sentences/s, mean batch, mean rung and padded rows
+   per served sentence of each run; an idle client's 20 sequential
+   single requests on both servers; the trace of a replayed rung-1 and
+   rung-8 batch (12 K1, no K2); ``memory_reserved()`` with every rung
+   captured and after release;
 8. time the stages of one image-bearing batch of 16 (the whole forward
    replayed and eager); count one served batch's kernels in the
    profiler's trace of three replayed batches (``served_batch_launches``:
@@ -104,8 +118,8 @@ Phases, each of which fails the run by raising:
    resume it, and require its params and optimizer state to equal an
    uninterrupted run's bit for bit (under
    ``torch.use_deterministic_algorithms``, in a child process started with
-   ``--resume-check``, so that the fixed cuBLAS workspace it needs does not
-   reach the timed phases);
+   ``--resume-check`` after phase 14, beside phases 15 and 16, so that the
+   fixed cuBLAS workspace it needs does not reach the timed phases);
 11. span: the span pipeline (text-only BERT-base, twitter15) with random
    weights from a seed: (a) the bare span train step
    (``make_span_loss_fn`` → ``make_train_step``, one fixed ``span_batch``,
@@ -124,7 +138,9 @@ Phases, each of which fails the run by raising:
    ``predict_many``'s, the serving params and a dev batch's extraction
    logits equal to the trainer's bit for bit, one batch's logits, seq and
    ac logits bitwise its eager run, and a replayed batch's kernels in the
-   trace (12 K1, no K2);
+   trace (12 K1, no K2); then phase 7(b)'s ladder against the single
+   rung, once each (extraction and classification at each rung: 10
+   captures; the results equal request by request);
 12. aux heads: the span pipeline with cutoff augmentation (``span_cutoff``
    at ratio 0.1, CE and JS weights 1), DiGCN (2 layers) and DualGCN (2
    layers), BERT-base, bf16, random weights from a seed: (a) the bare aux
@@ -148,23 +164,27 @@ Phases, each of which fails the run by raising:
    hold K1 and K2 at ``span_s128_cut``: the span shape with the span
    cutoff's holes inside the bias row;
 13. the serving tier, run after phase 16: its two exports run in child
-   processes beside phases 15 and 16, which check agreement (15(a)'s
-   examples/s are read with the exports running); (a) phase 10's run
+   processes started after phase 12, beside phase 14 (whose timed steps
+   are graph replays) and phases 15 and 16, which check agreement; (a) phase 10's run
    through the export CLI (``cli.export_main``) for ``cuda`` at rungs 1
    and 16 with shared
    weights (six ``torch.export`` programs: text, images, images without
    aux crops), the bundle loaded (``load_exported_predictor``), its
    emissions against the live forward's, phase 7's 64 requests through
-   ``BatchingServer`` with every batch's results equal to the live
-   ``load_predictor``'s on the same batch and 12 K1 launches per batch
-   from the programs (K1 is the operator ``mtvaf::prefix_attention_fwd``
-   inside them), each rung's program replayed from a CUDA graph and the
-   server run graphed and eager in turns as phase 7's; (b) phase 12(c)'s
+   ``BatchingServer`` at the bundle's ladder (``cli.serve_main.
+   bundle_ladder``: rungs 1 and 16, four captures) with every batch's
+   results equal to the live ``load_predictor``'s on the same batch and
+   12 K1 launches per batch from the programs (K1 is the operator
+   ``mtvaf::prefix_attention_fwd`` inside them), each rung's program
+   replayed from a CUDA graph and the server run graphed and eager in
+   turns as phase 7's, and a lone request served at rung 1 by the
+   ``b1`` program (``bundle_rung1``); (b) phase 12(c)'s
    run (prefix, images, DiGCN) exported at rung 16, 64 image-bearing
    requests held the same way; (c) ``cli.serve_main --bundle`` over (a)
-   in a child process, 64 text-only POSTs from 16 threads held to the
-   in-process bundle's graphed and eager results, /stats and /metrics
-   parsed, 12 K1 per batch and two graphs captured in the child; the same
+   in a child process at the bundle's ladder (1, 16), 64 text-only POSTs
+   from 16 threads held to the in-process bundle's graphed and eager
+   results, /stats and /metrics parsed, 12 K1 per batch and four graphs
+   captured in the child; the same
    POSTs to ``build_app`` in this process graphed and eager in turns
    (client p50, p99, sentences/s); then
    16 base64 PNG images through the eval transform (where
@@ -196,15 +216,18 @@ Phases, each of which fails the run by raising:
    printed with both path scores, which must be equal), fc + Viterbi's
    device ms and launches for both decodes at the batch of 16, eager and
    replayed from one CUDA graph (bitwise), and one text decode program of
-   each exported for ``cuda`` (nodes, seconds);
+   each exported for ``cuda`` (nodes, seconds) in a child process
+   (``--decode-exports``) started after phase 12, beside phases 14-16;
 15. data parallelism, one epoch per run at the flagship width on phase
-   10's tree (and phase 11's span tree with DualGCN side files), each
+   10's kind of tree cut to ``DP_SIZES`` (128/32/32 examples: 4 steps;
+   and phase 11's kind of span tree with DualGCN side files), each
    process a child of this one (``--dp-child``) counting its own kernel
    launches from 0 just before its run: (a) the CLI under
    ``python -m torch.distributed.run --standalone --nproc_per_node 1``
    (NCCL, world size 1) against the same flags in one process, both under
-   deterministic algorithms: loss, F1 and ``best_model.npz`` bit for bit,
-   K1/K2 launches equal, both runs' examples/s; (b) two ranks in a gloo
+   deterministic algorithms and side by side: loss, F1 and
+   ``best_model.npz`` bit for bit, K1/K2 launches equal, both runs'
+   examples/s; (b) two ranks in a gloo
    group sharing the card, fp32 with images, against one process on the
    same flags and global batch: the loss to 1e-4 relative, F1 equal, each
    ``best_model.npz`` element to the larger of 1e-4 of its leaf's
@@ -250,7 +273,8 @@ Phases, each of which fails the run by raising:
    requests: random images through the image op) and their BERT tokens
    through the library; (b) ``python -m mtvaf_tpu_torch.parity.harness
    --dry_run --skip_reference`` on ``cuda`` in a child process started
-   after phase 14, beside phases 15 and 16: c1-c5, six rows, from the
+   after phase 14, beside phases 15 and 16, one epoch a row
+   (``--num_epochs 1``): c1-c5, six rows, from the
    harness's own 768-wide, 8-layer BERT and RoBERTa checkpoints and
    ResNet-152 ``.pth``; each row's run exits 0 with finite metrics, loads
    every checkpoint (no "random init" in its log) and launches K1 and K2;
@@ -283,7 +307,8 @@ kernels' summed durations under ``torch.profiler``.  ``event_ms`` is the
 kernel's time between events over back-to-back calls, which the host's
 launch time sets where that is longer.
 
-Prints the smoke's seconds (``smoke_seconds``), the card's name and power
+Prints the smoke's seconds so far after each phase (``phase_clock``), its
+seconds (``smoke_seconds``), the card's name and power
 limit, then one JSON line with the kernels' numbers, then ``{"ok": true,
 "device": {...}}`` as the last line.
 Exits non-zero, printing no result, without a CUDA device.
@@ -315,6 +340,7 @@ import time
 import numpy as np
 import torch
 
+PROCESS_T0 = time.perf_counter()     # this process's start (imports done)
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16
 # tensor-core FLOP/s, and for fp32 the TF32 tensor-core rate over three:
 # the kernels do fp32 products as split TF32 (three TF32 products each, to
@@ -399,8 +425,12 @@ FP32_SHAPES = {"train_fp32": (TRAIN_B, 12, TRAIN_S, TRAIN_S + 16, 64,
                "span_s500_fp32": (TRAIN_B, 12, 500, 500, 64, torch.float32)}
 
 
+_log_lock = threading.Lock()
+
+
 def log(*a):
-    print(*a, flush=True)
+    with _log_lock:                 # whole lines from threads
+        print(*a, flush=True)
 
 
 PROFILE_TRIES = 3
@@ -558,6 +588,8 @@ def check_prefix_attention(dtypes=(torch.bfloat16, torch.float32)):
     rows = []
     for name, (b, h, s, t, d, dtype), rate in (
             ("serve_bf16", (16, 12, 128, 144, 64, torch.bfloat16), 0.0),
+            *((f"serve_b{b}_bf16", (b, 12, 128, 144, 64, torch.bfloat16),
+               0.0) for b in LADDER[:-1]),
             ("serve_fp32", (16, 12, 128, 144, 64, torch.float32), 0.0),
             ("s512_bf16", (16, 12, 512, 528, 64, torch.bfloat16), 0.0),
             *((span, shape, r) for span, shape in SPAN_SHAPES.items()
@@ -613,7 +645,7 @@ def check_prefix_attention(dtypes=(torch.bfloat16, torch.float32)):
                "library_ms": lib_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "bytes": nbytes, "flops": flops,
                **shares(dtype, ms, bound_ms, lib_ms)}
-        log("k1", json.dumps(row))
+        log("k1", json.dumps(row), card_line())
         rows.append(row)
         if not ok:
             raise AssertionError(f"prefix attention kernel disagrees with "
@@ -988,7 +1020,7 @@ def serve(cfg, bert_cfg, params, resnet, tok):
 GRAPH_ROUNDS = 1
 
 
-def serve_twins(name, pred, reqs, captures_want, max_batch=16,
+def serve_twins(name, pred, reqs, captures_want, batch_shapes=None,
                 rounds=GRAPH_ROUNDS):
     """``reqs`` ((sentence, image or None) pairs) through ``BatchingServer``
     → ``pred``, the server given the predictor and its eager twin
@@ -1014,8 +1046,9 @@ def serve_twins(name, pred, reqs, captures_want, max_batch=16,
     for _ in range(rounds):
         for mode in ("graphed", "eager"):
             rec = Recorded(pred, eager=mode == "eager")
-            with BatchingServer(rec, max_batch=max_batch, max_wait_ms=5.0,
-                                pipeline_depth=4) as server:
+            with BatchingServer(rec, max_batch=16, max_wait_ms=5.0,
+                                pipeline_depth=4,
+                                batch_shapes=batch_shapes) as server:
                 server.warmup()
                 torch.cuda.synchronize()
                 warm = pred.graph_captures - before
@@ -1081,22 +1114,13 @@ def device_twins(name, pred, sents, variants):
     starts = rng.integers(0, s_len - 4, (len(sents), pred.cfg.n_best_size))
     pairs = np.stack([starts, starts + rng.integers(0, 3, starts.shape)])
 
-    def run(kw):
-        with torch.inference_mode():
-            if not span:
-                out = pred.forward(host, **kw)
-                return {k: out[k] for k in ("emissions", "pred_tags",
-                                            "lengths")}
-            s, e, seq, _ = pred.extract(host[2], **kw)
-            return {"start_logits": s, "end_logits": e, "seq": seq}
-
     rows = {}
     for variant, kw in variants.items():
         for _ in range(2):
-            run(kw)
-        got = run(kw)
+            device_outputs(pred, host, kw)
+        got = device_outputs(pred, host, kw)
         with disable_graphs():
-            want = run(kw)
+            want = device_outputs(pred, host, kw)
         if span:
             with torch.inference_mode():
                 for _ in range(2):
@@ -1167,6 +1191,225 @@ def release_report(name, *preds):
            "captures": captures}
     log("graphs_released", name, json.dumps(row), card_line())
     return row
+
+
+# ---------------------------------------------------------------------------
+# Phases 7(b) and 11(d): the serving ladder (``BatchingServer(batch_shapes=
+# LADDER)``), each rung one CUDA graph per variant.
+
+LADDER = (1, 2, 4, 8, 16)
+IDLE_REQUESTS = 20
+# A ladder batch's rows against the same rows inside a batch of 16 (the
+# single-rung server's shape): every kernel but the GEMMs computes a row
+# alike at any batch size, and cuBLAS may pick another algorithm (another
+# fp32 summation order, so another bf16 rounding of an activation) for
+# another M = B·S, carried through 12 layers.  Largest difference allowed
+# in the CRF emissions or the span start/end logits, over the largest
+# magnitude (at least 1) of the batch of 16's.
+LADDER_RTOL = 0.05
+
+
+def device_outputs(pred, host, kw):
+    """One batch's device outputs as the predictor's stage gives them: a
+    CRF predictor's emissions, tags and lengths; a span predictor's
+    start/end logits and seq."""
+    from mtvaf_tpu_torch.infer import SpanPredictor
+    with torch.inference_mode():
+        if not isinstance(pred, SpanPredictor):
+            out = pred.forward(host, **kw)
+            return {k: out[k] for k in ("emissions", "pred_tags",
+                                        "lengths")}
+        s, e, seq, _ = pred.extract(host[2], **kw)
+        return {"start_logits": s, "end_logits": e, "seq": seq}
+
+
+def pad_batch(sentences, images, rung):
+    """A recorded batch padded on to ``rung`` rows as the server pads a
+    take: its last sentence repeated, blank image rows."""
+    n = len(sentences)
+    sentences = list(sentences) + [sentences[-1]] * (rung - n)
+    if images is not None:
+        images = np.concatenate([images, np.zeros(
+            (rung - n,) + images.shape[1:], np.float32)])
+    return sentences, images
+
+
+def ladder_against_single(name, pred, batches):
+    """Every batch the ladder server formed: its device outputs replayed
+    bit for bit the same batch's under ``disable_graphs()`` at the same
+    rung, and its rows inside the same batch padded to 16 (the single-rung
+    server's shape): emissions or logits within ``LADDER_RTOL``, and the
+    same predictions, except where the CRF's two tag paths tie within the
+    emissions' difference (printed, with both paths' scores)."""
+    from mtvaf_tpu_torch.infer import SpanPredictor
+    from mtvaf_tpu_torch.nn.crf import crf_sequence_score
+    from mtvaf_tpu_torch.train.graphs import disable_graphs
+
+    span = isinstance(pred, SpanPredictor)
+    keys = ("start_logits", "end_logits") if span else ("emissions",)
+    top = LADDER[-1]
+    gaps, ties, rows = [], [], 0
+    for sentences, images, got in batches:
+        rung = len(sentences)
+        kw = {} if images is None else {"images": images}
+        host = pred._make_host_batch(sentences)
+        replay = device_outputs(pred, host, kw)
+        with disable_graphs():
+            eager = device_outputs(pred, host, kw)
+            if pred.predict(sentences, **kw) != got:
+                raise AssertionError(f"{name}: a rung-{rung} batch's "
+                                     "predictions differ under "
+                                     "disable_graphs()")
+        differ = [k for k in replay if not torch.equal(replay[k], eager[k])]
+        if differ:
+            raise AssertionError(f"{name}: a rung-{rung} batch's replayed "
+                                 f"{differ} differ from its eager run")
+        rows += rung
+        if rung == top:
+            continue
+        s16, i16 = pad_batch(sentences, images, top)
+        kw16 = {} if i16 is None else {"images": i16}
+        host16 = pred._make_host_batch(s16)
+        wide = device_outputs(pred, host16, kw16)
+        scale = max(1.0, max(wide[k].float().abs().max().item()
+                             for k in keys))
+        gap = max((replay[k].float() - wide[k][:rung].float()).abs().max()
+                  .item() for k in keys)
+        gaps.append({"rung": rung, "max_abs_diff": gap, "scale": scale})
+        if gap > LADDER_RTOL * scale:
+            raise AssertionError(f"{name}: a rung-{rung} batch's {keys} "
+                                 f"differ from the same rows at {top} by "
+                                 f"{gap} (limit {LADDER_RTOL} x {scale})")
+        want = pred.predict(s16, **kw16)[:rung]
+        if want == got:
+            continue
+        if span:
+            raise AssertionError(f"{name}: a rung-{rung} batch's "
+                                 f"predictions differ from the same rows "
+                                 f"at {top}")
+        crf = {k: v.float() for k, v in pred.params["crf"].items()}
+        mask = torch.from_numpy(host["input_mask"]).to(pred.device)
+        tags = (replay["pred_tags"], wide["pred_tags"][:rung])
+        for i in (tags[0] != tags[1]).any(dim=1).nonzero()[:, 0].tolist():
+            em, length = replay["emissions"][i:i + 1], \
+                int(mask[i].sum().item())
+            with torch.inference_mode():
+                scores = [crf_sequence_score(crf, em, t[i:i + 1],
+                                             mask[i:i + 1]).item()
+                          for t in tags]
+            ties.append({"rung": rung, "sentence": sentences[i],
+                         "scores": scores, "tokens": length,
+                         "emission_gap": gap})
+            log("ladder tie", name, json.dumps(ties[-1]))
+            # two paths whose scores part by less than the emissions'
+            # difference over the path's tokens, twice, may swap
+            if abs(scores[0] - scores[1]) > 2 * length * gap:
+                raise AssertionError(f"{name}: a rung-{rung} batch's tags "
+                                     f"differ from the same rows at {top} "
+                                     f"past a tie: {ties[-1]}")
+    return {"batches": len(batches), "rows": rows, "ties": ties,
+            "largest_gap": max(gaps, key=lambda g: g["max_abs_diff"] /
+                               g["scale"]) if gaps else None}
+
+
+def idle_latency(server, reqs):
+    """ms of each of ``reqs`` sent alone, one after the other."""
+    out = []
+    for sentence, image in reqs:
+        t0 = time.perf_counter()
+        server.predict(sentence, image)
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def ladder_serve(name, pred, reqs, variants, rounds=1):
+    """``reqs`` from ``CLIENTS`` closed-loop clients through a ladder
+    server (``batch_shapes=LADDER``) and the single-rung server (16) in
+    turns, ``rounds`` each: the first ladder ``warmup()`` (graphs released
+    before it) captures every rung × ``variants`` graphs and nothing
+    captures under traffic; K1 12 a batch; every ladder batch held by
+    :func:`ladder_against_single`; a text-only predictor's results equal
+    request by request.  Prints each run's p50, p99, sentences/s, mean
+    batch, mean rung and padded rows per served sentence; an idle
+    client's ms over ``IDLE_REQUESTS`` sequential single requests on both
+    servers, in turns; the profiler's trace of a replayed rung-1 and
+    rung-8 batch (12 K1, no K2); ``memory_reserved()`` with every rung
+    captured and after release."""
+    from mtvaf_tpu_torch.serve import BatchingServer
+
+    layers = pred.bert_cfg.num_hidden_layers
+    pred.release_graphs()
+    runs = {"ladder": [], "single": []}
+    first = {}
+    idle = {"ladder": [], "single": []}
+    for _ in range(rounds):
+        for mode, shapes in (("ladder", LADDER), ("single", LADDER[-1:])):
+            before = pred.graph_captures
+            rec = Recorded(pred)
+            with BatchingServer(rec, batch_shapes=shapes, max_wait_ms=5.0,
+                                pipeline_depth=4) as server:
+                server.warmup()
+                torch.cuda.synchronize()
+                warm = pred.graph_captures - before
+                rec.batches.clear()
+                reset_counts()
+                results, wall = serve_threaded(server, reqs)
+                k1 = read_counts()["k1"]
+                stats = server.stats()
+                idle[mode].append(idle_latency(server,
+                                               reqs[:IDLE_REQUESTS]))
+            traffic = pred.graph_captures - before - warm
+            if stats["served"] != len(reqs) \
+                    or k1 != layers * stats["batches"] or traffic:
+                raise AssertionError(
+                    f"{name} {mode}: served {stats['served']}, K1 ran {k1} "
+                    f"times for {stats['batches']} batches, {traffic} "
+                    "captures under traffic")
+            rungs = [len(s) for s, _, _ in rec.batches[:-IDLE_REQUESTS]]
+            idle_rungs = {len(s) for s, _, _ in rec.batches[-IDLE_REQUESTS:]}
+            if idle_rungs != {shapes[0]}:
+                raise AssertionError(f"{name} {mode}: idle requests ran at "
+                                     f"rungs {idle_rungs}")
+            runs[mode].append({
+                "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
+                "sentences_per_s": len(reqs) / wall, "wall_s": wall,
+                "batches": len(rungs), "mean_batch": len(reqs) / len(rungs),
+                "mean_rung": sum(rungs) / len(rungs),
+                "padded_rows_per_sentence": (sum(rungs) - len(reqs))
+                / len(reqs),
+                "rungs": {r: rungs.count(r) for r in sorted(set(rungs))},
+                "k1_launches": k1, "captures_in_warmup": warm})
+            first.setdefault(mode, (results, rec.batches[:-IDLE_REQUESTS]))
+    out = {"ladder": list(LADDER), "runs": runs, "card": card_line()}
+    log("ladder_vs_single", name, json.dumps(out))
+    want = len(LADDER) * variants
+    if runs["ladder"][0]["captures_in_warmup"] != want:
+        raise AssertionError(f"{name}: the ladder's warmup() captured "
+                             f"{runs['ladder'][0]['captures_in_warmup']} "
+                             f"graphs, not {len(LADDER)} rungs x {variants}")
+    out["idle_ms"] = {mode: {"p50": float(np.median(sum(v, []))),
+                             "mean": float(np.mean(sum(v, []))),
+                             "max": float(np.max(sum(v, [])))}
+                      for mode, v in idle.items()}
+    log("ladder_idle_ms", name, json.dumps(out["idle_ms"]), card_line())
+    out["checked"] = ladder_against_single(name, pred, first["ladder"][1])
+    if all(img is None for _, img in reqs) \
+            and first["ladder"][0] != first["single"][0]:
+        bad = [i for i, (a, b) in enumerate(zip(*(first[m][0] for m in
+                                                  ("ladder", "single"))))
+               if a != b]
+        raise AssertionError(f"{name}: the ladder's results differ from the "
+                             f"single rung's at requests {bad[:8]}")
+    log("ladder_checked", name, json.dumps(out["checked"]), card_line())
+    sents = [s for s, _ in reqs]
+    images = [i for _, i in reqs if i is not None][:8]
+    out["replay_launches"] = {
+        "b1": served_batch_launches(f"{name}_b1", pred, sents[:1]),
+        "b8": served_batch_launches(
+            f"{name}_b8", pred, sents[:8],
+            np.stack(images) if len(images) == 8 else None)}
+    out["released"] = release_report(name, pred)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1682,8 +1925,14 @@ TWITTER2015_SIZES = {"train": 3179, "dev": 1122, "test": 1037}
 TRAINER_SIZES = {"train": 320, "dev": 96, "test": 96}
 TRAINER_EPOCHS = 2
 TRAINER_EVAL_BATCH = 16
+# Phases 15 and 16 train one epoch per run on a smaller cut (4 steps at
+# B=32, two eval batches a split): they hold ranks to one process, which
+# takes no more steps, and they run beside the parity dry run at the end
+# of the smoke's time.
+DP_SIZES = {"train": 128, "dev": 32, "test": 32}
 
-def trainer_tree(tmp):
+
+def trainer_tree(tmp, sizes=TRAINER_SIZES):
     """The reference's data layout (``cli.main.data_paths``) under
     ``tmp``: the Twitter-2015 splits in the ``IMGID:`` TSV format from the
     port's ``data/synthetic.py``, the ANP JSON over 2089 classes, one image
@@ -1705,10 +1954,10 @@ def trainer_tree(tmp):
                                        ("dev", "valid.txt"),
                                        ("test", "test.txt"))):
         split_ids = [f"{700000 + 10000 * k + i}.jpg"
-                     for i in range(TRAINER_SIZES[mode])]
+                     for i in range(sizes[mode])]
         make_crf_files(os.path.join(base, fname),
                        os.path.join(tmp, f"anp_{mode}.json"),
-                       TRAINER_SIZES[mode], seed=SEED + k, max_len=30,
+                       sizes[mode], seed=SEED + k, max_len=30,
                        num_anp=2089, image_ids=split_ids)
         with open(os.path.join(tmp, f"anp_{mode}.json")) as f:
             anp.update(json.load(f))
@@ -1812,9 +2061,9 @@ def keep_run(save, bert_dir, keep, name):
 def trainer_phase(bare_step, keep):
     """Phase 10: train the flagship configuration through the CLI for two
     epochs, check launches, devices and files, reload the best model into
-    a predictor, time eval and checkpoints; then preempt a run with a real
-    SIGTERM after epoch 1, resume it, and hold the result against an
-    uninterrupted run.  The run directory goes to ``keep`` (phase 13)."""
+    a predictor, time eval and checkpoints.  The run directory goes to
+    ``keep`` (phase 13).  Its resume check (:func:`start_resume`) runs
+    beside phases 15 and 16."""
     import os
     from mtvaf_tpu_torch.data.readers import PLACEHOLDER
     from mtvaf_tpu_torch.kernels.prefix_attention import (
@@ -1927,8 +2176,6 @@ def trainer_phase(bare_step, keep):
         out["kept"] = keep_run(save, bert_dir, keep, "crf")
         torch.cuda.empty_cache()
         log("trainer_path", json.dumps(out))
-
-        out["resume"] = resume_in_child(root, bert_dir, cache, tmp)
     return out
 
 
@@ -2204,23 +2451,18 @@ def check_predictor(tr, save):
             "dev_tokens_tagged_not_O": tagged, "answers": answers}
 
 
-def resume_in_child(root, bert_dir, cache, tmp, timeout=600):
-    """:func:`check_resume` in a process of its own: deterministic mode
+def start_resume(keep):
+    """Phase 10's resume check (:func:`check_resume`) on a tree of phase
+    10's kind under ``keep``, in a process of its own (deterministic mode
     needs cuBLAS's workspace fixed before cuBLAS starts, which would also
-    change the timed phases of this process.  Returns its result line."""
-    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
-    proc = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--resume-check", root,
-         bert_dir, cache, tmp], env=env, capture_output=True, text=True,
-        timeout=timeout)
-    lines = [ln for ln in proc.stdout.splitlines()
-             if ln.startswith("trainer_resume ")]
-    if proc.returncode != 0 or not lines:
-        sys.stderr.write(proc.stderr[-8000:])
-        raise AssertionError(f"the resume check exited {proc.returncode}: "
-                             f"{proc.stdout[-2000:]}")
-    log(lines[-1])
-    return json.loads(lines[-1].split(" ", 1)[1])
+    change the timed phases of this process), started after phase 14 so
+    that it runs beside phases 15 and 16, which check agreement too.
+    :func:`finish_child` collects it."""
+    tmp = os.path.join(keep, "resume")
+    root, bert_dir, cache, _ = trainer_tree(tmp)
+    return Child(keep, "resume", "chip_smoke",
+                 ["--resume-check", root, bert_dir, cache, tmp],
+                 env={"CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
 
 
 def step_split(tr, steps=10):
@@ -2430,7 +2672,7 @@ def span_train(bert_cfg):
     return out
 
 
-def span_tree(tmp):
+def span_tree(tmp, sizes=TRAINER_SIZES):
     """The reference's span layout under ``tmp`` (``data/twitter2015/
     {train,valid,test}.txt``, learnable sentences from the port's
     ``data/synthetic.py``) and a ``bert`` directory with a vocab."""
@@ -2445,7 +2687,7 @@ def span_tree(tmp):
                                        ("dev", "valid.txt"),
                                        ("test", "test.txt"))):
         make_learnable_span_file(os.path.join(base, fname),
-                                 TRAINER_SIZES[mode], seed=SEED + k)
+                                 sizes[mode], seed=SEED + k)
     make_vocab_file(os.path.join(bert_dir, "vocab.txt"))
     return root, bert_dir
 
@@ -2636,6 +2878,9 @@ def span_phase(bare_step):
                             "span_serve_b16", pred, sents[:16]),
                         "released": release_report("span_serve", pred)}
         log("span_serve_path", json.dumps(out["serve"]))
+        # the ladder: extraction and classification at every rung
+        out["serve"]["ladder"] = ladder_serve(
+            "span_ladder", pred, [(x, None) for x in sents], 2)
         del pred
         torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
@@ -3168,15 +3413,16 @@ def serve_threaded(server, reqs, timeout=300):
     return results, wall
 
 
-def serve_bundle(name, bundle, live, reqs, captures_want):
-    """``reqs`` through ``BatchingServer`` → the bundle's predictor, its
-    programs graphed and under ``disable_graphs()`` in turns
-    (``serve_twins``): every batch's results equal the live predictor's on
-    the same batch, and K1 ran once per layer per batch, inside the
-    bundle's programs; one batch per served variant bitwise against its
-    eager run."""
+def serve_bundle(name, bundle, live, reqs, captures_want,
+                 batch_shapes=None):
+    """``reqs`` through ``BatchingServer`` (at ``batch_shapes``) → the
+    bundle's predictor, its programs graphed and under ``disable_graphs()``
+    in turns (``serve_twins``): every batch's results equal the live
+    predictor's on the same batch, and K1 ran once per layer per batch,
+    inside the bundle's programs; one batch per served variant bitwise
+    against its eager run."""
     results, first, twin = serve_twins(f"{name}_bundle", bundle, reqs,
-                                       captures_want)
+                                       captures_want, batch_shapes)
     for sentences, images, got in first["recorded"]:
         if live.predict(sentences, images=images) != got:
             raise AssertionError(f"{name} bundle: a served batch differs "
@@ -3190,11 +3436,41 @@ def serve_bundle(name, bundle, live, reqs, captures_want):
            "k1_launches": first["k1_launches"],
            "image_batches": sum(i is not None
                                 for _, i, _ in first["recorded"]),
+           "rungs": sorted(len(s) for s, _, _ in first["recorded"]),
            "terms": sum(len(r) for r in results),
            "graphed_vs_eager": twin,
            "device_bitwise": device_twins(f"{name}_bundle", bundle, sents, {
                "text": {}, "images_noaux": {"images": images}})}
     return results, out
+
+
+def bundle_rung1(bundle, live, reqs):
+    """One lone request to a server at the bundle's ladder (1, 16): it
+    runs at rung 1, in the bundle's ``b1`` program (loaded and captured
+    in ``warmup()``, replayed: 12 K1 and no capture), with the live
+    predictor's result."""
+    from mtvaf_tpu_torch.serve import BatchingServer
+    rec = Recorded(bundle)
+    with BatchingServer(rec, batch_shapes=bundle.export_rungs,
+                        max_wait_ms=5.0) as server:
+        server.warmup()
+        before = bundle.graph_captures
+        reset_counts()
+        t0 = time.perf_counter()
+        got = server.predict(reqs[1][0])
+        ms = (time.perf_counter() - t0) * 1e3
+        k1 = read_counts()["k1"]
+    rung, prog = bundle._rungs.fit(1)
+    (sentences, images, _), = rec.batches
+    out = {"rung": len(sentences), "program_rung": rung,
+           "program_captures": prog.captures, "k1_launches": k1, "ms": ms,
+           "card": card_line()}
+    log("bundle_rung1", json.dumps(out))
+    if len(sentences) != 1 or rung != 1 or k1 != 12 or images is not None \
+            or bundle.graph_captures != before or prog.captures < 1 \
+            or got != live.predict([reqs[1][0]])[0]:
+        raise AssertionError(f"a lone request to the bundle's ladder: {out}")
+    return out
 
 
 def http_twins(bundle, sents, want):
@@ -3254,8 +3530,8 @@ def http_twins(bundle, sents, want):
 
 def start_exports(runs):
     """Phase 13's two exports through the export CLI for cuda, each in a
-    child process (``Child``), started before phases 15 and 16 so that
-    they run beside them: phase 10's CRF run at rungs 1 and 16, phase
+    child process (``Child``), started after phase 12 so that they run
+    beside phases 14, 15 and 16: phase 10's CRF run at rungs 1 and 16, phase
     12(c)'s span run at rung 16.  :func:`finish_export` collects each."""
     tmp = runs["dir"]
     out = {}
@@ -3430,8 +3706,9 @@ def http_requests(child, base, sents, want):
                              + child.text()[-3000:])
     last = json.loads(stopped[-1].split("stopped: ", 1)[1])
     k1, captures = last["k1_launches"], last["graph_captures"]
-    # the multimodal bundle's warmup(): text and images without aux crops
-    if k1 != 12 * stats["batches"] or captures != 2:
+    # the multimodal bundle's warmup() at its ladder (1, 16): text and
+    # images without aux crops at each rung
+    if k1 != 12 * stats["batches"] or captures != 4:
         raise AssertionError(f"serve_main: K1 ran {k1} times for "
                              f"{stats['batches']} batches, {captures} "
                              "graphs captured")
@@ -3565,7 +3842,26 @@ def k1_host_ms():
     return {f"{name}_event_ms": sum(t) / len(t) for name, t in times.items()}
 
 
-def serving_tier_phase(runs, serve_path, exports):
+def start_http_child(runs, exports):
+    """(c)'s server, ``cli.serve_main --bundle`` over (a)'s bundle at its
+    ladder (rungs 1 and 16) in a child process, started while phase 16's
+    ranks train so that it has loaded when phase 13 reaches it; waits for
+    the CRF export first and checks its programs."""
+    manifest, export_s = finish_export(exports["crf"])
+    names = sorted(p["name"] for p in manifest["programs"])
+    if names != sorted(f"crf_decode{v}_b{r}" for r in (1, 16)
+                       for v in ("", "_images", "_images_noaux")):
+        raise AssertionError(f"CRF bundle programs {names}")
+    port = free_port()
+    child = Child(runs["dir"], "serve_main", "mtvaf_tpu_torch.cli.serve_main",
+                  ["--bundle", exports["crf"][2], "--bert_name",
+                   runs["crf"][1], "--port", str(port), "--max_wait_ms",
+                   "5"])
+    return {"manifest": manifest, "export_s": export_s, "child": child,
+            "base": f"http://127.0.0.1:{port}"}
+
+
+def serving_tier_phase(runs, serve_path, exports, http):
     """Phase 13: (a) phase 10's flagship CRF run exported for cuda at rungs
     1 and 16 (shared weights), loaded, held against the live predictor
     (emissions; phase 7's 64 requests through ``BatchingServer``); (b)
@@ -3574,36 +3870,25 @@ def serving_tier_phase(runs, serve_path, exports):
     a child process, 64 text POSTs from 16 threads, then ``build_app`` in
     this process with images and with ``max_queue=1``; (d) K1's host time
     per call through the operator.  The exports ran in children during
-    phases 15 and 16 (``exports``: :func:`start_exports`); the HTTP child
-    loads its bundle while this process loads and serves its own; every
-    timed serving run starts after the child is up and idle."""
+    phases 14-16 (``exports``: :func:`start_exports`); the HTTP child
+    (``http``: :func:`start_http_child`) loaded its bundle during phase 16
+    and while this process loads its own; every timed serving run starts
+    after the child is up and idle."""
+    from mtvaf_tpu_torch.cli.serve_main import bundle_ladder
     from mtvaf_tpu_torch.export import load_exported_predictor
     from mtvaf_tpu_torch.infer import load_predictor
     from mtvaf_tpu_torch.train.graphs import disable_graphs
 
     t_phase = time.perf_counter()
     out = {}
-    tmp = runs["dir"]
     crf_run, crf_bert = runs["crf"]
     span_run, span_bert = runs["span"]
     bundle_dir, span_dir = exports["crf"][2], exports["span"][2]
-    port = free_port()
-    base = f"http://127.0.0.1:{port}"
-    children = []
+    manifest, export_s = http["manifest"], http["export_s"]
+    span_manifest, span_export_s = finish_export(exports["span"])
+    server_child, base = http["child"], http["base"]
+    children = [server_child]
     try:
-        manifest, export_s = finish_export(exports["crf"])
-        span_manifest, span_export_s = finish_export(exports["span"])
-        names = sorted(p["name"] for p in manifest["programs"])
-        if names != sorted(f"crf_decode{v}_b{r}" for r in (1, 16)
-                           for v in ("", "_images", "_images_noaux")):
-            raise AssertionError(f"CRF bundle programs {names}")
-        server_child = Child(tmp, "serve_main",
-                             "mtvaf_tpu_torch.cli.serve_main",
-                             ["--bundle", bundle_dir, "--bert_name",
-                              crf_bert, "--port", str(port), "--max_batch",
-                              "16", "--max_wait_ms", "5"])
-        children.append(server_child)
-
         # (a) the CRF bundle
         live = load_predictor(crf_run, bert_name=crf_bert, device="cuda")
         t0 = time.perf_counter()
@@ -3631,7 +3916,11 @@ def serving_tier_phase(runs, serve_path, exports):
             f"{gaps}")
         ready_s = wait_ready(server_child, base)
 
-        results, served = serve_bundle("CRF", bundle, live, reqs, 2)
+        # at the bundle's default ladder (1, 16): 2 rungs x 2 variants
+        ladder = bundle_ladder(bundle, None)
+        results, served = serve_bundle("CRF", bundle, live, reqs,
+                                       2 * len(ladder), ladder)
+        served["rung1"] = bundle_rung1(bundle, live, reqs)
         out["crf"] = {"export_s": export_s, "load_s": load_s,
                       "programs": manifest["programs"],
                       "weights_bytes": os.path.getsize(
@@ -4169,15 +4458,15 @@ def long_trainer(bert_cfg):
     return out
 
 
-def parallel_decode(cfg, bert_cfg, params, resnet, tok, tmp):
+def parallel_decode(cfg, bert_cfg, params, resnet, tok):
     """(d) CRF serving with ``crf_decode_impl="parallel"``: phase 7's
     requests through ``BatchingServer`` → a parallel-decode
     ``CrfPredictor`` (12 K1 per batch), each served batch held to the scan
     predictor on the same batch (a tie that breaks otherwise is printed
     with both path scores, which must be equal); device ms and launches
-    of fc + Viterbi at the served batch of 16 for both decodes; one text
-    decode program of each exported for cuda: node count and seconds."""
-    from mtvaf_tpu_torch.export import export_predictor
+    of fc + Viterbi at the served batch of 16 for both decodes.  One text
+    decode program of each exported for cuda is :func:`decode_exports`,
+    in a child process."""
     from mtvaf_tpu_torch.infer import CrfPredictor
     from mtvaf_tpu_torch.nn.bert import bert_model
     from mtvaf_tpu_torch.nn.crf import (crf_decode, crf_decode_parallel,
@@ -4268,12 +4557,33 @@ def parallel_decode(cfg, bert_cfg, params, resnet, tok, tmp):
             graphed.release()
     log("fc_and_viterbi_b16", json.dumps(decode_stage), card_line())
     out["fc_and_viterbi_b16"] = decode_stage
+    out["released"] = release_report("parallel_decode", scan, par)
+    log("parallel_decode_path", json.dumps(out))
+    del scan, par
+    torch.cuda.empty_cache()
+    return out
 
-    # one text decode program of each, exported for cuda
+
+def decode_exports(out_dir):
+    """14(d)'s exports (``--decode-exports DIR``, a child process started
+    after phase 12, beside phases 14-16): one text decode program of each
+    decode (the scan and the parallel Viterbi) of the flagship CRF
+    predictor (its random weights from ``SEED``) exported for cuda at the
+    batch of 16: seconds, load seconds, graph nodes, bytes; prints one
+    ``decode_exports`` line."""
+    from mtvaf_tpu_torch.data.tokenization import FullTokenizer
+    from mtvaf_tpu_torch.export import export_predictor
+    from mtvaf_tpu_torch.infer import CrfPredictor
+
+    cfg, bert_cfg, params, _ = flagship()
+    write_vocab(os.path.join(out_dir, "vocab.txt"))
+    tok = FullTokenizer(os.path.join(out_dir, "vocab.txt"),
+                        do_lower_case=cfg.do_lower_case)
     exports = {}
-    for name, c in (("scan", cfg), ("parallel", cfg_par)):
+    for name, c in (("scan", cfg),
+                    ("parallel", cfg.replace(crf_decode_impl="parallel"))):
         text_only = CrfPredictor(c, bert_cfg, params, tok, device=DEVICE)
-        bundle = os.path.join(tmp, f"decode_{name}")
+        bundle = os.path.join(out_dir, f"decode_{name}")
         manifest = export_predictor(text_only, bundle, batch_sizes=(16,),
                                     platforms=(DEVICE,))
         t0 = time.perf_counter()
@@ -4284,12 +4594,34 @@ def parallel_decode(cfg, bert_cfg, params, resnet, tok, tmp):
                          "nodes": len(program.graph.nodes),
                          "bytes": manifest["programs"][0]["bytes"]}
         del text_only, program
-    out["export_b16"] = exports
-    out["released"] = release_report("parallel_decode", scan, par)
-    log("parallel_decode_path", json.dumps(out))
-    del scan, par
-    torch.cuda.empty_cache()
-    return out
+    log("decode_exports " + json.dumps(exports))
+
+
+def start_decode_exports(keep):
+    """:func:`decode_exports` in a child process (``Child``);
+    :func:`finish_child` collects it."""
+    out_dir = os.path.join(keep, "decode_exports")
+    os.makedirs(out_dir, exist_ok=True)
+    return Child(keep, "decode_exports", "chip_smoke",
+                 ["--decode-exports", out_dir])
+
+
+def finish_child(child, prefix, timeout=900):
+    """Wait for a ``Child`` of this script, at most ``timeout`` seconds
+    from its start; the JSON of its last line that starts with
+    ``prefix``."""
+    try:
+        child.proc.wait(timeout=max(timeout - (time.perf_counter()
+                                               - child.t0), 1))
+    except subprocess.TimeoutExpired:
+        child.stop()
+    text = child.text()
+    lines = [ln for ln in text.splitlines() if ln.startswith(prefix + " ")]
+    if child.proc.returncode != 0 or not lines:
+        raise AssertionError(f"{os.path.basename(child.log_path)}: exited "
+                             f"{child.proc.returncode}:\n{text[-6000:]}")
+    log(lines[-1])
+    return json.loads(lines[-1].split(" ", 1)[1])
 
 
 def options_phase(cfg, bert_cfg, params, resnet, tok, bare):
@@ -4305,9 +4637,7 @@ def options_phase(cfg, bert_cfg, params, resnet, tok, bare):
     out = {"long_step": long_step(span_bert),
            "master_step": master_step(cfg, bert_cfg, params, bare),
            **long_trainer(span_bert)}
-    with tempfile.TemporaryDirectory() as tmp:
-        out["parallel"] = parallel_decode(cfg, bert_cfg, params, resnet, tok,
-                                          tmp)
+    out["parallel"] = parallel_decode(cfg, bert_cfg, params, resnet, tok)
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"options phase: {out['phase_s']:.1f} s")
     return out
@@ -4453,7 +4783,8 @@ def dp_child(spec):
             for d in (tr.dev_dataset, tr.test_dataset)]
     out = {"rank": seen["rank"], "world": seen["world"],
            "model_rank": model_rank,
-           "wall_s": time.perf_counter() - t0, "metrics": metrics,
+           "wall_s": time.perf_counter() - t0,
+           "process_s": time.perf_counter() - PROCESS_T0, "metrics": metrics,
            "history": tr.history, "counts": counts,
            "rows_per_step": sorted(seen["rows"]),
            "leaf_lr": {k: tr.cfg.lr * f
@@ -4491,6 +4822,16 @@ def tp_gather_grads(kept, layout):
         for k, v in whole.items():
             out.setdefault(f"step/{k}", []).append(v)
     return out
+
+
+def in_threads(*fns):
+    """Each of ``fns`` called in a thread of its own (numpy's file reads
+    and array arithmetic release the GIL): their results in order, the
+    first error raised."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(fns)) as pool:
+        futures = [pool.submit(fn) for fn in fns]
+        return [f.result() for f in futures]
 
 
 def dp_start(tmp, name, spec, launcher=False, env=None):
@@ -4535,6 +4876,9 @@ def dp_wait(children, timeout=DP_TIMEOUT):
             raise AssertionError(f"child {name} exited "
                                  f"{p.returncode}:\n{text[-6000:]}")
         out[name] = json.loads(lines[-1].split(" ", 1)[1])
+    log("dp_children_s", json.dumps({
+        name: {"cli_s": r["wall_s"], "process_s": r["process_s"]}
+        for name, r in out.items()}))
     return out
 
 
@@ -4740,15 +5084,17 @@ def tp_kernel_launches(tp_path, rows, name):
 
 def dp_phase(tmp):
     """Phase 15: data parallelism at the flagship width, one epoch per run
-    on phase 10's synthetic Twitter-2015 tree (and phase 11's span tree):
-    (a) NCCL at world size 1 through ``torch.distributed.run``, bitwise
-    against the same flags in one process (both under deterministic
-    algorithms); (b) two gloo ranks sharing the card, fp32 with images,
-    against one process; (c) the span CLI with DualGCN and the masked span
-    CE on two gloo ranks against one process; (d) bf16 on two gloo ranks,
-    each rank's device guide table holding its own rows' images, against
-    (a)'s one-process run.  Returns (its numbers, what phase 16 reuses:
-    the trees and (d)'s two ranks under ``tmp``)."""
+    on trees of phase 10's and phase 11's kinds cut to ``DP_SIZES``, all
+    ten processes in one wave: (a) NCCL at world size 1 through
+    ``torch.distributed.run``, bitwise against the same flags in one
+    process (both under deterministic algorithms); (b) two gloo ranks
+    sharing the card, fp32 with images, against one process; (c) the span
+    CLI with DualGCN and the masked span CE on two gloo ranks against one
+    process; (d) bf16 on two gloo ranks, each rank's device guide table
+    holding its own rows' images, against (a)'s one-process run.  Returns
+    (its numbers, what phase 16 reuses: the trees, (d)'s two ranks under
+    ``tmp``, and ``compare``, which runs (b)'s and (c)'s leaf comparisons
+    and adds them to the numbers)."""
     from mtvaf_tpu_torch.core.config import Config
     from mtvaf_tpu_torch.data.datasets import SpanDataset
     from mtvaf_tpu_torch.data.tokenization import build_tokenizer
@@ -4758,8 +5104,8 @@ def dp_phase(tmp):
     layers = BertConfig.base().num_hidden_layers
     t_phase = time.perf_counter()
     out = {}
-    root, bert_dir, cache, _ = trainer_tree(tmp)
-    span_root, span_bert = span_tree(tmp)
+    root, bert_dir, cache, _ = trainer_tree(tmp, DP_SIZES)
+    span_root, span_bert = span_tree(tmp, DP_SIZES)
     cfg = Config(dataset_name="twitter15", max_seq=TRAIN_S)
     tok = maybe_accelerate(build_tokenizer(span_bert, cfg.do_lower_case))
     for k, (mode, fname) in enumerate((("train", "train.txt"),
@@ -4793,15 +5139,43 @@ def dp_phase(tmp):
     def spec(argv, span=False, gloo=None, **kw):
         return {"argv": argv, "span": span, "gloo": gloo, **kw}
 
-    # (a) NCCL at world size 1 through the launcher, and one process;
-    # one after the other, so that each one's examples/s is its own
+    # one wave of ten processes (gloo ranks share the card): (a) NCCL at
+    # world size 1 through the launcher and one process; (b), (c), (d)
+    def ranks(name, argv, world=2, rank0=None, **kw):
+        store = os.path.join(tmp, f"{name}.pg_store")
+        return [dp_start(tmp, f"{name}_rank{r}", spec(
+            argv, gloo={"rank": r, "world": world, "store": store},
+            **kw, **(rank0 if r == 0 and rank0 else {})))
+            for r in range(world)]
+
+    def grads(save):
+        return {"grads": os.path.join(tmp, save, "grads.npz")}
+
+    def kept(save):
+        return {"save_init": os.path.join(tmp, save, "init_model.npz"),
+                **grads(save)}
+
     det = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
-    single = dp_wait([dp_start(tmp, "a_single", spec(
-        crf_argv("a_single"), deterministic_algorithms=True), env=det)])
-    nccl = dp_wait([dp_start(tmp, "a_nccl", spec(
-        crf_argv("a_nccl"), deterministic_algorithms=True),
-        launcher=True, env=det)])
-    single, nccl = single["a_single"], nccl["a_nccl"]
+    fp32 = ("--no_bf16", "--deterministic")
+    wave = dp_wait([dp_start(tmp, "a_single", spec(
+        crf_argv("a_single"), deterministic_algorithms=True), env=det),
+                    dp_start(tmp, "a_nccl", spec(
+                        crf_argv("a_nccl"), deterministic_algorithms=True),
+                        launcher=True, env=det),
+                    dp_start(tmp, "b_single",
+                             spec(crf_argv("b_single", *fp32),
+                                  **kept("b_single"))),
+                    dp_start(tmp, "c_single",
+                             spec(span_argv("c_single"), span=True,
+                                  **kept("c_single")))]
+                   + ranks("b", crf_argv("b_dp", *fp32),
+                           rank0=grads("b_dp"))
+                   + ranks("c", span_argv("c_dp"), span=True,
+                           rank0=grads("c_dp"))
+                   + ranks("d", crf_argv("d_dp"), table=True, rank0={
+                       "save_init": os.path.join(tmp, "d_dp",
+                                                 "init_model.npz")}))
+    single, nccl = wave["a_single"], wave["a_nccl"]
     bitwise = dp_leaf_diff(
         os.path.join(tmp, "a_nccl", "best_model.npz"),
         os.path.join(tmp, "a_single", "best_model.npz"))["bitwise"]
@@ -4823,41 +5197,6 @@ def dp_phase(tmp):
         raise AssertionError(f"15(a): NCCL at world size 1 is not the "
                              f"one-process run bit for bit: {a}")
     out["a"] = a
-
-    # (b), (c) and (d) side by side (eight processes): gloo ranks share
-    # the card
-    def ranks(name, argv, world=2, rank0=None, **kw):
-        store = os.path.join(tmp, f"{name}.pg_store")
-        return [dp_start(tmp, f"{name}_rank{r}", spec(
-            argv, gloo={"rank": r, "world": world, "store": store},
-            **kw, **(rank0 if r == 0 and rank0 else {})))
-            for r in range(world)]
-
-    def grads(save):
-        return {"grads": os.path.join(tmp, save, "grads.npz")}
-
-    def kept(save):
-        return {"save_init": os.path.join(tmp, save, "init_model.npz"),
-                **grads(save)}
-
-    fp32 = ("--no_bf16", "--deterministic")
-    wave = dp_wait([dp_start(tmp, "b_single",
-                             spec(crf_argv("b_single", *fp32),
-                                  **kept("b_single"))),
-                    dp_start(tmp, "c_single",
-                             spec(span_argv("c_single"), span=True,
-                                  **kept("c_single")))]
-                   + ranks("b", crf_argv("b_dp", *fp32),
-                           rank0=grads("b_dp"))
-                   + ranks("c", span_argv("c_dp"), span=True,
-                           rank0=grads("c_dp"))
-                   + ranks("d", crf_argv("d_dp"), table=True, rank0={
-                       "save_init": os.path.join(tmp, "d_dp",
-                                                 "init_model.npz")}))
-    out["b"] = dp_compare(
-        "b", wave["b_single"], [wave["b_rank0"], wave["b_rank1"]],
-        os.path.join(tmp, "b_single"), os.path.join(tmp, "b_dp"),
-        layers)
 
     d_ranks = [wave["d_rank0"], wave["d_rank1"]]
     want = single["history"][0]["train_loss"]
@@ -4886,13 +5225,22 @@ def dp_phase(tmp):
         raise AssertionError("15(d): both ranks' tables hold the same "
                              "images")
     out["d"] = d
-    out["c"] = dp_compare(
-        "c", wave["c_single"], [wave["c_rank0"], wave["c_rank1"]],
-        os.path.join(tmp, "c_single"), os.path.join(tmp, "c_dp"),
-        layers)
     out["seconds"] = time.perf_counter() - t_phase
     log("dp_phase_seconds", out["seconds"])
+
+    def compare():
+        """(b) and (c)'s leaf comparisons, which :func:`tp_phase` runs
+        while its own ranks train."""
+        out["b"], out["c"] = in_threads(*(
+            lambda k=k: dp_compare(
+                k, wave[f"{k}_single"], [wave[f"{k}_rank{r}"]
+                                         for r in range(2)],
+                os.path.join(tmp, f"{k}_single"),
+                os.path.join(tmp, f"{k}_dp"), layers)
+            for k in ("b", "c")))
+
     return out, {"crf": (root, bert_dir, cache), "span": span_root,
+                 "compare": compare,
                  "d_ranks": d_ranks}
 
 
@@ -5276,14 +5624,17 @@ def check_head_offset(rate=0.1):
     return rows
 
 
-def tp_phase(tmp, trees):
+def tp_phase(tmp, trees, while_training=lambda: None):
     """Phase 16: tensor parallelism at the flagship width on phase 15's
     trees, each run one epoch in children of this process (``--dp-child``),
     the ranks sharing the card over gloo: (a) the CRF CLI, fp32 with
     images and dropout on, at ``--mesh_model 2`` on two ranks against one
     process; (b) the span CLI with RoBERTa-base and DualGCN the same way;
     (c) bf16 CRF at ``--mesh_data 2 --mesh_model 2`` on four ranks against
-    phase 15(d)'s two ranks at ``--mesh_data 2``."""
+    phase 15(d)'s two ranks at ``--mesh_data 2``.  ``while_training()``
+    and phase 15's leaf comparisons (``trees["compare"]``) run while these
+    ranks train, and the three comparisons here in threads of their
+    own."""
     from mtvaf_tpu_torch.core.config import Config
     from mtvaf_tpu_torch.data.datasets import SpanDataset
     from mtvaf_tpu_torch.data.synthetic import make_roberta_vocab
@@ -5342,7 +5693,7 @@ def tp_phase(tmp, trees):
                 "grads": os.path.join(tmp, save, "grads.npz")}
 
     tp2 = ("--mesh_model", "2")
-    wave = dp_wait(
+    children = (
         [dp_start(tmp, "tp_a_single", {
             "argv": crf_argv("tp_a_single", "--no_bf16"), "span": False,
             **kept("tp_a_single")}),
@@ -5353,20 +5704,29 @@ def tp_phase(tmp, trees):
                 grads=os.path.join(tmp, "tp_a", "grads.npz"))
         + ranks("tp_b", span_argv("tp_b", *tp2), 2, span=True, roberta=True,
                 grads=os.path.join(tmp, "tp_b", "grads.npz"))
-        + ranks("tp_c", crf_argv("tp_c", "--mesh_data", "2", *tp2), 4),
-        timeout=TP_TIMEOUT)
+        + ranks("tp_c", crf_argv("tp_c", "--mesh_data", "2", *tp2), 4))
+    try:
+        while_training()
+        trees["compare"]()          # phase 15's, while these ranks train
+    except BaseException:
+        for _, proc, _ in children:
+            proc.kill()
+            proc.wait()
+        raise
+    wave = dp_wait(children, timeout=TP_TIMEOUT)
     out = {}
-    for key, name in (("a", "tp_a"), ("b", "tp_b")):
-        out[key] = dp_compare(
-            key, wave[f"{name}_single"],
-            [wave[f"{name}_rank{r}"] for r in range(2)],
-            os.path.join(tmp, f"{name}_single"), os.path.join(tmp, name),
-            layers, phase="16", data=1)
-    out["c"] = tp_against_dp(
-        [wave[f"tp_c_rank{r}"] for r in range(4)], trees["d_ranks"],
-        os.path.join(tmp, "tp_c", "best_model.npz"),
-        os.path.join(tmp, "d_dp", "best_model.npz"),
-        os.path.join(tmp, "d_dp", "init_model.npz"), layers)
+    out["a"], out["b"], out["c"] = in_threads(
+        *(lambda key=key: dp_compare(
+            key, wave[f"tp_{key}_single"],
+            [wave[f"tp_{key}_rank{r}"] for r in range(2)],
+            os.path.join(tmp, f"tp_{key}_single"),
+            os.path.join(tmp, f"tp_{key}"), layers, phase="16", data=1)
+          for key in ("a", "b")),
+        lambda: tp_against_dp(
+            [wave[f"tp_c_rank{r}"] for r in range(4)], trees["d_ranks"],
+            os.path.join(tmp, "tp_c", "best_model.npz"),
+            os.path.join(tmp, "d_dp", "best_model.npz"),
+            os.path.join(tmp, "d_dp", "init_model.npz"), layers))
     out["seconds"] = time.perf_counter() - t_phase
     log("tp_phase_seconds", out["seconds"])
     return out
@@ -5590,7 +5950,8 @@ def start_parity(tmp):
     of the host from phase 15's ranks."""
     out = os.path.join(tmp, "parity_out")
     return Child(tmp, "parity", "mtvaf_tpu_torch.parity.harness",
-                 ["--dry_run", "--skip_reference", "--out", out],
+                 ["--dry_run", "--skip_reference", "--num_epochs", "1",
+                  "--out", out],
                  env={"OMP_NUM_THREADS": "2"}), out
 
 
@@ -5708,6 +6069,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--resume-check"]:       # phase 10's child
         check_resume(*sys.argv[2:6])
         return 0
+    if sys.argv[1:2] == ["--decode-exports"]:     # phase 14(d)'s exports
+        decode_exports(sys.argv[2])
+        return 0
     if sys.argv[1:2] == ["--dp-child"]:           # phase 15's children
         dp_child(json.loads(sys.argv[2]))
         return 0
@@ -5719,6 +6083,12 @@ def main() -> int:
 
     t_start = time.perf_counter()
     card = card_line()
+
+    def clock(after):
+        """The smoke's seconds so far, after a phase (where its depth
+        goes)."""
+        log("phase_clock", json.dumps({
+            "after": after, "s": time.perf_counter() - t_start}))
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)} ({card})")
 
@@ -5727,6 +6097,7 @@ def main() -> int:
     log(f"build: {sorted(built)} in {time.perf_counter() - t0:.1f} s")
     ptxas = ptxas_report(built)
     host_path = host_runtime_phase(card)
+    clock("1, 17(a): build, host runtime")
 
     k1_rows = check_prefix_attention()
     mask_row, k1_train = check_dropout()
@@ -5734,6 +6105,7 @@ def main() -> int:
     graph_path = layer_graph_proof()
     k2_rows = check_backward()
     tp_kernels = check_head_offset()
+    clock("2-4, 16(k), 18(a-b): kernel rows")
 
     cfg, bert_cfg, params, resnet = flagship()
     with tempfile.TemporaryDirectory() as tmp:
@@ -5743,6 +6115,7 @@ def main() -> int:
             vocab, do_lower_case=cfg.do_lower_case))
     check_forward_against_cpu(cfg, bert_cfg, params, resnet, tok)
     check_train_step_against_cpu(cfg, bert_cfg, params)
+    clock("5-6: card against the CPU")
     pred, serve_path = serve(cfg, bert_cfg, params, resnet, tok)
     breakdown(pred)
     served = requests(16, seed=7)
@@ -5752,43 +6125,72 @@ def main() -> int:
                                                        np.float32)
                   for _, img in served]))
     serve_path["released"] = release_report("crf_serve", pred)
+    # (b) the ladder: text and images without aux crops at every rung
+    serve_path["ladder"] = ladder_serve("crf_ladder", pred,
+                                        requests(N_REQUESTS, seed=SEED), 2,
+                                        rounds=2)
     del pred
     torch.cuda.empty_cache()
+    clock("7-8: serving, the ladder")
     train_path = train(cfg, bert_cfg, params)
     train_path["fp32"] = train_fp32(cfg, bert_cfg, params, train_path)
     if "--profile" in sys.argv[1:]:
         profile_train(cfg, bert_cfg, params)
     torch.cuda.empty_cache()
+    clock("9: the train step")
     with tempfile.TemporaryDirectory() as keep:
         trainer_path = trainer_phase(train_path, keep)
+        clock("10: the CRF trainer")
         span_path = span_phase(train_path)
+        clock("11: span")
         aux_path = aux_phase(span_path, keep)
+        clock("12: aux heads")
         runs = {"dir": keep, "crf": trainer_path.pop("kept"),
                 "span": aux_path.pop("kept")}
-        options_path = options_phase(cfg, bert_cfg, params, resnet, tok,
-                                     train_path)
-        del params, resnet
-        torch.cuda.empty_cache()
-        # phase 13's exports run beside phases 15 and 16, which check
-        # agreement, and phase 13 serves their bundles after them
+        # phase 13's exports (CPU-bound tracing in two children) run
+        # beside phase 14, whose timed steps are graph replays, and phases
+        # 15 and 16, which check agreement; phase 13 serves their bundles
+        # after them
         exports = start_exports(runs)
-        parity = start_parity(keep)
+        decode = start_decode_exports(keep)
+        http, parity, resume = {}, None, None
         try:
+            options_path = options_phase(cfg, bert_cfg, params, resnet, tok,
+                                         train_path)
+            clock("14: options")
+            del params, resnet
+            torch.cuda.empty_cache()
+            parity = start_parity(keep)
+            resume = start_resume(keep)
             with tempfile.TemporaryDirectory() as dp_tmp:
                 dp_path, trees = dp_phase(dp_tmp)
-                tp_path = tp_phase(dp_tmp, trees)
+                clock("15: data parallelism")
+                tp_path = tp_phase(dp_tmp, trees, lambda: http.update(
+                    start_http_child(runs, exports)))
+                clock("16: tensor parallelism")
+            trainer_path["resume"] = finish_child(resume, "trainer_resume",
+                                                  timeout=600)
+            options_path["parallel"]["export_b16"] = finish_child(
+                decode, "decode_exports")
+            clock("10's resume check, 14(d)'s exports")
             tp_c = tp_path["c"]
             log("17(c) bf16 2x2 against 2x1 (16(c)): loss "
                 f"{tp_c['loss_rel_diff']:.3e} apart (earlier reading: "
                 "3.0e-3), largest leaf ratio "
                 f"{tp_c['leaf_diff_over_movement'][0][0]:.4f} (earlier: "
                 "0.0137)")
-            tier_path = serving_tier_phase(runs, serve_path, exports)
+            tier_path = serving_tier_phase(runs, serve_path, exports, http)
+            clock("13: the serving tier")
             parity_path = finish_parity(parity)
+            clock("17(b): the parity dry run")
         finally:
             for child, _, _ in exports.values():
                 child.stop()
-            parity[0].stop()
+            if parity:
+                parity[0].stop()
+            for child in (resume, decode, http.get("child")):
+                if child:
+                    child.stop()
 
     serve_row = next(r for r in k1_rows if r["shape"] == "serve_bf16")
     k2_row = next(r for r in k2_rows
@@ -5862,7 +6264,15 @@ def main() -> int:
         **{k: k1_train[k] for k in keys},
         "serve": {"launches": serve_path["k1_launches"],
                   "max_abs_err": serve_row["max_abs_err_o"],
-                  **{k: serve_row[k] for k in keys}},
+                  **{k: serve_row[k] for k in keys},
+                  # phase 2's rows at the ladder's smaller rungs, and the
+                  # launches of phase 7(b)'s first ladder run
+                  "rungs": [{"B": r["B"], "max_abs_err": r["max_abs_err_o"],
+                             **{k: r[k] for k in keys}}
+                            for r in k1_rows
+                            if r["shape"].startswith("serve_b")],
+                  "ladder": {"launches": serve_path["ladder"]["runs"][
+                      "ladder"][0]["k1_launches"]}},
         "trainer": {"launches": trainer_path["k1_launches"]},
         "span": {"launches": span_launches["k1"],
                  "shapes": span_rows(k1_rows, "max_abs_err_o")},

@@ -22,12 +22,15 @@ concurrent requests share device batches.  With ``--max_queue`` a full
 queue answers 429 with ``Retry-After: 1``.
 
 The predictor runs on ``cuda`` (``--serve_devices``: how many cards);
-``main(argv, device="cpu")`` serves on the CPU.  The JAX package's
-``--batch_shapes`` and ``--partial_inflight`` are not accepted: they shape
-a ladder of compiled batch programs, and the port has one shape, every
-batch at ``--max_batch`` rows (one CUDA graph per variant, captured by
-``BatchingServer.warmup`` before the first request).  The ``stopped`` line
-counts the graphs captured, which go with the server.
+``main(argv, device="cpu")`` serves on the CPU.  ``--batch_shapes`` gives
+the server a ladder of batch shapes (``1,4,16``: a take of n requests
+runs at the smallest rung >= n, default the one shape ``--max_batch``)
+and ``--partial_inflight`` its fill policy under load (see
+``serve.BatchingServer``); a bundle serves at its exported rungs unless
+a ladder is given (:func:`bundle_ladder`).  Every rung is one CUDA graph
+per variant, captured by ``BatchingServer.warmup`` before the first
+request.  The ``stopped`` line counts the graphs captured, which go with
+the server.
 """
 
 from __future__ import annotations
@@ -95,6 +98,28 @@ def _prometheus(stats: dict) -> str:
         lines += [f'mtvaf_replica_batches_total{{replica="{i}"}} {n}'
                   for i, n in enumerate(rb)]
     return "\n".join(lines) + "\n"
+
+
+def bundle_ladder(predictor, batch_shapes):
+    """The serving ladder of a bundle: its exported rungs when none is
+    given; a ladder past the largest rung is refused (the bundle has no
+    program for such a batch) and shapes that are not rungs are warned
+    about (their batches pad up to the next rung's program)."""
+    rungs = predictor.export_rungs
+    if batch_shapes is None:
+        logger.info("serving ladder from bundle rungs: %s", rungs)
+        return list(rungs)
+    if max(batch_shapes) > max(rungs):
+        raise SystemExit(
+            f"--batch_shapes {batch_shapes} exceeds the bundle's largest "
+            f"exported rung {max(rungs)}; re-export with larger "
+            f"--batch_sizes or lower the ladder")
+    off = [s for s in batch_shapes if s not in rungs]
+    if off:
+        logger.warning(
+            "batch shapes %s are not exported rungs %s: those batches pad "
+            "up to the next rung's program", off, rungs)
+    return batch_shapes
 
 
 def build_app(server):
@@ -203,9 +228,26 @@ def main(argv=None, device=None):
                    help="override the run's tokenizer directory")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8088)
-    p.add_argument("--max_batch", type=int, default=16)
+    p.add_argument("--max_batch", type=int, default=None,
+                   help="most requests a batch holds, the one batch shape "
+                        "when no ladder is given (default 16; with "
+                        "--bundle, refused past the largest exported "
+                        "rung)")
+    p.add_argument("--batch_shapes", default=None,
+                   help="comma-separated ladder of batch shapes (e.g. "
+                        "'1,4,16'): a take of n requests runs at the "
+                        "smallest rung >= n, so idle single requests run "
+                        "the bottom rung and a saturated queue fills the "
+                        "top one; default one shape (--max_batch).  Each "
+                        "rung is captured at startup")
     p.add_argument("--max_wait_ms", type=float, default=5.0)
     p.add_argument("--pipeline_depth", type=int, default=4)
+    p.add_argument("--partial_inflight", type=int, default=None,
+                   help="most batches in flight at which an aged batch "
+                        "below the top rung still dispatches (default "
+                        "min(2, pipeline_depth)); past it a partial take "
+                        "waits to fill, so that under saturation the "
+                        "server runs full top-rung batches")
     p.add_argument("--max_queue", type=int, default=None,
                    help="backpressure bound: answer 429 once this many "
                         "requests already wait (default unbounded)")
@@ -219,6 +261,8 @@ def main(argv=None, device=None):
                    help="'auto' = one replica per visible card, N = the "
                         "first N cards; default 1")
     args = p.parse_args(argv)
+    batch_shapes = [int(s) for s in args.batch_shapes.split(",")] \
+        if args.batch_shapes else None
 
     from ..core.platform import resolve_device
     from ..kernels.prefix_attention import prefix_attention
@@ -244,11 +288,13 @@ def main(argv=None, device=None):
         predictor = load_exported_predictor(args.bundle,
                                             bert_name=args.bert_name,
                                             device=device)
-        if args.max_batch > max(predictor.export_rungs):
+        if args.max_batch is not None \
+                and args.max_batch > max(predictor.export_rungs):
             raise SystemExit(
                 f"--max_batch {args.max_batch} exceeds the bundle's largest "
                 f"exported rung {max(predictor.export_rungs)}; re-export "
                 f"with larger --batch_sizes or lower --max_batch")
+        batch_shapes = bundle_ladder(predictor, batch_shapes)
         devices = None
     else:
         from ..infer import load_predictor
@@ -262,12 +308,15 @@ def main(argv=None, device=None):
         logger.warning("prefix run: POST base64 'images' aligned with "
                        "'sentences' for visual guides; requests without "
                        "images run text-only")
-    with BatchingServer(predictor, max_batch=args.max_batch,
+    max_batch = 16 if args.max_batch is None else args.max_batch
+    with BatchingServer(predictor, max_batch=max_batch,
                         max_wait_ms=args.max_wait_ms,
                         pipeline_depth=args.pipeline_depth,
+                        batch_shapes=batch_shapes,
                         devices=devices,
-                        max_queue=args.max_queue) as server:
-        server.warmup()          # before the first request
+                        max_queue=args.max_queue,
+                        partial_inflight=args.partial_inflight) as server:
+        server.warmup()          # every rung, before the first request
         prefix_attention.launches.reset()
         httpd = HTTPServer((args.host, args.port), build_app(server))
         logger.info("serving on http://%s:%d (POST /predict, GET /stats)",

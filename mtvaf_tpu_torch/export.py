@@ -32,6 +32,10 @@ pickled.
   ``arange``, the zero aux crops), so each program is exported once per
   platform (``cpu``, ``cuda``), with example inputs on that device, and a
   bundle serves only on the device types it was exported for.
+* Rungs: a served batch of n rows runs the smallest exported rung >= n,
+  padded by repeating its last row; ``mtvaf-serve --bundle`` serves a
+  ladder of the bundle's rungs (``cli.serve_main.bundle_ladder``), each
+  rung's programs captured in its server's ``warmup()``.
 * Weights: by default stored once per bundle (``weights.npz``, and
   ``resnet.npz`` for prefix runs; a JSON skeleton in the manifest rebuilds
   the exact tree, bf16 leaves as their uint16 bit patterns) and passed to
@@ -299,12 +303,14 @@ def export_predictor(predictor, out_dir: str, *,
 
 class _ExportedRungs:
     """Smallest-rung-that-fits dispatch over a stage's program files, each
-    loaded on its first use: ``torch.export.load`` rebuilds a program's
-    graph in Python (seconds at BERT-base), and a server that pads every
-    batch to its ``max_batch`` never runs the other rungs.  A loaded
-    program is called through a ``GraphedFunction`` (``prog(weights,
-    *inputs)``, the weights the program's leading inputs): a CUDA graph per
-    signature on a single card, as the live predictors' stages."""
+    loaded on its first use (``torch.export.load`` rebuilds a program's
+    graph in Python, seconds at BERT-base): a server's ladder
+    (``cli.serve_main.bundle_ladder``) loads and captures each rung it
+    serves in its ``warmup()``, and a batch between rungs runs the next
+    rung's program.  A loaded program is called through a
+    ``GraphedFunction`` (``prog(weights, *inputs)``, the weights the
+    program's leading inputs): a CUDA graph per signature on a single
+    card, as the live predictors' stages."""
 
     def __init__(self, paths: Dict[int, str], device=None):
         self._paths = dict(sorted(paths.items()))

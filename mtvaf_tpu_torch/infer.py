@@ -25,10 +25,11 @@ the guides (ResNet-152, for image-bearing batches) and the decode;
 classification.  A signature is a batch size and a variant: text only,
 with images, with images but no aux crops (zero crops made inside the
 graph).  The first call of a signature runs eagerly, the second captures
-(``serve.BatchingServer.warmup`` makes both before traffic);
-``release_graphs()`` drops them, and ``train.graphs.disable_graphs()``
-runs the stages eagerly.  ``export`` traces the plain stages (``_decode``,
-``_extract``, ``_classify``), never the graphs.
+(``serve.BatchingServer.warmup`` makes both, for every rung of its
+ladder, before traffic); ``release_graphs()`` drops them all, and
+``train.graphs.disable_graphs()`` runs the stages eagerly.  ``export``
+traces the plain stages (``_decode``, ``_extract``, ``_classify``), never
+the graphs.
 
   >>> predictor = CrfPredictor(cfg, bert_cfg, params, tokenizer)
   >>> predictor.predict(["the pizza was great but service slow"])

@@ -3,22 +3,35 @@
 
 Counterpart of ``mtvaf_tpu/serve.py``.  Concurrent callers submit single
 sentences (with an optional image each); a background worker per replica
-coalesces them into fixed-shape batches and callers see a Future each.
+coalesces them into batches of a few fixed shapes and callers see a
+Future each.
 
 Batching policy:
 
-* ``max_batch``    coalesce at most this many requests per device call.
-                   Every batch runs at ``max_batch`` rows, a partial take
-                   padded by repeating its last sentence.
+* ``max_batch``    coalesce at most this many requests per device call
+                   (the one batch shape when no ladder is given).
+* ``batch_shapes`` optional ladder of batch shapes (ascending, duplicates
+                   dropped; default ``(max_batch,)``, and the top rung is
+                   the most a batch holds).  A take of n requests runs at
+                   the smallest rung >= n, padded by repeating its last
+                   sentence (and a blank image row where it carries
+                   images): an idle single request runs the bottom rung,
+                   a saturated queue fills the top one.  Each rung is one
+                   CUDA graph per variant (``train.graphs``), captured by
+                   :meth:`BatchingServer.warmup` before traffic.
 * ``max_wait_ms``  a partial batch launches after this long; a full batch
                    launches at once.
 * ``pipeline_depth`` batches in flight per replica: the worker dispatches
                    and a fetch pool collects, so the host work of the next
                    batch overlaps the device work of the previous ones.
-                   An aged but partial take only dispatches while fewer
-                   than ``min(2, pipeline_depth)`` batches are in flight on
-                   its replica; full batches dispatch up to
-                   ``pipeline_depth``.
+* ``partial_inflight`` the fill policy under load: an aged take below the
+                   top rung only dispatches while fewer than this many
+                   batches are in flight on its replica (default
+                   ``min(2, pipeline_depth)``, at least 1); otherwise the
+                   worker holds it until the queue fills the top rung or a
+                   collect frees a slot.  Full batches dispatch up to
+                   ``pipeline_depth``; ``partial_inflight >=
+                   pipeline_depth`` is the eager policy.
 * ``max_queue``    backpressure bound: once this many requests wait,
                    ``submit`` raises :class:`QueueFull` at once instead of
                    queueing (the HTTP tier answers 429).  ``None``:
@@ -27,11 +40,10 @@ Batching policy:
                    (``predictor.to_device``) and one worker per device, all
                    draining the shared queue.
 
-The predictors replay their device stages from CUDA graphs
-(``train.graphs``): :meth:`BatchingServer.warmup` runs every variant twice
-per replica, so that each signature is warmed up and captured before
-traffic.  :meth:`close` leaves the predictors usable; their graphs go
-with their ``release_graphs()``.
+:meth:`BatchingServer.warmup` runs every rung and variant twice per
+replica, so that each signature is warmed up and captured before traffic.
+:meth:`close` leaves the predictors usable; their graphs go with their
+``release_graphs()``.
 """
 
 from __future__ import annotations
@@ -64,8 +76,10 @@ class BatchingServer:
 
     def __init__(self, predictor, *, max_batch: int = 16,
                  max_wait_ms: float = 5.0, pipeline_depth: int = 4,
+                 batch_shapes: Optional[Sequence[int]] = None,
                  devices: Optional[Sequence[Any]] = None,
-                 max_queue: Optional[int] = None):
+                 max_queue: Optional[int] = None,
+                 partial_inflight: Optional[int] = None):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         if pipeline_depth < 1:
@@ -75,10 +89,19 @@ class BatchingServer:
         self._max_queue = max_queue
         self._predictors = ([predictor.to_device(d) for d in devices]
                             if devices else [predictor])
-        self._max_batch = int(max_batch)
+        # the rung ladder: a take of n requests runs at the smallest shape
+        # >= n; a bare max_batch is a one-rung ladder
+        self._shapes = tuple(sorted({int(s) for s in batch_shapes})) \
+            if batch_shapes else (int(max_batch),)
+        if self._shapes[0] < 1:
+            raise ValueError("batch_shapes must be >= 1")
+        self._max_batch = self._shapes[-1]
         self._max_wait_s = float(max_wait_ms) / 1e3
         self._pipeline_depth = int(pipeline_depth)
-        self._partial_inflight = min(2, self._pipeline_depth)
+        self._partial_inflight = min(2, self._pipeline_depth) \
+            if partial_inflight is None else int(partial_inflight)
+        if self._partial_inflight < 1:
+            raise ValueError("partial_inflight must be >= 1")
         self._inflight_n = [0] * len(self._predictors)
         self._lock = threading.Condition()
         self._queue: List[Tuple[str, Optional[Any], Future]] = []
@@ -121,18 +144,18 @@ class BatchingServer:
         return self.submit(sentence, image).result()
 
     def warmup(self) -> None:
-        """Run every variant the server sends (text-only and, for prefix
-        models, image-bearing) twice on every replica before taking
-        traffic: the first call of a signature warms up, the second
-        captures its CUDA graphs, so that no capture meets live
-        traffic."""
-        n = self._max_batch
+        """Run every rung of the ladder in every variant the server sends
+        (text-only and, for prefix models, image-bearing) twice on every
+        replica before taking traffic: the first call of a signature warms
+        up, the second captures its CUDA graphs, so that no capture meets
+        live traffic."""
         for p in self._predictors:
-            for _ in range(2):
-                p.predict(["warm up"] * n)
-                if p.serves_images:
-                    p.predict(["warm up"] * n, images=np.zeros(
-                        (n, 224, 224, 3), np.float32))
+            for rung in self._shapes:
+                for _ in range(2):
+                    p.predict(["warm up"] * rung)
+                    if p.serves_images:
+                        p.predict(["warm up"] * rung, images=np.zeros(
+                            (rung, 224, 224, 3), np.float32))
 
     @property
     def predictors(self) -> tuple:
@@ -247,7 +270,10 @@ class BatchingServer:
                     while inflight:
                         inflight.popleft().result()
                     return
-                n, rung = len(b), self._max_batch
+                # the smallest rung that fits: the device only ever sees
+                # the captured shapes
+                n = len(b)
+                rung = next(s for s in self._shapes if s >= n)
                 sentences = [s for s, _, _ in b]
                 sentences += [sentences[-1]] * (rung - n)
                 try:

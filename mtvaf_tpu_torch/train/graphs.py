@@ -68,7 +68,8 @@ _disabled = threading.local()
 def disable_graphs():
     """Run train, eval and serving steps eagerly inside the block, on any
     device (the counterpart of ``jax.disable_jit()``); per thread (a
-    ``serve.BatchingServer`` built inside the block serves eagerly)."""
+    ``serve.BatchingServer``'s workers are threads of their own: to serve
+    eagerly, wrap the predictor so that its calls enter the block)."""
     depth = getattr(_disabled, "depth", 0)
     _disabled.depth = depth + 1
     try:

@@ -43,6 +43,8 @@ CASES = [
     (2, 12, 500, 500, 64, torch.float32, 1e-5, 1e-5),
     (16, 12, 128, 144, 64, torch.bfloat16, 2e-2, 1e-2),
     (2, 12, 512, 528, 64, torch.bfloat16, 2e-2, 1e-2),
+    # the serving ladder's smaller rungs at the serving shape
+    *((b, 12, 128, 144, 64, torch.bfloat16, 2e-2, 1e-2) for b in (1, 2, 4, 8)),
 ]
 
 
@@ -1057,4 +1059,68 @@ def test_graphed_predictors_are_their_eager_twins(cuda, name):
                 assert out[k].dtype == v.dtype and torch.equal(out[k], v), k
     # text and images: a graph each (and the span classification's one)
     assert pred.graph_captures == 2 + (name == "span")
+    pred.release_graphs()
+
+
+@pytest.mark.cuda
+def test_graphed_crf_predictor_is_its_eager_twin_at_every_rung(cuda,
+                                                               tmp_path):
+    """A bf16 CRF predictor at a small width (hidden 128, two heads of 64,
+    ResNet-18 guides) behind a ladder server: ``warmup()`` captures every
+    rung, text and images without aux crops, and at each rung a replayed
+    batch is bit for bit the same batch under ``disable_graphs()``
+    (emissions, tags, lengths), counting K1 once per layer; nothing
+    captures after the warm-up."""
+    import numpy as np
+
+    from mtvaf_tpu_torch.core.config import Config
+    from mtvaf_tpu_torch.core.convert import params_from_jax
+    from mtvaf_tpu_torch.data.synthetic import make_vocab_file
+    from mtvaf_tpu_torch.data.tokenization import FullTokenizer
+    from mtvaf_tpu_torch.infer import CrfPredictor
+    from mtvaf_tpu_torch.nn.bert import BertConfig
+    from mtvaf_tpu_torch.nn.models import (init_crf_model_params,
+                                           init_resnet_params)
+    from mtvaf_tpu_torch.serve import BatchingServer
+    from mtvaf_tpu_torch.train.graphs import disable_graphs
+
+    ladder = (1, 2, 4, 8, 16)
+    make_vocab_file(str(tmp_path / "vocab.txt"))
+    tok = FullTokenizer(str(tmp_path / "vocab.txt"))
+    bert_cfg = BertConfig.tiny(vocab_size=len(tok.vocab), hidden_size=128,
+                               num_attention_heads=2, intermediate_size=256)
+    cfg = Config(dataset_name="twitter2015", num_anp_classes=8, max_seq=32,
+                 bf16=True, use_prefix=True, use_18=True)
+    pred = CrfPredictor(cfg, bert_cfg, params_from_jax(
+        init_crf_model_params(cfg, bert_cfg, seed=0)), tok,
+        resnet_params=params_from_jax(init_resnet_params(18, seed=1)),
+        device=cuda)
+    with BatchingServer(pred, batch_shapes=ladder) as server:
+        server.warmup()
+    captures = pred.graph_captures
+    assert captures == 2 * len(ladder)
+    rng = np.random.RandomState(3)
+    layers = bert_cfg.num_hidden_layers
+    for b in ladder:
+        lengths = rng.randint(2, 33, b)
+        mask = np.arange(32)[None] < lengths[:, None]
+        ids = rng.randint(1, bert_cfg.vocab_size, (b, 32)) * mask
+        host = {"input_ids": ids.astype(np.int64),
+                "input_mask": mask.astype(np.int64),
+                "segment_ids": np.zeros((b, 32), np.int64)}
+        images = rng.randn(b, 224, 224, 3).astype(np.float32)
+        for variant in ({}, {"images": images}):
+            outs, counts = [], []
+            for eager in (False, True):
+                before = prefix_attention.launches.value
+                with disable_graphs() if eager else contextlib.nullcontext():
+                    with torch.inference_mode():
+                        outs.append(pred.forward(host, **variant))
+                torch.cuda.synchronize()
+                counts.append(prefix_attention.launches.value - before)
+            assert counts == [layers] * 2, b
+            for k in ("emissions", "pred_tags", "lengths"):
+                assert outs[0][k].shape[0] == b
+                assert torch.equal(outs[0][k], outs[1][k]), (b, k)
+    assert pred.graph_captures == captures
     pred.release_graphs()

@@ -5,8 +5,10 @@ Both packages' ``build_app`` serve the same run directory (a tiny CRF run
 trained by the port's CLI, fp32) and answer the same requests with the
 same status codes and results; a prefix model with a ResNet-18 on the same
 seeded weights takes base64 PNG images in both.  ``max_queue`` sheds load
-with 429, the flags that a bundle cannot honour are refused, and ``main``
-serves a bundle from a child process.
+with 429, the flags that a bundle cannot honour are refused, ``main`` gives
+its server the ladder of ``--batch_shapes`` (a bundle's exported rungs by
+default) and ``--partial_inflight``, and serves a bundle from a child
+process.
 """
 
 import base64
@@ -343,13 +345,6 @@ def test_main_refuses(argv, match):
         main(argv, device="cpu")
 
 
-@pytest.mark.parametrize("flag", ["--batch_shapes", "--partial_inflight"])
-def test_main_has_no_compiled_shape_flags(flag, capsys):
-    with pytest.raises(SystemExit):
-        main(["--save_path", "/nonexistent", flag, "4"], device="cpu")
-    assert "unrecognized arguments" in capsys.readouterr().err
-
-
 @pytest.fixture(scope="module")
 def bundle(run, tmp_path_factory):
     out = tmp_path_factory.mktemp("bundle") / "b"
@@ -361,6 +356,71 @@ def bundle(run, tmp_path_factory):
 def test_main_refuses_a_batch_past_the_largest_rung(bundle):
     with pytest.raises(SystemExit, match="largest exported rung 4"):
         main(["--bundle", str(bundle), "--max_batch", "8"], device="cpu")
+
+
+def test_main_refuses_a_ladder_past_the_largest_rung(bundle):
+    with pytest.raises(SystemExit, match="largest exported rung 4"):
+        main(["--bundle", str(bundle), "--batch_shapes", "2,8"],
+             device="cpu")
+
+
+class _StopAtOnce:
+    """An HTTP server that stops as SIGINT stops ``main``'s."""
+
+    def __init__(self, address, handler):
+        pass
+
+    def serve_forever(self):
+        raise KeyboardInterrupt
+
+    def server_close(self):
+        pass
+
+
+@pytest.mark.parametrize("source,flags,shapes,partial_inflight", [
+    ("run", ["--batch_shapes", "2,1,2", "--partial_inflight", "1"],
+     (1, 2), 1),
+    ("run", ["--max_batch", "4", "--pipeline_depth", "3",
+             "--partial_inflight", "3"], (4,), 3),
+    ("run", [], (16,), 2),
+    ("bundle", [], (2, 4), 2),
+    ("bundle", ["--batch_shapes", "2", "--partial_inflight", "1"], (2,), 1),
+    ("bundle", ["--max_batch", "4", "--batch_shapes", "1,4"], (1, 4), 2),
+])
+def test_main_gives_the_server_its_ladder(run, bundle, monkeypatch, source,
+                                          flags, shapes, partial_inflight):
+    """``--batch_shapes`` and ``--partial_inflight`` reach the server; a
+    bundle with no ladder given serves its exported rungs; ``warmup()``
+    runs every rung before the first request."""
+    from mtvaf_tpu_torch import serve
+    from mtvaf_tpu_torch.cli import serve_main
+
+    servers = []
+
+    class Spy(serve.BatchingServer):
+        def __init__(self, predictor, **kw):
+            super().__init__(predictor, **kw)
+            servers.append(self)
+
+        def warmup(self):
+            pred = self.predictors[0]
+            calls = []
+            real = pred.predict
+            pred.predict = lambda s, **kw: calls.append(len(s)) or real(
+                s, **kw)
+            super().warmup()
+            self.warmed = calls
+
+    monkeypatch.setattr(serve, "BatchingServer", Spy)
+    monkeypatch.setattr(serve_main, "HTTPServer", _StopAtOnce)
+    where = ["--save_path", str(run)] if source == "run" \
+        else ["--bundle", str(bundle)]
+    main(where + flags + ["--port", "0"], device="cpu")
+    server, = servers
+    assert server._shapes == shapes
+    assert server._max_batch == shapes[-1]
+    assert server._partial_inflight == partial_inflight
+    assert server.warmed == [r for r in shapes for _ in range(2)]
 
 
 def test_main_serves_a_bundle_from_a_child_process(run, bundle):
